@@ -197,8 +197,8 @@ class MultiHeadSelfAttention(nn.Module):
         if fuse and d in DENSE_HEAD_DIMS and n >= 8:
             out = fused_attention_dense(qkv, h)
         elif fuse and d <= MAX_HEAD_DIM and n <= MAX_TOKENS:
-            q, k, v = qkv.reshape(b, n, 3, h, d).permute(
-                2, 0, 3, 1, 4).contiguous().unbind(0)
+            # [B, H, N, D] views of the qkv output: K2 reads them in place
+            q, k, v = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
             out = fused_attention(q, k, v).transpose(1, 2).reshape(b, n, c)
         else:
             out = self._eager(qkv, torch.float32 if fuse else

@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 - ``fused_attention_dense`` (K1) attends straight over the packed qkv Dense
   output ``[B, N, 3C]`` (column order ``[3, H, D]``) and returns
   ``[B, N, C]``, ready for the proj Dense. Head dim 64 or 128.
-- ``fused_attention`` (K2) takes ``q, k, v`` as ``[B, H, N, D]``, D <= 128.
+- ``fused_attention`` (K2) takes ``q, k, v`` as ``[B, H, N, D]``, D <= 128,
+  read in place through their strides (head dim contiguous), so views of
+  the packed qkv output need no layout copy.
 
 Both launch one CUDA kernel (``csrc/fused_attention.cu``) that keeps the
 whole score row on chip; N <= 1024. The math is the TPU kernels': fp32
@@ -60,16 +62,16 @@ def _resolve_n_real(n_real, n):
     return n_real
 
 
-def _check_tensor(t, name):
+def _check_dtype(t, name):
     if t.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {t.dtype} is not bfloat16 or float32")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
 
 
 def check_dense_args(qkv, head_nums, n_real=None):
     """Shape rule of K1; returns (b, n, c, d, n_real) or raises."""
-    _check_tensor(qkv, "qkv")
+    _check_dtype(qkv, "qkv")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv: the kernel takes a contiguous [B, N, 3C] tensor")
     if qkv.dim() != 3 or qkv.shape[2] % (3 * head_nums):
         raise ValueError(f"qkv shape {tuple(qkv.shape)} is not [B, N, 3*H*D] "
                          f"for H={head_nums}")
@@ -84,11 +86,16 @@ def check_dense_args(qkv, head_nums, n_real=None):
 
 
 def check_args(q, k, v, n_real=None):
-    """Shape rule of K2; returns (b, h, n, d, n_real) or raises."""
+    """Shape rule of K2; returns (b, h, n, d, n_real) or raises. q, k and v
+    may be strided views but must share their strides, with the head dim
+    contiguous."""
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_tensor(t, name)
+        _check_dtype(t, name)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k, v must share one [B, H, N, D] shape")
+    if q.stride(3) != 1 or k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError("q, k, v must share strides, with the head dim "
+                         "contiguous")
     if not q.dtype == k.dtype == v.dtype or not q.device == k.device == v.device:
         raise ValueError("q, k, v must share dtype and device")
     b, h, n, d = q.shape
@@ -148,10 +155,9 @@ def fused_attention(q, k, v, n_real=None):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, n, d, n_real = check_args(q, k, v, n_real)
-    out = torch.empty_like(q)
-    strides = (h * n * d, n * d, d)
-    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, strides, strides,
-            b, h, n, d, n_real, q.dtype)
+    out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, q.stride()[:3],
+            (h * n * d, n * d, d), b, h, n, d, n_real, q.dtype)
     fused_attention.launches += 1
     return out
 

@@ -123,6 +123,18 @@ def test_shape_rules_reject_dtype_layout_and_head_dim():
     assert port_fa.check_args(q, q, q, 5) == (1, 2, 8, 80, 5)
 
 
+def test_k2_reads_views_of_the_packed_qkv_in_place():
+    qkv = torch.zeros(2, 9, 3 * 2 * 80)
+    q, k, v = qkv.reshape(2, 9, 3, 2, 80).permute(2, 0, 3, 1, 4).unbind(0)
+    assert not q.is_contiguous()
+    assert port_fa.check_args(q, k, v) == (2, 2, 9, 80, 9)
+    with pytest.raises(ValueError):       # strides differ
+        port_fa.check_args(q, k.contiguous(), v)
+    t = torch.zeros(2, 2, 80, 9).transpose(2, 3)
+    with pytest.raises(ValueError):       # head dim not contiguous
+        port_fa.check_args(t, t, t)
+
+
 def test_build_targets_hopper_from_repo_sources():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert "-shared" in build.NVCC_FLAGS
