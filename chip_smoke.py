@@ -117,11 +117,17 @@ def check_kernel(torch, F, fa, name, case, results):
         kernel = lambda: fa.fused_attention_dense(qkv, h, n_real)
         plain = lambda: fa.fused_attention_dense_reference(qkv, h, n_real)
         q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    elif case.get("packed"):  # views of a packed qkv, as attention gives K2
+        b, h, n, d = case["shape"]
+        qkv = torch.randn(b, n, 3 * h * d, device="cuda", generator=gen,
+                          dtype=torch.float32).to(dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
     else:
         b, h, n, d = case["shape"]
         q, k, v = (torch.randn(b, h, n, d, device="cuda", generator=gen,
                                dtype=torch.float32).to(dtype)
                    for _ in range(3))
+    if name == "K2":
         kernel = lambda: fa.fused_attention(q, k, v, n_real)
         plain = lambda: fa.fused_attention_reference(q, k, v, n_real)
     mask = None
@@ -253,14 +259,20 @@ def main():
                  seed=2),
             dict(label="n_real_150", shape=(BATCH, 197, 12, 64), dtype=bf16,
                  seed=3, n_real=150),
-            dict(label="fp32", shape=(8, 197, 12, 64), dtype=fp32, seed=4)):
+            dict(label="fp32", shape=(8, 197, 12, 64), dtype=fp32, seed=4),
+            # K/V too large to stay in shared memory: the streamed pipeline
+            dict(label="streamed_n1024", shape=(8, 1024, 2, 128), dtype=bf16,
+                 seed=8)):
         check_kernel(torch, F, fa, "K1", case, results)
     for case in (
             dict(label="vit_h14_eval", shape=(BATCH, 16, 257, 80), dtype=bf16,
-                 seed=5),
+                 seed=5, packed=True),
             dict(label="n_real_200", shape=(BATCH, 16, 257, 80), dtype=bf16,
                  seed=6, n_real=200),
-            dict(label="fp32", shape=(8, 16, 257, 80), dtype=fp32, seed=7)):
+            dict(label="fp32", shape=(8, 16, 257, 80), dtype=fp32, seed=7),
+            # odd head dim: element-wise loads and stores
+            dict(label="head_dim_35", shape=(8, 4, 50, 35), dtype=bf16,
+                 seed=9)):
         check_kernel(torch, F, fa, "K2", case, results)
 
     # 5. the slice: ViT-B/16 eval through the work-dir CLI

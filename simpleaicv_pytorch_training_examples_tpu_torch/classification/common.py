@@ -11,20 +11,12 @@ with the training slice.
 import numpy as np
 import torch
 
-__all__ = ["Opencv2PIL", "PIL2Opencv", "TorchMeanStdNormalize", "TorchResize",
-           "TorchCenterCrop", "Normalize", "ClassificationCollater",
-           "load_state_dict"]
+__all__ = ["Opencv2PIL", "TorchMeanStdNormalize", "TorchResize",
+           "TorchCenterCrop", "ClassificationCollater", "load_state_dict"]
 
 
 class Opencv2PIL:
     """No-op adapter (images stay numpy HWC throughout)."""
-
-    def __call__(self, sample):
-        return sample
-
-
-class PIL2Opencv:
-    """No-op adapter."""
 
     def __call__(self, sample):
         return sample
@@ -103,14 +95,6 @@ class TorchCenterCrop:
         y = max(0, (h - self.resize) // 2)
         x = max(0, (w - self.resize) // 2)
         sample["image"] = image[y:y + self.resize, x:x + self.resize]
-        return sample
-
-
-class Normalize:
-    """x/255 (the reference's Normalize)."""
-
-    def __call__(self, sample):
-        sample["image"] = sample["image"].astype(np.float32) / 255.0
         return sample
 
 

@@ -26,18 +26,14 @@ class Compose:
         return sample
 
 
-def build_loader(dataset, batch_size, collater, device, shuffle=False,
-                 drop_last=False, num_workers=0, seed=0):
-    """DataLoader over a map-style dataset of dict samples.
-
-    ``num_workers`` is capped at the host's core count; 0 loads in the
-    calling process. Shuffling (training) is seeded from ``seed``.
-    """
+def build_loader(dataset, batch_size, collater, device, num_workers=0):
+    """Eval DataLoader over a map-style dataset of dict samples: in order,
+    the last batch kept even when short. ``num_workers`` is capped at the
+    host's core count; 0 loads in the calling process."""
     num_workers = max(0, min(num_workers, os.cpu_count() or 1))
-    generator = torch.Generator().manual_seed(seed) if shuffle else None
     return DataLoader(
-        dataset, batch_size=batch_size, shuffle=shuffle,
-        collate_fn=collater, num_workers=num_workers, drop_last=drop_last,
-        pin_memory=torch.device(device).type == "cuda", generator=generator,
+        dataset, batch_size=batch_size, shuffle=False, collate_fn=collater,
+        num_workers=num_workers, drop_last=False,
+        pin_memory=torch.device(device).type == "cuda",
         multiprocessing_context=(multiprocessing.get_context("spawn")
                                  if num_workers > 0 else None))

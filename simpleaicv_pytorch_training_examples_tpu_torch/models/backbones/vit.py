@@ -17,7 +17,6 @@ LayerNorm and the ``fc`` head run in fp32.
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..common import (Dropout, DropPath, FusedLayerNorm, Linear, Mlp,
                       MultiHeadSelfAttention, PatchEmbed, trunc_normal_)
@@ -53,13 +52,12 @@ class ViT(nn.Module):
     def __init__(self, patch_size, embedding_planes, block_nums, head_nums,
                  feedforward_ratio=4, image_size=224, dropout_prob=0.0,
                  drop_path_prob=0.0, global_pool=False, num_classes=1000,
-                 use_gradient_checkpoint=False, dtype=torch.float32,
-                 softmax_dtype=torch.float32, use_fused_attention=False,
-                 use_fused_norm=False, use_fused_block=False):
+                 dtype=torch.float32, softmax_dtype=torch.float32,
+                 use_fused_attention=False, use_fused_norm=False,
+                 use_fused_block=False):
         super().__init__()
         n_tokens = (image_size // patch_size) ** 2
         self.global_pool = global_pool
-        self.use_gradient_checkpoint = use_gradient_checkpoint
         self.patch_embed = PatchEmbed(3, embedding_planes, patch_size, dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embedding_planes))
         self.pos_embed = nn.Parameter(
@@ -88,10 +86,7 @@ class ViT(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         x = self.pos_drop(x)
         for block in self.blocks:
-            if self.use_gradient_checkpoint and self.training:
-                x = checkpoint(block, x, use_reentrant=False)
-            else:
-                x = block(x)
+            x = block(x)
         if self.global_pool:
             x = self.norm(x[:, 1:].mean(dim=1).float())
         else:

@@ -9,10 +9,11 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
   read in place through their strides (head dim contiguous), so views of
   the packed qkv output need no layout copy.
 
-Both launch one CUDA kernel (``csrc/fused_attention.cu``) that keeps the
-whole score row on chip; N <= 1024. The math is the TPU kernels': fp32
-scores scaled by D^-0.5, keys at or past ``n_real`` set to -1e9, fp32
-softmax, probabilities cast to the input dtype, P.V with fp32 accumulation.
+Both launch one CUDA kernel (``csrc/fused_attention.cu``) that never
+writes the scores or the probabilities to device memory; N <= 1024. The
+math is the TPU kernels': fp32 scores scaled by D^-0.5, keys at or past
+``n_real`` set to -1e9, fp32 softmax, probabilities normalised and then
+cast to the input dtype, P.V with fp32 accumulation.
 
 A CPU tensor takes the plain PyTorch version (``*_reference``); a CUDA
 tensor takes the kernel, or the call raises. Each wrapper counts its kernel

@@ -49,10 +49,8 @@ def main(argv=None, device=None):
     eval_step = make_classification_eval_step(model,
                                               compute_dtype=torch.bfloat16)
     loader = build_loader(config.test_dataset, config.batch_size,
-                          config.test_collater, device, shuffle=False,
-                          drop_last=False,
-                          num_workers=getattr(config, "num_workers", 8),
-                          seed=config.seed)
+                          config.test_collater, device,
+                          num_workers=getattr(config, "num_workers", 8))
 
     acc_meter = AccMeter()
     infer_time = 0.0

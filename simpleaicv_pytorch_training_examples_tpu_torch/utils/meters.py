@@ -1,24 +1,6 @@
 """Host-side metric meters (python scalars)."""
 
 
-class AverageMeter:
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.val = 0.0
-        self.avg = 0.0
-        self.sum = 0.0
-        self.count = 0
-
-    def update(self, val, n=1):
-        self.val = float(val)
-        self.sum += float(val) * n
-        self.count += n
-        self.avg = self.sum / max(self.count, 1)
-
-
 class AccMeter:
     """Top-1 / top-k correct-count accumulator."""
 

@@ -171,3 +171,21 @@ def test_no_port_source_names_jax_or_the_jax_package():
         assert not re.search(jax_package, text), path
         assert not jax_import.search(text), path
     assert not jax_import.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_apply_pretrained_loads_a_pth_with_exclusions(tmp_path):
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification.common import (
+        load_state_dict)
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        apply_pretrained)
+
+    source = init_model(vit.ViT(16, 64, 1, 1, image_size=32, num_classes=3),
+                        1, "cpu")
+    path = tmp_path / "weights.pth"
+    torch.save({"model_state_dict": source.state_dict()}, path)
+    model = load_state_dict(str(path), vit.ViT(16, 64, 1, 1, image_size=32,
+                                               num_classes=3), ("fc.",))
+    model = apply_pretrained(init_model(model, 0, "cpu"))
+    torch.testing.assert_close(model.blocks[0].mlp.fc1.weight,
+                               source.blocks[0].mlp.fc1.weight)
+    assert not torch.equal(model.fc.weight, source.fc.weight)

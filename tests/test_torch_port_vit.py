@@ -216,3 +216,15 @@ def test_unported_fused_kernels_raise():
         common.FusedLayerNorm(8, use_fused=True)
     with pytest.raises(NotImplementedError):
         vit.TransformerEncoderLayer(128, 2, use_fused_block=True)
+
+
+def test_drop_path_drops_whole_samples_in_training_only():
+    x = torch.ones(64, 5, 8)
+    drop = common.DropPath(0.5)
+    torch.manual_seed(0)
+    y = drop.train()(x)
+    per_sample = y.reshape(64, -1)
+    assert set(per_sample.unique().tolist()) <= {0.0, 2.0}
+    assert torch.all(per_sample.min(1).values == per_sample.max(1).values)
+    assert 0 < (per_sample[:, 0] == 0).sum() < 64
+    assert torch.equal(drop.eval()(x), x)
