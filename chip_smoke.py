@@ -323,7 +323,7 @@ def main():
     fa.fused_attention.launches = 0
     eval_step = make_classification_eval_step(vit_h)
     for batch in loader:
-        top1, _, logits = eval_step(batch)
+        _, _, logits = eval_step(batch)
     torch.cuda.synchronize()
     launches_h = {"K1": fa.fused_attention_dense.launches,
                   "K2": fa.fused_attention.launches}
