@@ -18,9 +18,9 @@ CUDA it exits at once with a message.
 Tolerances: kernel vs plain version, bf16 atol 2e-2 (a few bf16 ulps at
 |out| <= 2, from rounding P and the output in another order); fp32 atol
 1e-4. Model logits, bf16, kernel vs plain attention on the same weights:
-max |diff| <= 0.1 * max(1, std of the logits), and top-1 agreement >= 99%.
-The head's weights are drawn at std 0.02 for that comparison (the init's
-2e-5 leaves all logits within 1e-3 of each other, where top-1 is noise).
+max |diff| <= 0.02 * max(1, std of the logits), and top-1 agreement >= 99%.
+For that comparison the fc head is set to per-class feature prototypes
+(``fit_head``), so top-1 is decided by the features and not by near-ties.
 """
 
 import json
@@ -188,21 +188,41 @@ def compare_paths(torch, model, loader, label):
     log(f"{label} vs plain attention", max_abs_logit_diff=diff,
         logit_std=plain.std().item(), top1_agreement=agree,
         shape=list(fused.shape), finite=bool(torch.isfinite(fused).all()))
-    if not (torch.isfinite(fused).all() and diff <= 0.1 * scale
+    if not (torch.isfinite(fused).all() and diff <= 0.02 * scale
             and agree >= 0.99):
         raise AssertionError(f"{label}: kernel logits disagree with plain "
                              f"attention (max diff {diff}, top-1 {agree})")
     return fused
 
 
-def widen_head(torch, model, seed):
-    """Draw the fc head at std 0.02 so top-1 is decided by the features."""
-    from simpleaicv_pytorch_training_examples_tpu_torch.models.common import (
-        trunc_normal_)
-    w = torch.empty_like(model.fc.weight, device="cpu")
-    trunc_normal_(w, 0.02, torch.Generator().manual_seed(seed))
+def fit_head(torch, model, loader):
+    """Set the fc head to one prototype per class: the unit-length mean of
+    that class's pooled features (the global-pool LayerNorm's output, plain
+    attention) less the mean over all images, with the bias that subtracts
+    that mean; classes without images get zero. Each image's top-1 is then
+    decided by its own features with a wide margin, where the seeded init's
+    2e-5 head leaves all 1000 logits within 1e-3 of each other and top-1 is
+    a coin toss between near-ties."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_classification_eval_step)
+    feats, labels = [], []
+    hook = model.norm.register_forward_hook(
+        lambda module, args, out: feats.append(out.float()))
+    set_fused_attention(model, False)
+    eval_step = make_classification_eval_step(model)
+    for batch in loader:
+        eval_step(batch)
+        labels.append(batch["label"].cuda())
+    hook.remove()
+    set_fused_attention(model, True)
+    feats, labels = torch.cat(feats), torch.cat(labels)
+    mean = feats.mean(dim=0)
+    protos = torch.zeros_like(model.fc.weight)
+    protos.index_add_(0, labels, feats - mean)
+    protos = torch.nn.functional.normalize(protos, dim=1)
     with torch.no_grad():
-        model.fc.weight.copy_(w)
+        model.fc.weight.copy_(protos)
+        model.fc.bias.copy_(-(protos @ mean))
 
 
 def main():
@@ -294,9 +314,9 @@ def main():
 
     config = load_config_from_work_dir(str(work_dir), "test_config")
     model = init_model(config.model, config.seed)
-    widen_head(torch, model, 10)
     loader = build_loader(config.test_dataset, BATCH, config.test_collater,
                           "cuda")
+    fit_head(torch, model, loader)
     compare_paths(torch, model, loader, "vit_b16 logits")
     batch = {k: v.cuda() for k, v in next(iter(loader)).items()}
     eval_step = make_classification_eval_step(model)
@@ -314,7 +334,6 @@ def main():
                 global_pool=True, num_classes=1000, dtype=bf16,
                 use_fused_attention=True)
     vit_h = init_model(vit_h, 0)
-    widen_head(torch, vit_h, 11)
     loader = build_loader(
         SyntheticClassificationDataset(n=BATCH, image_size=224,
                                        num_classes=1000, seed=1),
@@ -333,6 +352,7 @@ def main():
     if launches_h["K2"] != VIT_H_DEPTH or launches_h["K1"] != 0:
         raise AssertionError(f"ViT-H/14 path launched K2 {launches_h['K2']} "
                              f"times, expected {VIT_H_DEPTH}")
+    fit_head(torch, vit_h, loader)
     compare_paths(torch, vit_h, loader, "vit_h14 logits")
 
     # 7. kernels line
