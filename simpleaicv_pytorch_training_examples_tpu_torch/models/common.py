@@ -164,10 +164,10 @@ class MultiHeadSelfAttention(nn.Module):
     projection (column order [3, H, D]).
 
     With ``use_fused_attention`` the attention core runs one kernel, by the
-    JAX package's shape rules: head dim 64 or 128 with N >= 8 takes K1
-    straight over the [B, N, 3C] qkv output; any other head dim takes K2 on
-    [B, H, N, D] while D <= 128 and N <= 1024. Larger shapes run the eager
-    path with an fp32 softmax, which is the math of the JAX fallback.
+    JAX package's shape rules: head dim 64 or 128 with 8 <= N <= 1024 takes
+    K1 straight over the [B, N, 3C] qkv output; any other head dim takes K2
+    on [B, H, N, D] while D <= 128 and N <= 1024. Larger shapes run the
+    eager path with an fp32 softmax, which is the math of the JAX fallback.
     Without fused attention, or in training with attention dropout, the
     eager path computes the softmax in ``softmax_dtype`` and casts the
     probabilities to ``dtype``.
@@ -194,7 +194,7 @@ class MultiHeadSelfAttention(nn.Module):
         qkv = self.qkv(x)
         fuse = self.use_fused_attention and not (
             self.training and self.dropout_prob > 0.0)
-        if fuse and d in DENSE_HEAD_DIMS and n >= 8:
+        if fuse and d in DENSE_HEAD_DIMS and 8 <= n <= MAX_TOKENS:
             out = fused_attention_dense(qkv, h)
         elif fuse and d <= MAX_HEAD_DIM and n <= MAX_TOKENS:
             # [B, H, N, D] views of the qkv output: K2 reads them in place

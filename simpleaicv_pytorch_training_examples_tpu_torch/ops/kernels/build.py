@@ -4,8 +4,7 @@ interface, loaded with ctypes.
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>_<hash>.so`` at the repository root (git-ignored),
 at first use. The hash covers the source and the flags, so an edited source
-is rebuilt. Several sources are compiled in parallel, one ``nvcc`` each.
-Nothing here runs at import time.
+is rebuilt. Nothing here runs at import time.
 """
 
 import ctypes
@@ -48,35 +47,27 @@ def nvcc_command(name: str, output: Path) -> list:
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every named source whose library is missing, all at once.
+    """Compile every named source whose library is missing.
 
     Returns {name: compiler output} for the sources compiled in this call
     (ptxas reports registers, shared memory and spills per kernel). Raises
-    with the compiler output if any compile fails.
+    with the compiler output if a compile fails. Each build writes a file of
+    its own and renames it into place, so concurrent builds do not collide.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    logs = {}
     for name in names:
         output = library_path(name)
         if output.exists():
             continue
         tmp = output.with_name(f"{output.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, output, tmp, proc))
-    logs = {}
-    failed = []
-    for name, output, tmp, proc in jobs:
-        text, _ = proc.communicate()
-        logs[name] = text
-        (BUILD_DIR / f"{name}.log").write_text(text)
+        proc = subprocess.run(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs[name] = proc.stdout
+        (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
         if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, output)
-    if failed:
-        raise RuntimeError("nvcc failed for "
-                           + ", ".join(f"{n}.cu:\n{logs[n]}" for n in failed))
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        os.replace(tmp, output)
     return logs
 
 

@@ -1,11 +1,12 @@
 """Where the device time of one classification eval step goes.
 
     python -m simpleaicv_pytorch_training_examples_tpu_torch.tools.profile_classification_eval \
-        [--network vit_base_patch16] [--batch-size 256] [--steps 5]
+        [--network vit_base_patch16]
 
 Builds the network at full width on seeded random weights (bf16 compute,
-global-pool head, fused attention, as the MAE fine-tune configs), runs the
-eval step on seeded random images under ``torch.profiler`` and prints the
+global-pool head, fused attention, as the MAE fine-tune configs), runs
+``STEPS`` eval steps of ``BATCH_SIZE`` seeded random 224x224 images under
+``torch.profiler`` and prints the
 device time per step by kernel category and the top kernels, then one JSON
 line with the same numbers. Needs a CUDA device.
 """
@@ -29,6 +30,7 @@ CATEGORIES = (
     ("elementwise and casts", ("elementwise", "vectorized", "copy", "Copy",
                                "cat", "CatArray", "fill")),
 )
+BATCH_SIZE, IMAGE_SIZE, STEPS, SEED = 256, 224, 5, 0
 
 
 def category(name: str) -> str:
@@ -41,10 +43,6 @@ def category(name: str) -> str:
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--network", default="vit_base_patch16")
-    parser.add_argument("--batch-size", type=int, default=256)
-    parser.add_argument("--image-size", type=int, default=224)
-    parser.add_argument("--steps", type=int, default=5)
-    parser.add_argument("--seed", type=int, default=0)
     return parser.parse_args(argv)
 
 
@@ -53,14 +51,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_classification_eval needs a CUDA device")
     model = backbones.__dict__[args.network](
-        image_size=args.image_size, global_pool=True, num_classes=1000,
+        image_size=IMAGE_SIZE, global_pool=True, num_classes=1000,
         dtype=torch.bfloat16, use_fused_attention=True)
-    model = init_model(model, args.seed, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    batch = {"image": torch.randn(args.batch_size, 3, args.image_size,
-                                  args.image_size, device="cuda",
-                                  generator=gen),
-             "label": torch.zeros(args.batch_size, dtype=torch.int64,
+    model = init_model(model, SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"image": torch.randn(BATCH_SIZE, 3, IMAGE_SIZE, IMAGE_SIZE,
+                                  device="cuda", generator=gen),
+             "label": torch.zeros(BATCH_SIZE, dtype=torch.int64,
                                   device="cuda")}
     eval_step = make_classification_eval_step(model)
     for _ in range(3):
@@ -71,10 +68,10 @@ def main(argv=None):
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
+        for _ in range(STEPS):
             eval_step(batch)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
     kernels = {}
     for evt in prof.key_averages():
@@ -83,13 +80,13 @@ def main(argv=None):
         us = getattr(evt, "device_time_total", 0.0)
         if us > 0:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
-    device_ms = sum(kernels.values()) / 1e3 / args.steps
+    device_ms = sum(kernels.values()) / 1e3 / STEPS
     by_category = {}
     for name, us in kernels.items():
         label = category(name)
-        by_category[label] = by_category.get(label, 0.0) + us / 1e3 / args.steps
+        by_category[label] = by_category.get(label, 0.0) + us / 1e3 / STEPS
     device = torch.cuda.get_device_name(0)
-    print(f"{args.network} eval bs{args.batch_size} on {device}: "
+    print(f"{args.network} eval bs{BATCH_SIZE} on {device}: "
           f"{wall_ms:.3f} ms/step wall (profiler on), device busy "
           f"{device_ms:.3f} ms/step")
     if device_ms == 0.0:
@@ -99,8 +96,8 @@ def main(argv=None):
         print(f"  {label:24s} {ms:9.3f} ms/step  {100 * ms / device_ms:5.1f}%")
     print("  top kernels:")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"    {us / 1e3 / args.steps:8.3f} ms/step  {name[:100]}")
-    result = {"network": args.network, "batch_size": args.batch_size,
+        print(f"    {us / 1e3 / STEPS:8.3f} ms/step  {name[:100]}")
+    result = {"network": args.network, "batch_size": BATCH_SIZE,
               "device": device, "wall_ms_per_step": wall_ms,
               "device_ms_per_step": device_ms,
               "device_busy_share": device_ms / wall_ms,

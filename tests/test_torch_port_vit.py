@@ -66,14 +66,15 @@ def test_mlp_matches_flax(dtype):
     np.testing.assert_allclose(as_np(got), as_np(want), **tol)
 
 
-@pytest.mark.parametrize("planes,heads,fused,path", [
-    (128, 2, True, "K1"),        # head dim 64
-    (256, 2, True, "K1"),        # head dim 128
-    (160, 2, True, "K2"),        # head dim 80 (ViT-H/14's)
-    (128, 2, False, "eager"),
+@pytest.mark.parametrize("planes,heads,fused,path,n", [
+    (128, 2, True, "K1", 17),        # head dim 64
+    (256, 2, True, "K1", 17),        # head dim 128
+    (160, 2, True, "K2", 17),        # head dim 80 (ViT-H/14's)
+    (128, 2, False, "eager", 17),
+    (128, 2, True, "eager", 1025),   # past the kernels' N <= 1024
 ])
-def test_attention_matches_flax(planes, heads, fused, path, monkeypatch):
-    x = np.random.RandomState(2).standard_normal((2, 17, planes)).astype(
+def test_attention_matches_flax(planes, heads, fused, path, n, monkeypatch):
+    x = np.random.RandomState(2).standard_normal((2, n, planes)).astype(
         np.float32)
     want, port = jax_and_port(
         jax_common.MultiHeadSelfAttention(heads, use_fused_attention=fused),
