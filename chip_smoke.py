@@ -17,7 +17,14 @@ kernels' launch counters set to 0 just before it and read just after:
   CLI; gradients and a 20-step one-batch run with the kernels against plain
   attention and plain LayerNorm; full-width ViT-H/14 at reduced depth
   through init_model -> build_optimizer -> make_train_step; ViT-B/16 with
-  the fused LayerNorm (use_fused_norm); timed train and eval steps.
+  the fused LayerNorm (use_fused_norm); timed train and eval steps;
+- SAM interactive segmentation: full-width, full-depth SAM-B (1024^2, bf16,
+  batch 8, seeded random weights) through the prediction tool on the
+  synthetic image, encoding once and decoding a point, a box and both;
+  the same model with the kernels and with plain attention; the encoder
+  and decoder timed; the same again on two images with the attention
+  weights redrawn so that attention is sharp; full-width SAM-H at reduced
+  depth through the tool.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -34,7 +41,31 @@ Model logits, bf16, kernels vs plain ops on the same weights: max |diff| <=
 comparison the fc head is set to per-class feature prototypes
 (``fit_head``), so top-1 is decided by the features and not by near-ties.
 Gradients of one bf16 train micro-batch, kernels vs plain ops: relative L2
-error per parameter <= 5e-2 and |loss diff| <= 2e-2.
+error per parameter <= 5e-2 and |loss diff| <= 2e-2. Rel-pos attention
+kernels (K3, K4, K5) vs plain version: bf16 atol 2e-2, fp32 1e-4; K5's
+log-sum-exp 1e-3 of its scale. SAM, kernels vs plain attention on the same
+weights: mask logits max |diff| <= 0.02 * max(1, std), binarised masks
+(logit > 0) equal on >= 99% of pixels, IoU predictions within 2e-2. The
+image embedding (8.4 million values of unit std after the neck's
+LayerNorm) is held against the bf16 rounding floor of the model: the same
+model in fp32 with plain attention is run too, and the kernels' embedding
+may lie no further (max |diff|) from the plain bf16 embedding than that
+lies from the fp32 one (or 0.02 * max(1, std), whichever is larger), and
+its root-mean-square difference from the fp32 one may be at most 1.25
+times the plain bf16 embedding's. (A flat 0.02 * std is below that floor:
+SAM-B's plain bf16 embedding lies 0.034-0.037 from its fp32 one.) Under the
+seeded init the encoder's attention nearly averages (scores of std ~0.35),
+so SAM-B is compared once more with the qkv weights and rel-pos tables
+redrawn to give scores and rel terms of unit std (``sharpen_attention_``;
+the run fails if the logits' std is below 1, or if zeroing the rel-pos
+tables leaves the bf16 embedding within the RMS bound below of the fp32
+one, so that the check could not see a missing bias). There the masks and IoU
+predictions are held against the floor as well: mask max |diff| from the
+plain path within the larger of the flat bound and the plain path's own
+from fp32, mask RMS difference from fp32 within 1.25 times the plain
+path's, binarised masks apart from fp32's on at most the larger of 1% and
+1.25 times the plain path's share of pixels, IoU within the larger of 2e-2
+and the plain path's difference from fp32.
 """
 
 import json
@@ -57,6 +88,11 @@ LN_BF16_ATOL, LN_SUM_RTOL = 6.25e-2, 1e-3
 GRAD_REL_L2, GRAD_LOSS_ATOL = 5e-2, 2e-2
 VIT_B_BATCHES, BATCH = 2, 256
 VIT_H_DEPTH = 4
+SAM_BATCH = 8
+SAM_H_DEPTH, SAM_H_GLOBAL = 4, (3,)   # of 32 blocks, global (7, 15, 23, 31)
+SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
+SAM_FLOOR_RATIO = 1.25
+SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 MICRO_BATCHES = 4           # the train config's accumulation_steps
 TRAIN_IMAGES, EVAL_IMAGES = 768, 256
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
@@ -426,6 +462,302 @@ def check_layer_norm(torch, F, ln, case, results):
     results.setdefault("K7 bwd", []).append(bwd)
 
 
+def rel_attention_bound(b, h, n, n_keys, d, kh, kw, dtype_name,
+                        element_size, lse=False):
+    """Least time (ms) of one rel-pos attention launch on this card, and what
+    bounds it: q and the output in full, k and v for the keys that count,
+    the fp32 rel_h and rel_w (and K5's fp32 log-sum-exp) once, against
+    4*b*h*n*n_keys*d operations."""
+    nbytes = (element_size * b * h * d * (2 * n + 2 * n_keys)
+              + 4 * b * h * n * (kh + kw + (1 if lse else 0)))
+    flops = 4.0 * b * h * n * n_keys * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_rel_kernel(torch, F, name, case, results):
+    """Hold K3, K4 or K5 against its plain version at one shape; time the
+    kernel, the plain version and SDPA with the bias expanded to
+    [B, H, N, N] in the input dtype outside the timed region (a yardstick,
+    never used by the port); append the record to results[name]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl, fused_attention as fa)
+    dtype = case["dtype"]
+    b, h, kh, kw, d = case["shape"]
+    n = kh * kw
+    n_real = case.get("n_real")
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    if name == "K3" or case.get("packed"):
+        qkv = randn(b, n, 3 * h * d).to(dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (randn(b, h, n, d).to(dtype) for _ in range(3))
+    if name == "K3":    # [B, N, H, K], as the attention module makes them
+        rel_h, rel_w = randn(b, n, h, kh), randn(b, n, h, kw)
+        kernel = lambda: fa.fused_attention_relwin_dense(qkv, rel_h, rel_w, h)
+        plain = lambda: fa.fused_attention_relwin_dense_reference(
+            qkv, rel_h, rel_w, h)
+        heads_h, heads_w = rel_h.transpose(1, 2), rel_w.transpose(1, 2)
+    else:
+        rel_h, rel_w = randn(b, h, n, kh), randn(b, h, n, kw)
+        heads_h, heads_w = rel_h, rel_w
+        if name == "K4":
+            kernel = lambda: fa.fused_attention_relwin(q, k, v, rel_h, rel_w,
+                                                       n_real)
+            plain = lambda: fa.fused_attention_relwin_reference(
+                q, k, v, rel_h, rel_w, n_real)
+        else:
+            kernel = lambda: fl.flash_attention_relpos(q, k, v, rel_h, rel_w,
+                                                       return_lse=True)
+            plain = lambda: fl.flash_attention_relpos_reference(
+                q, k, v, rel_h, rel_w, return_lse=True)
+    with torch.no_grad():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        out, ref = (got[0], want[0]) if name == "K5" else (got, want)
+        if name == "K3":
+            ref = ref.view(b, n, h, d).transpose(1, 2)
+            out = out.view(b, n, h, d).transpose(1, 2)
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+        record = {"case": case["label"], "shape": list(case["shape"]),
+                  "dtype": str(dtype).split(".")[-1], "n_real": n_real,
+                  "max_abs_err": err, "tol": tol,
+                  "finite": bool(torch.isfinite(out).all())}
+        if name == "K5":
+            record["lse_err"] = (got[1] - want[1]).abs().max().item()
+            record["lse_scale"] = want[1].abs().max().item()
+            record["finite"] &= bool(torch.isfinite(got[1]).all())
+        del got, want, out, ref
+        iters = 3 if n > 1024 else 20
+        record["ms"] = time_ms(torch, kernel, iters=5 * iters)
+        record["plain_ms"] = time_ms(torch, plain, iters=iters, warmup=1)
+        bias = (heads_h[..., :, None] + heads_w[..., None, :]).reshape(
+            b, h, n, n)
+        if n_real is not None:
+            bias[..., n_real:] = -1e9
+        bias = bias.to(dtype)
+        record["library_ms"] = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), iters=iters)
+        del bias
+    record["bound_ms"], record["bound_by"] = rel_attention_bound(
+        b, h, n, n if n_real is None else n_real, d, kh, kw,
+        record["dtype"], q.element_size(), lse=name == "K5")
+    log(f"{name} {case['label']}", **record)
+    lse_ok = name != "K5" or record["lse_err"] <= 1e-3 * max(
+        1.0, record["lse_scale"])
+    if not (record["finite"] and err <= tol and lse_ok):
+        raise AssertionError(f"{name} {case['label']}: max |kernel - plain| "
+                             f"{err} > {tol}, non-finite output or LSE off")
+    results.setdefault(name, []).append(record)
+
+
+def sam_encoder_flops(model):
+    """Operations of one SAM encoder forward of one image, counted from the
+    model's shapes: the patch embedding, each block's qkv, proj, lin1 and
+    lin2 Linears (qkv and proj over the padded windows), the attention
+    products Q.K^T and P.V, the rel-pos products q.R, and the neck's two
+    convolutions. LayerNorm, GELU, softmax and the adds are not counted."""
+    enc = model.image_encoder
+    c = enc.pos_embed.shape[-1]
+    grid = enc.pos_embed.shape[1]
+    patch = enc.patch_embed.patch_size
+    out = enc.neck[0].out_channels
+    total = 2 * grid * grid * 3 * patch * patch * c
+    for block in enc.blocks:
+        ws = block.window_size
+        if ws:
+            side = -(-grid // ws) * ws          # padded grid
+            tokens, keys, k_side = side * side, ws * ws, ws
+        else:
+            tokens, keys, k_side = grid * grid, grid * grid, grid
+        hidden = block.mlp.lin1.out_features
+        total += 2 * tokens * c * 4 * c + 2 * grid * grid * c * 2 * hidden
+        total += 4 * tokens * keys * c + 2 * tokens * c * 2 * k_side
+    total += 2 * grid * grid * (c * out + 9 * out * out)
+    return total
+
+
+def sharpen_attention_(torch, model, seed):
+    """Redraw every encoder attention's qkv weight from LeCun's normal
+    N(0, 1/C) (Flax's default for Dense) and its rel-pos tables from
+    N(0, 1/hd). norm1's tokens have unit variance, so q and k then have unit
+    std, and so have q.k/sqrt(hd) and each rel term: attention is sharp
+    enough that a wrong or missing bias, or a wrong softmax, moves the
+    outputs far more than bf16 rounding does."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.image_encoder import (
+        SAMAttention)
+    generator = torch.Generator(device=next(model.parameters()).device)
+    generator.manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SAMAttention):
+                hd = m.rel_pos_h.shape[1]
+                m.qkv.weight.normal_(0.0, m.qkv.in_features ** -0.5,
+                                     generator=generator)
+                m.rel_pos_h.normal_(0.0, hd ** -0.5, generator=generator)
+                m.rel_pos_w.normal_(0.0, hd ** -0.5, generator=generator)
+
+
+def rms_without_rel_bias(torch, model, images):
+    """What the embedding check reads for a kernel that drops the rel-pos
+    bias: the RMS distance between the embedding of the same model in fp32
+    with plain attention and the bf16 embedding with the kernels and every
+    rel-pos table zeroed."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.image_encoder import (
+        SAMAttention)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.predict_interactive_segmentation import (
+        compute_context)
+    attns = [m for m in model.modules() if isinstance(m, SAMAttention)]
+    model.set_flash_attention(False)
+    with torch.inference_mode():
+        reference = model.forward_image_encoder(images)
+    model.set_flash_attention(True)
+    with torch.no_grad():
+        tables = [(m.rel_pos_h.clone(), m.rel_pos_w.clone()) for m in attns]
+        for m in attns:
+            m.rel_pos_h.zero_()
+            m.rel_pos_w.zero_()
+    with compute_context(images.device):
+        without = model.forward_image_encoder(images).float()
+    with torch.no_grad():
+        for m, (rel_h, rel_w) in zip(attns, tables):
+            m.rel_pos_h.copy_(rel_h)
+            m.rel_pos_w.copy_(rel_w)
+    return (reference - without).pow(2).mean().sqrt().item()
+
+
+def attention_logit_stats(torch, model, image):
+    """How sharp the encoder's attention is, on one image in fp32 with plain
+    attention (the kernels are on again after), in its first windowed and
+    its first global block: the std over a query row's keys, averaged over
+    the rows, of the scaled scores q.k/sqrt(hd), of the rel bias rel_h +
+    rel_w and of their sum, and the mean over the rows of the largest
+    softmax weight times the number of keys (1 for attention that
+    averages)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.image_encoder import (
+        get_rel_pos)
+    blocks = model.image_encoder.blocks
+    picks = {"windowed": next(b for b in blocks if b.window_size),
+             "global": next(b for b in blocks if not b.window_size)}
+    inputs = {}
+    hooks = [block.attn.register_forward_pre_hook(
+        lambda _, args, key=key: inputs.setdefault(key, args[0]))
+        for key, block in picks.items()]
+    stats = {}
+    with torch.inference_mode():
+        model.set_flash_attention(False)
+        model.forward_image_encoder(image)
+        model.set_flash_attention(True)
+        for handle in hooks:
+            handle.remove()
+        for key, block in picks.items():
+            attn, x = block.attn, inputs[key].float()
+            b, h, w, c = x.shape
+            nh = attn.head_nums
+            hd = c // nh
+            q, k, _ = attn.qkv(x).reshape(b, h * w, 3, nh, hd).permute(
+                2, 0, 3, 1, 4)
+            scores = q @ k.transpose(-1, -2) * hd ** -0.5
+            rq = q.reshape(b, nh, h, w, hd)
+            rel_h = torch.einsum("bnhwc,hkc->bnhwk", rq,
+                                 get_rel_pos(h, h, attn.rel_pos_h.float()))
+            rel_w = torch.einsum("bnhwc,wkc->bnhwk", rq,
+                                 get_rel_pos(w, w, attn.rel_pos_w.float()))
+            rel = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
+                b, nh, h * w, h * w)
+            logits = scores + rel
+            top = logits.softmax(-1).amax(-1).mean().item() * h * w
+            row_std = lambda t: t.std(-1).mean().item()
+            stats[key] = {"score_std": row_std(scores),
+                          "rel_std": row_std(rel),
+                          "logit_std": row_std(logits),
+                          "top_weight_x_keys": top}
+            del scores, rel, logits
+    return stats
+
+
+def sam_compare(torch, model, images, sets, label, floor_masks=False):
+    """The image embedding and every prompt set's mask logits and IoU
+    predictions with the kernels and with plain attention on the same
+    weights; raises if they disagree. The embedding is held against the
+    bf16 rounding floor, the distance of the plain bf16 run from the same
+    model in fp32 with plain attention; with ``floor_masks`` the masks and
+    IoU predictions are too (see the module docstring), else they keep the
+    flat bounds. Returns the logged fields."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.predict_interactive_segmentation import (
+        predict)
+    model.set_flash_attention(True)
+    emb_k, out_k, _, _ = predict(model, images, sets, warmup=0)
+    model.set_flash_attention(False)
+    emb_p, out_p, _, _ = predict(model, images, sets, warmup=0)
+    with torch.inference_mode():   # fp32, plain attention: the floor
+        emb_f = model.forward_image_encoder(images)
+        out_f = {name: model.forward_prompt_encoder_mask_decoder(emb_f, p)
+                 for name, p in sets.items()} if floor_masks else {}
+    model.set_flash_attention(True)
+    diff = lambda a, b: (a.float() - b.float()).abs().max().item()
+    rms = lambda a, b: (a.float() - b.float()).pow(2).mean().sqrt().item()
+    emb_std = emb_p.float().std().item()
+    fields = {"embedding_max_abs_diff": diff(emb_k, emb_p),
+              "embedding_std": emb_std,
+              "fp32_max_abs_diff_kernels": diff(emb_k, emb_f),
+              "fp32_max_abs_diff_plain": diff(emb_p, emb_f),
+              "fp32_rms_diff_kernels": rms(emb_k, emb_f),
+              "fp32_rms_diff_plain": rms(emb_p, emb_f),
+              "finite": bool(torch.isfinite(emb_k).all())}
+    del emb_f
+    ok = (fields["finite"] and fields["embedding_max_abs_diff"] <= max(
+        SAM_ATOL_SCALE * max(1.0, emb_std), fields["fp32_max_abs_diff_plain"])
+        and fields["fp32_rms_diff_kernels"]
+        <= SAM_FLOOR_RATIO * fields["fp32_rms_diff_plain"])
+    for name in sets:
+        (mk, ik), (mp, ip) = out_k[name], out_p[name]
+        f = fields[name] = {
+            "mask_max_abs_diff": diff(mk, mp),
+            "mask_std": mp.float().std().item(),
+            "binary_agreement": ((mk > 0) == (mp > 0)).float().mean().item(),
+            "iou_max_abs_diff": diff(ik, ip),
+            "finite": bool(torch.isfinite(mk).all() and torch.isfinite(ik).all())}
+        mask_bound = SAM_ATOL_SCALE * max(1.0, f["mask_std"])
+        iou_bound = SAM_IOU_ATOL
+        masks_ok = f["binary_agreement"] >= SAM_AGREE
+        if floor_masks:
+            mf, i_f = out_f[name]
+            apart = lambda m: ((m > 0) != (mf > 0)).float().mean().item()
+            f.update(fp32_mask_max_abs_diff_plain=diff(mp, mf),
+                     fp32_mask_rms_diff_kernels=rms(mk, mf),
+                     fp32_mask_rms_diff_plain=rms(mp, mf),
+                     fp32_binary_disagreement_kernels=apart(mk),
+                     fp32_binary_disagreement_plain=apart(mp),
+                     fp32_iou_max_abs_diff_plain=diff(ip, i_f))
+            mask_bound = max(mask_bound, f["fp32_mask_max_abs_diff_plain"])
+            iou_bound = max(iou_bound, f["fp32_iou_max_abs_diff_plain"])
+            masks_ok = (f["fp32_mask_rms_diff_kernels"] <= SAM_FLOOR_RATIO
+                        * f["fp32_mask_rms_diff_plain"]
+                        and f["fp32_binary_disagreement_kernels"] <= max(
+                            1.0 - SAM_AGREE, SAM_FLOOR_RATIO
+                            * f["fp32_binary_disagreement_plain"]))
+        ok &= (f["finite"] and f["mask_max_abs_diff"] <= mask_bound
+               and masks_ok and f["iou_max_abs_diff"] <= iou_bound)
+    log(f"{label} kernels vs plain attention", **fields)
+    if not ok:
+        raise AssertionError(f"{label}: kernels disagree with plain "
+                             f"attention: {fields}")
+    return fields
+
+
+def first_of(sets, n):
+    """The prompt sets of the first ``n`` images."""
+    return {name: {k: v[:n] for k, v in prompts.items()}
+            for name, prompts in sets.items()}
+
+
 def set_fused(model, attention=None, norm=None):
     """Switch the model's blocks between the kernels and the plain ops."""
     from simpleaicv_pytorch_training_examples_tpu_torch.models.common import (
@@ -443,19 +775,29 @@ def set_fused_attention(model, on):
 
 
 def reset_counts(fa, ln):
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl)
     for wrapper in (fa.fused_attention_dense, fa.fused_attention,
                     ln.layer_norm):
         wrapper.launches = 0
         wrapper.backward_launches = 0
+    for wrapper in (fa.fused_attention_relwin_dense, fa.fused_attention_relwin,
+                    fl.flash_attention_relpos):   # forward only
+        wrapper.launches = 0
 
 
 def read_counts(fa, ln):
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl)
     return {"K1": fa.fused_attention_dense.launches,
             "K1 bwd": fa.fused_attention_dense.backward_launches,
             "K2": fa.fused_attention.launches,
             "K2 bwd": fa.fused_attention.backward_launches,
             "K7": ln.layer_norm.launches,
-            "K7 bwd": ln.layer_norm.backward_launches}
+            "K7 bwd": ln.layer_norm.backward_launches,
+            "K3": fa.fused_attention_relwin_dense.launches,
+            "K4": fa.fused_attention_relwin.launches,
+            "K5": fl.flash_attention_relpos.launches}
 
 
 def expect_counts(label, counts, **expected):
@@ -563,6 +905,7 @@ def main():
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         build, fused_attention as fa, layer_norm as ln)
     from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        predict_interactive_segmentation as predict_cli,
         test_classification_model as eval_cli,
         train_classification_model as train_cli)
     from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
@@ -628,6 +971,42 @@ def main():
             dict(label="fp32_c77", shape=(777, 77), dtype=fp32, seed=13),
             dict(label="bf16_c100", shape=(777, 100), dtype=bf16, seed=14)):
         check_layer_norm(torch, F, ln, case, results)
+    # K3/K4/K5: (B, H, KH, KW, D); SAM-B windows: 25 a 1024^2 image
+    rel_cases = {
+        "K3": (dict(label="sam_b", shape=(25 * SAM_BATCH, 12, 14, 14, 64),
+                    dtype=bf16, seed=20),
+               dict(label="head_dim_128", shape=(50, 8, 14, 14, 128),
+                    dtype=bf16, seed=21),
+               dict(label="kh12_kw16", shape=(16, 12, 12, 16, 64),
+                    dtype=bf16, seed=22),
+               dict(label="fp32", shape=(8, 12, 14, 14, 64), dtype=fp32,
+                    seed=23)),
+        "K4": (dict(label="sam_h", shape=(25 * SAM_BATCH, 16, 14, 14, 80),
+                    dtype=bf16, seed=24, packed=True),
+               dict(label="n_real_150", shape=(50, 16, 14, 14, 80),
+                    dtype=bf16, seed=25, packed=True, n_real=150),
+               dict(label="kh8_kw20", shape=(16, 4, 8, 20, 80), dtype=bf16,
+                    seed=26),
+               dict(label="head_dim_35", shape=(8, 4, 7, 9, 35), dtype=bf16,
+                    seed=27),
+               dict(label="fp32", shape=(8, 16, 14, 14, 80), dtype=fp32,
+                    seed=28, packed=True)),
+        "K5": (dict(label="sam_b", shape=(SAM_BATCH, 12, 64, 64, 64),
+                    dtype=bf16, seed=30, packed=True),
+               dict(label="sam_h_d80", shape=(2, 16, 64, 64, 80),
+                    dtype=bf16, seed=31, packed=True),
+               dict(label="head_dim_160", shape=(1, 2, 32, 32, 160),
+                    dtype=bf16, seed=32),
+               dict(label="n1050_kh30_kw35", shape=(1, 4, 30, 35, 64),
+                    dtype=bf16, seed=33),
+               dict(label="kh48_kw80", shape=(2, 4, 48, 80, 64), dtype=bf16,
+                    seed=34),
+               dict(label="fp32", shape=(1, 2, 32, 32, 64), dtype=fp32,
+                    seed=35)),
+    }
+    for name, cases in rel_cases.items():
+        for case in cases:
+            check_rel_kernel(torch, F, name, case, results)
 
     # 4. eval slice: ViT-B/16 through the work-dir eval CLI
     work_dir = SMOKE_DIR / "vit_base_patch16"
@@ -883,7 +1262,112 @@ def main():
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
             del model, optimizer, train_step
 
-    # 11. kernels line
+    # 11. SAM-B through the prediction tool: full width and depth, 1024^2,
+    #     bf16, encode once, decode a point, a box and both
+    reset_counts(fa, ln)
+    run = predict_cli.main(["--network", "sam_b", "--synthetic",
+                            "--batch-size", str(SAM_BATCH)])
+    torch.cuda.synchronize()
+    sam_counts = read_counts(fa, ln)
+    encoder_runs = run["encoder_runs"]
+    emb = run["embedding"]
+    log("sam_b predict tool", batch=SAM_BATCH, encoder_runs=encoder_runs,
+        decoder_runs=run["decoder_runs"], launches=sam_counts,
+        embedding=list(emb.shape), finite=bool(torch.isfinite(emb).all()),
+        iou_image0={line["prompt"]: line["iou_predictions"][0]
+                    for line in run["lines"]})
+    expect_counts("SAM-B predict tool", sam_counts, K3=8 * encoder_runs,
+                  K5=4 * encoder_runs)
+    if not (emb.shape == (SAM_BATCH, 256, 64, 64)
+            and torch.isfinite(emb).all()
+            and all(torch.isfinite(m).all() and torch.isfinite(i).all()
+                    and m.shape == (SAM_BATCH, 4, 1024, 1024)
+                    for m, i in run["outputs"].values())):
+        raise AssertionError("SAM-B: non-finite or misshapen outputs")
+
+    # 12. the same model and inputs with plain attention
+    sam, images, sets = run["model"], run["images"], run["prompts"]
+    sam_compare(torch, sam, images, sets, "sam_b")
+
+    # 13. timed: the encoder and each prompt set's decoder, bf16, batch 8
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.predict_interactive_segmentation import (
+        compute_context)
+    with compute_context(images.device):
+        torch.cuda.reset_peak_memory_stats()
+        encoder_ms = time_ms(torch, lambda: sam.forward_image_encoder(images),
+                             iters=5, warmup=1, device_only=False)
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        decoder_ms = {name: time_ms(
+            torch, lambda: sam.forward_prompt_encoder_mask_decoder(emb, p),
+            iters=10, warmup=2, device_only=False)
+            for name, p in sets.items()}
+        sam.set_flash_attention(False)
+        plain_encoder_ms = time_ms(torch,
+                                   lambda: sam.forward_image_encoder(images),
+                                   iters=2, warmup=1, device_only=False)
+        sam.set_flash_attention(True)
+    flops = SAM_BATCH * sam_encoder_flops(sam)
+    log("sam_b encoder", batch=SAM_BATCH, ms=encoder_ms,
+        images_per_s=SAM_BATCH / encoder_ms * 1e3,
+        tflops=flops / encoder_ms / 1e9,
+        share_of_bf16_peak=flops / encoder_ms / 1e9 / 989.0,
+        counted="GEMMs, attention and rel-pos products, convolutions",
+        gflop_per_image=flops / SAM_BATCH / 1e9,
+        plain_attention_ms=plain_encoder_ms, peak_memory_gb=peak_gb,
+        k3_share=8 * results["K3"][0]["ms"] / encoder_ms,
+        k5_share=4 * results["K5"][0]["ms"] / encoder_ms)
+    log("sam_b decoder", batch=SAM_BATCH, ms_per_prompt_set=decoder_ms)
+
+    # 14. the same model with sharp attention (scores and rel terms of unit
+    #     std), two images: kernels against plain attention, the masks and
+    #     IoU predictions held against the fp32 floor as well; a control
+    #     shows that the check would fail without the rel bias
+    sharp_images = images[:SAM_SHARP_BATCH]
+    log("sam_b attention, seeded init",
+        fp32_rms_diff_without_rel_bias=rms_without_rel_bias(
+            torch, sam, sharp_images),
+        **attention_logit_stats(torch, sam, images[:1]))
+    sharpen_attention_(torch, sam, SAM_SHARP_SEED)
+    sharp = attention_logit_stats(torch, sam, images[:1])
+    log("sam_b attention, sharpened", **sharp)
+    if min(v["logit_std"] for v in sharp.values()) < SAM_SHARP_MIN_STD:
+        raise AssertionError(f"SAM-B attention not sharpened: {sharp}")
+    fields = sam_compare(torch, sam, sharp_images,
+                         first_of(sets, SAM_SHARP_BATCH),
+                         "sam_b sharp attention", floor_masks=True)
+    without = rms_without_rel_bias(torch, sam, sharp_images)
+    bound = SAM_FLOOR_RATIO * fields["fp32_rms_diff_plain"]
+    log("sam_b sharp attention, rel bias dropped",
+        fp32_rms_diff_without_rel_bias=without, check_bound=bound)
+    if not without > bound:
+        raise AssertionError("SAM-B sharp attention: the embedding check "
+                             f"cannot see a missing rel bias ({without} <= "
+                             f"{bound})")
+    del run, sam, images, sets, emb
+
+    # 15. SAM-H at full width (C = 1280, 16 heads of 80), reduced depth:
+    #     windowed blocks through K4, the global block through K5
+    reset_counts(fa, ln)
+    run_h = predict_cli.main(
+        ["--network", "sam_h", "--synthetic", "--batch-size",
+         str(SAM_BATCH)],
+        model_kw=dict(image_encoder_block_nums=SAM_H_DEPTH,
+                      image_encoder_global_attn_indexes=SAM_H_GLOBAL))
+    torch.cuda.synchronize()
+    sam_h_counts = read_counts(fa, ln)
+    runs_h = run_h["encoder_runs"]
+    log("sam_h predict tool", reduced=f"depth {SAM_H_DEPTH} of 32 blocks, "
+        f"global {SAM_H_GLOBAL}", batch=SAM_BATCH, encoder_runs=runs_h,
+        launches=sam_h_counts,
+        finite=bool(torch.isfinite(run_h["embedding"]).all()))
+    n_global = len(SAM_H_GLOBAL)
+    expect_counts("SAM-H predict tool", sam_h_counts,
+                  K4=(SAM_H_DEPTH - n_global) * runs_h, K5=n_global * runs_h)
+    sam_compare(torch, run_h["model"], run_h["images"][:2],
+                first_of(run_h["prompts"], 2), "sam_h")
+    del run_h
+
+    # 16. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
@@ -909,6 +1393,13 @@ def main():
               "layer_norm.py:101", norm_train_counts["K7"]),
         entry("K7 bwd", "K7 layer_norm bwd", "layer_norm.cu",
               "layer_norm.py:120", norm_train_counts["K7 bwd"]),
+        entry("K3", "K3 fused_attention_relwin_dense fwd",
+              "fused_attention.cu", "fused_attention.py:1146",
+              sam_counts["K3"]),
+        entry("K4", "K4 fused_attention_relwin fwd", "fused_attention.cu",
+              "fused_attention.py:901", sam_h_counts["K4"]),
+        entry("K5", "K5 flash_attention_relpos fwd", "flash_attention.cu",
+              "flash_attention.py:505", sam_counts["K5"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,422 @@
+// Streaming (flash) attention forward with SAM's decomposed relative-position
+// bias, for Hopper (sm_90a): kernel K5.
+//
+// Replaces the TPU (Pallas) kernel of the JAX package's
+// ops/pallas/flash_attention.py: _fwd_rel_kernel (via _flash_rel_forward,
+// entry flash_attention_relpos). q, k, v [B, H, N, D] (any strides with the
+// head dim contiguous, shared by the three), rel_h [B, H, N, KH] and rel_w
+// [B, H, N, KW] fp32 with N = KH * KW -> out (its own strides) and the
+// fp32 log-sum-exp of every query row, [B * H, N]. The score of query i and
+// key j = jh * KW + jw is q_i.k_j * scale + rel_h[i, jh] + rel_w[i, jw]; the
+// [N, N] score matrix never leaves the chip.
+//
+// Math, as the TPU kernel: fp32 scores, one walk over the keys with an
+// online row max and sum in fp32, P = exp(s - max) cast to the input dtype
+// before P.V (fp32 accumulation), the output divided by the fp32 sum at
+// the end. No key mask (SAM's global blocks attend to every token). D <=
+// 256.
+//
+// Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at SAM-B's
+// global blocks (B=8, H=12, N=4096, D=64, bf16) one launch does 4*B*H*N^2*D
+// = 412 GFLOP = 0.42 ms of tensor-core time and moves q, k, v, out (201 MB)
+// and rel_h, rel_w (201 MB) = 0.12 ms: bound by operations. Its 1.6e9
+// exponentials take about as long again on the special-function units
+// (16 a clock an SM).
+//
+// bf16 design: a block of 4 warps owns 64 query rows of one (batch, head);
+// each warp keeps its 16 rows' Q fragments, scores (mma.sync m16n8k16, 64
+// keys at a time) and output accumulators in registers. K and V tiles of 64
+// keys stream through a two-stage cp.async pipeline in shared memory. Each
+// score becomes a log2-domain logit with one FFMA: s*scale*log2(e) +
+// (rel_h + rel_w)*log2(e). When KW is a multiple of 64 (SAM: KW = 64) a key
+// tile lies in one row of the key grid: its rel_h term is one value a query
+// row, and a lane's 16 rel_w values are kept in registers until the tile's
+// column offset changes (for KW = 64, never): two loads a tile instead of
+// 64. Other KW read both terms for each score through the L1 cache. A head
+// dim above 128 is split into output chunks of 128 columns, one block each,
+// and every chunk recomputes the scores over the whole head dim (slower,
+// off SAM's path).
+//
+// fp32 design (not on the main path): a block of 4 warps owns 16 query rows;
+// a lane scores one key of a 32-key tile in plain FMA loops and owns D / 32
+// output columns, so fp32 inputs keep fp32 precision.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tiles.cuh"
+
+namespace {
+
+using namespace saicv;
+
+constexpr float kNegInf = -1e9f;
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;  // query rows a block (bf16)
+constexpr int kTile = 64;           // keys a pipeline stage (bf16)
+constexpr int kChunk = 128;         // output columns a block when D > 128
+
+struct FlashArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;  // [B * H, N]
+  long long in_sb, in_sh, in_sn, out_sb, out_sh, out_sn;
+  RelPos rel;
+  int B, H, N, D;
+  float scale;
+  int vec, out_vec;
+  int q_tiles;  // query-row tiles a head
+};
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_fwd_bf16(FlashArgs a) {
+  constexpr int LDQ = DQ + 8;  // 16-byte pad: conflict-free fragment loads
+  constexpr int LDV = DV + 8;
+  constexpr int kFrags = kTile / 8;
+  const int N = a.N;
+  const float sc = a.scale * kLog2e;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kRows][LDQ]
+  bf16* Ks = Qs + kRows * LDQ;               // [2][kTile][LDQ]
+  bf16* Vs = Ks + 2 * kTile * LDQ;           // [2][kTile][LDV]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int chunk = blockIdx.x / a.q_tiles;
+  const int q0 = (blockIdx.x % a.q_tiles) * kRows;
+  const int dv0 = chunk * kChunk;                // first output column
+  const int dv = min(DV, a.D - dv0);              // output columns of this block
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
+  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
+  const bf16* vh = static_cast<const bf16*>(a.v) + in_off + dv0;
+
+  const int tiles = (N + kTile - 1) / kTile;
+  auto issue = [&](int tile) {
+    const int buf = tile & 1;
+    const long long off = static_cast<long long>(tile) * kTile * a.in_sn;
+    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + off, a.in_sn, kTile, N - tile * kTile,
+                            a.D, a.vec);
+    load_tile_bf16<DV, LDV>(Vs + buf * kTile * LDV, vh + off, a.in_sn, kTile, N - tile * kTile,
+                            dv, a.vec);
+  };
+  load_tile_bf16<DQ, LDQ>(Qs, qh + q0 * a.in_sn, a.in_sn, kRows, N - q0, a.D, a.vec);
+  issue(0);
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * warp;
+  const bool active = row0 < N;
+  const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
+  const int KW = a.rel.KW;
+  const bool grid_rows = KW % kTile == 0;  // each key tile in one key-grid row
+  float rwc[2][kFrags][2];                  // rel_w * log2(e) of the lane's keys
+  int cached_cw0 = -1;
+
+  uint32_t qf[DQ / 16][4];
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the log2-domain logits
+  float l[2] = {0.f, 0.f};              // running sum, per lane
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) issue(tile + 1);
+    cp_async_commit();  // one group per tile, possibly empty
+    cp_async_wait_one();
+    __syncthreads();
+    if (tile == 0 && active) load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
+
+    if (active) {
+      const int key0 = tile * kTile;
+      const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
+      const bf16* Vb = Vs + (tile & 1) * kTile * LDV;
+      float s[kFrags][4];
+      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, N, lane);
+      if (grid_rows) {  // N is a multiple of 64 here: no key past N
+        const int jh = key0 / KW;
+        const int cw0 = key0 - jh * KW;
+        if (cw0 != cached_cw0) {
+          cached_cw0 = cw0;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2)
+                rwc[r][j][h2] = __ldg(rr.w[r] + cw0 + 8 * j + 2 * t + h2) * kLog2e;
+        }
+        const float bh[2] = {__ldg(rr.h[0] + jh) * kLog2e, __ldg(rr.h[1] + jh) * kLog2e};
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = fmaf(s[j][e], sc, bh[e >> 1] + rwc[e >> 1][j][e & 1]);
+      } else {
+        rel_logits(s, rr, key0, t, N, N, sc, kNegInf * kLog2e, KW, a.rel.inv_kw);
+      }
+
+      // online softmax over this tile: P = 2^(logit - max), rescale the rest
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float mnew = fmaxf(m[r], tmax);
+        const float alpha = exp2_approx(m[r] - mnew);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float p = exp2_approx(s[j][2 * r + h2] - mnew);
+            s[j][2 * r + h2] = p;
+            sum += p;
+          }
+        l[r] = l[r] * alpha + sum;
+        m[r] = mnew;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j) {
+          acc[j][2 * r] *= alpha;
+          acc[j][2 * r + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        if (key0 + 16 * kk >= N) break;
+        const float* s0 = s[2 * kk];
+        const float* s1 = s[2 * kk + 1];
+        const uint32_t p[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                               pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+        accumulate_ax<DV, LDV>(acc, p, Vb + 16 * kk * LDV, lane);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile + 2
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = 1.f / l[r];
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      acc[j][2 * r] *= inv;
+      acc[j][2 * r + 1] *= inv;
+    }
+  }
+  bf16* oh = static_cast<bf16*>(a.o) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
+  store_rows_bf16<DV>(oh, a.out_sn, acc, row0, N, dv, g, t, a.out_vec);
+  if (chunk == 0 && t == 0) {
+    const long long base = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row < N) a.lse[base + row] = (m[r] + __log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+// ------------------------------------------------------------- fp32 path
+
+constexpr int kRowsF = 16;  // query rows a block
+constexpr int kTileF = 32;  // keys a tile, one a lane
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// rows rows of one head (row stride sn) -> shared [rows][LD], zero past
+// nvalid and D
+__device__ void load_rows_f32(float* dst, const float* src, long long sn, int rows,
+                              int nvalid, int D, int LD) {
+  for (int i = threadIdx.x; i < rows * LD; i += blockDim.x) {
+    const int r = i / LD;
+    const int c = i % LD;
+    dst[i] = (r < nvalid && c < D) ? src[r * sn + c] : 0.f;
+  }
+}
+
+// DC = output columns a lane (D <= 32 * DC)
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_fwd_f32(FlashArgs a) {
+  constexpr int LD = 32 * DC + 1;  // odd stride: a lane a bank
+  constexpr int kPerWarp = kRowsF / kWarps;
+  const int N = a.N, D = a.D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [kRowsF][LD]
+  float* Ks = Qs + kRowsF * LD;                // [kTileF][LD]
+  float* Vs = Ks + kTileF * LD;                // [kTileF][LD]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kRowsF;
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const float* qh = static_cast<const float*>(a.q) + in_off;
+  const float* kh = static_cast<const float*>(a.k) + in_off;
+  const float* vh = static_cast<const float*>(a.v) + in_off;
+
+  load_rows_f32(Qs, qh + q0 * a.in_sn, a.in_sn, kRowsF, N - q0, D, LD);
+  float m[kPerWarp], l[kPerWarp], acc[kPerWarp][DC];
+  RelRows rr[kPerWarp];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    rr[i] = a.rel.rows(blockIdx.z, blockIdx.y, q0 + warp * kPerWarp + i, N);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int key0 = 0; key0 < N; key0 += kTileF) {
+    __syncthreads();
+    load_rows_f32(Ks, kh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    load_rows_f32(Vs, vh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    __syncthreads();
+    const int col = key0 + lane;
+    int jh = 0, jw = 0;
+    if (col < N) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const float* qr = Qs + (warp * kPerWarp + i) * LD;
+      const float* kr = Ks + lane * LD;
+      float s = 0.f;
+      for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+      s = col < N ? s * a.scale + rr[i].h[0][jh] + rr[i].w[0][jw] : -INFINITY;
+      const float mnew = fmaxf(m[i], warp_max(s));
+      const float alpha = expf(m[i] - mnew);
+      const float p = expf(s - mnew);
+      l[i] = l[i] * alpha + warp_sum(p);
+      m[i] = mnew;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        float x = acc[i][c] * alpha;
+        for (int j = 0; j < kTileF; ++j)
+          x = fmaf(__shfl_sync(0xffffffffu, p, j), Vs[j * LD + lane + 32 * c], x);
+        acc[i][c] = x;
+      }
+    }
+  }
+
+  const long long lse_base = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+  float* oh = static_cast<float*>(a.o) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int row = q0 + warp * kPerWarp + i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      if (lane + 32 * c < D) oh[row * a.out_sn + lane + 32 * c] = acc[i][c] / l[i];
+    if (lane == 0) a.lse[lse_base + row] = m[i] + logf(l[i]);
+  }
+}
+
+// ------------------------------------------------------------- launchers
+
+template <typename Kernel>
+int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DQ, int DV>
+int launch_bf16(FlashArgs a, cudaStream_t stream) {
+  a.q_tiles = (a.N + kRows - 1) / kRows;
+  const int chunks = (a.D + kChunk - 1) / kChunk;
+  const size_t smem = sizeof(bf16) * ((kRows + 2 * kTile) * (DQ + 8) + 2 * kTile * (DV + 8));
+  return launch(flash_relpos_fwd_bf16<DQ, DV>, dim3(a.q_tiles * chunks, a.H, a.B), smem, a,
+                stream);
+}
+
+template <int DC>
+int launch_f32(const FlashArgs& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (kRowsF + 2 * kTileF) * (32 * DC + 1);
+  return launch(flash_relpos_fwd_f32<DC>, dim3((a.N + kRowsF - 1) / kRowsF, a.H, a.B), smem,
+                a, stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. q, k, v and o are device pointers
+// of the input dtype (is_bf16 = 1: bfloat16, 0: float32); lse, rel_h and
+// rel_w are fp32. Strides are in elements, (batch, head, row); the last
+// axis of every tensor is contiguous. Returns a cudaError_t (0 = launched).
+extern "C" int saicv_flash_attention_relpos_fwd(
+    const void* q, const void* k, const void* v, void* o, float* lse, const float* rel_h,
+    const float* rel_w, long long in_sb, long long in_sh, long long in_sn, long long out_sb,
+    long long out_sh, long long out_sn, long long h_sb, long long h_sh, long long h_sn,
+    long long w_sb, long long w_sh, long long w_sn, int B, int H, int N, int D, int KH, int KW,
+    float scale, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || N > (1 << 20) || D < 1 ||
+      D > 256 || KH < 1 || KW < 1 || static_cast<long long>(KH) * KW != N || !rel_h ||
+      !rel_w || !lse)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = is_bf16 ? 2 : 4;
+  FlashArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse = lse;
+  a.in_sb = in_sb;
+  a.in_sh = in_sh;
+  a.in_sn = in_sn;
+  a.out_sb = out_sb;
+  a.out_sh = out_sh;
+  a.out_sn = out_sn;
+  a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
+  a.B = B;
+  a.H = H;
+  a.N = N;
+  a.D = D;
+  a.scale = scale;
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
+          (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 && (in_sn * es) % 16 == 0;
+  a.out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 && out_sb % 2 == 0 &&
+              out_sh % 2 == 0 && out_sn % 2 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    switch ((D + 31) / 32) {
+      case 1: return launch_f32<1>(a, s);
+      case 2: return launch_f32<2>(a, s);
+      case 3: return launch_f32<3>(a, s);
+      case 4: return launch_f32<4>(a, s);
+      case 5: return launch_f32<5>(a, s);
+      case 6: return launch_f32<6>(a, s);
+      case 7: return launch_f32<7>(a, s);
+      default: return launch_f32<8>(a, s);
+    }
+  }
+  switch ((D + 15) / 16 * 16) {
+    case 16: return launch_bf16<16, 16>(a, s);
+    case 32: return launch_bf16<32, 32>(a, s);
+    case 48: return launch_bf16<48, 48>(a, s);
+    case 64: return launch_bf16<64, 64>(a, s);
+    case 80: return launch_bf16<80, 80>(a, s);
+    case 96: return launch_bf16<96, 96>(a, s);
+    case 112: return launch_bf16<112, 112>(a, s);
+    case 128: return launch_bf16<128, 128>(a, s);
+    default: return launch_bf16<256, kChunk>(a, s);  // chunked output columns
+  }
+}

@@ -10,10 +10,17 @@
 //   K2  _fwd_kernel / _bwd_kernel (via _pallas_fwd and _pallas_bwd, entry
 //       fused_attention): q, k, v, out [B, H, N, D]; backward: q, k, v,
 //       dout -> dq, dk, dv.
-// One kernel body per dtype and direction serves both: the wrapper passes
-// the (batch, head, row) strides of the inputs and of the outputs, and each
-// head's columns are read and written in place in either layout (no layout
-// copies). The backward kernels have their own notes further down.
+//   K3  _fwd_kernel_relwin_pairs (via _pallas_fwd_relwin_pairs, entry
+//       fused_attention_relwin_dense) and K4 _fwd_kernel_relwin (via
+//       _relwin_fwd_factory, entry fused_attention_relwin): the K1 and K2
+//       forward with SAM's decomposed rel-pos bias, score(i, j) += rel_h[i,
+//       j / KW] + rel_w[i, j % KW] (fp32, N = KH * KW, each term read
+//       through its own strides).
+// One kernel body per dtype and direction serves all of them: the wrapper
+// passes the (batch, head, row) strides of the inputs and of the outputs,
+// and each head's columns are read and written in place in either layout
+// (no layout copies). The backward kernels have their own notes further
+// down.
 //
 // Math, as the TPU kernels: s = q.k^T * scale in fp32; keys at or past
 // n_real get -1e9 (not -inf); softmax over the whole row in fp32; P is
@@ -49,6 +56,16 @@
 // memory by ldmatrix.x4, two key groups at once: with two 4-byte loads per
 // mma.sync instead, instruction issue held the kernel 13-19% slower.
 //
+// The rel-pos bias (K3, K4; a template flag, so K1 and K2 are compiled
+// without it): each score becomes a log2-domain logit s*scale*log2(e) +
+// (rel_h + rel_w)*log2(e) as it leaves the tensor cores, with both terms
+// read through the L1 cache (KW = 14 does not align with the 64-key
+// tiles). At SAM-B's windows (B' = 200 windows of 196 tokens, H = 12, D =
+// 64, bf16) a launch moves 294 MB (qkv, out and the fp32 rel terms), 88 us
+// at 3.35 TB/s, against 23.6 GFLOP = 24 us: bound by bytes. The bias loads,
+// two a score in each of the two passes, cost it about 1.7x K1's time for
+// the same bytes (PERF.md).
+//
 // fp32 design (not on the main path): one block per 32 query rows keeps
 // the whole fp32 score row in shared memory and uses plain FMA loops, so
 // fp32 inputs keep full fp32 precision.
@@ -57,9 +74,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace saicv;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -87,173 +106,23 @@ constexpr int kKeyTile = 64;   // keys per pipeline stage
 // the two-stage pipeline.
 constexpr int kResidentBytes = 160000;
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 2^x on the special-function unit (~2 ulp; 0 for -inf and below -126).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Start copying `rows` rows of one head (row stride `sn`, D contiguous
-// elements) into shared memory [rows][LD]; rows at or past `nvalid` and
-// columns at or past D become zero. With vec (16-byte aligned rows, D % 8
-// == 0) the copy is asynchronous; otherwise it is done here element-wise.
-template <int DP, int LD>
-__device__ void load_tile_bf16(bf16* dst, const bf16* src, long long sn, int rows,
-                               int nvalid, int D, bool vec) {
-  if (vec) {
-    constexpr int kVecPerRow = DP / 8;
-    for (int i = threadIdx.x; i < rows * kVecPerRow; i += blockDim.x) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const bool valid = r < nvalid && c < D;
-      cp_async16(dst + r * LD + c, valid ? src + r * sn + c : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DP; i += blockDim.x) {
-      const int r = i / DP;
-      const int c = i % DP;
-      dst[r * LD + c] = (r < nvalid && c < D) ? src[r * sn + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// Fragment helpers of the tensor-core kernels (mma.sync m16n8k16): g = lane / 4
-// is a fragment's row (and g + 8), t = lane % 4 its column pair.
-
-template <int DP, int LD>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4], const bf16* rows16,
-                                             int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    f[ks][0] = ld_u32(rows16 + g * LD + 16 * ks + 2 * t);
-    f[ks][1] = ld_u32(rows16 + (g + 8) * LD + 16 * ks + 2 * t);
-    f[ks][2] = ld_u32(rows16 + g * LD + 16 * ks + 8 + 2 * t);
-    f[ks][3] = ld_u32(rows16 + (g + 8) * LD + 16 * ks + 8 + 2 * t);
-  }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// s[j] = own(16 x DP) . other(rows 8j..8j+7)^T for the FR fragments of one
-// tile whose first row is `first` (a multiple of 16); 16-row groups at or
-// past `limit` stay zero. One ldmatrix.x4 brings the B fragments of two
-// adjacent 8-row groups for one k-step: lane -> row (lane % 8) of the group
-// lane / 16, columns +0 or +8 by (lane / 8) % 2.
-template <int DP, int LD, int FR>
-__device__ __forceinline__ void own_times_other_t(float (&s)[FR][4],
-                                                  const uint32_t (&af)[DP / 16][4],
-                                                  const bf16* other, int first, int limit,
-                                                  int lane) {
-  const bf16* base = other + (lane % 8 + 8 * (lane / 16)) * LD + 8 * ((lane / 8) % 2);
-#pragma unroll
-  for (int j = 0; j < FR; j += 2) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    s[j + 1][0] = s[j + 1][1] = s[j + 1][2] = s[j + 1][3] = 0.f;
-    if (first + 8 * j < limit) {
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks) {
-        uint32_t b[4];
-        ldmatrix_x4(b, base + 8 * j * LD + 16 * ks);
-        mma_16816(s[j], af[ks], b[0], b[1]);
-        mma_16816(s[j + 1], af[ks], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc(16 x DP) += a(16 x 16) . x(16 rows x DP), x row-major in shared memory.
-template <int DP, int LD>
-__device__ __forceinline__ void accumulate_ax(float (&acc)[DP / 8][4], const uint32_t (&a)[4],
-                                              const bf16* x16, int lane) {
-  // lane -> row of one of four 8x8 matrices: rows +0/+8, columns +0/+8
-  const int mi = lane / 8;
-  const bf16* xr = x16 + ((mi & 1) * 8 + lane % 8) * LD + (mi >> 1) * 8;
-#pragma unroll
-  for (int e2 = 0; e2 < DP / 16; ++e2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, xr + 16 * e2);
-    mma_16816(acc[2 * e2], a, b[0], b[1]);
-    mma_16816(acc[2 * e2 + 1], a, b[2], b[3]);
-  }
-}
-
-// Write a warp's 16 x DP accumulators as bf16 rows row0.. of one head.
-template <int DP>
-__device__ __forceinline__ void store_rows_bf16(bf16* head, long long sn,
-                                                const float (&acc)[DP / 8][4], int row0, int N,
-                                                int D, int g, int t, int out_vec) {
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row >= N) continue;
-      bf16* dst = head + row * sn + c;
-      if (out_vec) {
-        if (c < D)
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
-      } else {
-        if (c < D) dst[0] = __float2bfloat16_rn(acc[j][2 * r]);
-        if (c + 1 < D) dst[1] = __float2bfloat16_rn(acc[j][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <int DP>
+// REL adds the decomposed rel-pos bias (K3, K4): each score becomes the
+// log2-domain logit s*scale*log2(e) + (rel_h + rel_w)*log2(e) as soon as it
+// leaves the tensor cores, and the softmax then runs with c = 1.
+template <int DP, bool REL>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    long long in_sb, long long in_sh, long long in_sn,
                    long long out_sb, long long out_sh, long long out_sn,
                    int N, int D, int n_real, float scale, int vec, int out_vec,
-                   int resident) {
+                   int resident, RelPos rel) {
   constexpr int LD = DP + 8;       // 16-byte pad: conflict-free fragment loads
   // exp(s*scale - max) = 2^(s*c - max*log2 e): one FFMA and one ex2 per score
-  const float sc = scale * 1.4426950408889634f;
-  const float masked_raw = kNegInf / sc;  // raw score that scales to -1e9
+  const float sc = scale * kLog2e;
+  const float c = REL ? 1.f : sc;
+  // raw score that scales to -1e9 (REL: the logit itself)
+  const float masked_raw = REL ? kNegInf * kLog2e : kNegInf / sc;
   constexpr int kSteps = DP / 16;  // k-steps of Q.K^T
   constexpr int kOutTiles = DP / 8;
   constexpr int kKeyFrags = kKeyTile / 8;
@@ -303,6 +172,8 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row0 = q0 + 16 * warp;  // this warp's first query row
   const bool active = row0 < N;
+  RelRows rr{};
+  if (REL) rr = rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
   uint32_t qf[kSteps][4];
   // rows g and g+8: running max of s*c, then max + log2(sum); sum per lane
   float m[2] = {-INFINITY, -INFINITY};
@@ -333,7 +204,9 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* Kb = Ks + (resident ? key0 : (step & 1) * kKeyTile) * LD;
       float s[kKeyFrags][4];
       own_times_other_t<DP, LD, kKeyFrags>(s, qf, Kb, key0, N, lane);
-      if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
+      if (REL) {
+        rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, rel.KW, rel.inv_kw);
+      } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
 #pragma unroll
         for (int j = 0; j < kKeyFrags; ++j)
 #pragma unroll
@@ -352,13 +225,13 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
             tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
           tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
           tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-          const float mnew = fmaxf(m[r], tmax * sc);
+          const float mnew = fmaxf(m[r], tmax * c);
           float sum = 0.f;
 #pragma unroll
           for (int j = 0; j < kKeyFrags; ++j)
             if (key0 + 8 * j < N)
-              sum += exp2_approx(fmaf(s[j][2 * r], sc, -mnew)) +
-                     exp2_approx(fmaf(s[j][2 * r + 1], sc, -mnew));
+              sum += exp2_approx(fmaf(s[j][2 * r], c, -mnew)) +
+                     exp2_approx(fmaf(s[j][2 * r + 1], c, -mnew));
           l[r] = l[r] * exp2_approx(m[r] - mnew) + sum;
           m[r] = mnew;
         }
@@ -378,10 +251,10 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const float* s0 = s[2 * kk];
           const float* s1 = s[2 * kk + 1];
           uint32_t a[4];
-          a[0] = pack_bf16(exp2_approx(fmaf(s0[0], sc, -m[0])), exp2_approx(fmaf(s0[1], sc, -m[0])));
-          a[1] = pack_bf16(exp2_approx(fmaf(s0[2], sc, -m[1])), exp2_approx(fmaf(s0[3], sc, -m[1])));
-          a[2] = pack_bf16(exp2_approx(fmaf(s1[0], sc, -m[0])), exp2_approx(fmaf(s1[1], sc, -m[0])));
-          a[3] = pack_bf16(exp2_approx(fmaf(s1[2], sc, -m[1])), exp2_approx(fmaf(s1[3], sc, -m[1])));
+          a[0] = pack_bf16(exp2_approx(fmaf(s0[0], c, -m[0])), exp2_approx(fmaf(s0[1], c, -m[0])));
+          a[1] = pack_bf16(exp2_approx(fmaf(s0[2], c, -m[1])), exp2_approx(fmaf(s0[3], c, -m[1])));
+          a[2] = pack_bf16(exp2_approx(fmaf(s1[0], c, -m[0])), exp2_approx(fmaf(s1[1], c, -m[0])));
+          a[3] = pack_bf16(exp2_approx(fmaf(s1[2], c, -m[1])), exp2_approx(fmaf(s1[3], c, -m[1])));
           accumulate_ax<DP, LD>(acc, a, Vb + 16 * kk * LD, lane);
         }
       }
@@ -412,13 +285,14 @@ __device__ void load_rows_f32(float* dst, const float* src, long long sn, int ro
   }
 }
 
+// With rel.h set (K3, K4) each score gains rel_h[q, j / KW] + rel_w[q, j % KW].
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   long long in_sb, long long in_sh, long long in_sn,
                   long long out_sb, long long out_sh, long long out_sn,
-                  int N, int D, int n_real, float scale) {
+                  int N, int D, int n_real, float scale, RelPos rel) {
   constexpr int LD = DP + kPadF;
   constexpr int kPer = kMaxN / 32;
   const int NP = (N + 15) & ~15;
@@ -457,13 +331,20 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   for (int r = warp; r < kQTile; r += kWarps) {
     float* row = S + r * LDS;
+    const RelRows rr = rel.h ? rel.rows(blockIdx.z, blockIdx.y, q0 + r, N) : RelRows{};
     float vals[kPer];
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       if (32 * i >= N) break;
       const int c = lane + 32 * i;
-      vals[i] = c >= N ? -INFINITY : (c < n_real ? row[c] * scale : kNegInf);
+      float bias = 0.f;
+      if (rel.h && c < N) {
+        int jh, jw;
+        col_split(c, rel.inv_kw, rel.KW, jh, jw);
+        bias = rr.h[0][jh] + rr.w[0][jw];
+      }
+      vals[i] = c >= N ? -INFINITY : (c < n_real ? row[c] * scale + bias : kNegInf);
       mx = fmaxf(mx, vals[i]);
     }
     mx = warp_max(mx);
@@ -997,6 +878,7 @@ struct Args {
   float scale;
   int vec, out_vec;
   cudaStream_t stream;
+  RelPos rel;  // rel.h == nullptr: no rel-pos bias
 };
 
 template <int DP>
@@ -1011,7 +893,7 @@ int launch_bf16(const Args& a) {
   const int resident = resident_bytes <= kResidentBytes;
   const size_t smem =
       resident ? resident_bytes : sizeof(bf16) * (16 * warps + 4 * kKeyTile) * LD;
-  auto kernel = attention_fwd_bf16<DP>;
+  auto kernel = a.rel.h ? attention_fwd_bf16<DP, true> : attention_fwd_bf16<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1020,7 +902,7 @@ int launch_bf16(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.in_sb, a.in_sh, a.in_sn,
       a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.vec, a.out_vec,
-      resident);
+      resident, a.rel);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1037,7 +919,7 @@ int launch_f32(const Args& a) {
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.in_sb, a.in_sh, a.in_sn,
-      a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale);
+      a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.rel);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1108,6 +990,39 @@ int launch_bwd_dtype(const BwdArgs& a, int is_bf16) {
   return is_bf16 ? launch_bwd_bf16<DP>(a) : launch_bwd_f32<DP>(a);
 }
 
+int launch_forward(const Args& a, int is_bf16) {
+  switch ((a.D + 15) / 16 * 16) {
+    case 16: return launch_dtype<16>(a, is_bf16);
+    case 32: return launch_dtype<32>(a, is_bf16);
+    case 48: return launch_dtype<48>(a, is_bf16);
+    case 64: return launch_dtype<64>(a, is_bf16);
+    case 80: return launch_dtype<80>(a, is_bf16);
+    case 96: return launch_dtype<96>(a, is_bf16);
+    case 112: return launch_dtype<112>(a, is_bf16);
+    default: return launch_dtype<128>(a, is_bf16);
+  }
+}
+
+Args forward_args(const void* q, const void* k, const void* v, void* o, long long in_sb,
+                  long long in_sh, long long in_sn, long long out_sb, long long out_sh,
+                  long long out_sn, int B, int H, int N, int D, int n_real, float scale,
+                  int is_bf16, void* stream) {
+  const long long es = is_bf16 ? 2 : 4;
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
+                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
+                  (in_sn * es) % 16 == 0;
+  const int out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 &&
+                      out_sb % 2 == 0 && out_sh % 2 == 0 && out_sn % 2 == 0;
+  return Args{q,      k,     v,      o, in_sb, in_sh, in_sn,   out_sb, out_sh,
+              out_sn, B,     H,      N, D,     n_real, scale, vec,    out_vec,
+              static_cast<cudaStream_t>(stream), RelPos{}};
+}
+
+bool bad_shape(int B, int H, int N, int D, int n_real) {
+  return B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || N > kMaxN || D < 1 || D > 128 ||
+         n_real < 1 || n_real > N;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Pointers are device pointers of
@@ -1119,28 +1034,28 @@ extern "C" int saicv_fused_attention_fwd(
     long long out_sb, long long out_sh, long long out_sn,
     int B, int H, int N, int D, int n_real, float scale, int is_bf16,
     void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || N > kMaxN || D < 1 ||
-      D > 128 || n_real < 1 || n_real > N)
+  if (bad_shape(B, H, N, D, n_real)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_forward(forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn,
+                                     B, H, N, D, n_real, scale, is_bf16, stream),
+                        is_bf16);
+}
+
+// The same forward with SAM's decomposed rel-pos bias (K3, K4): the score of
+// query i and key j gains rel_h[i, j / KW] + rel_w[i, j % KW], with N = KH *
+// KW. rel_h and rel_w are fp32, each with its own (batch, head, row)
+// strides and a contiguous last axis of KH or KW values.
+extern "C" int saicv_fused_attention_relpos_fwd(
+    const void* q, const void* k, const void* v, void* o, const float* rel_h,
+    const float* rel_w, long long in_sb, long long in_sh, long long in_sn,
+    long long out_sb, long long out_sh, long long out_sn, long long h_sb, long long h_sh,
+    long long h_sn, long long w_sb, long long w_sh, long long w_sn, int B, int H, int N,
+    int D, int n_real, int KH, int KW, float scale, int is_bf16, void* stream) {
+  if (bad_shape(B, H, N, D, n_real) || KH < 1 || KW < 1 || KH * KW != N || !rel_h || !rel_w)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long es = is_bf16 ? 2 : 4;
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
-                  (in_sn * es) % 16 == 0;
-  const int out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 &&
-                      out_sb % 2 == 0 && out_sh % 2 == 0 && out_sn % 2 == 0;
-  const Args a{q,     k,     v,      o, in_sb, in_sh, in_sn,   out_sb, out_sh,
-               out_sn, B,    H,      N, D,     n_real, scale, vec,    out_vec,
-               static_cast<cudaStream_t>(stream)};
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch_dtype<16>(a, is_bf16);
-    case 32: return launch_dtype<32>(a, is_bf16);
-    case 48: return launch_dtype<48>(a, is_bf16);
-    case 64: return launch_dtype<64>(a, is_bf16);
-    case 80: return launch_dtype<80>(a, is_bf16);
-    case 96: return launch_dtype<96>(a, is_bf16);
-    case 112: return launch_dtype<112>(a, is_bf16);
-    default: return launch_dtype<128>(a, is_bf16);
-  }
+  Args a = forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, B, H, N, D,
+                        n_real, scale, is_bf16, stream);
+  a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
+  return launch_forward(a, is_bf16);
 }
 
 // Backward of the same function: dq, dk, dv (one stride set, head dim

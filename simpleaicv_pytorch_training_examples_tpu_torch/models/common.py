@@ -2,11 +2,11 @@
 
 Counterpart of the JAX package's ``models/common.py``, with its dtype
 policy: parameters stay fp32 and each layer computes in ``dtype`` (bf16 in
-the configs), casting its input and weights on the way in, as flax's
+the configs), casting its input and weights on the way in, as Flax's
 ``Dense(dtype=...)`` does.
 
 Parameters are set by ``init_parameters_`` from a ``torch.Generator`` (the
-engine's ``init_model`` seeds it from the config), with flax's initialisers:
+engine's ``init_model`` seeds it from the config), with Flax's initialisers:
 truncated normals for weights, zeros for biases, ones for norm scales.
 
 ``Dropout`` and ``DropPath`` draw their masks from the generator that
@@ -39,7 +39,7 @@ _TRUNC_STD = 0.87962566103423978
 
 @torch.no_grad()
 def trunc_normal_(tensor, std, generator=None):
-    """flax ``truncated_normal(stddev=std)``: N(0, 1) truncated to [-2, 2],
+    """Flax's ``truncated_normal(stddev=std)``: N(0, 1) truncated to [-2, 2],
     scaled so the result has standard deviation ``std`` (inverse-CDF
     sampling, as ``torch.nn.init.trunc_normal_``)."""
     lo = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0
@@ -182,7 +182,7 @@ class FusedLayerNorm(nn.Module):
 class Mlp(nn.Module):
     """Transformer feed-forward: Linear -> GELU (tanh) -> Linear (+dropout).
 
-    flax ``nn.gelu`` defaults to the tanh approximation, so torch's exact
+    Flax's ``nn.gelu`` defaults to the tanh approximation, so torch's exact
     erf GELU would not match the JAX package."""
 
     def __init__(self, planes, hidden_planes, dropout_prob=0.0,

@@ -3,8 +3,9 @@ interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>_<hash>.so`` at the repository root (git-ignored),
-at first use. The hash covers the source and the flags, so an edited source
-is rebuilt. Nothing here runs at import time.
+at first use. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. Nothing
+here runs at import time.
 """
 
 import ctypes
@@ -18,7 +19,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("fused_attention", "layer_norm")
+SOURCES = ("fused_attention", "flash_attention", "layer_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +38,9 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

@@ -1,4 +1,5 @@
-"""Short-sequence fused self-attention, forward and backward: kernels K1, K2.
+"""Short-sequence fused self-attention, forward and backward: kernels K1,
+K2, and the forward of the rel-pos variants K3, K4.
 
 Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 
@@ -8,14 +9,22 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 - ``fused_attention`` (K2) takes ``q, k, v`` as ``[B, H, N, D]``, D <= 128,
   read in place through their strides (head dim contiguous), so views of
   the packed qkv output need no layout copy.
+- ``fused_attention_relwin_dense`` (K3) and ``fused_attention_relwin`` (K4)
+  are K1 and K2 with SAM's decomposed relative-position bias: the score of
+  query i and key j = jh * KW + jw gains ``rel_h[i, jh] + rel_w[i, jw]``
+  (fp32, N = KH * KW). K3 takes ``rel_h [B, N, H, KH]``, ``rel_w [B, N, H,
+  KW]`` beside the packed qkv; K4 takes ``[B, H, N, KH]``, ``[B, H, N, KW]``
+  and an optional ``n_real``. Forward only: their backward kernels come
+  with SAM training.
 
-Both launch one CUDA kernel (``csrc/fused_attention.cu``) that never
+All launch one CUDA kernel body (``csrc/fused_attention.cu``) that never
 writes the scores or the probabilities to device memory; N <= 1024. The
-math is the TPU kernels': fp32 scores scaled by D^-0.5, keys at or past
-``n_real`` set to -1e9, fp32 softmax, probabilities normalised and then
-cast to the input dtype, P.V with fp32 accumulation.
+math is the TPU kernels': fp32 scores scaled by D^-0.5, plus the fp32
+rel-pos bias, keys at or past ``n_real`` set to -1e9, fp32 softmax,
+probabilities normalised and then cast to the input dtype, P.V with fp32
+accumulation.
 
-Both are ``torch.autograd.Function``s (``FusedAttentionDense``,
+K1 and K2 are ``torch.autograd.Function``s (``FusedAttentionDense``,
 ``FusedAttention``) whose backward is a kernel of the same source. Only the
 inputs are saved: the backward recomputes P, then dV = P^T.dO with P in the
 input dtype, dP = dO.V^T, dS = P * (dP - sum_k dP * P) * scale cast to the
@@ -101,6 +110,34 @@ def fused_attention_dense_backward_reference(qkv, dout, head_nums,
     return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, n, c3)
 
 
+def fused_attention_relwin_reference(q, k, v, rel_h, rel_w, n_real=None):
+    """Plain version of K4 (the JAX ``_reference_bias`` over the expanded
+    bias): q, k, v [B, H, N, D], rel_h [B, H, N, KH], rel_w [B, H, N, KW]
+    with N = KH * KW -> [B, H, N, D]."""
+    b, h, n, _ = q.shape
+    bias = (rel_h.float()[..., :, None] + rel_w.float()[..., None, :]).reshape(
+        b, h, n, n)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * (q.shape[-1] ** -0.5) + bias
+    if n_real is not None and n_real < n:
+        keep = torch.arange(n, device=q.device) < n_real
+        s = s.masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
+
+
+def fused_attention_relwin_dense_reference(qkv, rel_h, rel_w, head_nums):
+    """Plain version of K3: qkv [B, N, 3C], rel_h [B, N, H, KH], rel_w
+    [B, N, H, KW] -> [B, N, C] through K4's math."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = qkv.reshape(b, n, 3, head_nums, c // head_nums).permute(
+        2, 0, 3, 1, 4).unbind(0)
+    out = fused_attention_relwin_reference(q, k, v, rel_h.transpose(1, 2),
+                                           rel_w.transpose(1, 2))
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
 def _resolve_n_real(n_real, n):
     n_real = n if n_real is None else int(n_real)
     if not 1 <= n_real <= n:
@@ -151,6 +188,30 @@ def check_args(q, k, v, n_real=None):
     return b, h, n, d, _resolve_n_real(n_real, n)
 
 
+def check_rel_args(rel_h, rel_w, lead, n):
+    """rel_h and rel_w: fp32 on one device, shapes lead + (KH,) and lead +
+    (KW,) with KH * KW = n, the last axis contiguous; returns (KH, KW)."""
+    for name, t in (("rel_h", rel_h), ("rel_w", rel_w)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype} is not float32")
+        if tuple(t.shape[:-1]) != tuple(lead) or t.stride(-1) != 1:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} is not "
+                             f"{tuple(lead)} + (K,) with the last axis "
+                             "contiguous")
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    if kh * kw != n:
+        raise ValueError(f"KH * KW = {kh} * {kw} is not N = {n}")
+    return kh, kw
+
+
+def forward_only(name, *tensors):
+    """The rel-pos kernels have no backward yet: refuse a graph that would
+    need one, rather than return values without gradients."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name}: the backward kernel is not ported "
+                                  "yet; call it under torch.no_grad()")
+
+
 _STRIDES = [ctypes.c_longlong] * 3
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
@@ -159,18 +220,23 @@ _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 def _library():
     lib = build.load("fused_attention")
     fwd, bwd = lib.saicv_fused_attention_fwd, lib.saicv_fused_attention_bwd
+    rel = lib.saicv_fused_attention_relpos_fwd
     fwd.argtypes = [ctypes.c_void_p] * 4 + _STRIDES * 2 + _SHAPE
     bwd.argtypes = [ctypes.c_void_p] * 8 + _STRIDES * 3 + _SHAPE
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    rel.argtypes = ([ctypes.c_void_p] * 6 + _STRIDES * 4 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fwd.restype = bwd.restype = rel.restype = ctypes.c_int
+    return fwd, bwd, rel
 
 
-def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype):
-    """Launch on the current stream of ``device``; strides in elements."""
+def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype,
+          rel_sizes=()):
+    """Launch on the current stream of ``device``; strides in elements;
+    ``rel_sizes`` (KH, KW) for the rel-pos entry point."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*pointers, *strides, b, h, n, d, n_real, d ** -0.5,
-                 int(dtype == torch.bfloat16), stream)
+        err = fn(*pointers, *strides, b, h, n, d, n_real, *rel_sizes,
+                 d ** -0.5, int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: cudaError {err}")
 
@@ -194,9 +260,23 @@ def _launch_backward(q_ptr, k_ptr, v_ptr, dout, dout_strides, grad_ptrs,
           dout.dtype)
 
 
+def _launch_relpos(q_ptr, k_ptr, v_ptr, out, rel_h, rel_w, strides, b, h,
+                   n, d, n_real, kh, kw, dtype):
+    """K3/K4: the forward kernel with the rel-pos bias; ``strides``: the
+    (batch, head, row) strides of the inputs, the output, rel_h and rel_w."""
+    _call(_library()[2], out.device,
+          (q_ptr, k_ptr, v_ptr, out.data_ptr(), rel_h.data_ptr(),
+           rel_w.data_ptr()), strides, b, h, n, d, n_real, dtype, (kh, kw))
+
+
 def _require_cuda(t):
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
+
+
+def _same_device(*tensors):
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all tensors must lie on one device")
 
 
 class FusedAttentionDense(torch.autograd.Function):
@@ -292,6 +372,54 @@ def fused_attention(q, k, v, n_real=None):
     return FusedAttention.apply(q, k, v, n_real)
 
 
-for _wrapper in (fused_attention_dense, fused_attention):
+def fused_attention_relwin_dense(qkv, rel_h, rel_w, head_nums):
+    """K3: windowed attention with SAM's decomposed rel-pos bias straight
+    over the packed qkv [B, N, 3C] (head dim 64 or 128, N <= 1024), with
+    rel_h [B, N, H, KH] and rel_w [B, N, H, KW] fp32 -> [B, N, C]."""
+    if qkv.device.type == "cpu":
+        return fused_attention_relwin_dense_reference(qkv, rel_h, rel_w,
+                                                      head_nums)
+    _require_cuda(qkv)
+    _same_device(qkv, rel_h, rel_w)
+    forward_only("K3 fused_attention_relwin_dense", qkv, rel_h, rel_w)
+    b, n, c, d, _ = check_dense_args(qkv, head_nums)
+    kh, kw = check_rel_args(rel_h, rel_w, (b, n, head_nums), n)
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    es = qkv.element_size()
+    base = qkv.data_ptr()
+    rel_strides = lambda t: (t.stride(0), t.stride(2), t.stride(1))
+    _launch_relpos(base, base + c * es, base + 2 * c * es, out, rel_h, rel_w,
+                   (n * 3 * c, d, 3 * c, n * c, d, c, *rel_strides(rel_h),
+                    *rel_strides(rel_w)), b, head_nums, n, d, n, kh, kw,
+                   qkv.dtype)
+    fused_attention_relwin_dense.launches += 1
+    return out
+
+
+def fused_attention_relwin(q, k, v, rel_h, rel_w, n_real=None):
+    """K4: K3's math on q, k, v [B, H, N, D] (D <= 128, N <= 1024, shared
+    strides, head dim contiguous) with rel_h [B, H, N, KH], rel_w [B, H, N,
+    KW] fp32 and keys at or past ``n_real`` masked. Returns [B, H, N, D]: a
+    view of a [B, N, H, D] tensor, so the attention module's transpose back
+    to tokens costs no copy."""
+    if q.device.type == "cpu":
+        return fused_attention_relwin_reference(q, k, v, rel_h, rel_w, n_real)
+    _require_cuda(q)
+    _same_device(q, k, v, rel_h, rel_w)
+    forward_only("K4 fused_attention_relwin", q, k, v, rel_h, rel_w)
+    b, h, n, d, n_real = check_args(q, k, v, n_real)
+    kh, kw = check_rel_args(rel_h, rel_w, (b, h, n), n)
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    _launch_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, rel_h,
+                   rel_w, (*q.stride()[:3], n * h * d, d, h * d,
+                           *rel_h.stride()[:3], *rel_w.stride()[:3]),
+                   b, h, n, d, n_real, kh, kw, q.dtype)
+    fused_attention_relwin.launches += 1
+    return out.transpose(1, 2)
+
+
+for _wrapper in (fused_attention_dense, fused_attention,
+                 fused_attention_relwin_dense, fused_attention_relwin):
     _wrapper.launches = 0
-    _wrapper.backward_launches = 0
+fused_attention_dense.backward_launches = 0
+fused_attention.backward_launches = 0

@@ -24,6 +24,7 @@ from ..engine import init_model, make_classification_eval_step
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
     ("attention backward kernel", ("attention_bwd",)),
+    ("rel-pos flash attention kernel (K5)", ("flash_relpos",)),
     ("attention kernel", ("attention_fwd",)),
     ("layer norm kernel", ("layer_norm_fwd_", "layer_norm_bwd_",
                            "reduce_partials")),
@@ -70,7 +71,7 @@ def random_batch():
                                  device="cuda")}
 
 
-def profile_steps(step, label, extra=None):
+def profile_steps(step, label, extra=None, batch_size=BATCH_SIZE):
     """Run ``step()`` 3 times to warm up, then ``STEPS`` times under the
     profiler; print and return the device time per step by category."""
     for _ in range(3):
@@ -99,7 +100,7 @@ def profile_steps(step, label, extra=None):
         key = category(name)
         by_category[key] = by_category.get(key, 0.0) + us / 1e3 / STEPS
     device = torch.cuda.get_device_name(0)
-    print(f"{label} bs{BATCH_SIZE} on {device}: "
+    print(f"{label} bs{batch_size} on {device}: "
           f"{wall_ms:.3f} ms/step wall (profiler on), device busy "
           f"{device_ms:.3f} ms/step")
     if device_ms == 0.0:
@@ -110,7 +111,7 @@ def profile_steps(step, label, extra=None):
     print("  top kernels:")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:16]:
         print(f"    {us / 1e3 / STEPS:8.3f} ms/step  {name[:100]}")
-    result = dict(extra or {}, label=label, batch_size=BATCH_SIZE,
+    result = dict(extra or {}, label=label, batch_size=batch_size,
                   device=device, wall_ms_per_step=wall_ms,
                   device_ms_per_step=device_ms,
                   device_busy_share=device_ms / wall_ms,

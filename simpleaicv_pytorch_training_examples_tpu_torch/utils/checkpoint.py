@@ -1,6 +1,6 @@
 """Torch checkpoints: name- and shape-filtered loading with a ViT
-position-embedding resize for new input sizes, and the train run's
-``latest.pth`` / ``best.pth`` store.
+position-embedding resize for new input sizes, SAM checkpoints (whole or
+encoder only), and the train run's ``latest.pth`` / ``best.pth`` store.
 
 Counterpart of the JAX package's ``utils/checkpoint.py``. The
 resize matches its ``jax.image.resize(..., "cubic")``: Keys' cubic kernel
@@ -108,6 +108,17 @@ def load_state_dict_filtered(model, saved: dict, logger=None):
                         f"{tuple(current.shape)}")
     model.load_state_dict(state)
     return loaded, len(state)
+
+
+def load_sam_checkpoint(model, path: str, logger=None):
+    """A SAM ``.pth`` in the reference torch layout into the port's SAM: the
+    whole model, or only its ``image_encoder.``-prefixed keys, name- and
+    shape-filtered. Returns (num_loaded, num_total); raises if the file is
+    missing."""
+    saved = load_torch_state_dict(path)
+    if saved is None:
+        raise FileNotFoundError(f"no SAM checkpoint at {path!r}")
+    return load_state_dict_filtered(model, saved, logger)
 
 
 class CheckpointStore:

@@ -9,7 +9,9 @@ installed (this file imports none of it), run from the repository root
 It sweeps the shapes the smoke run does not: token counts around the
 16-row tiles and the 64-row chunks, head dims off the multiples of 16,
 ``n_real`` at the edges, both layouts, unaligned tensors, LayerNorm widths
-on and off the vector path. Tolerances: attention and its gradients bf16
+on and off the vector path; for the rel-pos kernels K3, K4 and K5 also
+key grids with KH != KW, KW a multiple of 64 or not, N off the 64-key
+tiles and (K5) head dims above 128. Tolerances: attention and its gradients bf16
 atol 2e-2 per unit of the reference's scale, fp32 1e-4; LayerNorm y and dx
 bf16 two ulps of the reference's scale, fp32 1e-4; dgamma and dbeta 1e-3 of
 the largest sum.
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-    fused_attention as fa, layer_norm as ln)
+    flash_attention as fl, fused_attention as fa, layer_norm as ln)
 
 pytestmark = pytest.mark.gpu
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -184,3 +186,125 @@ def test_layer_norm_takes_a_strided_input_and_unaligned_parameters(cuda):
     want = ln.layer_norm_reference(x, gamma, beta)
     assert (y.float() - want.float()).abs().max().item() <= 2 ** -7 * max(
         1.0, want.float().abs().max().item())
+
+
+# ------------------------------------------------ rel-pos kernels K3-K5
+
+
+def _rel(gen, lead, kh, kw):
+    return (_randn(gen, *lead, kh, dtype=torch.float32),
+            _randn(gen, *lead, kw, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,kh,kw,h,d", [
+    (3, 14, 14, 12, 64), (2, 14, 14, 2, 128), (2, 3, 4, 2, 64),
+    (1, 12, 16, 2, 64), (2, 32, 32, 1, 64), (1, 1, 7, 2, 128),
+    (2, 5, 40, 2, 64),
+])
+def test_relwin_dense_forward(cuda, b, kh, kw, h, d, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n * d + h)
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+    rel_h, rel_w = _rel(gen, (b, n, h), kh, kw)
+    before = fa.fused_attention_relwin_dense.launches
+    out = fa.fused_attention_relwin_dense(qkv, rel_h, rel_w, h)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_relwin_dense.launches == before + 1
+    assert out.shape == (b, n, h * d) and out.dtype == dtype
+    _close(out, fa.fused_attention_relwin_dense_reference(qkv, rel_h, rel_w,
+                                                          h), dtype, "out")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,kh,kw,d,n_real,packed", [
+    (2, 16, 14, 14, 80, None, True), (2, 3, 14, 14, 80, 150, True),
+    (1, 2, 7, 9, 35, None, False), (2, 2, 4, 4, 16, 9, False),
+    (1, 2, 32, 32, 128, 1000, True), (1, 1, 1, 1, 64, None, False),
+    (1, 2, 8, 25, 96, 1, True),
+])
+def test_relwin_forward(cuda, b, h, kh, kw, d, n_real, packed, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n * d + (n_real or 0))
+    if packed:
+        qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(3))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    before = fa.fused_attention_relwin.launches
+    out = fa.fused_attention_relwin(q, k, v, rel_h, rel_w, n_real)
+    torch.cuda.synchronize()
+    assert fa.fused_attention_relwin.launches == before + 1
+    assert out.shape == (b, h, n, d) and out.dtype == dtype
+    _close(out, fa.fused_attention_relwin_reference(q, k, v, rel_h, rel_w,
+                                                    n_real), dtype, "out")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,kh,kw,d,packed", [
+    (1, 2, 64, 64, 64, True), (1, 2, 64, 64, 80, True),
+    (1, 1, 16, 24, 64, False), (1, 2, 8, 16, 160, False),
+    (2, 1, 10, 13, 64, False), (1, 1, 64, 128, 64, True),
+    (1, 2, 2, 64, 256, False), (1, 1, 3, 5, 8, False),
+    (1, 3, 40, 33, 128, True),
+])
+def test_flash_relpos_forward(cuda, b, h, kh, kw, d, packed, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    if packed:
+        qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(3))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    before = fl.flash_attention_relpos.launches
+    out, lse = fl.flash_attention_relpos(q, k, v, rel_h, rel_w,
+                                         return_lse=True)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_relpos.launches == before + 1
+    assert out.shape == (b, h, n, d) and out.dtype == dtype
+    want, want_lse = fl.flash_attention_relpos_reference(
+        q, k, v, rel_h, rel_w, return_lse=True)
+    _close(out, want, dtype, "out")
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-3 * max(1.0, want_lse.abs().max().item()), err
+
+
+def test_rel_kernels_take_unaligned_tensors(cuda):
+    """Views that start 2 bytes off a 16-byte boundary: element-wise loads."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, kh, kw, d = 2, 2, 8, 8, 64
+    n = kh * kw
+    flat = _randn(gen, 3 * b * h * n * d + 1, dtype=torch.bfloat16)
+    q, k, v = flat[1:].view(3, b, h, n, d).unbind(0)
+    assert q.data_ptr() % 16 == 2
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    _close(fa.fused_attention_relwin(q, k, v, rel_h, rel_w),
+           fa.fused_attention_relwin_reference(q, k, v, rel_h, rel_w),
+           torch.bfloat16, "K4")
+    _close(fl.flash_attention_relpos(q, k, v, rel_h, rel_w),
+           fl.flash_attention_relpos_reference(q, k, v, rel_h, rel_w),
+           torch.bfloat16, "K5")
+
+
+def test_rel_kernels_refuse_what_they_cannot_take(cuda):
+    qkv = torch.zeros(1, 12, 3 * 80, device="cuda")
+    rel_h, rel_w = torch.zeros(1, 12, 1, 3, device="cuda"), torch.zeros(
+        1, 12, 1, 4, device="cuda")
+    with pytest.raises(ValueError):          # K3 takes head dim 64 or 128
+        fa.fused_attention_relwin_dense(qkv, rel_h, rel_w, 1)
+    q = torch.zeros(1, 1, 12, 64, device="cuda")
+    with pytest.raises(TypeError):           # rel terms must be fp32
+        fl.flash_attention_relpos(q, q, q, rel_h.view(1, 1, 12, 3).half(),
+                                  rel_w.view(1, 1, 12, 4))
+    with pytest.raises(ValueError):          # KH * KW != N
+        fl.flash_attention_relpos(q, q, q, rel_w.view(1, 1, 12, 4),
+                                  rel_w.view(1, 1, 12, 4))
+    leaf = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):  # no backward kernel yet
+        fl.flash_attention_relpos(leaf, q, q, rel_h.view(1, 1, 12, 3),
+                                  rel_w.view(1, 1, 12, 4))

@@ -1,5 +1,6 @@
 """The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm),
-forward and backward, against the JAX package.
+forward and backward, and the rel-pos attention kernels K3, K4 and K5
+(forward), against the JAX package.
 
 On the CPU each wrapper takes its plain PyTorch version; these tests hold
 that version against the JAX entry points run through their Pallas kernels
@@ -8,7 +9,12 @@ of the kernels' custom VJPs against the port's autograd Functions. The CUDA
 kernels themselves are held against the plain versions on the card by
 chip_smoke.py.
 
-Tolerances: fp32 atol 1e-5 (same math, another summation order); bf16
+K5 has no interpret mode: its plain version is held against the JAX
+package's off-TPU composition of ``flash_attention_relpos``.
+
+Tolerances: fp32 atol 1e-5 (same math, another summation order; the
+rel-pos kernels atol 2e-5, rtol 1e-5, as the JAX package's own tests hold
+its rel-pos kernels); bf16
 atol 2e-2 for the attention output and its gradients (a few bf16 ulps at
 |x| <= 2, from rounding P, dS and the outputs). LayerNorm: fp32 atol 1e-5
 for y and 1e-4 for the gradients (the TPU kernel takes the variance as
@@ -26,7 +32,8 @@ import pytest
 import torch
 
 from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-    build, fused_attention as port_fa, layer_norm as port_ln)
+    build, flash_attention as port_fl, fused_attention as port_fa,
+    layer_norm as port_ln)
 
 # the JAX package's ops.pallas re-exports a function of the module's name
 jax_fa = importlib.import_module(
@@ -34,6 +41,11 @@ jax_fa = importlib.import_module(
 
 jax_ln = importlib.import_module(
     "simpleaicv_pytorch_training_examples_tpu.ops.pallas.layer_norm")
+
+jax_fl = importlib.import_module(
+    "simpleaicv_pytorch_training_examples_tpu.ops.pallas.flash_attention")
+
+REL = dict(rtol=1e-5, atol=2e-5)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -316,3 +328,117 @@ def test_layer_norm_shape_rule_and_cpu_counts():
     port_ln.layer_norm(x, torch.ones(8), torch.zeros(8)).sum().backward()
     assert counts == (port_ln.layer_norm.launches,
                       port_ln.layer_norm.backward_launches)
+
+
+# ------------------------------------------------------------- K3-K5
+
+
+def _rel_inputs(lead, kh, kw, seed):
+    rs = np.random.RandomState(seed)
+    rel_h = rs.standard_normal(lead + (kh,)).astype(np.float32)
+    rel_w = rs.standard_normal(lead + (kw,)).astype(np.float32)
+    return (jnp.asarray(rel_h), jnp.asarray(rel_w),
+            torch.from_numpy(rel_h), torch.from_numpy(rel_w))
+
+
+@pytest.mark.parametrize("kh,kw,head_dim", [(3, 4, 64), (4, 4, 128),
+                                            (2, 5, 64)])
+def test_relwin_dense_plain_version_matches_jax_kernel(kh, kw, head_dim):
+    """K3: windowed attention over the packed qkv with the rel-pos bias."""
+    b, h, n = 2, 2, kh * kw
+    rs = np.random.RandomState(300 + n + head_dim)
+    x = rs.standard_normal((b, n, 3 * h * head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, n, h), kh, kw, 301 + n)
+    want = jax_fa.fused_attention_relwin_dense(jnp.asarray(x), jh, jw, h,
+                                               interpret=True)
+    before = port_fa.fused_attention_relwin_dense.launches
+    got = port_fa.fused_attention_relwin_dense(torch.from_numpy(x), th, tw, h)
+    assert got.shape == (b, n, h * head_dim)
+    assert port_fa.fused_attention_relwin_dense.launches == before
+    np.testing.assert_allclose(_to_np(got), _to_np(want), **REL)
+
+
+@pytest.mark.parametrize("kh,kw,head_dim,n_real", [(3, 4, 8, None),
+                                                   (3, 4, 40, 9),
+                                                   (4, 5, 80, None)])
+def test_relwin_plain_version_matches_jax_kernel(kh, kw, head_dim, n_real):
+    """K4: [B, H, N, D] with the rel-pos bias and a key mask."""
+    b, h, n = 2, 2, kh * kw
+    rs = np.random.RandomState(400 + n + head_dim)
+    q, k, v = rs.standard_normal((3, b, h, n, head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 401 + n)
+    want = jax_fa.fused_attention_relwin(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jh, jw,
+        n_real=n_real, interpret=True)
+    got = port_fa.fused_attention_relwin(
+        *(torch.from_numpy(a) for a in (q, k, v)), th, tw, n_real)
+    assert got.shape == (b, h, n, head_dim)
+    np.testing.assert_allclose(_to_np(got), _to_np(want), **REL)
+
+
+@pytest.mark.parametrize("kh,kw,head_dim", [(8, 8, 64), (4, 6, 80),
+                                            (3, 5, 160)])
+def test_flash_relpos_plain_version_matches_jax(kh, kw, head_dim):
+    """K5 against the JAX off-TPU composition; the LSE against numpy."""
+    b, h, n = 1, 2, kh * kw
+    rs = np.random.RandomState(500 + n + head_dim)
+    q, k, v = rs.standard_normal((3, b, h, n, head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 501 + n)
+    want = jax_fl.flash_attention_relpos(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jh, jw,
+        force_pallas=True)
+    got, lse = port_fl.flash_attention_relpos(
+        *(torch.from_numpy(a) for a in (q, k, v)), th, tw, return_lse=True)
+    np.testing.assert_allclose(_to_np(got), _to_np(want), **REL)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) * head_dim ** -0.5 + (
+        th.numpy()[..., :, None] + tw.numpy()[..., None, :]).reshape(
+            b, h, n, n)
+    m = s.max(-1)
+    np.testing.assert_allclose(
+        lse.numpy(), m + np.log(np.exp(s - m[..., None]).sum(-1)), **REL)
+
+
+def test_rel_kernels_in_bf16_match_jax():
+    kh, kw, b, h, d = 4, 4, 2, 2, 64
+    n = kh * kw
+    rs = np.random.RandomState(600)
+    q, k, v = rs.standard_normal((3, b, h, n, d)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 601)
+    jq, jk, jv = (_pair(a, "bfloat16")[0] for a in (q, k, v))
+    tq, tk, tv = (_pair(a, "bfloat16")[1] for a in (q, k, v))
+    for want, got in (
+            (jax_fa.fused_attention_relwin(jq, jk, jv, jh, jw, interpret=True),
+             port_fa.fused_attention_relwin(tq, tk, tv, th, tw)),
+            (jax_fl.flash_attention_relpos(jq, jk, jv, jh, jw),
+             port_fl.flash_attention_relpos(tq, tk, tv, th, tw))):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_to_np(got), _to_np(want), rtol=0,
+                                   atol=TOL["bfloat16"])
+
+
+def test_rel_kernel_shape_rules():
+    q = torch.zeros(1, 2, 12, 64)
+    rel_h, rel_w = torch.zeros(1, 2, 12, 3), torch.zeros(1, 2, 12, 4)
+    assert port_fl.check_args(q, q, q, rel_h, rel_w) == (1, 2, 12, 64, 3, 4)
+    with pytest.raises(ValueError):       # KH * KW != N
+        port_fa.check_rel_args(rel_h, rel_h, (1, 2, 12), 12)
+    with pytest.raises(TypeError):        # rel terms are fp32
+        port_fa.check_rel_args(rel_h.bfloat16(), rel_w, (1, 2, 12), 12)
+    with pytest.raises(ValueError):       # last axis contiguous
+        port_fa.check_rel_args(torch.zeros(1, 2, 3, 12).transpose(2, 3),
+                               rel_w, (1, 2, 12), 12)
+    with pytest.raises(ValueError):       # K5 takes D <= 256
+        port_fl.check_args(*[torch.zeros(1, 2, 12, 272)] * 3, rel_h, rel_w)
+
+
+def test_rel_kernels_take_gradients_on_the_cpu_only_through_plain_ops():
+    """On the CPU the plain versions are differentiable; on the card the
+    wrappers refuse a graph (their backward kernels are not ported)."""
+    q = torch.randn(1, 1, 6, 8, requires_grad=True)
+    rel_h, rel_w = torch.randn(1, 1, 6, 2), torch.randn(1, 1, 6, 3)
+    port_fl.flash_attention_relpos(q, q, q, rel_h, rel_w).sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    with pytest.raises(NotImplementedError):
+        port_fa.forward_only("K4", q)
+    with torch.no_grad():
+        port_fa.forward_only("K4", q)
