@@ -24,7 +24,14 @@ kernels' launch counters set to 0 just before it and read just after:
   the same model with the kernels and with plain attention; the encoder
   and decoder timed; the same again on two images with the attention
   weights redrawn so that attention is sharp; full-width SAM-H at reduced
-  depth through the tool.
+  depth through the tool;
+- SAM training: full-width, full-depth SAM-B (1024^2, bf16, batch 8)
+  through the work-dir train CLI with the port's SAM-B config (gradient
+  checkpointing, 4 extra decoder passes with error clicks) on the seeded
+  synthetic dataset (two epochs of 4 steps, then resumed for a third);
+  SAM-B's gradients with sharp attention, kernels against plain attention;
+  timed train steps with and without checkpointing; full-width SAM-H at
+  reduced depth, its gradients likewise.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -66,6 +73,21 @@ from fp32, mask RMS difference from fp32 within 1.25 times the plain
 path's, binarised masks apart from fp32's on at most the larger of 1% and
 1.25 times the plain path's share of pixels, IoU within the larger of 2e-2
 and the plain path's difference from fp32.
+
+Rel-pos attention backward kernels (K3, K4, K5) vs their plain versions:
+dq, dk, dv (K3: the packed dqkv) bf16 atol 2e-2, fp32 1e-4; drel_h and
+drel_w (fp32 sums of dS0) within the same fractions of the larger of their
+largest plain values; both runs of the backward bit for bit equal. SAM
+training: the train CLI's loss finite on every step and its last epoch's
+mean below its first's; K3 16 forward and 8 backward launches and K5 8
+and 4 a step (checkpointing runs each block's forward twice). SAM
+gradients (one bf16 micro-batch of 2 images, the first decoder pass, the
+qkv weights and rel-pos tables sharpened as above): per parameter,
+relative L2 distance from the same model's fp32 gradients with plain
+attention at most the larger of 5e-2 and 1.25 times the plain bf16 path's
+(every rel-pos table included, whose gradient comes through drel alone;
+the mask decoder's attention key biases, whose exact gradient is zero, left
+out), and the loss's relative distance likewise.
 """
 
 import json
@@ -93,6 +115,9 @@ SAM_H_DEPTH, SAM_H_GLOBAL = 4, (3,)   # of 32 blocks, global (7, 15, 23, 31)
 SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
 SAM_FLOOR_RATIO = 1.25
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
+SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
+SAM_GRAD_BATCH = 2          # images of the SAM gradient checks
+SAM_GRAD_SEED = 3
 MICRO_BATCHES = 4           # the train config's accumulation_steps
 TRAIN_IMAGES, EVAL_IMAGES = 768, 256
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
@@ -179,6 +204,52 @@ class config:
     use_amp = True
     use_ema_model = False
     ema_model_decay = 0.9999
+"""
+
+# The port's SAM-B train config (experiments/interactive_segmentation/
+# sam_b_training/train_config.py) with the seeded synthetic dataset in place
+# of SA-1B, batch 8 without worker processes, and the epochs cut.
+SAM_B_TRAIN_CONFIG = """
+from simpleaicv_pytorch_training_examples_tpu_torch.classification.common import (
+    load_state_dict)
+from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation import losses
+from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.datasets.sam_segmentation_dataset import (
+    SAMCollater)
+from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.datasets.syntheticdataset import (
+    SyntheticSAMDataset)
+from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models import (
+    sam_b)
+
+
+class config:
+    network = "sam_b"
+    input_image_size = 1024
+    model = sam_b(image_size=input_image_size, use_gradient_checkpoint=True,
+                  use_flash_attention=True)
+    load_state_dict("", model)
+    train_criterion = losses.SAMLoss(
+        alpha=0.25, gamma=2, focal_loss_weight=20, dice_loss_weight=1,
+        iou_predict_loss_weight=1, supervise_all_iou=True,
+        mask_threshold=0.0)
+    train_dataset = SyntheticSAMDataset(n={n_train}, image_size=(768, 1024),
+                                        seed=4)
+    test_dataset = None
+    train_collater = SAMCollater(resize=input_image_size, n_points=9,
+                                 prompt_probs=(0.5, 0.25, 0.25))
+    decoder_iters = 4
+    seed = 0
+    batch_size = {batch}
+    num_workers = 0
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{
+        "lr": 1e-4, "global_weight_decay": False, "weight_decay": 1e-4,
+        "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 0, "min_lr": 1e-6}})
+    epochs = {epochs}
+    print_interval = 1
+    save_interval = 1
+    use_amp = True
+    use_ema_model = False
 """
 
 
@@ -557,6 +628,133 @@ def check_rel_kernel(torch, F, name, case, results):
     results.setdefault(name, []).append(record)
 
 
+def rel_attention_backward_bound(b, h, n, n_keys, d, kh, kw, dtype_name,
+                                 element_size, flash=False):
+    """Least time (ms) of one rel-pos attention backward on this card: q,
+    dout, dq, dk, dv in full and k, v for the keys that count (K5 also reads
+    the output and the fp32 log-sum-exp), the fp32 rel_h and rel_w read and
+    their gradients written once, against the five products,
+    10*b*h*n*n_keys*d operations."""
+    rows = 5 * n + 2 * n_keys + (n if flash else 0)
+    nbytes = (element_size * b * h * d * rows
+              + 4 * b * h * n * (2 * (kh + kw) + (1 if flash else 0)))
+    flops = 10.0 * b * h * n * n_keys * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_rel_backward_kernel(torch, F, name, case, results):
+    """Hold the backward of K3, K4 or K5 against its plain version at one
+    shape with a seeded dout: dq, dk, dv (K3: the packed dqkv) within the
+    attention tolerance, drel_h and drel_w within the same fraction of
+    their largest plain value; time the backward kernels alone (the graph
+    is kept), the plain backward and SDPA's backward with the bias expanded
+    to [B, H, N, N] and requiring grad (a yardstick, never used by the
+    port; the bias gradient is not reduced to drel); append the record to
+    results[name + " bwd"]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl, fused_attention as fa)
+    dtype = case["dtype"]
+    b, h, kh, kw, d = case["shape"]
+    n = kh * kw
+    n_real = case.get("n_real")
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"] + 100)
+    randn = lambda *shape: torch.randn(*shape, device="cuda", generator=gen)
+    if name == "K3" or case.get("packed"):
+        qkv = randn(b, n, 3 * h * d).to(dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (randn(b, h, n, d).to(dtype) for _ in range(3))
+    if name == "K3":
+        rel_h, rel_w = randn(b, n, h, kh), randn(b, n, h, kw)
+        dout = randn(b, n, h * d).to(dtype)
+        leaves = [t.detach().requires_grad_() for t in (qkv, rel_h, rel_w)]
+        out = fa.fused_attention_relwin_dense(*leaves, h)
+        plain = lambda: fa.fused_attention_relwin_dense_backward_reference(
+            qkv, rel_h, rel_w, dout, h)
+        heads = lambda t: t.transpose(1, 2)
+        dout_heads = dout.view(b, n, h, d).transpose(1, 2)
+        wrapper = fa.fused_attention_relwin_dense
+    else:
+        rel_h, rel_w = randn(b, h, n, kh), randn(b, h, n, kw)
+        dout = dout_heads = randn(b, n, h, d).to(dtype).transpose(1, 2)
+        leaves = [t.detach().requires_grad_()
+                  for t in (q, k, v, rel_h, rel_w)]
+        heads = lambda t: t
+        if name == "K4":
+            out = fa.fused_attention_relwin(*leaves, n_real)
+            plain = lambda: fa.fused_attention_relwin_backward_reference(
+                q, k, v, rel_h, rel_w, dout, n_real)
+            wrapper = fa.fused_attention_relwin
+        else:
+            out = fl.flash_attention_relpos(*leaves)
+            plain = lambda: fl.flash_attention_relpos_backward_reference(
+                q, k, v, rel_h, rel_w, dout)
+            wrapper = fl.flash_attention_relpos
+    kernel_bwd = lambda: torch.autograd.grad(out, leaves, dout,
+                                             retain_graph=True)
+    before = wrapper.backward_launches
+    got = kernel_bwd()
+    torch.cuda.synchronize()
+    launched = wrapper.backward_launches - before
+    want = plain()
+    if name == "K3":   # the packed dqkv against the plain one
+        names, got_att, want_att = ("dqkv",), got[:1], want[:1]
+    else:
+        names, got_att, want_att = ("dq", "dk", "dv"), got[:3], want[:3]
+    err = lambda a, r: (a.float() - r.float()).abs().max().item()
+    errs = {nm: err(g, r) for nm, g, r in zip(names, got_att, want_att)}
+    drel_scale = max(r.abs().max().item() for r in want[-2:])
+    drel_errs = {nm: err(g, r) for nm, g, r in zip(
+        ("drel_h", "drel_w"), got[-2:], want[-2:])}
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    again = kernel_bwd()
+    reproducible = all(torch.equal(x, y) for x, y in zip(got, again))
+    del got, want, again
+    tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+    dtype_name = str(dtype).split(".")[-1]
+    big = n > 1024
+    record = {"case": case["label"], "shape": list(case["shape"]),
+              "dtype": dtype_name, "n_real": n_real,
+              "max_abs_err": max(errs.values()), "errs": errs, "tol": tol,
+              "drel_errs": drel_errs, "drel_scale": drel_scale,
+              "drel_tol": tol * drel_scale, "finite": finite,
+              "reproducible": reproducible,
+              "ms": time_ms(torch, kernel_bwd, iters=10 if big else 20),
+              "plain_ms": time_ms(torch, plain, iters=2 if big else 5,
+                                  warmup=1)}
+    lib_q, lib_k, lib_v = (t.detach().requires_grad_() for t in (q, k, v))
+    bias = (heads(rel_h)[..., :, None] + heads(rel_w)[..., None, :]).reshape(
+        b, h, n, n)
+    if n_real is not None:
+        bias[..., n_real:] = -1e9
+    bias = bias.to(dtype).requires_grad_()
+    lib_out = F.scaled_dot_product_attention(lib_q, lib_k, lib_v,
+                                             attn_mask=bias)
+    record["library_ms"] = time_ms(
+        torch, lambda: torch.autograd.grad(
+            lib_out, (lib_q, lib_k, lib_v, bias), dout_heads,
+            retain_graph=True), iters=3 if big else 20, warmup=1)
+    del lib_out, bias
+    record["bound_ms"], record["bound_by"] = rel_attention_backward_bound(
+        b, h, n, n if n_real is None else n_real, d, kh, kw, dtype_name,
+        q.element_size(), flash=name == "K5")
+    log(f"{name} bwd {case['label']}", **record)
+    if launched != 1:
+        raise AssertionError(f"{name} bwd {case['label']}: the autograd "
+                             f"backward launched its kernels {launched} "
+                             "times, expected 1")
+    if not (finite and reproducible and record["max_abs_err"] <= tol
+            and max(drel_errs.values()) <= tol * drel_scale):
+        raise AssertionError(f"{name} bwd {case['label']}: max |kernel - "
+                             f"plain| {errs}, drel {drel_errs} (scale "
+                             f"{drel_scale}), tol {tol}, finite {finite}, "
+                             f"reproducible {reproducible}")
+    results.setdefault(name + " bwd", []).append(record)
+
+
 def sam_encoder_flops(model):
     """Operations of one SAM encoder forward of one image, counted from the
     model's shapes: the patch embedding, each block's qkv, proj, lin1 and
@@ -581,6 +779,120 @@ def sam_encoder_flops(model):
         total += 4 * tokens * keys * c + 2 * tokens * c * 2 * k_side
     total += 2 * grid * grid * (c * out + 9 * out * out)
     return total
+
+
+def sam_decoder_flops(torch, model, images, prompts):
+    """Operations of one prompt-decoder pass of one image (the first of
+    ``images``), counted on a forward with hooks: the prompt encoder's and
+    the mask decoder's Linears and convolutions and the attention products
+    of its cross attentions (the upsampling of the masks, norms and softmax
+    are not counted)."""
+    from torch import nn
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.transformer import (
+        SAMCrossAttention)
+    total = [0]
+
+    def count(module, args, out):
+        if isinstance(module, nn.Linear):
+            total[0] += 2 * out.numel() * module.in_features
+        elif isinstance(module, nn.Conv2d):
+            k = module.kernel_size[0] * module.kernel_size[1]
+            total[0] += 2 * out.numel() * module.in_channels * k
+        elif isinstance(module, nn.ConvTranspose2d):
+            k = module.kernel_size[0] * module.kernel_size[1]
+            total[0] += 2 * args[0].numel() * module.out_channels * k
+        elif isinstance(module, SAMCrossAttention):
+            q, k = args[0], args[1]
+            total[0] += 4 * q.shape[1] * k.shape[1] * \
+                module.q_proj.out_features * q.shape[0]
+    hooks = [m.register_forward_hook(count) for part in (
+        model.prompt_encoder, model.mask_decoder) for m in part.modules()]
+    with torch.inference_mode():
+        embedding = model.forward_image_encoder(images[:1])
+        model.forward_prompt_encoder_mask_decoder(embedding, {
+            k: v[:1] for k, v in prompts.items()})
+    for hook in hooks:
+        hook.remove()
+    return total[0]
+
+
+def sam_loss_and_gradients(torch, model, batch, criterion, use_amp):
+    """Loss and fp32 parameter gradients of one SAM train micro-batch: the
+    train tool's loss with the first decoder pass only (the clicks of later
+    passes depend on each run's own predictions)."""
+    from types import SimpleNamespace
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_interactive_segmentation_model import (
+        build_loss_fn)
+    loss_fn = build_loss_fn(model, SimpleNamespace(
+        train_criterion=criterion, decoder_iters=0, use_amp=use_amp))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, batch, None)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def check_sam_gradients(torch, fa, ln, model, batch, criterion, label):
+    """Gradients of one bf16 micro-batch with the kernels and with plain
+    attention, each held against the same model in fp32 with plain
+    attention: per parameter, the kernels' relative L2 error may be at most
+    max(GRAD_REL_L2, 1.25 x the plain bf16 path's), and so may the relative
+    error of the loss. Returns the kernel run's launch counts."""
+    reset_counts(fa, ln)
+    loss_k, grads_k = sam_loss_and_gradients(torch, model, batch, criterion,
+                                             True)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    model.set_flash_attention(False)
+    loss_p, grads_p = sam_loss_and_gradients(torch, model, batch, criterion,
+                                             True)
+    loss_f, grads_f = sam_loss_and_gradients(torch, model, batch, criterion,
+                                             False)
+    model.set_flash_attention(True)
+
+    def rel(grads):
+        out = {}
+        for name, ref in grads_f.items():
+            diff, scale = (grads[name] - ref).norm().item(), ref.norm().item()
+            out[name] = diff / scale if scale > 0 else (0.0 if diff == 0
+                                                        else math.inf)
+        return out
+    rel_k, rel_p = rel(grads_k), rel(grads_p)
+    # the decoder attentions' key biases add one constant to a query row's
+    # scores, which softmax ignores: their exact gradient is 0 and both
+    # paths compute rounding noise there, with no scale to hold it to
+    noise_only = [n for n in rel_k if n.endswith("k_proj.bias")]
+    for name in noise_only:
+        del rel_k[name], rel_p[name]
+    floor = {n: max(GRAD_REL_L2, SAM_FLOOR_RATIO * rel_p[n]) for n in rel_k}
+    worst = max(rel_k, key=lambda n: rel_k[n] / floor[n])
+    rel_pos = [n for n in rel_k if "rel_pos" in n]
+    worst_rel_pos = max(rel_pos, key=lambda n: rel_k[n] / floor[n])
+    loss_err = lambda x: abs(x - loss_f) / max(abs(loss_f), 1e-30)
+    loss_floor = max(GRAD_REL_L2, SAM_FLOOR_RATIO * loss_err(loss_p))
+    log(f"{label} gradients vs plain attention", batch=len(batch["image"]),
+        loss_kernels=loss_k, loss_plain=loss_p, loss_fp32=loss_f,
+        loss_rel_err=loss_err(loss_k), loss_floor=loss_floor,
+        parameters=len(rel_k), left_out_zero_gradient=len(noise_only),
+        worst_parameter=worst,
+        worst_rel_l2=rel_k[worst], worst_floor=floor[worst],
+        worst_plain_rel_l2=rel_p[worst],
+        median_rel_l2=sorted(rel_k.values())[len(rel_k) // 2],
+        rel_pos_tables=len(rel_pos), worst_rel_pos=worst_rel_pos,
+        worst_rel_pos_rel_l2=rel_k[worst_rel_pos],
+        worst_rel_pos_plain=rel_p[worst_rel_pos], launches=counts)
+    if not (set(grads_k) == set(grads_f) and rel_pos and noise_only
+            and all(rel_k[n] <= floor[n] for n in rel_k)
+            and all(grads_f[n].norm() > 0 for n in rel_pos)
+            and loss_err(loss_k) <= loss_floor):
+        raise AssertionError(f"{label}: gradients with the kernels disagree "
+                             f"with plain attention: {worst} {rel_k[worst]} "
+                             f"> {floor[worst]} or loss {loss_k} vs "
+                             f"{loss_f} (plain {loss_p})")
+    return counts
 
 
 def sharpen_attention_(torch, model, seed):
@@ -778,12 +1090,10 @@ def reset_counts(fa, ln):
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         flash_attention as fl)
     for wrapper in (fa.fused_attention_dense, fa.fused_attention,
-                    ln.layer_norm):
+                    ln.layer_norm, fa.fused_attention_relwin_dense,
+                    fa.fused_attention_relwin, fl.flash_attention_relpos):
         wrapper.launches = 0
         wrapper.backward_launches = 0
-    for wrapper in (fa.fused_attention_relwin_dense, fa.fused_attention_relwin,
-                    fl.flash_attention_relpos):   # forward only
-        wrapper.launches = 0
 
 
 def read_counts(fa, ln):
@@ -796,8 +1106,11 @@ def read_counts(fa, ln):
             "K7": ln.layer_norm.launches,
             "K7 bwd": ln.layer_norm.backward_launches,
             "K3": fa.fused_attention_relwin_dense.launches,
+            "K3 bwd": fa.fused_attention_relwin_dense.backward_launches,
             "K4": fa.fused_attention_relwin.launches,
-            "K5": fl.flash_attention_relpos.launches}
+            "K4 bwd": fa.fused_attention_relwin.backward_launches,
+            "K5": fl.flash_attention_relpos.launches,
+            "K5 bwd": fl.flash_attention_relpos.backward_launches}
 
 
 def expect_counts(label, counts, **expected):
@@ -1007,6 +1320,9 @@ def main():
     for name, cases in rel_cases.items():
         for case in cases:
             check_rel_kernel(torch, F, name, case, results)
+    for name, cases in rel_cases.items():
+        for case in cases:
+            check_rel_backward_kernel(torch, F, name, case, results)
 
     # 4. eval slice: ViT-B/16 through the work-dir eval CLI
     work_dir = SMOKE_DIR / "vit_base_patch16"
@@ -1367,7 +1683,146 @@ def main():
                 first_of(run_h["prompts"], 2), "sam_h")
     del run_h
 
-    # 16. kernels line
+    # 16. the SAM training slice: SAM-B at full width and depth through the
+    #     work-dir train CLI with the port's config (checkpointing, 4 extra
+    #     decoder passes, bf16), two epochs, then the same command resumed
+    #     for a third
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        profile_interactive_segmentation_train as sam_train_profile,
+        train_interactive_segmentation_model as sam_train_cli)
+    sam_dir = SMOKE_DIR / "sam_b_train"
+    shutil.rmtree(sam_dir, ignore_errors=True)
+    sam_dir.mkdir(parents=True)
+    sam_iters = SAM_TRAIN_IMAGES // SAM_BATCH
+    sam_train_counts = {}
+    for epochs, first_epoch in ((2, 1), (3, 3)):
+        (sam_dir / "train_config.py").write_text(SAM_B_TRAIN_CONFIG.format(
+            n_train=SAM_TRAIN_IMAGES, batch=SAM_BATCH, epochs=epochs))
+        reset_counts(fa, ln)
+        t0 = time.perf_counter()
+        run = sam_train_cli.main(["--work-dir", str(sam_dir)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fa, ln)
+        steps = (epochs - first_epoch + 1) * sam_iters
+        log(f"sam_b train cli epochs {first_epoch}-{epochs}",
+            resumed_from=run["resumed_from"], batch=SAM_BATCH,
+            epochs=run["epochs"], seconds=round(seconds, 2), launches=counts,
+            launches_per_step={k: v / steps for k, v in counts.items() if v})
+        expect_counts(f"SAM-B train CLI to epoch {epochs}", counts,
+                      K3=16 * steps, K3_bwd=8 * steps, K5=8 * steps,
+                      K5_bwd=4 * steps)
+        ran = [e["epoch"] for e in run["epochs"]]
+        if (ran != list(range(first_epoch, epochs + 1))
+                or run["resumed_from"] != (first_epoch - 1 or None)
+                or any(e["skipped"] or not math.isfinite(e["loss_avg"])
+                       for e in run["epochs"])):
+            raise AssertionError(f"SAM-B train CLI to epoch {epochs}: {run}")
+        if not sam_train_counts:
+            sam_train_counts = counts
+        del run
+    sam_log = (sam_dir / "log" / "train.log").read_text()
+    sam_losses = [float(x) for x in re.findall(r" loss ([-\w.]+) avg ",
+                                               sam_log)]
+    epoch_avgs = [float(x) for x in re.findall(
+        r"epoch \d+: train loss avg ([-\w.]+)", sam_log)]
+    log("sam_b train cli losses", iteration_losses=sam_losses,
+        epoch_loss_avgs=epoch_avgs)
+    if (len(sam_losses) != 3 * sam_iters
+            or not all(map(math.isfinite, sam_losses))
+            or not epoch_avgs[-1] < epoch_avgs[0]
+            or "resumed from epoch 2" not in sam_log):
+        raise AssertionError(f"SAM-B train log: losses {sam_losses}, epoch "
+                             f"averages {epoch_avgs}")
+    if not ((sam_dir / "checkpoints" / "latest.pth").is_file()
+            and (sam_dir / "checkpoints" / "best.pth").is_file()):
+        raise AssertionError("the SAM train CLI left no latest.pth / best.pth")
+
+    # 17. SAM-B gradients with sharp attention: kernels against plain
+    #     attention, both held against the fp32 model (rel-pos tables
+    #     included: their gradient comes only through drel)
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models import (
+        sam_b, sam_h)
+    sam_config = load_config_from_work_dir(str(sam_dir), "train_config")
+    batch8 = {k: v.cuda() for k, v in sam_train_profile.synthetic_batch(
+        sam_config, SAM_BATCH).items()}
+    grad_batch = {k: v[:SAM_GRAD_BATCH] for k, v in batch8.items()}
+    model = init_model(sam_b(use_gradient_checkpoint=True,
+                             use_flash_attention=True), 0)
+    sharpen_attention_(torch, model, SAM_GRAD_SEED)
+    grad_counts = check_sam_gradients(torch, fa, ln, model, grad_batch,
+                                      sam_config.train_criterion,
+                                      "sam_b sharp attention")
+    expect_counts("SAM-B gradients", grad_counts, K3=16, K3_bwd=8, K5=8,
+                  K5_bwd=4)
+    dec_flops = sam_decoder_flops(
+        torch, model, batch8["image"],
+        {k: batch8[k] for k in ("prompt_point", "prompt_box",
+                                "prompt_box_valid", "prompt_mask",
+                                "prompt_mask_valid")})
+    enc_flops = sam_encoder_flops(model)
+    del model
+
+    # 18. timed SAM-B train steps at batch 8, with the config's
+    #     checkpointing and without; plain attention if it fits
+    passes = 1 + sam_config.decoder_iters
+    step_flops = SAM_BATCH * 3 * (enc_flops + passes * dec_flops)
+    for remat in (True, False):
+        model, train_step, _ = sam_train_profile.build_train_step(
+            use_gradient_checkpoint=remat)
+        reset_counts(fa, ln)
+        first = train_step(batch8, 0)
+        torch.cuda.synchronize()
+        counts = read_counts(fa, ln)
+        expect_counts(f"SAM-B train step, checkpointing {remat}", counts,
+                      K3=16 if remat else 8, K3_bwd=8, K5=8 if remat else 4,
+                      K5_bwd=4)
+        if first["skipped"].item() or not math.isfinite(first["loss"].item()):
+            raise AssertionError(f"SAM-B train step skipped: {first}")
+        step = iter(range(1, 10 ** 6))
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: train_step(batch8, next(step)), iters=5,
+                     warmup=1, device_only=False)
+        fields = dict(batch=SAM_BATCH, gradient_checkpoint=remat,
+                      decoder_passes=passes, launches_per_step=counts, ms=ms,
+                      images_per_s=SAM_BATCH / ms * 1e3,
+                      tflops=step_flops / ms / 1e9,
+                      share_of_bf16_peak=step_flops / ms / 1e9 / 989.0,
+                      counted="3x the forward: the encoder's products and "
+                              f"{passes} decoder passes, no recompute",
+                      gflop_per_image=step_flops / SAM_BATCH / 1e9,
+                      decoder_gflop_per_pass=dec_flops / 1e9,
+                      peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if remat:
+            model.set_flash_attention(False)
+            try:
+                fields["plain_attention_ms"] = time_ms(
+                    torch, lambda: train_step(batch8, next(step)), iters=2,
+                    warmup=1, device_only=False)
+            except torch.cuda.OutOfMemoryError:
+                fields["plain_attention_ms"] = "does not fit in memory"
+            model.set_flash_attention(True)
+        log(f"sam_b train step {SAM_BATCH}", **fields)
+        del model, train_step, first
+        torch.cuda.empty_cache()
+
+    # 19. SAM-H training at full width, reduced depth: the windowed blocks'
+    #     K4 and the global block's K5 at head dim 80, forward and backward,
+    #     gradients against plain attention
+    model = init_model(sam_h(image_encoder_block_nums=SAM_H_DEPTH,
+                             image_encoder_global_attn_indexes=SAM_H_GLOBAL,
+                             use_gradient_checkpoint=True,
+                             use_flash_attention=True), 0)
+    sharpen_attention_(torch, model, SAM_GRAD_SEED)
+    sam_h_train_counts = check_sam_gradients(
+        torch, fa, ln, model, grad_batch, sam_config.train_criterion,
+        f"sam_h sharp attention, depth {SAM_H_DEPTH} of 32")
+    n_global = len(SAM_H_GLOBAL)
+    n_window = SAM_H_DEPTH - n_global
+    expect_counts("SAM-H gradients", sam_h_train_counts, K4=2 * n_window,
+                  K4_bwd=n_window, K5=2 * n_global, K5_bwd=n_global)
+    del model, batch8, grad_batch
+
+    # 20. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
@@ -1400,6 +1855,14 @@ def main():
               "fused_attention.py:901", sam_h_counts["K4"]),
         entry("K5", "K5 flash_attention_relpos fwd", "flash_attention.cu",
               "flash_attention.py:505", sam_counts["K5"]),
+        entry("K3 bwd", "K3 fused_attention_relwin_dense bwd",
+              "fused_attention.cu", "fused_attention.py:1163",
+              sam_train_counts["K3 bwd"]),
+        entry("K4 bwd", "K4 fused_attention_relwin bwd", "fused_attention.cu",
+              "fused_attention.py:924", sam_h_train_counts["K4 bwd"]),
+        entry("K5 bwd", "K5 flash_attention_relpos bwd",
+              "flash_attention.cu", "flash_attention.py:541",
+              sam_train_counts["K5 bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

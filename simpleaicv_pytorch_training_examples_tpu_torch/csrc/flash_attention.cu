@@ -1,9 +1,10 @@
-// Streaming (flash) attention forward with SAM's decomposed relative-position
-// bias, for Hopper (sm_90a): kernel K5.
+// Streaming (flash) attention with SAM's decomposed relative-position bias,
+// forward and backward, for Hopper (sm_90a): kernel K5.
 //
-// Replaces the TPU (Pallas) kernel of the JAX package's
+// Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/flash_attention.py: _fwd_rel_kernel (via _flash_rel_forward,
-// entry flash_attention_relpos). q, k, v [B, H, N, D] (any strides with the
+// entry flash_attention_relpos) and _bwd_rel_fused_kernel (via
+// _flash_rel_backward; its notes are further down). q, k, v [B, H, N, D] (any strides with the
 // head dim contiguous, shared by the three), rel_h [B, H, N, KH] and rel_w
 // [B, H, N, KW] fp32 with N = KH * KW -> out (its own strides) and the
 // fp32 log-sum-exp of every query row, [B * H, N]. The score of query i and
@@ -224,6 +225,415 @@ flash_relpos_fwd_bf16(FlashArgs a) {
   }
 }
 
+// ------------------------------------------------------- bf16 backward
+//
+// Two kernels, no atomics, every output element written by one thread in a
+// fixed order (reproducible bit for bit). Both recompute P = exp(s - lse)
+// from the forward's log-sum-exp; delta = rowsum(dO * O) comes from the
+// wrapper (one torch op, as the JAX package computes it outside its kernel).
+//   flash_relpos_bwd_dkv_bf16: a block of 4 warps owns 64 keys (16 a warp,
+//     their K and V fragments in registers) and walks the query tiles:
+//     S^T = K.Q^T, dP^T = V.dO^T, P^T, dS0^T = P^T * (dP^T - delta), then
+//     dV += bf16(P^T).dO and dK += bf16(dS0^T).Q (times the scale at the end).
+//   flash_relpos_bwd_dq_bf16: a block of 4 warps owns 64 query rows and walks
+//     the key tiles: S, dP, P, dS0 as above, dQ += bf16(dS0).K, and drel_h,
+//     drel_w, the sums of the fp32 dS0 by the key's grid row and column.
+//     With KW = 64 a key tile is one row jh of the key grid: drel_h[i, jh] is
+//     the tile's row sum (one store a tile) and a lane's 16 columns of
+//     drel_w accumulate in registers over the whole walk, in the forward's
+//     layout. Other KW: the warp writes its dS0 tile to shared memory and
+//     lane r (r + 16) adds row r's terms into drel_h (drel_w) in device
+//     memory, which it alone touches.
+// The rel terms of the dK/dV kernel are indexed by query (the columns): with
+// KW = 64 the query tile's rel_w rows and its rel_h column jh are staged in
+// shared memory with the Q and dO tiles, by cp.async as they are (plain
+// loads stored to shared memory ran one after another, each waiting for
+// device memory: 22 ms a launch instead of ~5); other KW read them through
+// L1.
+// dS0 is rounded to bf16 before the products and the scale applied after,
+// as the TPU kernel does. Head dims above 128 run in 128-column output
+// chunks that each recompute the scores over the whole head dim.
+//
+// Bound on one H100 SXM: at SAM-B's global blocks (B=8, H=12, N=4096, D=64)
+// the five N x N x D products are 10*B*H*N^2*D = 1.03 TFLOP = 1.04 ms of
+// tensor-core time, against 8*B*H*N*D*2 B + the fp32 rel terms and
+// statistics = 0.31 GB = 0.09 ms: bound by operations. The two kernels
+// compute seven products (S and dP in each).
+
+struct FlashBwdArgs {
+  const void *q, *k, *v, *dout;
+  void *dq, *dk, *dv;
+  const float *lse, *delta;  // [B * H, N] each; lse in natural log
+  long long in_sb, in_sh, in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn;
+  RelPos rel;
+  RelGrad drel;
+  int B, H, N, D;
+  float scale;
+  int vec, do_vec, out_vec;
+  int rel_vec;  // rel_w rows 16-byte aligned
+  int tiles;    // 64-row tiles a head
+};
+
+constexpr int kDsLD = kTile + 1;  // row stride of a warp's fp32 dS0 tile
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
+  constexpr int LDQ = DQ + 8;
+  constexpr int QT = DQ <= 64 ? 64 : 32;  // queries a step (registers)
+  constexpr int kFrags = QT / 8;
+  constexpr int LDW = kTile + 4;  // staged rel_w rows: conflict-free reads
+  const int N = a.N;
+  const float sc = a.scale * kLog2e;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ko = reinterpret_cast<bf16*>(smem);  // own keys [kRows][LDQ]
+  bf16* Vo = Ko + kRows * LDQ;               // own values [kRows][LDQ]
+  bf16* Qs = Vo + kRows * LDQ;               // [2][QT][LDQ]
+  bf16* dOs = Qs + 2 * QT * LDQ;             // [2][QT][LDQ]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * QT * LDQ);  // [2][QT]
+  float* delta_s = lse_s + 2 * QT;                               // [2][QT]
+  float* relh_s = delta_s + 2 * QT;                              // [2][QT]
+  float* relw_s = relh_s + 2 * QT;                               // [2][QT][LDW]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int chunk = blockIdx.x / a.tiles;
+  const int k0 = (blockIdx.x % a.tiles) * kRows;
+  const int dv0 = chunk * kChunk;
+  const int dv = min(DV, a.D - dv0);
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
+  const bf16* doh =
+      static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
+  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+  const int KW = a.rel.KW;
+  const bool grid_row = KW == kTile;  // the block's 64 keys: one key-grid row
+  const int key_jh = k0 / max(KW, 1);
+  const float* relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
+  const float* relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
+
+  const int row0 = k0 + 16 * warp;  // this warp's first key row
+  const bool active = row0 < N;
+  int jh[2], jw[2];  // key-grid row and column of the lane's two keys
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    col_split(min(row0 + g + 8 * r, N - 1), a.rel.inv_kw, KW, jh[r], jw[r]);
+
+  const int qtiles = (N + QT - 1) / QT;
+  auto issue = [&](int tile) {
+    const int buf = tile & 1;
+    const int q0 = tile * QT;
+    const long long off = static_cast<long long>(q0);
+    load_tile_bf16<DQ, LDQ>(Qs + buf * QT * LDQ, qh + off * a.in_sn, a.in_sn, QT, N - q0, a.D,
+                            a.vec);
+    load_tile_bf16<DQ, LDQ>(dOs + buf * QT * LDQ, doh + off * a.do_sn, a.do_sn, QT, N - q0,
+                            a.D, a.do_vec);
+    // the tile's statistics and rel terms, asynchronously as the tiles
+    for (int i = threadIdx.x; i < QT; i += blockDim.x) {
+      const bool valid = q0 + i < N;
+      const long long row = valid ? q0 + i : 0;
+      cp_async4(lse_s + buf * QT + i, a.lse + stat_off + row, valid);
+      cp_async4(delta_s + buf * QT + i, a.delta + stat_off + row, valid);
+      if (grid_row) cp_async4(relh_s + buf * QT + i, relh + row * a.rel.h_sn + key_jh, valid);
+    }
+    if (grid_row) {
+      const int per_row = a.rel_vec ? kTile / 4 : kTile;
+      for (int i = threadIdx.x; i < QT * per_row; i += blockDim.x) {
+        const int r = i / per_row;
+        const bool valid = q0 + r < N;
+        const float* src = relw + (valid ? q0 + r : 0) * a.rel.w_sn;
+        float* dst = relw_s + (buf * QT + r) * LDW;
+        if (a.rel_vec)
+          cp_async16(dst + 4 * (i % per_row), src + 4 * (i % per_row), valid);
+        else
+          cp_async4(dst + i % per_row, src + i % per_row, valid);
+      }
+    }
+  };
+
+  const long long own = static_cast<long long>(k0) * a.in_sn;
+  load_tile_bf16<DQ, LDQ>(Ko, static_cast<const bf16*>(a.k) + in_off + own, a.in_sn, kRows,
+                          N - k0, a.D, a.vec);
+  load_tile_bf16<DQ, LDQ>(Vo, static_cast<const bf16*>(a.v) + in_off + own, a.in_sn, kRows,
+                          N - k0, a.D, a.vec);
+  issue(0);
+  cp_async_commit();
+
+  uint32_t kf[DQ / 16][4], vf[DQ / 16][4];
+  float dk[DV / 8][4], dvacc[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dvacc[j][0] = dvacc[j][1] = dvacc[j][2] = dvacc[j][3] = 0.f;
+  }
+
+  for (int tile = 0; tile < qtiles; ++tile) {
+    if (tile + 1 < qtiles) issue(tile + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (tile == 0 && active) {
+      load_a_frags<DQ, LDQ>(kf, Ko + 16 * warp * LDQ, g, t);
+      load_a_frags<DQ, LDQ>(vf, Vo + 16 * warp * LDQ, g, t);
+    }
+    if (active) {
+      const int buf = tile & 1;
+      const int qt = tile * QT;
+      const bf16* Qb = Qs + buf * QT * LDQ;
+      const bf16* dOb = dOs + buf * QT * LDQ;
+      float st[kFrags][4], dpt[kFrags][4];  // S^T, dP^T: rows keys, columns queries
+      own_times_other_t<DQ, LDQ, kFrags>(st, kf, Qb, qt, N, lane);
+      own_times_other_t<DQ, LDQ, kFrags>(dpt, vf, dOb, qt, N, lane);
+#pragma unroll
+      for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * j + 2 * t + (e & 1);
+          const int qi = qt + ql;
+          const int r = e >> 1;
+          float bias;  // rel_h + rel_w of (query qi, this key)
+          if (grid_row) {
+            bias = relh_s[buf * QT + ql] + relw_s[(buf * QT + ql) * LDW + jw[r]];
+          } else {
+            const int qc = min(qi, N - 1);
+            bias = __ldg(relh + qc * a.rel.h_sn + jh[r]) + __ldg(relw + qc * a.rel.w_sn + jw[r]);
+          }
+          const float p =
+              qi < N ? exp2_approx(fmaf(st[j][e], sc, (bias - lse_s[buf * QT + ql]) * kLog2e))
+                     : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - delta_s[buf * QT + ql]);
+        }
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        if (qt + 16 * kk >= N) break;
+        const float* p0 = st[2 * kk];
+        const float* p1 = st[2 * kk + 1];
+        const uint32_t pf[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+                                pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+        accumulate_ax<DV, LDQ>(dvacc, pf, dOb + 16 * kk * LDQ + dv0, lane);
+        const float* d0 = dpt[2 * kk];
+        const float* d1 = dpt[2 * kk + 1];
+        const uint32_t df[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]),
+                                pack_bf16(d1[0], d1[1]), pack_bf16(d1[2], d1[3])};
+        accumulate_ax<DV, LDQ>(dk, df, Qb + 16 * kk * LDQ + dv0, lane);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile + 2
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] *= a.scale;
+  const long long out_off = blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
+  store_rows_bf16<DV>(static_cast<bf16*>(a.dk) + out_off, a.out_sn, dk, row0, N, dv, g, t,
+                      a.out_vec);
+  store_rows_bf16<DV>(static_cast<bf16*>(a.dv) + out_off, a.out_sn, dvacc, row0, N, dv, g, t,
+                      a.out_vec);
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
+  constexpr int LDQ = DQ + 8;
+  constexpr int kFrags = kTile / 8;
+  const int N = a.N;
+  const float sc = a.scale * kLog2e;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kRows][LDQ]
+  bf16* dOs = Qs + kRows * LDQ;              // [kRows][LDQ]
+  bf16* Ks = dOs + kRows * LDQ;              // [2][kTile][LDQ]
+  bf16* Vs = Ks + 2 * kTile * LDQ;           // [2][kTile][LDQ]
+  float* ds_s = reinterpret_cast<float*>(Vs + 2 * kTile * LDQ);  // [kWarps][16][kDsLD]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int chunk = blockIdx.x / a.tiles;
+  const int q0 = (blockIdx.x % a.tiles) * kRows;
+  const int dv0 = chunk * kChunk;
+  const int dv = min(DV, a.D - dv0);
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
+  const bf16* vh = static_cast<const bf16*>(a.v) + in_off;
+  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+
+  const int tiles = (N + kTile - 1) / kTile;
+  auto issue = [&](int tile) {
+    const int buf = tile & 1;
+    const long long off = static_cast<long long>(tile) * kTile * a.in_sn;
+    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + off, a.in_sn, kTile, N - tile * kTile,
+                            a.D, a.vec);
+    load_tile_bf16<DQ, LDQ>(Vs + buf * kTile * LDQ, vh + off, a.in_sn, kTile, N - tile * kTile,
+                            a.D, a.vec);
+  };
+  load_tile_bf16<DQ, LDQ>(Qs, static_cast<const bf16*>(a.q) + in_off + q0 * a.in_sn, a.in_sn,
+                          kRows, N - q0, a.D, a.vec);
+  load_tile_bf16<DQ, LDQ>(dOs,
+                          static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb +
+                              blockIdx.y * a.do_sh + q0 * a.do_sn,
+                          a.do_sn, kRows, N - q0, a.D, a.do_vec);
+  issue(0);
+  cp_async_commit();
+
+  const int row0 = q0 + 16 * warp;
+  const bool active = row0 < N;
+  const bool drel = chunk == 0;  // one chunk writes drel
+  const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
+  const int KW = a.rel.KW;
+  const bool grid_row = KW == kTile;  // each key tile: one key-grid row
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = min(row0 + g + 8 * r, N - 1);
+    lse2[r] = a.lse[stat_off + row] * kLog2e;
+    delta[r] = a.delta[stat_off + row];
+  }
+  float rwc[2][kFrags][2], rw_acc[2][kFrags][2];  // KW = 64: rel_w * log2(e), drel_w
+  if (grid_row) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          rwc[r][j][h2] = __ldg(rr.w[r] + 8 * j + 2 * t + h2) * kLog2e;
+          rw_acc[r][j][h2] = 0.f;
+        }
+  }
+  float* ds_w = ds_s + warp * 16 * kDsLD;
+
+  uint32_t qf[DQ / 16][4], dof[DQ / 16][4];
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) issue(tile + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    if (tile == 0 && active) {
+      load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
+      load_a_frags<DQ, LDQ>(dof, dOs + 16 * warp * LDQ, g, t);
+    }
+    if (active) {
+      const int key0 = tile * kTile;
+      const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
+      const bf16* Vb = Vs + (tile & 1) * kTile * LDQ;
+      float s[kFrags][4], dp[kFrags][4];
+      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, N, lane);
+      own_times_other_t<DQ, LDQ, kFrags>(dp, dof, Vb, key0, N, lane);
+      const int tile_jh = key0 / KW;
+      if (grid_row) {  // N is a multiple of 64 here: no key past N
+        const float bh[2] = {__ldg(rr.h[0] + tile_jh) * kLog2e,
+                             __ldg(rr.h[1] + tile_jh) * kLog2e};
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = fmaf(s[j][e], sc, bh[e >> 1] + rwc[e >> 1][j][e & 1]);
+      } else {
+        rel_logits(s, rr, key0, t, N, N, sc, -INFINITY, KW, a.rel.inv_kw);
+      }
+      // dS0 = P * (dP - delta), P = 2^(logit - lse * log2(e))
+#pragma unroll
+      for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2_approx(s[j][e] - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
+      if (drel && grid_row) {
+        float hsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hsum[e >> 1] += s[j][e];
+            rw_acc[e >> 1][j][e & 1] += s[j][e];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 1);
+          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 2);
+          const int row = row0 + g + 8 * r;
+          if (t == 0 && row < N)
+            a.drel.h_row(blockIdx.z, blockIdx.y, row)[tile_jh] = hsum[r];
+        }
+      } else if (drel) {
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = s[j][e];
+        __syncwarp();
+        const int r = lane & 15;
+        const int row = row0 + r;
+        if (row < N) {
+          float* h_row = a.drel.h_row(blockIdx.z, blockIdx.y, row);
+          float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
+          const int cols = min(kTile, N - key0);
+          int run_jh = -1;
+          float run = 0.f;
+          for (int jj = 0; jj < cols; ++jj) {
+            int jh, jw;
+            col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
+            const float x = ds_w[r * kDsLD + jj];
+            if (lane >= 16) {
+              w_row[jw] += x;
+            } else {
+              if (jh != run_jh) {
+                if (run_jh >= 0) h_row[run_jh] += run;
+                run_jh = jh;
+                run = 0.f;
+              }
+              run += x;
+            }
+          }
+          if (lane < 16 && run_jh >= 0) h_row[run_jh] += run;
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        if (key0 + 16 * kk >= N) break;
+        const float* s0 = s[2 * kk];
+        const float* s1 = s[2 * kk + 1];
+        const uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                                pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+        accumulate_ax<DV, LDQ>(acc, af, Kb + 16 * kk * LDQ + dv0, lane);
+      }
+    }
+    __syncthreads();  // this tile's buffers are free for tile + 2
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= a.scale;
+  bf16* dqh = static_cast<bf16*>(a.dq) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
+  store_rows_bf16<DV>(dqh, a.out_sn, acc, row0, N, dv, g, t, a.out_vec);
+  if (drel && grid_row) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= N) continue;
+      float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
+#pragma unroll
+      for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) w_row[8 * j + 2 * t + h2] = rw_acc[r][j][h2];
+    }
+  }
+}
+
 // ------------------------------------------------------------- fp32 path
 
 constexpr int kRowsF = 16;  // query rows a block
@@ -327,6 +737,214 @@ flash_relpos_fwd_f32(FlashArgs a) {
   }
 }
 
+// fp32 backward (not on the main path), in the forward's fp32 layout: a
+// block of 4 warps owns 16 rows (4 a warp), a lane takes one query or key of
+// a 32-wide tile and owns D / 32 output columns. drel goes through a warp's
+// tile of dS0 in shared memory: lane r (r + 4) adds row r's terms into
+// drel_h (drel_w) in device memory, in key order.
+
+// DC = output columns a lane (D <= 32 * DC)
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
+  constexpr int LD = 32 * DC + 1;
+  constexpr int kPerWarp = kRowsF / kWarps;
+  const int N = a.N, D = a.D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ko = reinterpret_cast<float*>(smem);  // own keys [kRowsF][LD]
+  float* Vo = Ko + kRowsF * LD;                // own values [kRowsF][LD]
+  float* Qs = Vo + kRowsF * LD;                // [kTileF][LD]
+  float* dOs = Qs + kTileF * LD;               // [kTileF][LD]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int k0 = blockIdx.x * kRowsF;
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const float* qh = static_cast<const float*>(a.q) + in_off;
+  const float* doh =
+      static_cast<const float*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
+  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+  const float* relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
+  const float* relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
+
+  load_rows_f32(Ko, static_cast<const float*>(a.k) + in_off + k0 * a.in_sn, a.in_sn, kRowsF,
+                N - k0, D, LD);
+  load_rows_f32(Vo, static_cast<const float*>(a.v) + in_off + k0 * a.in_sn, a.in_sn, kRowsF,
+                N - k0, D, LD);
+  int jh[kPerWarp], jw[kPerWarp];
+  float dk[kPerWarp][DC], dv[kPerWarp][DC];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    col_split(min(k0 + warp * kPerWarp + i, N - 1), a.rel.inv_kw, a.rel.KW, jh[i], jw[i]);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
+  }
+
+  for (int q0 = 0; q0 < N; q0 += kTileF) {
+    __syncthreads();
+    load_rows_f32(Qs, qh + q0 * a.in_sn, a.in_sn, kTileF, N - q0, D, LD);
+    load_rows_f32(dOs, doh + q0 * a.do_sn, a.do_sn, kTileF, N - q0, D, LD);
+    __syncthreads();
+    const int qi = q0 + lane;
+    const bool valid = qi < N;
+    const int qc = min(qi, N - 1);
+    const float lse = a.lse[stat_off + qc];
+    const float delta = a.delta[stat_off + qc];
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const float* kr = Ko + (warp * kPerWarp + i) * LD;
+      const float* vr = Vo + (warp * kPerWarp + i) * LD;
+      const float* qr = Qs + lane * LD;
+      const float* dor = dOs + lane * LD;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(qr[d], kr[d], s);
+        dp = fmaf(dor[d], vr[d], dp);
+      }
+      const float bias = relh[qc * a.rel.h_sn + jh[i]] + relw[qc * a.rel.w_sn + jw[i]];
+      const float p = valid ? expf(s * a.scale + bias - lse) : 0.f;
+      const float ds0 = p * (dp - delta);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        float xv = dv[i][c], xk = dk[i][c];
+        for (int j = 0; j < kTileF; ++j) {
+          xv = fmaf(__shfl_sync(0xffffffffu, p, j), dOs[j * LD + lane + 32 * c], xv);
+          xk = fmaf(__shfl_sync(0xffffffffu, ds0, j), Qs[j * LD + lane + 32 * c], xk);
+        }
+        dv[i][c] = xv;
+        dk[i][c] = xk;
+      }
+    }
+  }
+
+  const long long out_off = blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int row = k0 + warp * kPerWarp + i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = lane + 32 * c;
+      if (col >= D) continue;
+      static_cast<float*>(a.dk)[out_off + row * a.out_sn + col] = dk[i][c] * a.scale;
+      static_cast<float*>(a.dv)[out_off + row * a.out_sn + col] = dv[i][c];
+    }
+  }
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps)
+flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
+  constexpr int LD = 32 * DC + 1;
+  constexpr int kPerWarp = kRowsF / kWarps;
+  const int N = a.N, D = a.D;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);  // [kRowsF][LD]
+  float* dOs = Qs + kRowsF * LD;               // [kRowsF][LD]
+  float* Ks = dOs + kRowsF * LD;               // [kTileF][LD]
+  float* Vs = Ks + kTileF * LD;                // [kTileF][LD]
+  float* ds_s = Vs + kTileF * LD;              // [kWarps][kPerWarp][kTileF]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = blockIdx.x * kRowsF;
+  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
+  const float* kh = static_cast<const float*>(a.k) + in_off;
+  const float* vh = static_cast<const float*>(a.v) + in_off;
+  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+
+  load_rows_f32(Qs, static_cast<const float*>(a.q) + in_off + q0 * a.in_sn, a.in_sn, kRowsF,
+                N - q0, D, LD);
+  load_rows_f32(dOs,
+                static_cast<const float*>(a.dout) + blockIdx.z * a.do_sb +
+                    blockIdx.y * a.do_sh + q0 * a.do_sn,
+                a.do_sn, kRowsF, N - q0, D, LD);
+  float acc[kPerWarp][DC], lse[kPerWarp], delta[kPerWarp];
+  RelRows rr[kPerWarp];
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int row = min(q0 + warp * kPerWarp + i, N - 1);
+    lse[i] = a.lse[stat_off + row];
+    delta[i] = a.delta[stat_off + row];
+    rr[i] = a.rel.rows(blockIdx.z, blockIdx.y, row, N);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+  float* ds_w = ds_s + warp * kPerWarp * kTileF;
+
+  for (int key0 = 0; key0 < N; key0 += kTileF) {
+    __syncthreads();
+    load_rows_f32(Ks, kh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    load_rows_f32(Vs, vh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    __syncthreads();
+    const int col = key0 + lane;
+    int jh = 0, jw = 0;
+    if (col < N) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+#pragma unroll
+    for (int i = 0; i < kPerWarp; ++i) {
+      const float* qr = Qs + (warp * kPerWarp + i) * LD;
+      const float* dor = dOs + (warp * kPerWarp + i) * LD;
+      const float* kr = Ks + lane * LD;
+      const float* vr = Vs + lane * LD;
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < D; ++d) {
+        s = fmaf(qr[d], kr[d], s);
+        dp = fmaf(dor[d], vr[d], dp);
+      }
+      const float p = col < N ? expf(s * a.scale + rr[i].h[0][jh] + rr[i].w[0][jw] - lse[i])
+                              : 0.f;
+      const float ds0 = p * (dp - delta[i]);
+      ds_w[i * kTileF + lane] = ds0;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        float x = acc[i][c];
+        for (int j = 0; j < kTileF; ++j)
+          x = fmaf(__shfl_sync(0xffffffffu, ds0, j), Ks[j * LD + lane + 32 * c], x);
+        acc[i][c] = x;
+      }
+    }
+    __syncwarp();
+    if (lane < 2 * kPerWarp) {  // lane i: row i's drel_h; lane kPerWarp + i: drel_w
+      const int i = lane % kPerWarp;
+      const int row = q0 + warp * kPerWarp + i;
+      if (row < N) {
+        float* h_row = a.drel.h_row(blockIdx.z, blockIdx.y, row);
+        float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
+        const int cols = min(kTileF, N - key0);
+        int run_jh = -1;
+        float run = 0.f;
+        for (int jj = 0; jj < cols; ++jj) {
+          int kh_, kw_;
+          col_split(key0 + jj, a.rel.inv_kw, a.rel.KW, kh_, kw_);
+          const float x = ds_w[i * kTileF + jj];
+          if (lane >= kPerWarp) {
+            w_row[kw_] += x;
+          } else {
+            if (kh_ != run_jh) {
+              if (run_jh >= 0) h_row[run_jh] += run;
+              run_jh = kh_;
+              run = 0.f;
+            }
+            run += x;
+          }
+        }
+        if (lane < kPerWarp && run_jh >= 0) h_row[run_jh] += run;
+      }
+    }
+    __syncwarp();
+  }
+
+  float* dqh = static_cast<float*>(a.dq) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int row = q0 + warp * kPerWarp + i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+      if (lane + 32 * c < D) dqh[row * a.out_sn + lane + 32 * c] = acc[i][c] * a.scale;
+  }
+}
+
 // ------------------------------------------------------------- launchers
 
 template <typename Kernel>
@@ -352,6 +970,42 @@ int launch_f32(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kRowsF + 2 * kTileF) * (32 * DC + 1);
   return launch(flash_relpos_fwd_f32<DC>, dim3((a.N + kRowsF - 1) / kRowsF, a.H, a.B), smem,
                 a, stream);
+}
+
+template <typename Kernel>
+int launch_bwd(Kernel kernel, dim3 grid, size_t smem, const FlashBwdArgs& a,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DQ, int DV>
+int launch_bwd_bf16(FlashBwdArgs a, cudaStream_t stream) {
+  constexpr int QT = DQ <= 64 ? 64 : 32;
+  a.tiles = (a.N + kRows - 1) / kRows;
+  const int chunks = (a.D + kChunk - 1) / kChunk;
+  const dim3 grid(a.tiles * chunks, a.H, a.B);
+  const size_t dkv_smem = sizeof(bf16) * (2 * kRows + 4 * QT) * (DQ + 8) +
+                          sizeof(float) * (6 * QT + 2 * QT * (kTile + 4));
+  int err = launch_bwd(flash_relpos_bwd_dkv_bf16<DQ, DV>, grid, dkv_smem, a, stream);
+  if (err != 0) return err;
+  const size_t dq_smem = sizeof(bf16) * (2 * kRows + 4 * kTile) * (DQ + 8) +
+                         sizeof(float) * kWarps * 16 * kDsLD;
+  return launch_bwd(flash_relpos_bwd_dq_bf16<DQ, DV>, grid, dq_smem, a, stream);
+}
+
+template <int DC>
+int launch_bwd_f32(const FlashBwdArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.N + kRowsF - 1) / kRowsF, a.H, a.B);
+  const size_t dkv_smem = sizeof(float) * (2 * kRowsF + 2 * kTileF) * (32 * DC + 1);
+  int err = launch_bwd(flash_relpos_bwd_dkv_f32<DC>, grid, dkv_smem, a, stream);
+  if (err != 0) return err;
+  const size_t dq_smem = sizeof(float) * ((2 * kRowsF + 2 * kTileF) * (32 * DC + 1) +
+                                          kRowsF * kTileF);
+  return launch_bwd(flash_relpos_bwd_dq_f32<DC>, grid, dq_smem, a, stream);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -418,5 +1072,86 @@ extern "C" int saicv_flash_attention_relpos_fwd(
     case 112: return launch_bf16<112, 112>(a, s);
     case 128: return launch_bf16<128, 128>(a, s);
     default: return launch_bf16<256, kChunk>(a, s);  // chunked output columns
+  }
+}
+
+// Backward of the same function: dq, dk, dv (one stride set, head dim
+// contiguous; the input dtype) and drel_h, drel_w (fp32, the shapes of
+// rel_h and rel_w, their own strides; zero-filled by the caller unless KW =
+// 64, where every element is written) from q, k, v (one stride set), dout
+// (its own strides), rel_h, rel_w, and the forward's log-sum-exp and delta
+// = rowsum(dout * out), both fp32 [B * H, N]. Two launches on `stream`;
+// returns a cudaError_t (0 = both launched).
+extern "C" int saicv_flash_attention_relpos_bwd(
+    const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+    void* dv, const float* lse, const float* delta, const float* rel_h, const float* rel_w,
+    float* drel_h, float* drel_w, long long in_sb, long long in_sh, long long in_sn,
+    long long do_sb, long long do_sh, long long do_sn, long long out_sb, long long out_sh,
+    long long out_sn, long long h_sb, long long h_sh, long long h_sn, long long w_sb,
+    long long w_sh, long long w_sn, long long dh_sb, long long dh_sh, long long dh_sn,
+    long long dw_sb, long long dw_sh, long long dw_sn, int B, int H, int N, int D, int KH,
+    int KW, float scale, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || N > (1 << 20) || D < 1 ||
+      D > 256 || KH < 1 || KW < 1 || static_cast<long long>(KH) * KW != N || !rel_h ||
+      !rel_w || !drel_h || !drel_w || !lse || !delta)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = is_bf16 ? 2 : 4;
+  FlashBwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.lse = lse;
+  a.delta = delta;
+  a.in_sb = in_sb;
+  a.in_sh = in_sh;
+  a.in_sn = in_sn;
+  a.do_sb = do_sb;
+  a.do_sh = do_sh;
+  a.do_sn = do_sn;
+  a.out_sb = out_sb;
+  a.out_sh = out_sh;
+  a.out_sn = out_sn;
+  a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
+  a.drel = RelGrad{drel_h, drel_w, dh_sb, dh_sh, dh_sn, dw_sb, dw_sh, dw_sn};
+  a.B = B;
+  a.H = H;
+  a.N = N;
+  a.D = D;
+  a.scale = scale;
+  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
+          (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 && (in_sn * es) % 16 == 0;
+  a.do_vec = aligned16(dout) && (D * es) % 16 == 0 && (do_sb * es) % 16 == 0 &&
+             (do_sh * es) % 16 == 0 && (do_sn * es) % 16 == 0;
+  const auto even4 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; };
+  a.out_vec = even4(dq) && even4(dk) && even4(dv) && D % 2 == 0 && out_sb % 2 == 0 &&
+              out_sh % 2 == 0 && out_sn % 2 == 0;
+  a.rel_vec = aligned16(rel_w) && w_sb % 4 == 0 && w_sh % 4 == 0 && w_sn % 4 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_bf16) {
+    switch ((D + 31) / 32) {
+      case 1: return launch_bwd_f32<1>(a, s);
+      case 2: return launch_bwd_f32<2>(a, s);
+      case 3: return launch_bwd_f32<3>(a, s);
+      case 4: return launch_bwd_f32<4>(a, s);
+      case 5: return launch_bwd_f32<5>(a, s);
+      case 6: return launch_bwd_f32<6>(a, s);
+      case 7: return launch_bwd_f32<7>(a, s);
+      default: return launch_bwd_f32<8>(a, s);
+    }
+  }
+  switch ((D + 15) / 16 * 16) {
+    case 16: return launch_bwd_bf16<16, 16>(a, s);
+    case 32: return launch_bwd_bf16<32, 32>(a, s);
+    case 48: return launch_bwd_bf16<48, 48>(a, s);
+    case 64: return launch_bwd_bf16<64, 64>(a, s);
+    case 80: return launch_bwd_bf16<80, 80>(a, s);
+    case 96: return launch_bwd_bf16<96, 96>(a, s);
+    case 112: return launch_bwd_bf16<112, 112>(a, s);
+    case 128: return launch_bwd_bf16<128, 128>(a, s);
+    default: return launch_bwd_bf16<256, kChunk>(a, s);  // chunked output columns
   }
 }

@@ -10,12 +10,14 @@
 //   K2  _fwd_kernel / _bwd_kernel (via _pallas_fwd and _pallas_bwd, entry
 //       fused_attention): q, k, v, out [B, H, N, D]; backward: q, k, v,
 //       dout -> dq, dk, dv.
-//   K3  _fwd_kernel_relwin_pairs (via _pallas_fwd_relwin_pairs, entry
-//       fused_attention_relwin_dense) and K4 _fwd_kernel_relwin (via
-//       _relwin_fwd_factory, entry fused_attention_relwin): the K1 and K2
-//       forward with SAM's decomposed rel-pos bias, score(i, j) += rel_h[i,
-//       j / KW] + rel_w[i, j % KW] (fp32, N = KH * KW, each term read
-//       through its own strides).
+//   K3  _fwd_kernel_relwin_pairs / _bwd_kernel_relwin_pairs (via
+//       _pallas_fwd_relwin_pairs and _pallas_bwd_relwin_pairs, entry
+//       fused_attention_relwin_dense) and K4 _fwd_kernel_relwin /
+//       _bwd_kernel_relwin (via _relwin_fwd_factory and _relwin_bwd_factory,
+//       entry fused_attention_relwin): K1 and K2 with SAM's decomposed
+//       rel-pos bias, score(i, j) += rel_h[i, j / KW] + rel_w[i, j % KW]
+//       (fp32, N = KH * KW, each term read through its own strides); the
+//       backward also gives drel_h and drel_w (fp32).
 // One kernel body per dtype and direction serves all of them: the wrapper
 // passes the (batch, head, row) strides of the inputs and of the outputs,
 // and each head's columns are read and written in place in either layout
@@ -412,6 +414,19 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // the forward. A head whose rows do not fit in shared memory is walked in
 // chunks of whole 64-row tiles, loaded one after another.
 //
+// With the rel-pos bias (K3, K4; a template flag of both kernels) the
+// scores become the forward's log2-domain logits, and the dq kernel, which
+// owns the query rows, also sums the fp32 dS0 = P * (dP - row) (unscaled)
+// into drel_h[i, kh] and drel_w[i, kw]: each warp writes its 16 x 64 dS0
+// tile to shared memory, then lane r adds row r's terms by key-grid row and
+// lane r + 16 by key-grid column into the warp's own [16, KH + KW] sums, in
+// key order (no atomics), written out at the end. The dK/dV kernel reads
+// each query's rel_h and rel_w terms of its own keys through L1, two loads
+// a score. At SAM-B's windows (B' = 200, N = 196, H = 12, D = 64, bf16) a
+// backward moves qkv, dout, dqkv (7*B'*N*C*2 B = 422 MB) and the fp32 rel
+// terms and their gradients (2*B'*N*H*28*4 B = 105 MB): 0.16 ms, bound by
+// bytes (the five products are 59 GFLOP = 0.06 ms).
+//
 // Bound on one H100 SXM: at the ViT-B/16 shape (B=256, N=197, H=12, D=64,
 // bf16) the backward reads qkv and dout and writes dqkv, 7*B*N*C*2 B =
 // 542 MB, 162 us, against 10*B*H*N^2*D = 76 GFLOP = 77 us: bound by bytes.
@@ -429,19 +444,29 @@ struct BwdArgs {
   float scale;
   int vec, do_vec, out_vec;
   cudaStream_t stream;
+  RelPos rel;    // rel.h == nullptr: no rel-pos bias (K1, K2)
+  RelGrad drel;  // K3, K4: written by the dq kernel
 };
 
-template <int DP>
+// The dq kernel's rel-pos scratch (K3, K4), per warp: the fp32 dS0 of one
+// 16 x 64 tile (row stride kDsLD) and the 16 rows' drel_h | drel_w sums
+// (row stride rel_ld).
+constexpr int kDsLD = kKeyTile + 1;
+__host__ __device__ inline int rel_ld(int KH, int KW) { return (KH + KW) | 1; }
+
+template <int DP, bool REL>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
   constexpr int LD = DP + 8;
   constexpr int kFrags = kKeyTile / 8;
   const int N = a.N, D = a.D, n_real = a.n_real;
-  const float sc = a.scale * 1.4426950408889634f;
-  const float masked_raw = kNegInf / sc;
+  const float sc = a.scale * kLog2e;
+  const float c = REL ? 1.f : sc;  // REL: the scores are log2-domain logits
+  const float masked_raw = REL ? kNegInf * kLog2e : kNegInf / sc;
 
   extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = 16 * (blockDim.x / 32);
+  const int warps = blockDim.x / 32;
+  const int rows = 16 * warps;
   const int NP = (N + 15) & ~15;
   bf16* Qs = reinterpret_cast<bf16*>(smem);  // [rows][LD]
   bf16* dOs = Qs + rows * LD;                // [rows][LD]
@@ -465,6 +490,17 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
   const bool single = chunk_rows >= N;  // the whole head stays in shared memory
   const int row0 = q0 + 16 * warp;
   const bool active = row0 < N;
+
+  // REL: this warp's dS0 tile and drel sums (see kDsLD)
+  const int KH = a.rel.KH, KW = a.rel.KW, RL = rel_ld(KH, KW);
+  float* ds_w = reinterpret_cast<float*>(Vs + chunk_rows * LD) + warp * 16 * kDsLD;
+  float* drel_s = reinterpret_cast<float*>(Vs + chunk_rows * LD) + warps * 16 * kDsLD +
+                  warp * 16 * RL;
+  RelRows rr{};
+  if (REL) {
+    rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
+    for (int i = lane; i < 16 * RL; i += 32) drel_s[i] = 0.f;
+  }
 
   load_tile_bf16<DP, LD>(Qs, qh + q0 * a.in_sn, a.in_sn, rows, N - q0, D, a.vec);
   load_tile_bf16<DP, LD>(dOs, doh + q0 * a.do_sn, a.do_sn, rows, N - q0, D, a.do_vec);
@@ -499,7 +535,9 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
         float s[kFrags][4], dp[kFrags][4];
         own_times_other_t<DP, LD, kFrags>(s, qf, Kb, key0, N, lane);
         own_times_other_t<DP, LD, kFrags>(dp, dof, Vs + (key0 - c0) * LD, key0, N, lane);
-        if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
+        if (REL) {
+          rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, KW, a.rel.inv_kw);
+        } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
 #pragma unroll
           for (int j = 0; j < kFrags; ++j)
 #pragma unroll
@@ -519,13 +557,13 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
               tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
             tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
             tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-            const float mnew = fmaxf(m[r], tmax * sc);
+            const float mnew = fmaxf(m[r], tmax * c);
             float sum = 0.f, weighted = 0.f;
 #pragma unroll
             for (int j = 0; j < kFrags; ++j)
               if (key0 + 8 * j < N) {
-                const float e0 = exp2_approx(fmaf(s[j][2 * r], sc, -mnew));
-                const float e1 = exp2_approx(fmaf(s[j][2 * r + 1], sc, -mnew));
+                const float e0 = exp2_approx(fmaf(s[j][2 * r], c, -mnew));
+                const float e1 = exp2_approx(fmaf(s[j][2 * r + 1], c, -mnew));
                 sum += e0 + e1;
                 weighted += e0 * dp[j][2 * r] + e1 * dp[j][2 * r + 1];
               }
@@ -536,13 +574,33 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
           }
           continue;
         }
-        // pass 1: dS = P * (dP - row) * scale in bf16, dQ += dS.K
+        // pass 1: dS0 = P * (dP - row) (REL: kept in fp32 for drel), dS =
+        // dS0 * scale in bf16, dQ += dS.K
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = exp2_approx(fmaf(s[j][e], sc, -m[e >> 1])) *
-                      (dp[j][e] - rowsum[e >> 1]) * a.scale;
+          for (int e = 0; e < 4; ++e) {
+            const float ds0 =
+                exp2_approx(fmaf(s[j][e], c, -m[e >> 1])) * (dp[j][e] - rowsum[e >> 1]);
+            if (REL) ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = ds0;
+            s[j][e] = ds0 * a.scale;
+          }
+        if (REL) {
+          // drel_h[i, kh] += sum of dS0[i, j] over the tile's keys with jh(j) =
+          // kh, and drel_w likewise: lane r sums row r's rel_h terms, lane r +
+          // 16 its rel_w terms, walking the keys in order (no atomics)
+          __syncwarp();
+          const int r = lane & 15;
+          const float* dsr = ds_w + r * kDsLD;
+          float* sums = drel_s + r * RL + (lane < 16 ? 0 : KH);
+          const int cols = min(kKeyTile, N - key0);
+          for (int jj = 0; jj < cols; ++jj) {
+            int jh, jw;
+            col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
+            sums[lane < 16 ? jh : jw] += dsr[jj];
+          }
+          __syncwarp();
+        }
 #pragma unroll
         for (int kk = 0; kk < kKeyTile / 16; ++kk) {
           if (key0 + 16 * kk >= N) break;
@@ -579,16 +637,28 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
     }
   }
   store_rows_bf16<DP>(dqh, a.out_sn, acc, row0, N, D, g, t, a.out_vec);
+  if (REL) {
+    for (int i = lane; i < 16 * (KH + KW); i += 32) {
+      const int r = i / (KH + KW);
+      const int k = i % (KH + KW);
+      const int row = row0 + r;
+      if (row >= N) continue;
+      if (k < KH)
+        a.drel.h_row(blockIdx.z, blockIdx.y, row)[k] = drel_s[r * RL + k];
+      else
+        a.drel.w_row(blockIdx.z, blockIdx.y, row)[k - KH] = drel_s[r * RL + k];
+    }
+  }
 }
 
-template <int DP>
+template <int DP, bool REL>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
   constexpr int LD = DP + 8;
   constexpr int kQTileB = DP <= 64 ? 64 : 32;  // queries per step (registers)
   constexpr int kFrags = kQTileB / 8;
   const int N = a.N, D = a.D, n_real = a.n_real;
-  const float sc = a.scale * 1.4426950408889634f;
+  const float sc = a.scale * kLog2e;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int rows = 16 * (blockDim.x / 32);
@@ -616,6 +686,18 @@ attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
 
   const int row0 = k0 + 16 * warp;  // this warp's first key row
   const bool active = row0 < N;
+  // REL: the rel_h and rel_w columns of this lane's two key rows, read at
+  // each query's row of the two terms
+  int key_jh[2] = {0, 0}, key_jw[2] = {0, 0};
+  const float* relh = nullptr;
+  const float* relw = nullptr;
+  if (REL) {
+    relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
+    relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      col_split(min(row0 + g + 8 * r, N - 1), a.rel.inv_kw, a.rel.KW, key_jh[r], key_jw[r]);
+  }
 
   load_tile_bf16<DP, LD>(Ko, kh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
   load_tile_bf16<DP, LD>(Vo, vh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
@@ -662,7 +744,11 @@ attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
           // masked keys carry exp(-1e9 - max) = 0 in fp32, as on the TPU
           const bool valid = qi < N && key < n_real;
           const int ql = valid ? qi - c0 : 0;
-          const float p = valid ? exp2_approx(fmaf(st[j][e], sc, -lse_s[ql])) : 0.f;
+          float bias = 0.f;  // REL: (rel_h + rel_w) * log2(e) of (query qi, key)
+          if (REL && valid)
+            bias = (__ldg(relh + qi * a.rel.h_sn + key_jh[e >> 1]) +
+                    __ldg(relw + qi * a.rel.w_sn + key_jw[e >> 1])) * kLog2e;
+          const float p = valid ? exp2_approx(fmaf(st[j][e], sc, bias - lse_s[ql])) : 0.f;
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - delta_s[ql]) * a.scale;
         }
@@ -785,12 +871,21 @@ attention_bwd_dq_f32(BwdArgs a) {
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool rel = a.rel.h != nullptr;  // K3, K4
+  const int KH = a.rel.KH, KW = a.rel.KW;
   for (int r = warp; r < kBwdRows; r += kWarps) {
     float* srow = S + r * LDS;
     const float* dprow = dP + r * LDS;
+    const RelRows rr = rel ? a.rel.rows(blockIdx.z, blockIdx.y, q0 + r, N) : RelRows{};
     float mx = -INFINITY;
     for (int c = lane; c < N; c += 32) {
-      srow[c] = c < n_real ? srow[c] * a.scale : kNegInf;
+      float bias = 0.f;
+      if (rel) {
+        int jh, jw;
+        col_split(c, a.rel.inv_kw, KW, jh, jw);
+        bias = rr.h[0][jh] + rr.w[0][jw];
+      }
+      srow[c] = c < n_real ? srow[c] * a.scale + bias : kNegInf;
       mx = fmaxf(mx, srow[c]);
     }
     mx = warp_max(mx);
@@ -800,11 +895,31 @@ attention_bwd_dq_f32(BwdArgs a) {
     float row = 0.f;
     for (int c = lane; c < N; c += 32) row += expf(srow[c] - lse) * dprow[c];
     row = warp_sum(row);
+    // dS0 = P * (dP - row), times the scale (rel: after drel has read it)
     for (int c = lane; c < NP; c += 32)
-      srow[c] = c < N ? expf(srow[c] - lse) * (dprow[c] - row) * a.scale : 0.f;
+      srow[c] = c < N ? expf(srow[c] - lse) * (dprow[c] - row) * (rel ? 1.f : a.scale) : 0.f;
     if (lane == 0 && q0 + r < N) {
       a.lse[stat_off + q0 + r] = lse;
       a.delta[stat_off + q0 + r] = row;
+    }
+    if (rel) {  // drel_h[kh] = sum over jw of dS0[kh * KW + jw], drel_w likewise
+      __syncwarp();
+      if (q0 + r < N) {
+        float* gh = a.drel.h_row(blockIdx.z, blockIdx.y, q0 + r);
+        float* gw = a.drel.w_row(blockIdx.z, blockIdx.y, q0 + r);
+        for (int kh = lane; kh < KH; kh += 32) {
+          float x = 0.f;
+          for (int jw = 0; jw < KW; ++jw) x += srow[kh * KW + jw];
+          gh[kh] = x;
+        }
+        for (int kw = lane; kw < KW; kw += 32) {
+          float x = 0.f;
+          for (int jh = 0; jh < KH; ++jh) x += srow[jh * KW + kw];
+          gw[kw] = x;
+        }
+      }
+      __syncwarp();
+      for (int c = lane; c < N; c += 32) srow[c] *= a.scale;
     }
   }
 
@@ -854,7 +969,14 @@ attention_bwd_dkv_f32(BwdArgs a) {
     const int r = i / NP;
     const int c = i % NP;
     const bool valid = c < N && k0 + r < n_real;
-    const float p = valid ? expf(PT[r * LDS + c] * a.scale - lse_s[c]) : 0.f;
+    float bias = 0.f;  // K3, K4: rel_h[c, jh(key)] + rel_w[c, jw(key)]
+    if (a.rel.h && valid) {
+      int jh, jw;
+      col_split(k0 + r, a.rel.inv_kw, a.rel.KW, jh, jw);
+      const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, c, N);
+      bias = rr.h[0][jh] + rr.w[0][jw];
+    }
+    const float p = valid ? expf(PT[r * LDS + c] * a.scale + bias - lse_s[c]) : 0.f;
     PT[r * LDS + c] = p;
     dST[r * LDS + c] = p * (dST[r * LDS + c] - delta_s[c]) * a.scale;
   }
@@ -939,21 +1061,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int DP>
 int launch_bwd_bf16(const BwdArgs& a) {
   constexpr int LD = DP + 8;
-  // own rows: the head's 16-row tiles split evenly over blocks of <= 8 warps
+  const bool rel = a.rel.h != nullptr;
+  // per warp: its own 16 rows of two operands and (K3, K4) the dq kernel's
+  // rel-pos scratch; per row of the other operand (dK/dV kernel): two
+  // operands and two fp32 statistics
+  const size_t warp_bytes =
+      sizeof(bf16) * 2 * 16 * LD +
+      (rel ? sizeof(float) * 16 * (kDsLD + rel_ld(a.rel.KH, a.rel.KW)) : 0);
+  const size_t row_bytes = sizeof(bf16) * 2 * LD + 2 * sizeof(float);
+  // the head's 16-row tiles split evenly over the fewest blocks of <= 8
+  // warps, fewer when the rel-pos scratch leaves no room for one key tile
+  int max_warps = kMaxWarps;
+  while (max_warps > 1 && max_warps * warp_bytes + kKeyTile * row_bytes > kResidentBytes)
+    --max_warps;
   const int row_tiles = (a.N + 15) / 16;
-  const int blocks = (row_tiles + kMaxWarps - 1) / kMaxWarps;
+  const int blocks = (row_tiles + max_warps - 1) / max_warps;
   const int warps = (row_tiles + blocks - 1) / blocks;
   const int NP = 16 * row_tiles;
-  const size_t own_bytes = sizeof(bf16) * 2 * 16 * warps * LD;
-  const size_t row_bytes = sizeof(bf16) * 2 * LD + 2 * sizeof(float);  // dK/dV kernel
+  const size_t own_bytes = warps * warp_bytes;
   // the other operand's rows: the whole head if it fits, else whole 64-row tiles
   int chunk_rows = NP;
   if (own_bytes + NP * row_bytes > kResidentBytes)
     chunk_rows = static_cast<int>((kResidentBytes - own_bytes) / row_bytes) / kKeyTile * kKeyTile;
   const size_t smem = own_bytes + chunk_rows * row_bytes;
   const dim3 grid(blocks, a.H, a.B);
-  auto dq_kernel = attention_bwd_dq_bf16<DP>;
-  auto dkv_kernel = attention_bwd_dkv_bf16<DP>;
+  auto dq_kernel = rel ? attention_bwd_dq_bf16<DP, true> : attention_bwd_dq_bf16<DP, false>;
+  auto dkv_kernel = rel ? attention_bwd_dkv_bf16<DP, true> : attention_bwd_dkv_bf16<DP, false>;
   cudaError_t err = allow_smem(dq_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem(dkv_kernel, smem);
@@ -1023,6 +1156,41 @@ bool bad_shape(int B, int H, int N, int D, int n_real) {
          n_real < 1 || n_real > N;
 }
 
+BwdArgs backward_args(const void* q, const void* k, const void* v, const void* dout, void* dq,
+                      void* dk, void* dv, void* stats, long long in_sb, long long in_sh,
+                      long long in_sn, long long do_sb, long long do_sh, long long do_sn,
+                      long long out_sb, long long out_sh, long long out_sn, int B, int H, int N,
+                      int D, int n_real, float scale, int is_bf16, void* stream) {
+  const long long es = is_bf16 ? 2 : 4;
+  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
+                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
+                  (in_sn * es) % 16 == 0;
+  const int do_vec = aligned16(dout) && (D * es) % 16 == 0 && (do_sb * es) % 16 == 0 &&
+                     (do_sh * es) % 16 == 0 && (do_sn * es) % 16 == 0;
+  const auto even4 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; };
+  const int out_vec = even4(dq) && even4(dk) && even4(dv) && D % 2 == 0 && out_sb % 2 == 0 &&
+                      out_sh % 2 == 0 && out_sn % 2 == 0;
+  float* lse = static_cast<float*>(stats);
+  return BwdArgs{q,     k,     v,     dout,  dq,     dk,     dv,     lse,
+                 lse + static_cast<long long>(B) * H * N,
+                 in_sb, in_sh, in_sn, do_sb, do_sh,  do_sn,  out_sb, out_sh, out_sn,
+                 B,     H,     N,     D,     n_real, scale,  vec,    do_vec, out_vec,
+                 static_cast<cudaStream_t>(stream), RelPos{}, RelGrad{}};
+}
+
+int launch_backward(const BwdArgs& a, int is_bf16) {
+  switch ((a.D + 15) / 16 * 16) {
+    case 16: return launch_bwd_dtype<16>(a, is_bf16);
+    case 32: return launch_bwd_dtype<32>(a, is_bf16);
+    case 48: return launch_bwd_dtype<48>(a, is_bf16);
+    case 64: return launch_bwd_dtype<64>(a, is_bf16);
+    case 80: return launch_bwd_dtype<80>(a, is_bf16);
+    case 96: return launch_bwd_dtype<96>(a, is_bf16);
+    case 112: return launch_bwd_dtype<112>(a, is_bf16);
+    default: return launch_bwd_dtype<128>(a, is_bf16);
+  }
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Pointers are device pointers of
@@ -1070,32 +1238,36 @@ extern "C" int saicv_fused_attention_bwd(
     long long out_sb, long long out_sh, long long out_sn,
     int B, int H, int N, int D, int n_real, float scale, int is_bf16,
     void* stream) {
-  if (B < 1 || B > 65535 || H < 1 || H > 65535 || N < 1 || N > kMaxN || D < 1 ||
-      D > 128 || n_real < 1 || n_real > N)
+  if (bad_shape(B, H, N, D, n_real)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_backward(
+      backward_args(q, k, v, dout, dq, dk, dv, stats, in_sb, in_sh, in_sn, do_sb, do_sh, do_sn,
+                    out_sb, out_sh, out_sn, B, H, N, D, n_real, scale, is_bf16, stream),
+      is_bf16);
+}
+
+// Backward of the rel-pos forward (K3, K4): as saicv_fused_attention_bwd,
+// and drel_h, drel_w (fp32, the shapes of rel_h and rel_w, their own
+// strides), the sums over each query row's keys of dS0 = P * (dP - sum_k dP
+// * P), unscaled, by the key's row jh and column jw of the key grid.
+extern "C" int saicv_fused_attention_relpos_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    void* dq, void* dk, void* dv, void* stats, const float* rel_h, const float* rel_w,
+    float* drel_h, float* drel_w,
+    long long in_sb, long long in_sh, long long in_sn,
+    long long do_sb, long long do_sh, long long do_sn,
+    long long out_sb, long long out_sh, long long out_sn,
+    long long h_sb, long long h_sh, long long h_sn, long long w_sb, long long w_sh,
+    long long w_sn, long long dh_sb, long long dh_sh, long long dh_sn, long long dw_sb,
+    long long dw_sh, long long dw_sn,
+    int B, int H, int N, int D, int n_real, int KH, int KW, float scale, int is_bf16,
+    void* stream) {
+  if (bad_shape(B, H, N, D, n_real) || KH < 1 || KW < 1 || KH * KW != N || !rel_h ||
+      !rel_w || !drel_h || !drel_w)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long es = is_bf16 ? 2 : 4;
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
-                  (in_sn * es) % 16 == 0;
-  const int do_vec = aligned16(dout) && (D * es) % 16 == 0 && (do_sb * es) % 16 == 0 &&
-                     (do_sh * es) % 16 == 0 && (do_sn * es) % 16 == 0;
-  const auto even4 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; };
-  const int out_vec = even4(dq) && even4(dk) && even4(dv) && D % 2 == 0 && out_sb % 2 == 0 &&
-                      out_sh % 2 == 0 && out_sn % 2 == 0;
-  float* lse = static_cast<float*>(stats);
-  const BwdArgs a{q,     k,     v,     dout,  dq,     dk,     dv,     lse,
-                  lse + static_cast<long long>(B) * H * N,
-                  in_sb, in_sh, in_sn, do_sb, do_sh,  do_sn,  out_sb, out_sh, out_sn,
-                  B,     H,     N,     D,     n_real, scale,  vec,    do_vec, out_vec,
-                  static_cast<cudaStream_t>(stream)};
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch_bwd_dtype<16>(a, is_bf16);
-    case 32: return launch_bwd_dtype<32>(a, is_bf16);
-    case 48: return launch_bwd_dtype<48>(a, is_bf16);
-    case 64: return launch_bwd_dtype<64>(a, is_bf16);
-    case 80: return launch_bwd_dtype<80>(a, is_bf16);
-    case 96: return launch_bwd_dtype<96>(a, is_bf16);
-    case 112: return launch_bwd_dtype<112>(a, is_bf16);
-    default: return launch_bwd_dtype<128>(a, is_bf16);
-  }
+  BwdArgs a = backward_args(q, k, v, dout, dq, dk, dv, stats, in_sb, in_sh, in_sn, do_sb,
+                            do_sh, do_sn, out_sb, out_sh, out_sn, B, H, N, D, n_real, scale,
+                            is_bf16, stream);
+  a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
+  a.drel = RelGrad{drel_h, drel_w, dh_sb, dh_sh, dh_sn, dw_sb, dw_sh, dw_sn};
+  return launch_backward(a, is_bf16);
 }

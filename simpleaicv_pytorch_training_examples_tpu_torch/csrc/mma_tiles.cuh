@@ -28,6 +28,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
 }
+// 4-byte async copy; src_bytes = 0 writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
@@ -209,6 +214,21 @@ struct RelPos {
       r.w[i] = w + b * w_sb + hd * w_sh + n * w_sn;
     }
     return r;
+  }
+};
+
+// The gradients of rel_h and rel_w (same shapes as the two terms, fp32),
+// with their own (batch, head, row) strides in elements.
+struct RelGrad {
+  float* h;
+  float* w;
+  long long h_sb, h_sh, h_sn, w_sb, w_sh, w_sn;
+
+  __device__ __forceinline__ float* h_row(int b, int hd, long long row) const {
+    return h + b * h_sb + hd * h_sh + row * h_sn;
+  }
+  __device__ __forceinline__ float* w_row(int b, int hd, long long row) const {
+    return w + b * w_sb + hd * w_sh + row * w_sn;
   }
 };
 

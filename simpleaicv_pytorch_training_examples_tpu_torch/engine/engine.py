@@ -57,16 +57,24 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
                     use_ema_model: bool = False,
                     ema_model_decay: float = 0.9999, ema_params=None,
                     clip_max_norm: float = 0.0, clip_grad_value: float = 0.0,
-                    compute_dtype=torch.bfloat16, seed: int = 0):
+                    compute_dtype=torch.bfloat16, seed: int = 0,
+                    loss_fn=None):
     """Build ``train_step(batch, iteration) -> metrics``.
 
-    ``batch`` is {'image': NCHW, 'label': [B] or [B, classes]} whose leading
-    dim splits into ``accumulation_steps`` micro-batches; gradients and loss
-    are averaged over them. ``iteration`` is the global iteration, which
-    seeds Dropout and DropPath. ``ema_params`` (from ``utils.ema.ema_init``)
-    is updated in place when ``use_ema_model``. The model, the optimizer
-    state and the EMA are updated in place; ``metrics`` holds 0-dim device
-    tensors: 'loss' (0 on a skipped step) and 'skipped' (1.0 or 0.0).
+    ``batch`` is a dict of tensors whose leading dim splits into
+    ``accumulation_steps`` micro-batches; gradients, loss and metrics are
+    averaged over them. By default it is {'image': NCHW, 'label': [B] or
+    [B, classes]} and the loss is ``criterion(model(image in
+    compute_dtype), label)``; ``loss_fn(model, micro_batch, generator) ->
+    (loss, {name: 0-dim tensor})`` replaces that for richer batches (SAM's
+    prompt loop) and handles its own dtypes. ``iteration`` is the global
+    iteration: with the micro-batch index it seeds ``generator``, which
+    Dropout and DropPath draw from and which ``loss_fn`` may draw from too.
+    ``ema_params`` (from ``utils.ema.ema_init``) is updated in place when
+    ``use_ema_model``. The model, the optimizer state and the EMA are
+    updated in place; ``metrics`` holds 0-dim device tensors: 'loss' and
+    each of ``loss_fn``'s metrics (0 on a skipped step) and 'skipped' (1.0
+    or 0.0).
 
     The model's Dropout and DropPath layers are handed the step's generator.
     The finite check comes before clipping and covers the loss and every
@@ -81,20 +89,29 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
     attach_mask_generator(model, generator)
     inv = 1.0 / accumulation_steps
 
+    def default_loss_fn(model, batch, generator):
+        return criterion(model(batch["image"].to(compute_dtype)),
+                         batch["label"]), {}
+
+    forward = loss_fn if loss_fn is not None else default_loss_fn
+
     def train_step(batch, iteration):
         model.train()
-        images = batch["image"].to(device, non_blocking=True).to(compute_dtype)
-        labels = batch["label"].to(device, non_blocking=True)
+        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        micro_batches = [dict(zip(batch, parts)) for parts in zip(
+            *(v.chunk(accumulation_steps) for v in batch.values()))]
         for p in params:
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for i, (image, label) in enumerate(zip(
-                images.chunk(accumulation_steps),
-                labels.chunk(accumulation_steps))):
+        metric_sums = {}
+        for i, micro in enumerate(micro_batches):
             generator.manual_seed(mask_seed(seed, iteration, i))
-            loss = criterion(model(image), label)
+            loss, metrics = forward(model, micro, generator)
             loss.backward()
             loss_sum += loss.detach()
+            for name, value in metrics.items():
+                metric_sums[name] = metric_sums.get(name, 0.0) + \
+                    value.detach().float()
 
         with torch.no_grad():
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -114,8 +131,11 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
             optimizer.update(grads, finite)
             if use_ema_model:
                 ema_update(ema_params, params, ema_model_decay)
-            return {"loss": torch.where(finite, loss, 0.0),
-                    "skipped": (~finite).to(torch.float32)}
+            out = {name: torch.where(finite, value * inv, 0.0)
+                   for name, value in metric_sums.items()}
+            out["loss"] = torch.where(finite, loss, 0.0)
+            out["skipped"] = (~finite).to(torch.float32)
+            return out
 
     return train_step
 

@@ -1,6 +1,6 @@
 """Interactive segmentation (SAM): the port of the JAX package's
-``interactive_segmentation``. Inference for now; the losses, click
-simulation and datasets of training come with SAM training."""
+``interactive_segmentation``: the SAM model, its losses, the error-click
+sampler of the training loop, and the datasets."""
 
 from . import models
 

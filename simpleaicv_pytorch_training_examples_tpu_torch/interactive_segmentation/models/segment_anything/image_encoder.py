@@ -18,11 +18,19 @@ and whose width is a multiple of 128 take K3 straight over the packed qkv
 global blocks (N > 1024, N a multiple of 128) take K5. Everything else,
 and the CPU, runs the plain composition. The rel terms are computed in
 fp32 from the fp32 q, outside autocast, as the JAX package computes them.
+
+With ``use_gradient_checkpoint`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant) while autograd records: its
+activations are dropped and the backward runs its forward again, kernels
+included, which is the JAX package's ``remat_policy=None`` (or
+``"nothing_saveable"``). The policies that keep products (``"dots_saveable"``
+and the others) are not ported and raise.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ....models.common import PatchEmbed
 from ....ops.kernels.flash_attention import flash_attention_relpos
@@ -187,8 +195,14 @@ class ViTImageEncoder(nn.Module):
     def __init__(self, image_size=1024, patch_size=16, embedding_planes=768,
                  block_nums=12, head_nums=12, mlp_ratio=4.0, out_planes=256,
                  window_size=14, global_attn_indexes=(),
+                 use_gradient_checkpoint=False, remat_policy=None,
                  use_flash_attention=False):
         super().__init__()
+        if remat_policy not in (None, "nothing_saveable"):
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r}: only full recompute "
+                "(None or 'nothing_saveable') is ported")
+        self.use_gradient_checkpoint = use_gradient_checkpoint
         grid = image_size // patch_size
         self.patch_embed = PatchEmbed(3, embedding_planes, patch_size)
         self.pos_embed = nn.Parameter(torch.zeros(1, grid, grid,
@@ -207,6 +221,7 @@ class ViTImageEncoder(nn.Module):
     def forward(self, x):
         """[B, 3, H, W] -> [B, out_planes, H / P, W / P]."""
         x = self.patch_embed(x).permute(0, 2, 3, 1) + self.pos_embed
+        remat = self.use_gradient_checkpoint and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.neck(x.permute(0, 3, 1, 2))

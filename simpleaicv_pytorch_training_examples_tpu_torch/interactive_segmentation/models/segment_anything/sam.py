@@ -13,6 +13,8 @@ H/4, W/4], ``prompt_mask_valid`` [B]). The bilinear upsampling equals
 border both take the edge value.
 
 Parameters are fp32; run under ``torch.autocast`` for bf16 compute.
+``use_gradient_checkpoint`` recomputes each encoder block in the backward
+(see ``image_encoder.py``).
 ``init_weights_`` draws seeded random weights with the initialisers the
 reference torch SAM gets from PyTorch, except that the position embedding
 and the rel-pos tables, zero there, get small random values, so that a
@@ -40,6 +42,7 @@ class SAM(nn.Module):
                  image_encoder_global_attn_indexes=(2, 5, 8, 11),
                  prompt_encoder_embedding_planes=256, sigmoid_out=False,
                  binary_mask_out=False, mask_threshold=0.0,
+                 use_gradient_checkpoint=False, remat_policy=None,
                  use_flash_attention=False):
         super().__init__()
         self.image_size = image_size
@@ -53,6 +56,8 @@ class SAM(nn.Module):
             head_nums=image_encoder_head_nums,
             out_planes=prompt_encoder_embedding_planes, window_size=14,
             global_attn_indexes=tuple(image_encoder_global_attn_indexes),
+            use_gradient_checkpoint=use_gradient_checkpoint,
+            remat_policy=remat_policy,
             use_flash_attention=use_flash_attention)
         self.prompt_encoder = PromptEncoder(
             image_size=image_size, patch_size=patch_size,

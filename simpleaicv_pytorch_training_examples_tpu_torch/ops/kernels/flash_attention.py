@@ -1,20 +1,28 @@
 """Streaming attention with SAM's decomposed relative-position bias: kernel
-K5, forward.
+K5, forward and backward.
 
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py::
 flash_attention_relpos``: q, k, v ``[B, H, N, D]`` (D <= 256; views of the
 packed qkv are read in place through their strides), ``rel_h [B, H, N, KH]``
 and ``rel_w [B, H, N, KW]`` fp32 with N = KH * KW. The score of query i and
 key j = jh * KW + jw is ``q_i.k_j * D^-0.5 + rel_h[i, jh] + rel_w[i, jw]``.
-The kernel (``csrc/flash_attention.cu``) walks the keys once with an online
-softmax and never builds the ``[N, N]`` score matrix; it also returns the
-fp32 log-sum-exp of every query row, which the backward of SAM training
-will read. Forward only: the backward kernel comes with SAM training.
+The forward kernel (``csrc/flash_attention.cu``) walks the keys once with an
+online softmax and never builds the ``[N, N]`` score matrix; it also returns
+the fp32 log-sum-exp of every query row. ``FlashAttentionRelpos`` (a
+``torch.autograd.Function``) saves the inputs, the output and the
+log-sum-exp; its backward computes delta = rowsum(dO * O) with one torch op
+(the JAX package computes it outside its kernel as well) and launches two
+kernels of the same source, which recompute P from the log-sum-exp and give
+dq, dk, dv and the fp32 drel_h, drel_w (the TPU kernel's math: dS0 = P *
+(dP - delta) unscaled for drel, rounded to the input dtype for dQ and dK,
+which are scaled after their products).
 
-A CPU tensor takes the plain PyTorch version
+A CPU tensor takes the plain PyTorch versions
 (``flash_attention_relpos_reference``, the JAX package's off-TPU
-composition); a CUDA tensor takes the kernel, or the call raises. The
-wrapper counts its launches in ``flash_attention_relpos.launches``.
+composition, and ``flash_attention_relpos_backward_reference``); a CUDA
+tensor takes the kernels, or the call raises. The wrapper counts its
+launches in ``flash_attention_relpos.launches`` and
+``flash_attention_relpos.backward_launches``.
 """
 
 import ctypes
@@ -23,11 +31,17 @@ import functools
 import torch
 
 from . import build
-from .fused_attention import (check_rel_args, forward_only,
-                              fused_attention_relwin_reference)
+from .fused_attention import (check_rel_args, fused_attention_relwin_reference,
+                              rel_bias)
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _scores(q, k, rel_h, rel_w):
+    """fp32 scores with the expanded bias [B, H, N, N]."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    return s * (q.shape[-1] ** -0.5) + rel_bias(rel_h, rel_w)
 
 
 def flash_attention_relpos_reference(q, k, v, rel_h, rel_w, return_lse=False):
@@ -37,12 +51,36 @@ def flash_attention_relpos_reference(q, k, v, rel_h, rel_w, return_lse=False):
     out = fused_attention_relwin_reference(q, k, v, rel_h, rel_w)
     if not return_lse:
         return out
-    b, h, n, _ = q.shape
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * (q.shape[-1] ** -0.5) + (rel_h.float()[..., :, None]
-                                     + rel_w.float()[..., None, :]).reshape(
-                                         b, h, n, n)
-    return out, torch.logsumexp(s, dim=-1)
+    return out, torch.logsumexp(_scores(q, k, rel_h, rel_w), dim=-1)
+
+
+def flash_attention_relpos_backward_reference(q, k, v, rel_h, rel_w, dout,
+                                              out=None):
+    """Plain version of K5's backward (the JAX ``_bwd_rel_fused_kernel``):
+    P = exp(s - lse) from the fp32 scores, dV = P^T.dO with P in the input
+    dtype, dP = dO.V^T, dS0 = P * (dP - delta) with delta = rowsum(dO * O)
+    (``out``: the forward's output, recomputed when None), drel_h, drel_w
+    the fp32 sums of dS0 by key-grid row and column, dQ = (dS0.K) * scale
+    and dK = (dS0^T.Q) * scale with dS0 rounded to the input dtype. Returns
+    dq, dk, dv (the input dtype), drel_h, drel_w (fp32)."""
+    dtype = q.dtype
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    scale = q.shape[-1] ** -0.5
+    if out is None:
+        out = flash_attention_relpos_reference(q, k, v, rel_h, rel_w)
+    dof = dout.to(dtype).float()
+    s = _scores(q, k, rel_h, rel_w)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    ds0 = p * (dp - delta)
+    grid = ds0.unflatten(-1, (kh, kw))
+    ds = ds0.to(dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return (dq.to(dtype), dk.to(dtype), dv.to(dtype), grid.sum(-1),
+            grid.sum(-2))
 
 
 def check_args(q, k, v, rel_h, rel_w):
@@ -69,14 +107,86 @@ def check_args(q, k, v, rel_h, rel_w):
     return b, h, n, d, kh, kw
 
 
+_PTR, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
-    fn = build.load("flash_attention").saicv_flash_attention_relpos_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12
-                   + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = build.load("flash_attention")
+    fwd = lib.saicv_flash_attention_relpos_fwd
+    bwd = lib.saicv_flash_attention_relpos_bwd
+    tail = [ctypes.c_float, _INT, _PTR]
+    fwd.argtypes = [_PTR] * 7 + [_LL] * 12 + [_INT] * 6 + tail
+    bwd.argtypes = [_PTR] * 13 + [_LL] * 21 + [_INT] * 6 + tail
+    fwd.restype = bwd.restype = _INT
+    return fwd, bwd
+
+
+def _launch(fn, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"flash rel-pos attention kernel launch failed: "
+                           f"cudaError {err}")
+
+
+class FlashAttentionRelpos(torch.autograd.Function):
+    """K5 with its backward kernels; returns (out, lse), the log-sum-exp
+    without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
+                                                        return_lse=True)
+        else:
+            if q.device.type != "cuda":
+                raise ValueError(f"unsupported device {q.device}")
+            b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
+            out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+            lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+            _launch(_library()[0], q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    rel_h.data_ptr(), rel_w.data_ptr(), *q.stride()[:3],
+                    n * h * d, d, h * d, *rel_h.stride()[:3],
+                    *rel_w.stride()[:3], b, h, n, d, kh, kw, d ** -0.5,
+                    int(q.dtype == torch.bfloat16))
+            flash_attention_relpos.launches += 1
+            out = out.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _):
+        q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        if q.device.type == "cpu":
+            return flash_attention_relpos_backward_reference(
+                q, k, v, rel_h, rel_w, dout, out)
+        b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
+        if dout.stride(3) != 1:
+            dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(dim=-1)       # [B, H, N]
+        grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
+        # KW = 64 in bf16: every drel element is written; else accumulated
+        alloc = torch.empty if kw == 64 and q.dtype == torch.bfloat16 \
+            else torch.zeros
+        drel_h = alloc((b, h, n, kh), dtype=torch.float32, device=q.device)
+        drel_w = alloc((b, h, n, kw), dtype=torch.float32, device=q.device)
+        _launch(_library()[1], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(),
+                *(g.data_ptr() for g in grads), lse.data_ptr(),
+                delta.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+                drel_h.data_ptr(), drel_w.data_ptr(), *q.stride()[:3],
+                *dout.stride()[:3], h * n * d, n * d, d,
+                *(s for t in (rel_h, rel_w, drel_h, drel_w)
+                  for s in t.stride()[:3]),
+                b, h, n, d, kh, kw, d ** -0.5,
+                int(q.dtype == torch.bfloat16))
+        flash_attention_relpos.backward_launches += 1
+        return grads[0], grads[1], grads[2], drel_h, drel_w
 
 
 def flash_attention_relpos(q, k, v, rel_h, rel_w, return_lse=False):
@@ -84,29 +194,9 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, return_lse=False):
     [B, H, N, D] (a view of a [B, N, H, D] tensor, so the attention module's
     transpose back to tokens costs no copy); with ``return_lse`` also the
     fp32 log-sum-exp [B, H, N]."""
-    if q.device.type == "cpu":
-        return flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
-                                                return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    forward_only("K5 flash_attention_relpos", q, k, v, rel_h, rel_w)
-    b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _library()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-            *q.stride()[:3], n * h * d, d, h * d, *rel_h.stride()[:3],
-            *rel_w.stride()[:3], b, h, n, d, kh, kw, d ** -0.5,
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"flash rel-pos attention kernel launch failed: "
-                           f"cudaError {err}")
-    flash_attention_relpos.launches += 1
-    out = out.transpose(1, 2)
+    out, lse = FlashAttentionRelpos.apply(q, k, v, rel_h, rel_w)
     return (out, lse) if return_lse else out
 
 
 flash_attention_relpos.launches = 0
+flash_attention_relpos.backward_launches = 0

@@ -1,5 +1,5 @@
 """Short-sequence fused self-attention, forward and backward: kernels K1,
-K2, and the forward of the rel-pos variants K3, K4.
+K2, and their rel-pos variants K3, K4.
 
 Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 
@@ -14,8 +14,7 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
   query i and key j = jh * KW + jw gains ``rel_h[i, jh] + rel_w[i, jw]``
   (fp32, N = KH * KW). K3 takes ``rel_h [B, N, H, KH]``, ``rel_w [B, N, H,
   KW]`` beside the packed qkv; K4 takes ``[B, H, N, KH]``, ``[B, H, N, KW]``
-  and an optional ``n_real``. Forward only: their backward kernels come
-  with SAM training.
+  and an optional ``n_real``.
 
 All launch one CUDA kernel body (``csrc/fused_attention.cu``) that never
 writes the scores or the probabilities to device memory; N <= 1024. The
@@ -24,14 +23,18 @@ rel-pos bias, keys at or past ``n_real`` set to -1e9, fp32 softmax,
 probabilities normalised and then cast to the input dtype, P.V with fp32
 accumulation.
 
-K1 and K2 are ``torch.autograd.Function``s (``FusedAttentionDense``,
-``FusedAttention``) whose backward is a kernel of the same source. Only the
-inputs are saved: the backward recomputes P, then dV = P^T.dO with P in the
-input dtype, dP = dO.V^T, dS = P * (dP - sum_k dP * P) * scale cast to the
-input dtype, dQ = dS.K and dK = dS^T.Q, all accumulated in fp32. Every
-output row has one owner, so the gradients are reproducible bit for bit.
-K1's backward writes dq, dk and dv into the columns of one packed
-``[B, N, 3C]`` tensor, which feeds the qkv Linear's backward as it is.
+All four are ``torch.autograd.Function``s (``FusedAttentionDense``,
+``FusedAttention``, ``FusedAttentionRelwinDense``, ``FusedAttentionRelwin``)
+whose backward is a kernel of the same source. Only the inputs are saved:
+the backward recomputes P, then dV = P^T.dO with P in the input dtype, dP =
+dO.V^T, dS0 = P * (dP - sum_k dP * P), dS = dS0 * scale cast to the input
+dtype, dQ = dS.K and dK = dS^T.Q, all accumulated in fp32; K3 and K4 also
+give drel_h[i, kh] and drel_w[i, kw], the fp32 sums of dS0[i, j] over the
+keys j in key-grid row kh or column kw (the TPU kernels' unscaled dS0).
+Every output row has one owner, so the gradients are reproducible bit for
+bit. K1's and K3's backward write dq, dk and dv into the columns of one
+packed ``[B, N, 3C]`` tensor, which feeds the qkv Linear's backward as it
+is.
 
 A CPU tensor takes the plain PyTorch version (``*_reference``); a CUDA
 tensor takes the kernel, or the call raises. Each wrapper counts its
@@ -75,15 +78,18 @@ def fused_attention_dense_reference(qkv, head_nums, n_real=None):
     return out.transpose(1, 2).reshape(b, n, c)
 
 
-def fused_attention_backward_reference(q, k, v, dout, n_real=None):
-    """Plain version of K2's backward (the JAX ``_bwd_kernel``): q, k, v,
-    dout [B, H, N, D] -> dq, dk, dv of the same shape and dtype."""
+def _backward_reference(q, k, v, dout, n_real=None, bias=None):
+    """The TPU backward kernels' math: q, k, v, dout [B, H, N, D] and an
+    optional fp32 score bias [B, H, N, N] -> dq, dk, dv (the input dtype)
+    and the fp32 dS0 = P * (dP - sum_k dP * P) [B, H, N, N]."""
     dtype = q.dtype
     n = k.shape[2]
     scale = q.shape[-1] ** -0.5
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = dout.to(dtype).float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if bias is not None:
+        s = s + bias
     if n_real is not None and n_real < n:
         keep = torch.arange(n, device=q.device) < n_real
         s = s.masked_fill(~keep, NEG_INF)
@@ -91,10 +97,17 @@ def fused_attention_backward_reference(q, k, v, dout, n_real=None):
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     row = (dp * p).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - row) * scale).to(dtype).float()
+    ds0 = p * (dp - row)
+    ds = (ds0 * scale).to(dtype).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
-    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype), ds0
+
+
+def fused_attention_backward_reference(q, k, v, dout, n_real=None):
+    """Plain version of K2's backward (the JAX ``_bwd_kernel``): q, k, v,
+    dout [B, H, N, D] -> dq, dk, dv of the same shape and dtype."""
+    return _backward_reference(q, k, v, dout, n_real)[:3]
 
 
 def fused_attention_dense_backward_reference(qkv, dout, head_nums,
@@ -114,11 +127,9 @@ def fused_attention_relwin_reference(q, k, v, rel_h, rel_w, n_real=None):
     """Plain version of K4 (the JAX ``_reference_bias`` over the expanded
     bias): q, k, v [B, H, N, D], rel_h [B, H, N, KH], rel_w [B, H, N, KW]
     with N = KH * KW -> [B, H, N, D]."""
-    b, h, n, _ = q.shape
-    bias = (rel_h.float()[..., :, None] + rel_w.float()[..., None, :]).reshape(
-        b, h, n, n)
+    n = q.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * (q.shape[-1] ** -0.5) + bias
+    s = s * (q.shape[-1] ** -0.5) + rel_bias(rel_h, rel_w)
     if n_real is not None and n_real < n:
         keep = torch.arange(n, device=q.device) < n_real
         s = s.masked_fill(~keep, NEG_INF)
@@ -136,6 +147,42 @@ def fused_attention_relwin_dense_reference(qkv, rel_h, rel_w, head_nums):
     out = fused_attention_relwin_reference(q, k, v, rel_h.transpose(1, 2),
                                            rel_w.transpose(1, 2))
     return out.transpose(1, 2).reshape(b, n, c)
+
+
+def rel_bias(rel_h, rel_w):
+    """rel_h [..., N, KH], rel_w [..., N, KW] -> the fp32 score bias
+    [..., N, KH * KW]: bias[i, jh * KW + jw] = rel_h[i, jh] + rel_w[i, jw]."""
+    return (rel_h.float()[..., :, None] + rel_w.float()[..., None, :]).flatten(-2)
+
+
+def fused_attention_relwin_backward_reference(q, k, v, rel_h, rel_w, dout,
+                                              n_real=None):
+    """Plain version of K4's backward (the JAX ``_bwd_kernel_relwin``): q, k,
+    v, dout [B, H, N, D], rel_h [B, H, N, KH], rel_w [B, H, N, KW] -> dq,
+    dk, dv (the input dtype) and drel_h, drel_w (fp32, the sums of the
+    unscaled dS0 by key-grid row and column)."""
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    dq, dk, dv, ds0 = _backward_reference(q, k, v, dout, n_real,
+                                          rel_bias(rel_h, rel_w))
+    grid = ds0.unflatten(-1, (kh, kw))
+    return dq, dk, dv, grid.sum(-1), grid.sum(-2)
+
+
+def fused_attention_relwin_dense_backward_reference(qkv, rel_h, rel_w, dout,
+                                                    head_nums):
+    """Plain version of K3's backward: qkv [B, N, 3C], rel_h [B, N, H, KH],
+    rel_w [B, N, H, KW], dout [B, N, C] -> packed dqkv [B, N, 3C] and
+    drel_h, drel_w in the layout of rel_h and rel_w, through K4's math."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // head_nums
+    q, k, v = qkv.reshape(b, n, 3, head_nums, d).permute(2, 0, 3, 1, 4).unbind(0)
+    do = dout.reshape(b, n, head_nums, d).transpose(1, 2)
+    dq, dk, dv, drel_h, drel_w = fused_attention_relwin_backward_reference(
+        q, k, v, rel_h.transpose(1, 2), rel_w.transpose(1, 2), do)
+    dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(b, n, c3)
+    return (dqkv, drel_h.transpose(1, 2).contiguous(),
+            drel_w.transpose(1, 2).contiguous())
 
 
 def _resolve_n_real(n_real, n):
@@ -204,14 +251,6 @@ def check_rel_args(rel_h, rel_w, lead, n):
     return kh, kw
 
 
-def forward_only(name, *tensors):
-    """The rel-pos kernels have no backward yet: refuse a graph that would
-    need one, rather than return values without gradients."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name}: the backward kernel is not ported "
-                                  "yet; call it under torch.no_grad()")
-
-
 _STRIDES = [ctypes.c_longlong] * 3
 _SHAPE = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
@@ -221,12 +260,16 @@ def _library():
     lib = build.load("fused_attention")
     fwd, bwd = lib.saicv_fused_attention_fwd, lib.saicv_fused_attention_bwd
     rel = lib.saicv_fused_attention_relpos_fwd
+    rel_bwd = lib.saicv_fused_attention_relpos_bwd
+    rel_shape = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p]
     fwd.argtypes = [ctypes.c_void_p] * 4 + _STRIDES * 2 + _SHAPE
     bwd.argtypes = [ctypes.c_void_p] * 8 + _STRIDES * 3 + _SHAPE
-    rel.argtypes = ([ctypes.c_void_p] * 6 + _STRIDES * 4 + [ctypes.c_int] * 7
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    fwd.restype = bwd.restype = rel.restype = ctypes.c_int
-    return fwd, bwd, rel
+    rel.argtypes = [ctypes.c_void_p] * 6 + _STRIDES * 4 + rel_shape
+    rel_bwd.argtypes = [ctypes.c_void_p] * 12 + _STRIDES * 7 + rel_shape
+    for fn in (fwd, bwd, rel, rel_bwd):
+        fn.restype = ctypes.c_int
+    return fwd, bwd, rel, rel_bwd
 
 
 def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype,
@@ -267,6 +310,20 @@ def _launch_relpos(q_ptr, k_ptr, v_ptr, out, rel_h, rel_w, strides, b, h,
     _call(_library()[2], out.device,
           (q_ptr, k_ptr, v_ptr, out.data_ptr(), rel_h.data_ptr(),
            rel_w.data_ptr()), strides, b, h, n, d, n_real, dtype, (kh, kw))
+
+
+def _launch_relpos_backward(q_ptr, k_ptr, v_ptr, dout, grad_ptrs, rel_h,
+                            rel_w, drel_h, drel_w, strides, b, h, n, d,
+                            n_real, kh, kw):
+    """K3/K4 backward: dq, dk, dv (``grad_ptrs``) and drel_h, drel_w;
+    ``strides``: the (batch, head, row) strides of the inputs, dout, the
+    gradients, rel_h, rel_w, drel_h and drel_w."""
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
+    _call(_library()[3], dout.device,
+          (q_ptr, k_ptr, v_ptr, dout.data_ptr(), *grad_ptrs, stats.data_ptr(),
+           rel_h.data_ptr(), rel_w.data_ptr(), drel_h.data_ptr(),
+           drel_w.data_ptr()), strides, b, h, n, d, n_real, dout.dtype,
+          (kh, kw))
 
 
 def _require_cuda(t):
@@ -372,28 +429,120 @@ def fused_attention(q, k, v, n_real=None):
     return FusedAttention.apply(q, k, v, n_real)
 
 
+class FusedAttentionRelwinDense(torch.autograd.Function):
+    """K3 with its backward kernel; saves qkv, rel_h and rel_w."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel_h, rel_w, head_nums):
+        ctx.head_nums = head_nums
+        ctx.save_for_backward(qkv, rel_h, rel_w)
+        if qkv.device.type == "cpu":
+            return fused_attention_relwin_dense_reference(qkv, rel_h, rel_w,
+                                                          head_nums)
+        _require_cuda(qkv)
+        _same_device(qkv, rel_h, rel_w)
+        b, n, c, d, _ = check_dense_args(qkv, head_nums)
+        kh, kw = check_rel_args(rel_h, rel_w, (b, n, head_nums), n)
+        out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+        es = qkv.element_size()
+        base = qkv.data_ptr()
+        _launch_relpos(base, base + c * es, base + 2 * c * es, out, rel_h,
+                       rel_w, (n * 3 * c, d, 3 * c, n * c, d, c,
+                               *_dense_rel_strides(rel_h),
+                               *_dense_rel_strides(rel_w)),
+                       b, head_nums, n, d, n, kh, kw, qkv.dtype)
+        fused_attention_relwin_dense.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, rel_h, rel_w = ctx.saved_tensors
+        dout = dout.to(qkv.dtype)
+        if qkv.device.type == "cpu":
+            return (*fused_attention_relwin_dense_backward_reference(
+                qkv, rel_h, rel_w, dout, ctx.head_nums), None)
+        b, n, c, d, _ = check_dense_args(qkv, ctx.head_nums)
+        kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+        dout = dout.contiguous()
+        dqkv = torch.empty_like(qkv)
+        drel_h = torch.empty(rel_h.shape, dtype=torch.float32,
+                             device=qkv.device)
+        drel_w = torch.empty(rel_w.shape, dtype=torch.float32,
+                             device=qkv.device)
+        es = qkv.element_size()
+        base, grad = qkv.data_ptr(), dqkv.data_ptr()
+        packed = (n * 3 * c, d, 3 * c)
+        _launch_relpos_backward(
+            base, base + c * es, base + 2 * c * es, dout,
+            (grad, grad + c * es, grad + 2 * c * es), rel_h, rel_w, drel_h,
+            drel_w, (*packed, n * c, d, c, *packed,
+                     *(s for t in (rel_h, rel_w, drel_h, drel_w)
+                       for s in _dense_rel_strides(t))),
+            b, ctx.head_nums, n, d, n, kh, kw)
+        fused_attention_relwin_dense.backward_launches += 1
+        return dqkv, drel_h, drel_w, None
+
+
+class FusedAttentionRelwin(torch.autograd.Function):
+    """K4 with its backward kernel; saves q, k, v, rel_h and rel_w. The
+    backward returns dq, dk, dv as contiguous [B, H, N, D] tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, n_real):
+        ctx.n_real = n_real
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        if q.device.type == "cpu":
+            return fused_attention_relwin_reference(q, k, v, rel_h, rel_w,
+                                                    n_real)
+        _require_cuda(q)
+        _same_device(q, k, v, rel_h, rel_w)
+        b, h, n, d, n_real = check_args(q, k, v, n_real)
+        kh, kw = check_rel_args(rel_h, rel_w, (b, h, n), n)
+        out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+        _launch_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, rel_h,
+                       rel_w, (*q.stride()[:3], n * h * d, d, h * d,
+                               *rel_h.stride()[:3], *rel_w.stride()[:3]),
+                       b, h, n, d, n_real, kh, kw, q.dtype)
+        fused_attention_relwin.launches += 1
+        return out.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        if q.device.type == "cpu":
+            return (*fused_attention_relwin_backward_reference(
+                q, k, v, rel_h, rel_w, dout, ctx.n_real), None)
+        b, h, n, d, n_real = check_args(q, k, v, ctx.n_real)
+        kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+        if dout.stride(3) != 1:
+            dout = dout.contiguous()
+        grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
+        drel_h = torch.empty((b, h, n, kh), dtype=torch.float32,
+                             device=q.device)
+        drel_w = torch.empty((b, h, n, kw), dtype=torch.float32,
+                             device=q.device)
+        _launch_relpos_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout,
+            [g.data_ptr() for g in grads], rel_h, rel_w, drel_h, drel_w,
+            (*q.stride()[:3], *dout.stride()[:3], h * n * d, n * d, d,
+             *(s for t in (rel_h, rel_w, drel_h, drel_w)
+               for s in t.stride()[:3])),
+            b, h, n, d, n_real, kh, kw)
+        fused_attention_relwin.backward_launches += 1
+        return grads[0], grads[1], grads[2], drel_h, drel_w, None
+
+
+def _dense_rel_strides(t):
+    """(batch, head, row) strides of a K3 rel term [B, N, H, K]."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
 def fused_attention_relwin_dense(qkv, rel_h, rel_w, head_nums):
     """K3: windowed attention with SAM's decomposed rel-pos bias straight
     over the packed qkv [B, N, 3C] (head dim 64 or 128, N <= 1024), with
     rel_h [B, N, H, KH] and rel_w [B, N, H, KW] fp32 -> [B, N, C]."""
-    if qkv.device.type == "cpu":
-        return fused_attention_relwin_dense_reference(qkv, rel_h, rel_w,
-                                                      head_nums)
-    _require_cuda(qkv)
-    _same_device(qkv, rel_h, rel_w)
-    forward_only("K3 fused_attention_relwin_dense", qkv, rel_h, rel_w)
-    b, n, c, d, _ = check_dense_args(qkv, head_nums)
-    kh, kw = check_rel_args(rel_h, rel_w, (b, n, head_nums), n)
-    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-    es = qkv.element_size()
-    base = qkv.data_ptr()
-    rel_strides = lambda t: (t.stride(0), t.stride(2), t.stride(1))
-    _launch_relpos(base, base + c * es, base + 2 * c * es, out, rel_h, rel_w,
-                   (n * 3 * c, d, 3 * c, n * c, d, c, *rel_strides(rel_h),
-                    *rel_strides(rel_w)), b, head_nums, n, d, n, kh, kw,
-                   qkv.dtype)
-    fused_attention_relwin_dense.launches += 1
-    return out
+    return FusedAttentionRelwinDense.apply(qkv, rel_h, rel_w, head_nums)
 
 
 def fused_attention_relwin(q, k, v, rel_h, rel_w, n_real=None):
@@ -402,24 +551,10 @@ def fused_attention_relwin(q, k, v, rel_h, rel_w, n_real=None):
     KW] fp32 and keys at or past ``n_real`` masked. Returns [B, H, N, D]: a
     view of a [B, N, H, D] tensor, so the attention module's transpose back
     to tokens costs no copy."""
-    if q.device.type == "cpu":
-        return fused_attention_relwin_reference(q, k, v, rel_h, rel_w, n_real)
-    _require_cuda(q)
-    _same_device(q, k, v, rel_h, rel_w)
-    forward_only("K4 fused_attention_relwin", q, k, v, rel_h, rel_w)
-    b, h, n, d, n_real = check_args(q, k, v, n_real)
-    kh, kw = check_rel_args(rel_h, rel_w, (b, h, n), n)
-    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    _launch_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, rel_h,
-                   rel_w, (*q.stride()[:3], n * h * d, d, h * d,
-                           *rel_h.stride()[:3], *rel_w.stride()[:3]),
-                   b, h, n, d, n_real, kh, kw, q.dtype)
-    fused_attention_relwin.launches += 1
-    return out.transpose(1, 2)
+    return FusedAttentionRelwin.apply(q, k, v, rel_h, rel_w, n_real)
 
 
 for _wrapper in (fused_attention_dense, fused_attention,
                  fused_attention_relwin_dense, fused_attention_relwin):
     _wrapper.launches = 0
-fused_attention_dense.backward_launches = 0
-fused_attention.backward_launches = 0
+    _wrapper.backward_launches = 0

@@ -24,6 +24,7 @@ from ..engine import init_model, make_classification_eval_step
 # kernel-name fragments -> category, first match wins
 CATEGORIES = (
     ("attention backward kernel", ("attention_bwd",)),
+    ("rel-pos flash attention backward kernel (K5)", ("flash_relpos_bwd",)),
     ("rel-pos flash attention kernel (K5)", ("flash_relpos",)),
     ("attention kernel", ("attention_fwd",)),
     ("layer norm kernel", ("layer_norm_fwd_", "layer_norm_bwd_",

@@ -10,7 +10,7 @@ norm's ``scale`` -> ``weight``. Names of submodules (``fc1.kernel``,
 ``attn.qkv.bias``, ...) map the same way, so a single block or layer loads
 too. The optimizer's moments have their parameters' names and layouts, so
 ``optimizer_state_from_jax`` carries an AdamW or SGD state across through
-the same map.
+the same map (the ViT's or the SAM's).
 
 ``sam_state_dict_from_jax`` does the same for SAM: it is the inverse of the
 JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
@@ -57,14 +57,17 @@ def vit_state_dict_from_jax(flat: dict) -> dict:
             for name, value in flat.items()}
 
 
-def optimizer_state_from_jax(step, **moments) -> dict:
+def optimizer_state_from_jax(step, model="vit", **moments) -> dict:
     """The JAX package's optimizer state, as numpy arrays -> the state dict
     of the port's ``Optimizer``: ``step`` is the update count and each
     keyword (``mu`` and ``nu`` for AdamW, ``momentum_buf`` for SGD) a
-    {Flax dotted name: ndarray} of one moment."""
+    {Flax dotted name: ndarray} of one moment, mapped onto the port's names
+    and layouts as the weights of ``model`` ("vit" or "sam") are."""
+    to_torch = {"vit": vit_state_dict_from_jax,
+                "sam": lambda flat: sam_state_dict_from_jax(flat, {})}[model]
     state = {"step": int(step)}
     for slot, flat in moments.items():
-        state[slot] = vit_state_dict_from_jax(flat)
+        state[slot] = to_torch(flat)
     return state
 
 

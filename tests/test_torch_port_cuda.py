@@ -11,8 +11,10 @@ It sweeps the shapes the smoke run does not: token counts around the
 ``n_real`` at the edges, both layouts, unaligned tensors, LayerNorm widths
 on and off the vector path; for the rel-pos kernels K3, K4 and K5 also
 key grids with KH != KW, KW a multiple of 64 or not, N off the 64-key
-tiles and (K5) head dims above 128. Tolerances: attention and its gradients bf16
-atol 2e-2 per unit of the reference's scale, fp32 1e-4; LayerNorm y and dx
+tiles and (K5) head dims above 128, forward and backward. Tolerances:
+attention and its gradients bf16 atol 2e-2 per unit of the reference's
+scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
+terms) the same fractions of their largest value; LayerNorm y and dx
 bf16 two ulps of the reference's scale, fp32 1e-4; dgamma and dbeta 1e-3 of
 the largest sum.
 """
@@ -305,6 +307,135 @@ def test_rel_kernels_refuse_what_they_cannot_take(cuda):
         fl.flash_attention_relpos(q, q, q, rel_w.view(1, 1, 12, 4),
                                   rel_w.view(1, 1, 12, 4))
     leaf = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        fl.flash_attention_relpos(leaf, q, q, rel_h.view(1, 1, 12, 3),
-                                  rel_w.view(1, 1, 12, 4))
+    before = fl.flash_attention_relpos.backward_launches
+    fl.flash_attention_relpos(leaf, q, q, rel_h.view(1, 1, 12, 3),
+                              rel_w.view(1, 1, 12, 4)).sum().backward()
+    torch.cuda.synchronize()                 # a graph takes the backward kernel
+    assert fl.flash_attention_relpos.backward_launches == before + 1
+    assert torch.isfinite(leaf.grad).all()
+
+
+# ------------------------------------------------ K3, K4, K5 backward
+
+
+def _close_drel(got, want, dtype):
+    """drel_h and drel_w within 2e-2 (bf16) or 1e-4 (fp32) of the largest
+    reference value of the two (with KH = 1, drel_h is 0 up to rounding)."""
+    scale = max(w.abs().max().item() for w in want)
+    tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+    for what, x, y in zip(("drel_h", "drel_w"), got, want):
+        assert torch.isfinite(x).all(), what
+        err = (x.float() - y.float()).abs().max().item()
+        assert err <= tol, f"{what}: max |kernel - plain| {err} > {tol}"
+
+
+def _grads(fn, leaves, dout):
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    fn(*leaves).backward(dout)
+    torch.cuda.synchronize()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,kh,kw,h,d", [
+    (3, 14, 14, 12, 64), (2, 14, 14, 2, 128), (2, 3, 4, 2, 64),
+    (1, 12, 16, 2, 64), (2, 32, 32, 1, 64), (1, 1, 7, 2, 128),
+    (2, 5, 40, 2, 64),
+])
+def test_relwin_dense_backward(cuda, b, kh, kw, h, d, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n * d + h + 1)
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+    rel_h, rel_w = _rel(gen, (b, n, h), kh, kw)
+    dout = _randn(gen, b, n, h * d, dtype=dtype)
+    before = fa.fused_attention_relwin_dense.backward_launches
+    fn = lambda x, rh, rw: fa.fused_attention_relwin_dense(x, rh, rw, h)
+    got = _grads(fn, (qkv, rel_h, rel_w), dout)
+    assert fa.fused_attention_relwin_dense.backward_launches == before + 1
+    want = fa.fused_attention_relwin_dense_backward_reference(
+        qkv, rel_h, rel_w, dout, h)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _close(got[0], want[0], dtype, "dqkv")
+    _close_drel(got[1:], want[1:], dtype)
+    again = _grads(fn, (qkv, rel_h, rel_w), dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # reproducible
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,kh,kw,d,n_real", [
+    (2, 16, 14, 14, 80, None), (2, 3, 14, 14, 80, 150), (1, 2, 8, 20, 80, 1),
+    (2, 2, 7, 9, 35, None), (1, 2, 32, 32, 128, 1000), (2, 1, 3, 4, 16, 12),
+])
+def test_relwin_backward(cuda, b, h, kh, kw, d, n_real, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n * d + 7)
+    q, k, v = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(3))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    dout = _randn(gen, b, h, n, d, dtype=dtype)
+    before = fa.fused_attention_relwin.backward_launches
+    got = _grads(lambda *a: fa.fused_attention_relwin(*a, n_real),
+                 (q, k, v, rel_h, rel_w), dout)
+    assert fa.fused_attention_relwin.backward_launches == before + 1
+    want = fa.fused_attention_relwin_backward_reference(
+        q, k, v, rel_h, rel_w, dout, n_real)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        _close(x, y, dtype, name)
+    _close_drel(got[3:], want[3:], dtype)
+    if n_real is not None:   # masked keys get no gradient
+        assert torch.count_nonzero(got[1][:, :, n_real:]) == 0
+
+
+def test_relwin_backward_through_views_of_the_packed_qkv(cuda):
+    """K4 over the attention module's views: the gradient lands in the
+    packed [B, N, 3C] layout, equal to the plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, h, kh, kw, d = 2, 4, 14, 14, 80
+    n = kh * kw
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=torch.bfloat16)
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    dout = _randn(gen, b, h, n, d, dtype=torch.bfloat16)
+
+    def through(attention, x):
+        q, k, v = x.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        return attention(q, k, v, rel_h, rel_w)
+    got = _grads(lambda x: through(fa.fused_attention_relwin, x), (qkv,),
+                 dout)[0]
+    want = _grads(lambda x: through(fa.fused_attention_relwin_reference, x),
+                  (qkv,), dout)[0]
+    _close(got, want, torch.bfloat16, "dqkv")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,kh,kw,d,packed", [
+    (1, 2, 64, 64, 64, True), (1, 2, 16, 64, 80, False),
+    (1, 1, 32, 32, 160, False), (1, 2, 30, 35, 64, False),
+    (1, 1, 16, 128, 64, True), (2, 1, 3, 5, 8, False),
+    (1, 2, 2, 64, 256, False), (1, 3, 10, 13, 128, True),
+])
+def test_flash_relpos_backward(cuda, b, h, kh, kw, d, packed, dtype):
+    dtype = DTYPES[dtype]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n + d + 3)
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    dout = _randn(gen, b, h, n, d, dtype=dtype)
+    if packed:
+        qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+        views = lambda x: x.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        before = fl.flash_attention_relpos.backward_launches
+        got = _grads(lambda x, rh, rw: fl.flash_attention_relpos(
+            *views(x), rh, rw), (qkv, rel_h, rel_w), dout)
+        assert fl.flash_attention_relpos.backward_launches == before + 1
+        want = fl.flash_attention_relpos_backward_reference(
+            *views(qkv), rel_h, rel_w, dout)
+        dq, dk, dv = got[0].view(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+        got = [dq, dk, dv, got[1], got[2]]
+    else:
+        q, k, v = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(3))
+        got = _grads(fl.flash_attention_relpos, (q, k, v, rel_h, rel_w), dout)
+        want = fl.flash_attention_relpos_backward_reference(
+            q, k, v, rel_h, rel_w, dout)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        _close(x, y, dtype, name)
+    _close_drel(got[3:], want[3:], dtype)

@@ -1,6 +1,6 @@
-"""The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm),
-forward and backward, and the rel-pos attention kernels K3, K4 and K5
-(forward), against the JAX package.
+"""The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm) and
+the rel-pos attention kernels K3, K4 and K5, forward and backward, against
+the JAX package.
 
 On the CPU each wrapper takes its plain PyTorch version; these tests hold
 that version against the JAX entry points run through their Pallas kernels
@@ -9,8 +9,9 @@ of the kernels' custom VJPs against the port's autograd Functions. The CUDA
 kernels themselves are held against the plain versions on the card by
 chip_smoke.py.
 
-K5 has no interpret mode: its plain version is held against the JAX
-package's off-TPU composition of ``flash_attention_relpos``.
+K5 has no interpret mode: its plain versions are held against the JAX
+package's off-TPU composition of ``flash_attention_relpos`` and that
+composition's VJP.
 
 Tolerances: fp32 atol 1e-5 (same math, another summation order; the
 rel-pos kernels atol 2e-5, rtol 1e-5, as the JAX package's own tests hold
@@ -432,13 +433,131 @@ def test_rel_kernel_shape_rules():
 
 
 def test_rel_kernels_take_gradients_on_the_cpu_only_through_plain_ops():
-    """On the CPU the plain versions are differentiable; on the card the
-    wrappers refuse a graph (their backward kernels are not ported)."""
-    q = torch.randn(1, 1, 6, 8, requires_grad=True)
-    rel_h, rel_w = torch.randn(1, 1, 6, 2), torch.randn(1, 1, 6, 3)
-    port_fl.flash_attention_relpos(q, q, q, rel_h, rel_w).sum().backward()
-    assert q.grad is not None and torch.isfinite(q.grad).all()
-    with pytest.raises(NotImplementedError):
-        port_fa.forward_only("K4", q)
-    with torch.no_grad():
-        port_fa.forward_only("K4", q)
+    """On the CPU the autograd Functions of K3, K4 and K5 run the plain
+    backward versions, equal to autograd through the plain forward versions,
+    and count no launch."""
+    gen = torch.Generator().manual_seed(0)
+    rand = lambda *shape: torch.randn(*shape, generator=gen)
+    q, k, v, dout = (rand(1, 2, 6, 8) for _ in range(4))
+    rel_h, rel_w = rand(1, 2, 6, 2), rand(1, 2, 6, 3)
+    wrappers = (port_fa.fused_attention_relwin_dense,
+                port_fa.fused_attention_relwin, port_fl.flash_attention_relpos)
+    before = [(w.launches, w.backward_launches) for w in wrappers]
+    qkv = torch.cat([t.transpose(1, 2).reshape(1, 6, 16) for t in (q, k, v)],
+                    dim=-1)
+    dense_do = dout.transpose(1, 2).reshape(1, 6, 16)
+    for kernel, plain, inputs, do in (
+            (lambda x, rh, rw: port_fa.fused_attention_relwin_dense(
+                x, rh, rw, 2),
+             lambda x, rh, rw: port_fa.fused_attention_relwin_dense_reference(
+                 x, rh, rw, 2),
+             (qkv, rel_h.transpose(1, 2), rel_w.transpose(1, 2)), dense_do),
+            (lambda *a: port_fa.fused_attention_relwin(*a, 5),
+             lambda *a: port_fa.fused_attention_relwin_reference(*a, 5),
+             (q, k, v, rel_h, rel_w), dout),
+            (port_fl.flash_attention_relpos,
+             port_fl.flash_attention_relpos_reference,
+             (q, k, v, rel_h, rel_w), dout)):
+        grads = []
+        for fn in (kernel, plain):
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            fn(*leaves).backward(do)
+            grads.append([t.grad for t in leaves])
+        for got, want in zip(*grads):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert [(w.launches, w.backward_launches) for w in wrappers] == before
+
+
+# the JAX package's rel-pos kernels return fp32 drel; fp32 tolerance as
+# the forward's (another summation order)
+REL_GRAD = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kh,kw,head_dim", [(3, 4, 64), (4, 4, 128),
+                                            (2, 5, 64)])
+def test_relwin_dense_backward_matches_jax_kernel_vjp(kh, kw, head_dim):
+    """K3: packed dqkv and drel through the JAX kernel's custom VJP, run in
+    interpret mode."""
+    b, h, n = 2, 2, kh * kw
+    rs = np.random.RandomState(700 + n + head_dim)
+    x = rs.standard_normal((b, n, 3 * h * head_dim)).astype(np.float32)
+    g = rs.standard_normal((b, n, h * head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, n, h), kh, kw, 701 + n)
+    _, vjp = jax.vjp(lambda t, rh, rw: jax_fa.fused_attention_relwin_dense(
+        t, rh, rw, h, interpret=True), jnp.asarray(x), jh, jw)
+    want = vjp(jnp.asarray(g))
+    leaves = [t.clone().requires_grad_() for t in (torch.from_numpy(x), th, tw)]
+    port_fa.fused_attention_relwin_dense(*leaves, h).backward(
+        torch.from_numpy(g))
+    for got, w in zip(leaves, want):
+        assert got.grad.shape == got.shape
+        np.testing.assert_allclose(_to_np(got.grad), _to_np(w), **REL_GRAD)
+
+
+@pytest.mark.parametrize("kh,kw,head_dim,n_real", [(3, 4, 8, None),
+                                                   (3, 4, 40, 9),
+                                                   (4, 5, 80, None)])
+def test_relwin_backward_matches_jax_kernel_vjp(kh, kw, head_dim, n_real):
+    """K4: dq, dk, dv, drel_h, drel_w through the JAX kernel's custom VJP,
+    run in interpret mode, with a key mask."""
+    b, h, n = 2, 2, kh * kw
+    rs = np.random.RandomState(800 + n + head_dim)
+    q, k, v, g = rs.standard_normal((4, b, h, n, head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 801 + n)
+    _, vjp = jax.vjp(lambda *a: jax_fa.fused_attention_relwin(
+        *a, n_real=n_real, interpret=True),
+        *(jnp.asarray(a) for a in (q, k, v)), jh, jw)
+    want = vjp(jnp.asarray(g))
+    leaves = [t.clone().requires_grad_()
+              for t in (*(torch.from_numpy(a) for a in (q, k, v)), th, tw)]
+    port_fa.fused_attention_relwin(*leaves, n_real).backward(
+        torch.from_numpy(g))
+    for got, w in zip(leaves, want):
+        np.testing.assert_allclose(_to_np(got.grad), _to_np(w), **REL_GRAD)
+
+
+@pytest.mark.parametrize("kh,kw,head_dim", [(8, 8, 64), (4, 6, 80),
+                                            (3, 5, 160)])
+def test_flash_relpos_backward_matches_jax_vjp(kh, kw, head_dim):
+    """K5: the plain backward (P from the log-sum-exp, delta from the
+    output) against the VJP of the JAX package's off-TPU composition."""
+    b, h, n = 1, 2, kh * kw
+    rs = np.random.RandomState(900 + n + head_dim)
+    q, k, v, g = rs.standard_normal((4, b, h, n, head_dim)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 901 + n)
+    _, vjp = jax.vjp(lambda *a: jax_fl.flash_attention_relpos(
+        *a, force_pallas=True), *(jnp.asarray(a) for a in (q, k, v)), jh, jw)
+    want = vjp(jnp.asarray(g))
+    got = port_fl.flash_attention_relpos_backward_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), th, tw,
+        torch.from_numpy(g))
+    for x, w in zip(got, want):
+        np.testing.assert_allclose(_to_np(x), _to_np(w), **REL_GRAD)
+
+
+def test_rel_backwards_in_bf16_match_jax():
+    """K4 and K5 backward in bf16: dq, dk, dv within the bf16 tolerance,
+    drel within 2e-2 of its scale."""
+    kh, kw, b, h, d = 4, 4, 2, 2, 64
+    n = kh * kw
+    rs = np.random.RandomState(1000)
+    q, k, v, g = rs.standard_normal((4, b, h, n, d)).astype(np.float32)
+    jh, jw, th, tw = _rel_inputs((b, h, n), kh, kw, 1001)
+    jq, jk, jv, jg = (_pair(a, "bfloat16")[0] for a in (q, k, v, g))
+    tq, tk, tv, tg = (_pair(a, "bfloat16")[1] for a in (q, k, v, g))
+    for jax_fn, port_fn in (
+            (lambda *a: jax_fa.fused_attention_relwin(*a, interpret=True),
+             port_fa.fused_attention_relwin),
+            (jax_fl.flash_attention_relpos, port_fl.flash_attention_relpos)):
+        _, vjp = jax.vjp(jax_fn, jq, jk, jv, jh, jw)
+        want = vjp(jg)
+        leaves = [t.clone().requires_grad_() for t in (tq, tk, tv, th, tw)]
+        port_fn(*leaves).backward(tg)
+        for got, w in zip(leaves[:3], want[:3]):
+            assert got.grad.dtype == torch.bfloat16
+            np.testing.assert_allclose(_to_np(got.grad), _to_np(w), rtol=0,
+                                       atol=TOL["bfloat16"])
+        scale = max(np.abs(_to_np(w)).max() for w in want[3:])
+        for got, w in zip(leaves[3:], want[3:]):
+            np.testing.assert_allclose(_to_np(got.grad), _to_np(w), rtol=0,
+                                       atol=2e-2 * scale)
