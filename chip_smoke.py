@@ -31,7 +31,19 @@ kernels' launch counters set to 0 just before it and read just after:
   synthetic dataset (two epochs of 4 steps, then resumed for a third);
   SAM-B's gradients with sharp attention, kernels against plain attention;
   timed train steps with and without checkpointing; full-width SAM-H at
-  reduced depth, its gradients likewise.
+  reduced depth, its gradients likewise;
+- SAM2 video tracking: full-width, full-depth SAM2-B+ (1024^2, bf16, batch
+  1, the 14.1 training configs' settings: high-res skips, Hiera heads
+  padded to 64; seeded random weights) through the video prediction tool
+  on an 8-frame synthetic clip, frame 0 prompted with a point and 7 frames
+  tracked from the memory (K1 18 and K6 3 launches an encoded frame, K6 8
+  a tracked frame); one more encoded and tracked frame under
+  ``torch.cuda.set_sync_debug_mode("error")``, which fails the run if
+  either makes a host sync; encode and track ms, frames/s and the share of
+  the bf16 peak; the same weights with sharpened attention, kernels against
+  plain attention on every frame, with a control; a reference-width
+  (head_dim_padding=0) SAM2-B+ at reduced depth, whose windows take K2 and
+  whose global block takes K6 at d = 56, compared likewise.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -88,6 +100,33 @@ attention at most the larger of 5e-2 and 1.25 times the plain bf16 path's
 (every rel-pos table included, whose gradient comes through drel alone;
 the mask decoder's attention key biases, whose exact gradient is zero, left
 out), and the loss's relative distance likewise.
+
+K6 (key-bias streaming attention) vs its plain version at SAM2-B+'s
+shapes (the memory cross-attention with the memory bias of frame 7 and of
+frame 1, the memory self-attention, the Hiera global block at d = 64 with
+the 56-wide scale and at d = 56), held to the plain version's own floor,
+since a flat 2e-2 is about twice a typical output there (outputs of std
+~sqrt(e / valid keys), 0.0097 with 28,704 valid keys): bf16, against the
+plain version's computation of the same inputs in fp32, the kernel's RMS
+difference at most 1.25x the plain bf16 version's and its max |difference|
+at most the plain version's plus one bf16 ulp of the largest output; fp32,
+max |kernel - plain| at most 1e-4 of the output's RMS (and, in either
+dtype, within the flat atol of the other kernels); the log-sum-exp
+within 1e-3 of its scale. A control masks the first 64 valid keys too and
+fails the run unless that breaks the same check. K1 with Hiera's scale and K2 at
+d = 56 at Hiera's four window shapes: as K1 and K2 above. SAM2 tracking,
+kernels vs plain attention on the same sharpened weights (Hiera's qkv and
+the memory attention's q and k projections LeCun-normal, the memory
+cross-attention's key projections scaled so that the first layer's scores
+have unit std over a row's valid keys), over every
+frame's mask logits, IoU predictions and object logits: mask max |diff|
+within the larger of 0.02 * max(1, std) and the plain bf16 path's from the
+fp32 path, mask RMS from fp32 within 1.25x the plain path's, binarised
+masks apart from fp32's on at most the larger of 1% and 1.25x the plain
+path's share, IoU and object logits within the larger of 2e-2 and the
+plain path's difference from fp32. The control runs the kernels with the
+memory key bias zeroed, so that empty slots are attended to, and the run
+fails unless its mask RMS from fp32 exceeds the bound.
 """
 
 import json
@@ -114,12 +153,18 @@ SAM_BATCH = 8
 SAM_H_DEPTH, SAM_H_GLOBAL = 4, (3,)   # of 32 blocks, global (7, 15, 23, 31)
 SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
 SAM_FLOOR_RATIO = 1.25
+K6_FLOOR_RATIO, K6_FP32_RTOL, K6_CONTROL_KEYS = 1.25, 1e-4, 64
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
 SAM_GRAD_BATCH = 2          # images of the SAM gradient checks
 SAM_GRAD_SEED = 3
 MICRO_BATCHES = 4           # the train config's accumulation_steps
 TRAIN_IMAGES, EVAL_IMAGES = 768, 256
+SAM2_FRAMES = 8             # 1 prompted + 7 tracked: every memory slot valid
+SAM2_SHARP_SEED = 5
+# the head_dim_padding=0 tracker's cut Hiera: blocks 0, 2, 5 windowed (K2),
+# 4 global (K6 at d = 56), 1, 3, 6 pooled
+SAM2_D56_BLOCKS, SAM2_D56_GLOBAL = (1, 2, 3, 1), (4,)
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
 
 VIT_B_CONFIG = """
@@ -318,16 +363,19 @@ def check_kernel(torch, F, fa, name, case, results):
     dtype = case["dtype"]
     n_real = case.get("n_real")
     _, qkv, (q, k, v), (b, h, n, d) = attention_inputs(torch, name, case)
+    scale = case.get("sm_scale")   # Hiera's 56^-0.5 on 64-wide heads
     if name == "K1":
-        kernel = lambda: fa.fused_attention_dense(qkv, h, n_real)
-        plain = lambda: fa.fused_attention_dense_reference(qkv, h, n_real)
+        kernel = lambda: fa.fused_attention_dense(qkv, h, n_real, scale)
+        plain = lambda: fa.fused_attention_dense_reference(qkv, h, n_real,
+                                                           scale)
     else:
         kernel = lambda: fa.fused_attention(q, k, v, n_real)
         plain = lambda: fa.fused_attention_reference(q, k, v, n_real)
     mask = None
     if n_real is not None:
         mask = (torch.arange(n, device="cuda") < n_real)[None, :]
-    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     scale=scale)
 
     out = kernel()
     torch.cuda.synchronize()
@@ -339,8 +387,9 @@ def check_kernel(torch, F, fa, name, case, results):
                                          n if n_real is None else n_real,
                                          dtype_name, out.element_size())
     record = {"case": case["label"], "shape": list(case["shape"]),
-              "dtype": dtype_name, "n_real": n_real, "max_abs_err": err,
-              "tol": tol, "finite": bool(torch.isfinite(out).all()),
+              "dtype": dtype_name, "n_real": n_real, "sm_scale": scale,
+              "max_abs_err": err, "tol": tol,
+              "finite": bool(torch.isfinite(out).all()),
               "ms": time_ms(torch, kernel), "plain_ms": time_ms(torch, plain),
               "library_ms": time_ms(torch, library), "bound_ms": bound_ms,
               "bound_by": bound_by}
@@ -755,6 +804,137 @@ def check_rel_backward_kernel(torch, F, name, case, results):
     results.setdefault(name + " bwd", []).append(record)
 
 
+def slot_bias(torch, b, slots, slot_tokens, valid_slots, pointers,
+              pointer_tokens, valid_pointers):
+    """SAM2's key bias [B, slots * slot_tokens + pointers * pointer_tokens]:
+    0 on the first ``valid_slots`` memory slots and ``valid_pointers``
+    pointer slots, -1e9 on the empty ones."""
+    bias = torch.full((b, slots * slot_tokens + pointers * pointer_tokens),
+                      -1e9, device="cuda")
+    bias[:, :valid_slots * slot_tokens] = 0.0
+    start = slots * slot_tokens
+    bias[:, start:start + valid_pointers * pointer_tokens] = 0.0
+    return bias
+
+
+def key_bias_attention_bound(b, h, nq, n_keys, n_valid, d, dtype_name,
+                             element_size):
+    """Least time (ms) of one K6 launch on this card, and what bounds it: q,
+    k, v and the output once, the fp32 bias and log-sum-exp once, against
+    4*b*h*nq*d operations for each key that is not masked (a masked key's
+    weight is exactly 0 unless a row's keys are all masked)."""
+    nbytes = (element_size * b * h * d * (2 * nq + 2 * n_keys)
+              + 4 * b * n_keys + 4 * b * h * nq)
+    flops = 4.0 * b * h * nq * n_valid * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def key_bias_reading(torch, out, plain, exact):
+    """K6's output held to its plain version's own floor. In bf16 against
+    ``exact``, the plain version's computation of the same inputs in fp32:
+    the RMS difference at most K6_FLOOR_RATIO times the plain bf16
+    version's, and the max |difference| at most the plain version's plus
+    one bf16 ulp of the largest output (where the two round a value to
+    neighbouring bf16 numbers). In fp32 (``exact`` None): max |out - plain|
+    at most K6_FP32_RTOL of the plain output's RMS. Returns (ok, readings)."""
+    rms = lambda t: t.float().pow(2).mean().sqrt().item()
+    if exact is None:
+        err = (out - plain).abs().max().item()
+        bound = K6_FP32_RTOL * rms(plain)
+        return err <= bound, {"max_err": err, "max_bound": bound}
+    d_out, d_plain = out.float() - exact, plain.float() - exact
+    ulp = 2.0 ** (math.floor(math.log2(exact.abs().max().item())) - 7)
+    reading = {"rms_err": rms(d_out), "plain_rms_err": rms(d_plain),
+               "max_err": d_out.abs().max().item(),
+               "plain_max_err": d_plain.abs().max().item(), "ulp": ulp}
+    ok = (reading["rms_err"] <= K6_FLOOR_RATIO * reading["plain_rms_err"]
+          and reading["max_err"] <= reading["plain_max_err"] + ulp)
+    return ok, reading
+
+
+def check_key_bias_kernel(torch, F, case, results):
+    """Hold K6 against its plain version at one shape: the output by
+    ``key_bias_reading``, the log-sum-exp within 1e-3 of its scale; a
+    control runs the kernel with the first K6_CONTROL_KEYS valid keys
+    masked too, which must fail the same reading. Time the kernel, the
+    plain version and SDPA with the bias as a broadcast [B, 1, 1, Nk] mask
+    in the input dtype (a yardstick, never used by the port); append the
+    record to results["K6"]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl)
+    dtype = case["dtype"]
+    b, h, nq, nk, d = case["shape"]
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    if case["layout"] == "packed":      # Hiera's global block
+        qkv = randn(b, nq, 3 * h * d)
+        q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:                               # SAM2's RoPEAttention
+        q = randn(b, nq, h, d).transpose(1, 2)
+        k = randn(b, h, nk, d)
+        v = randn(b, nk, h, d).transpose(1, 2)
+    bias = case.get("bias")
+    scale = case.get("sm_scale")
+    kernel = lambda: fl.flash_attention(q, k, v, bias, scale, return_lse=True)
+    plain = lambda: fl.flash_attention_reference(q, k, v, bias, scale,
+                                                 return_lse=True)
+    mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     scale=scale)
+    # every case's first keys are valid (slot 0 of the memory)
+    dropped = (torch.zeros(b, nk, device="cuda") if bias is None
+               else bias.clone())
+    dropped[:, :K6_CONTROL_KEYS] = -1e9
+    with torch.no_grad():
+        out, lse = kernel()
+        control = fl.flash_attention(q, k, v, dropped, scale)
+        torch.cuda.synchronize()
+        ref, ref_lse = plain()
+        exact = (fl.flash_attention_reference(q.float(), k.float(), v.float(),
+                                              bias, scale)
+                 if dtype == torch.bfloat16 else None)
+        ok, reading = key_bias_reading(torch, out, ref, exact)
+        control_ok, control_reading = key_bias_reading(torch, control, ref,
+                                                       exact)
+        record = {"case": case["label"], "shape": list(case["shape"]),
+                  "dtype": str(dtype).split(".")[-1], "sm_scale": scale,
+                  "masked_keys": 0 if bias is None
+                  else int((bias[0] < -1e8).sum()),
+                  "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                  **reading, "control": control_reading,
+                  "lse_err": (lse - ref_lse).abs().max().item(),
+                  "lse_scale": ref_lse.abs().max().item(),
+                  "finite": bool(torch.isfinite(out).all()
+                                 and torch.isfinite(lse).all())}
+        del out, lse, ref, ref_lse, exact, control
+        fast = dtype == torch.bfloat16
+        record["ms"] = time_ms(torch, kernel, iters=20 if fast else 2,
+                               warmup=3 if fast else 1)
+        record["plain_ms"] = time_ms(torch, plain, iters=5 if fast else 2,
+                                     warmup=1)
+        record["library_ms"] = time_ms(torch, library, iters=20 if fast else 2,
+                                       warmup=3 if fast else 1)
+    n_valid = nk - record["masked_keys"]
+    record["bound_ms"], record["bound_by"] = key_bias_attention_bound(
+        b, h, nq, nk, n_valid, d, record["dtype"], q.element_size())
+    log(f"K6 {case['label']}", **record)
+    lse_ok = record["lse_err"] <= 1e-3 * max(1.0, record["lse_scale"])
+    flat = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+    if not (record["finite"] and ok and record["max_abs_err"] <= flat
+            and lse_ok):
+        raise AssertionError(f"K6 {case['label']}: output off its plain "
+                             f"version's floor ({reading}), non-finite "
+                             "output or LSE off")
+    if control_ok:
+        raise AssertionError(f"K6 {case['label']}: masking {K6_CONTROL_KEYS} "
+                             f"more keys passes the check ({control_reading})"
+                             "; it cannot see a lost key tile")
+    results.setdefault("K6", []).append(record)
+
+
 def sam_encoder_flops(model):
     """Operations of one SAM encoder forward of one image, counted from the
     model's shapes: the patch embedding, each block's qkv, proj, lin1 and
@@ -1064,6 +1244,224 @@ def sam_compare(torch, model, images, sets, label, floor_masks=False):
     return fields
 
 
+def sam2_step_flops(torch, model, frames, prompts):
+    """Operations of SAM2's ``encode_frame`` and of one ``track_frame`` with
+    every memory slot filled, counted on forwards with hooks the way
+    ``sam_encoder_flops`` and ``sam_decoder_flops`` count: every Linear,
+    convolution (per group) and transposed convolution, and the attention
+    products Q.K^T and P.V (Hiera's windows, pooled queries and global
+    blocks; memory attention over every key, masked or not; the decoder's
+    cross attentions). Norms, softmax, RoPE, the mask upsampling and the
+    adds are not counted. Returns (encode, track) operations."""
+    from torch import nn
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.transformer import (
+        SAMCrossAttention)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.image_encoder import (
+        MultiScaleAttention)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.memory import (
+        RoPEAttention)
+    total = [0]
+
+    def count(module, args, out):
+        if isinstance(module, nn.Linear):
+            total[0] += 2 * out.numel() * module.in_features
+        elif isinstance(module, nn.Conv2d):
+            k = module.kernel_size[0] * module.kernel_size[1]
+            total[0] += (2 * out.numel() * module.in_channels // module.groups
+                         * k)
+        elif isinstance(module, nn.ConvTranspose2d):
+            k = module.kernel_size[0] * module.kernel_size[1]
+            total[0] += 2 * args[0].numel() * module.out_channels * k
+        elif isinstance(module, MultiScaleAttention):
+            b, h, w, _ = args[0].shape
+            s = module.pool_stride or 1
+            total[0] += (4 * b * module.head_nums * module.padded_head_dim
+                         * (h // s) * (w // s) * h * w)
+        elif isinstance(module, (RoPEAttention, SAMCrossAttention)):
+            q, k = args[0], args[1]
+            total[0] += (4 * q.shape[0] * q.shape[1] * k.shape[1]
+                         * module.q_proj.out_features)
+    hooks = [m.register_forward_hook(count) for m in model.modules()]
+    try:
+        with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
+            feat, pos, hr = model.encode_frame(frames[:1])
+            encode = total[0]
+            _, carry = model.start_track(feat, prompts, highres=hr)
+            for _ in range(model.memory_mask_nums):
+                _, carry = model.track_frame(feat, pos, carry, highres=hr)
+            total[0] = 0
+            model.track_frame(feat, pos, carry, highres=hr)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return encode, total[0]
+
+
+def sharpen_sam2_attention_(torch, model, seed):
+    """Redraw every Hiera qkv weight and every memory-attention q_proj and
+    k_proj weight from LeCun's normal N(0, 1/C_in) (Flax's default for
+    Dense): tokens after a LayerNorm have unit variance, so q and k have
+    unit std and so have their scaled scores, and attention is sharp
+    enough that a wrong or missing key bias, or a wrong softmax, moves the
+    outputs far more than bf16 rounding does."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.image_encoder import (
+        MultiScaleAttention)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.memory import (
+        RoPEAttention)
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            linears = ((m.qkv,) if isinstance(m, MultiScaleAttention) else
+                       (m.q_proj, m.k_proj) if isinstance(m, RoPEAttention)
+                       else ())
+            for lin in linears:
+                lin.weight.normal_(0.0, lin.in_features ** -0.5,
+                                   generator=generator)
+
+
+def sam2_memory_logit_stats(torch, model, frames, prompts):
+    """How sharp the memory cross-attention is on the last of ``frames``,
+    tracked in fp32 with plain attention (the kernels are on again after):
+    in the first layer, the std over a query row's valid keys of the
+    scaled scores, averaged over the rows, and the mean largest softmax
+    weight times the number of valid keys (1 for attention that
+    averages)."""
+    layer = model.memory_attention.layers[0].cross_attn_image
+    seen = {}
+    hook = layer.register_forward_hook(
+        lambda mod, args, kwargs, out: seen.update(args=args, kwargs=kwargs),
+        with_kwargs=True)
+    model.set_flash_attention(False)
+    try:
+        run_track(torch, model, frames, prompts, autocast=False)
+    finally:
+        hook.remove()
+        model.set_flash_attention(True)
+    q, k, _ = seen["args"]
+    bias = seen["kwargs"]["key_bias"]
+    with torch.inference_mode():
+        qp, kp = layer.q_proj(q), layer.k_proj(k)
+        scores = qp @ kp.transpose(1, 2) * qp.shape[-1] ** -0.5
+        valid = bias[0] > -1e8
+        scores = scores[..., valid]
+        top = scores.softmax(-1).amax(-1).mean().item() * int(valid.sum())
+        return {"score_std": scores.std(-1).mean().item(),
+                "valid_keys": int(valid.sum()), "top_weight_x_keys": top}
+
+
+def sharpen_memory_keys_(torch, model, frames, prompts):
+    """After ``sharpen_sam2_attention_``: scale every memory
+    cross-attention's key projection so that the first layer's scores have
+    unit std over a row's valid keys on ``frames`` (the memory features, the
+    keys' input, are not normalised, so LeCun's draw alone leaves them
+    flatter). Returns the stats after."""
+    gain = 1.0 / sam2_memory_logit_stats(torch, model, frames,
+                                         prompts)["score_std"]
+    with torch.no_grad():
+        for layer in model.memory_attention.layers:
+            layer.cross_attn_image.k_proj.weight.mul_(gain)
+    return sam2_memory_logit_stats(torch, model, frames, prompts)
+
+
+def run_track(torch, model, frames, prompts, autocast=True):
+    """SAM2's stream over ``frames`` [T, 3, S, S]: start_track on frame 0,
+    track_frame after; bf16 autocast or fp32. Returns (masks [T, 4, S, S],
+    ious [T, 4], object logits [T, 1]) in fp32."""
+    outs = []
+    carry = None
+    with torch.inference_mode(), torch.autocast(
+            "cuda", torch.bfloat16, enabled=autocast):
+        for i in range(frames.shape[0]):
+            feat, pos, hr = model.encode_frame(frames[i:i + 1])
+            if carry is None:
+                out, carry = model.start_track(feat, prompts, highres=hr)
+            else:
+                out, carry = model.track_frame(feat, pos, carry, highres=hr)
+            outs.append(out)
+    return tuple(torch.cat([o[j].float() for o in outs]) for j in range(3))
+
+
+def without_key_bias(model):
+    """A context in which the tracker's memory key bias is zero, so that the
+    empty slots are attended to (the control of ``sam2_compare``)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        tokens = model._memory_tokens
+
+        def zeroed(carry, b):
+            memory, pos, bias = tokens(carry, b)
+            return memory, pos, bias * 0.0
+        model._memory_tokens = zeroed
+        try:
+            yield
+        finally:
+            del model._memory_tokens
+    return ctx()
+
+
+def sam2_compare(torch, model, frames, prompts, label, control=False):
+    """Track ``frames`` with the kernels and with plain attention in bf16,
+    and with plain attention in fp32 (the floor), on the same weights;
+    every frame's mask logits, IoU predictions and object logits of the
+    kernels are held against the floor (see the module docstring). With
+    ``control`` the kernels run once more with the key bias zeroed, and the
+    run fails unless that would fail the mask check. Returns the logged
+    fields."""
+    model.set_flash_attention(True)
+    got = run_track(torch, model, frames, prompts)
+    model.set_flash_attention(False)
+    plain = run_track(torch, model, frames, prompts)
+    fp32 = run_track(torch, model, frames, prompts, autocast=False)
+    model.set_flash_attention(True)
+    diff = lambda a, b: (a - b).abs().max().item()
+    rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()
+    apart = lambda a, b: ((a > 0) != (b > 0)).float().mean().item()
+    (mk, ik, ok), (mp, ip, op), (mf, i_f, of) = got, plain, fp32
+    fields = {
+        "frames": frames.shape[0],
+        "mask_max_abs_diff": diff(mk, mp), "mask_std": mp.std().item(),
+        "fp32_mask_max_abs_diff_plain": diff(mp, mf),
+        "fp32_mask_rms_diff_kernels": rms(mk, mf),
+        "fp32_mask_rms_diff_plain": rms(mp, mf),
+        "fp32_binary_disagreement_kernels": apart(mk, mf),
+        "fp32_binary_disagreement_plain": apart(mp, mf),
+        "iou_max_abs_diff": diff(ik, ip), "fp32_iou_max_abs_diff_plain":
+        diff(ip, i_f), "object_max_abs_diff": diff(ok, op),
+        "fp32_object_max_abs_diff_plain": diff(op, of),
+        "object_logits": [round(v, 4) for v in ok[:, 0].tolist()],
+        "finite": bool(all(torch.isfinite(t).all() for t in got))}
+    mask_bound = max(SAM_ATOL_SCALE * max(1.0, fields["mask_std"]),
+                     fields["fp32_mask_max_abs_diff_plain"])
+    rms_bound = SAM_FLOOR_RATIO * fields["fp32_mask_rms_diff_plain"]
+    ok_all = (fields["finite"] and fields["mask_max_abs_diff"] <= mask_bound
+              and fields["fp32_mask_rms_diff_kernels"] <= rms_bound
+              and fields["fp32_binary_disagreement_kernels"] <= max(
+                  1.0 - SAM_AGREE, SAM_FLOOR_RATIO
+                  * fields["fp32_binary_disagreement_plain"])
+              and fields["iou_max_abs_diff"] <= max(
+                  SAM_IOU_ATOL, fields["fp32_iou_max_abs_diff_plain"])
+              and fields["object_max_abs_diff"] <= max(
+                  SAM_IOU_ATOL, fields["fp32_object_max_abs_diff_plain"]))
+    log(f"{label} kernels vs plain attention", **fields)
+    if not ok_all:
+        raise AssertionError(f"{label}: kernels disagree with plain "
+                             f"attention: {fields}")
+    if control:
+        with without_key_bias(model):
+            mc, _, _ = run_track(torch, model, frames, prompts)
+        fields["control_fp32_mask_rms_diff_without_key_bias"] = rms(mc, mf)
+        log(f"{label}, key bias zeroed",
+            fp32_mask_rms_diff_without_key_bias=rms(mc, mf),
+            check_bound=rms_bound)
+        if not rms(mc, mf) > rms_bound:
+            raise AssertionError(f"{label}: the mask check cannot see a "
+                                 f"missing key bias ({rms(mc, mf)} <= "
+                                 f"{rms_bound})")
+    return fields
+
+
 def first_of(sets, n):
     """The prompt sets of the first ``n`` images."""
     return {name: {k: v[:n] for k, v in prompts.items()}
@@ -1094,6 +1492,7 @@ def reset_counts(fa, ln):
                     fa.fused_attention_relwin, fl.flash_attention_relpos):
         wrapper.launches = 0
         wrapper.backward_launches = 0
+    fl.flash_attention.launches = 0     # K6: forward only
 
 
 def read_counts(fa, ln):
@@ -1110,7 +1509,8 @@ def read_counts(fa, ln):
             "K4": fa.fused_attention_relwin.launches,
             "K4 bwd": fa.fused_attention_relwin.backward_launches,
             "K5": fl.flash_attention_relpos.launches,
-            "K5 bwd": fl.flash_attention_relpos.backward_launches}
+            "K5 bwd": fl.flash_attention_relpos.backward_launches,
+            "K6": fl.flash_attention.launches}
 
 
 def expect_counts(label, counts, **expected):
@@ -1323,6 +1723,43 @@ def main():
     for name, cases in rel_cases.items():
         for case in cases:
             check_rel_backward_kernel(torch, F, name, case, results)
+    # SAM2-B+ at 1024^2: Hiera's windows (K1 with the 56-wide scale on
+    # heads padded to 64; K2 at d = 56 without the padding) and K6 at the
+    # memory attention's and the global blocks' shapes; the memory bias of
+    # frame 7 (every slot valid, 8 of 16 pointers) and of frame 1 (6 of 7
+    # slots and 15 of 16 pointers masked)
+    hiera = 56 ** -0.5
+    windows = (("hiera_stage1", 1024, 64, 2), ("hiera_stage2", 1024, 16, 4),
+               ("hiera_stage3", 25, 196, 8), ("hiera_stage4", 25, 49, 16))
+    for i, (label, b, n, h) in enumerate(windows):
+        check_kernel(torch, F, fa, "K1", dict(
+            label=label, shape=(b, n, h, 64), dtype=bf16, seed=40 + i,
+            sm_scale=hiera), results)
+        check_kernel(torch, F, fa, "K2", dict(
+            label=f"{label}_d56", shape=(b, h, n, 56), dtype=bf16,
+            seed=44 + i, packed=True), results)
+    memory_bias = lambda slots, pointers: slot_bias(torch, 1, 7, 4096, slots,
+                                                    16, 4, pointers)
+    cross, self_shape = (1, 1, 4096, 7 * 4096 + 64, 256), (1, 1, 4096, 4096,
+                                                           256)
+    for case in (
+            dict(label="sam2_memory_cross_frame7", shape=cross, dtype=bf16,
+                 seed=50, layout="memory", bias=memory_bias(7, 8)),
+            dict(label="sam2_memory_cross_frame1", shape=cross, dtype=bf16,
+                 seed=51, layout="memory", bias=memory_bias(1, 1)),
+            dict(label="sam2_memory_self", shape=self_shape, dtype=bf16,
+                 seed=52, layout="memory"),
+            dict(label="hiera_global", shape=(1, 8, 4096, 4096, 64),
+                 dtype=bf16, seed=53, layout="packed", sm_scale=hiera),
+            dict(label="hiera_global_d56", shape=(1, 8, 4096, 4096, 56),
+                 dtype=bf16, seed=54, layout="packed"),
+            dict(label="fp32_memory_cross_frame1", shape=cross, dtype=fp32,
+                 seed=55, layout="memory", bias=memory_bias(1, 1)),
+            dict(label="fp32_memory_self", shape=self_shape, dtype=fp32,
+                 seed=56, layout="memory"),
+            dict(label="fp32_hiera_global", shape=(1, 8, 4096, 4096, 64),
+                 dtype=fp32, seed=57, layout="packed", sm_scale=hiera)):
+        check_key_bias_kernel(torch, F, case, results)
 
     # 4. eval slice: ViT-B/16 through the work-dir eval CLI
     work_dir = SMOKE_DIR / "vit_base_patch16"
@@ -1822,7 +2259,104 @@ def main():
                   K4_bwd=n_window, K5=2 * n_global, K5_bwd=n_global)
     del model, batch8, grad_batch
 
-    # 20. kernels line
+    # 20. SAM2 video tracking: SAM2-B+ at full width and depth (1024^2,
+    #     batch 1, bf16, the 14.1 configs' settings, seeded random weights)
+    #     through the predict tool on the synthetic clip: frame 0 prompted,
+    #     7 tracked, the last with every memory slot valid
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        predict_video_interactive_segmentation as video_cli)
+    torch.cuda.empty_cache()
+    reset_counts(fa, ln)
+    video = video_cli.main(["--synthetic", "--max-frames", str(SAM2_FRAMES)])
+    torch.cuda.synchronize()
+    sam2_counts = read_counts(fa, ln)
+    expect_counts("SAM2-B+ predict tool", sam2_counts, K1=18 * SAM2_FRAMES,
+                  K6=3 * SAM2_FRAMES + 8 * (SAM2_FRAMES - 1))
+    carry = video["carry"]
+    if not (len(video["outputs"]) == SAM2_FRAMES
+            and all(m.shape == (1, 4, 1024, 1024) and torch.isfinite(m).all()
+                    and torch.isfinite(i).all() and torch.isfinite(o).all()
+                    for m, i, o in video["outputs"])
+            and int(carry["frame_idx"]) == SAM2_FRAMES
+            and bool((carry["mem_valid"] == 1).all())):
+        raise AssertionError("SAM2-B+: non-finite or misshapen outputs, or a "
+                             "memory slot left empty")
+    sam2, frames, prompts = video["model"], video["frames"], video["prompts"]
+    # a tracked frame makes no host sync: torch raises on one in this mode
+    with video_cli.compute_context(frames.device):
+        feat, pos, hr = sam2.encode_frame(frames[-1:])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sam2.encode_frame(frames[-1:])
+            sam2.track_frame(feat, pos, carry, highres=hr)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        del feat, pos, hr
+    steady = video["lines"][2:]
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    encode_ms = median([line["encode_ms"] for line in steady])
+    track_ms = median([line["track_ms"] for line in steady])
+    encode_flops, track_flops = sam2_step_flops(torch, sam2, frames, prompts)
+    # the window's whole time over its frames, so that a stall counts
+    frame_ms = sum(line["encode_ms"] + line["track_ms"]
+                   for line in steady) / len(steady)
+    log("sam2_b+ predict tool", frames=SAM2_FRAMES, launches=sam2_counts,
+        launches_per_encode={"K1": 18, "K6": 3}, launches_per_track={"K6": 8},
+        encode_ms=encode_ms, track_ms=track_ms, frame_ms=frame_ms,
+        frames_per_s=1e3 / frame_ms,
+        tflops=(encode_flops + track_flops) / frame_ms / 1e9,
+        share_of_bf16_peak=(encode_flops + track_flops) / frame_ms / 1e9
+        / 989.0, encode_gflop=encode_flops / 1e9,
+        track_gflop=track_flops / 1e9,
+        counted="Linears, convolutions and attention products",
+        timed="host clock to a synchronise; frames/s and the peak share "
+        "from the mean encode + track ms over frames 2-7, encode_ms and "
+        "track_ms their medians",
+        per_frame_ms=[(round(l["encode_ms"], 3), round(l["track_ms"], 3))
+                      for l in video["lines"]],
+        object_scores=[round(l["object_score"], 4) for l in video["lines"]],
+        mask_areas=[l["mask_area"] for l in video["lines"]])
+
+    # 21. the same weights and clip with sharp attention: the kernels
+    #     against plain attention, held to the model's bf16 floor on every
+    #     frame; a control shows that the check would fail without the key
+    #     bias (the empty memory slots attended to)
+    log("sam2_b+ memory attention, seeded init",
+        **sam2_memory_logit_stats(torch, sam2, frames, prompts))
+    sharpen_sam2_attention_(torch, sam2, SAM2_SHARP_SEED)
+    sharp = sharpen_memory_keys_(torch, sam2, frames, prompts)
+    log("sam2_b+ memory attention, sharpened", **sharp)
+    if sharp["score_std"] < SAM_SHARP_MIN_STD / 2:
+        raise AssertionError(f"SAM2-B+ memory attention not sharpened: "
+                             f"{sharp}")
+    sam2_compare(torch, sam2, frames, prompts, "sam2_b+ sharp attention",
+                 control=True)
+    del video, sam2, carry
+    torch.cuda.empty_cache()
+
+    # 22. head_dim_padding=0 (reference-width heads) at full width, reduced
+    #     depth: Hiera's windows through K2 at d = 56, its global block
+    #     through K6 at d = 56, the memory through K6
+    sam2 = video_cli.build_model(
+        "sam2_hiera_base_plus_video", device="cuda", head_dim_padding=0,
+        block_nums=SAM2_D56_BLOCKS, global_attention_blocks=SAM2_D56_GLOBAL)
+    sharpen_sam2_attention_(torch, sam2, SAM2_SHARP_SEED)
+    sharpen_memory_keys_(torch, sam2, frames, prompts)
+    reset_counts(fa, ln)
+    run_track(torch, sam2, frames[:2], prompts)
+    torch.cuda.synchronize()
+    d56_counts = read_counts(fa, ln)
+    log("sam2_b+ head_dim_padding 0", reduced=f"Hiera blocks "
+        f"{SAM2_D56_BLOCKS} of (2, 3, 16, 3), global {SAM2_D56_GLOBAL}",
+        launches_two_frames=d56_counts)
+    expect_counts("SAM2-B+ head_dim_padding 0, two frames", d56_counts,
+                  K2=2 * 3, K6=2 * 1 + 8)
+    sam2_compare(torch, sam2, frames, prompts,
+                 "sam2_b+ head_dim_padding 0 sharp attention")
+    del sam2, frames, prompts
+
+    # 23. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
@@ -1863,6 +2397,8 @@ def main():
         entry("K5 bwd", "K5 flash_attention_relpos bwd",
               "flash_attention.cu", "flash_attention.py:541",
               sam_train_counts["K5 bwd"]),
+        entry("K6", "K6 flash_attention fwd", "flash_attention.cu",
+              "flash_attention.py:113", sam2_counts["K6"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -41,6 +41,29 @@
 // fp32 design (not on the main path): a block of 4 warps owns 16 query rows;
 // a lane scores one key of a 32-key tile in plain FMA loops and owns D / 32
 // output columns, so fp32 inputs keep fp32 precision.
+//
+// The same forward bodies, with the template flag kRel off, are kernel K6:
+// streaming attention with a per-key bias, replacing the TPU kernel
+// _fwd_kernel of ops/pallas/flash_attention.py (via _flash_forward, entry
+// flash_attention). q [B, H, Nq, D], k and v [B, H, Nk, D] (each with its
+// own strides, head dim contiguous) and an optional fp32 key bias [B, Nk]
+// read through its batch stride and shared by the heads and the queries
+// (the TPU wrapper repeats it per head; here it is never copied). The
+// score is q.k * sm_scale + bias[key]; keys past Nk (the ragged last tile)
+// get -inf. The bias stays finite (-1e9 on the empty memory slots of SAM2's
+// tracker): a query row whose keys are all masked averages V, as the TPU
+// kernel's does, and is never NaN. A lane's 16 bias values of a key tile
+// are read once a tile. D = 56 (Hiera) runs as 64 with the pad columns
+// zero-filled in shared memory, exact as the TPU wrapper's zero pad; D =
+// 256 (SAM2's memory attention) takes the 128-column chunks above. Writes
+// the fp32 log-sum-exp for the backward.
+//
+// Bound on one H100 SXM: SAM2's memory cross-attention (B = H = 1, Nq =
+// 4096, Nk = 28,736, D = 256, bf16) is 4*Nq*Nk*D = 120.5 GFLOP = 0.122 ms
+// of tensor-core time against 33.7 MB = 0.010 ms of bytes: bound by
+// operations. The chunked route computes Q.K^T once per chunk (1.5x the
+// products), and with B = H = 1 the 64 query tiles x 2 chunks fill 128 of
+// the 132 SMs with one 4-warp block each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,25 +81,31 @@ constexpr int kRows = 16 * kWarps;  // query rows a block (bf16)
 constexpr int kTile = 64;           // keys a pipeline stage (bf16)
 constexpr int kChunk = 128;         // output columns a block when D > 128
 
+// Strides in elements (batch, head, row) of one [B, H, N, D] operand.
+struct Strides {
+  long long b, h, n;
+};
+
 struct FlashArgs {
   const void *q, *k, *v;
   void* o;
-  float* lse;  // [B * H, N]
-  long long in_sb, in_sh, in_sn, out_sb, out_sh, out_sn;
-  RelPos rel;
-  int B, H, N, D;
+  float* lse;  // [B * H, Nq]
+  Strides qs, ks, vs, os;
+  RelPos rel;          // kRel (K5): the decomposed rel-pos bias, Nq = Nk
+  const float* kbias;  // !kRel (K6): the key bias [B, Nk] or nullptr
+  long long kbias_sb;
+  int B, H, Nq, Nk, D;
   float scale;
-  int vec, out_vec;
+  int q_vec, k_vec, v_vec, out_vec;
   int q_tiles;  // query-row tiles a head
 };
 
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_fwd_bf16(FlashArgs a) {
+template <int DQ, int DV, bool kRel>
+__device__ __forceinline__ void flash_fwd_bf16(const FlashArgs& a) {
   constexpr int LDQ = DQ + 8;  // 16-byte pad: conflict-free fragment loads
   constexpr int LDV = DV + 8;
   constexpr int kFrags = kTile / 8;
-  const int N = a.N;
+  const int Nq = a.Nq, Nk = a.Nk;
   const float sc = a.scale * kLog2e;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -92,31 +121,33 @@ flash_relpos_fwd_bf16(FlashArgs a) {
   const int q0 = (blockIdx.x % a.q_tiles) * kRows;
   const int dv0 = chunk * kChunk;                // first output column
   const int dv = min(DV, a.D - dv0);              // output columns of this block
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
-  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
-  const bf16* vh = static_cast<const bf16*>(a.v) + in_off + dv0;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const bf16* qh = static_cast<const bf16*>(a.q) + bz * a.qs.b + hy * a.qs.h;
+  const bf16* kh = static_cast<const bf16*>(a.k) + bz * a.ks.b + hy * a.ks.h;
+  const bf16* vh = static_cast<const bf16*>(a.v) + bz * a.vs.b + hy * a.vs.h + dv0;
 
-  const int tiles = (N + kTile - 1) / kTile;
+  const int tiles = (Nk + kTile - 1) / kTile;
   auto issue = [&](int tile) {
     const int buf = tile & 1;
-    const long long off = static_cast<long long>(tile) * kTile * a.in_sn;
-    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + off, a.in_sn, kTile, N - tile * kTile,
-                            a.D, a.vec);
-    load_tile_bf16<DV, LDV>(Vs + buf * kTile * LDV, vh + off, a.in_sn, kTile, N - tile * kTile,
-                            dv, a.vec);
+    const long long key0 = static_cast<long long>(tile) * kTile;
+    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + key0 * a.ks.n, a.ks.n, kTile,
+                            Nk - tile * kTile, a.D, a.k_vec);
+    load_tile_bf16<DV, LDV>(Vs + buf * kTile * LDV, vh + key0 * a.vs.n, a.vs.n, kTile,
+                            Nk - tile * kTile, dv, a.v_vec);
   };
-  load_tile_bf16<DQ, LDQ>(Qs, qh + q0 * a.in_sn, a.in_sn, kRows, N - q0, a.D, a.vec);
+  load_tile_bf16<DQ, LDQ>(Qs, qh + q0 * a.qs.n, a.qs.n, kRows, Nq - q0, a.D, a.q_vec);
   issue(0);
   cp_async_commit();
 
   const int row0 = q0 + 16 * warp;
-  const bool active = row0 < N;
-  const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
+  const bool active = row0 < Nq;
+  RelRows rr{};
   const int KW = a.rel.KW;
-  const bool grid_rows = KW % kTile == 0;  // each key tile in one key-grid row
-  float rwc[2][kFrags][2];                  // rel_w * log2(e) of the lane's keys
+  const bool grid_rows = kRel && KW % kTile == 0;  // each key tile in one key-grid row
+  float rwc[2][kFrags][2];                          // rel_w * log2(e) of the lane's keys
   int cached_cw0 = -1;
+  if constexpr (kRel) rr = a.rel.rows(bz, hy, row0 + g, Nq);
+  const float* kbias = a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
 
   uint32_t qf[DQ / 16][4];
   float m[2] = {-INFINITY, -INFINITY};  // running max of the log2-domain logits
@@ -137,8 +168,22 @@ flash_relpos_fwd_bf16(FlashArgs a) {
       const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
       const bf16* Vb = Vs + (tile & 1) * kTile * LDV;
       float s[kFrags][4];
-      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, N, lane);
-      if (grid_rows) {  // N is a multiple of 64 here: no key past N
+      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, Nk, lane);
+      if constexpr (!kRel) {
+        // K6: the key's bias, read once a tile for the lane's 16 keys; keys
+        // past Nk (the ragged last tile) get -inf
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int col = key0 + 8 * j + 2 * t + h2;
+            const float b = col >= Nk ? -INFINITY
+                            : kbias   ? __ldg(kbias + col) * kLog2e
+                                      : 0.f;
+            s[j][h2] = fmaf(s[j][h2], sc, b);
+            s[j][2 + h2] = fmaf(s[j][2 + h2], sc, b);
+          }
+      } else if (grid_rows) {  // N is a multiple of 64 here: no key past N
         const int jh = key0 / KW;
         const int cw0 = key0 - jh * KW;
         if (cw0 != cached_cw0) {
@@ -158,7 +203,7 @@ flash_relpos_fwd_bf16(FlashArgs a) {
           for (int e = 0; e < 4; ++e)
             s[j][e] = fmaf(s[j][e], sc, bh[e >> 1] + rwc[e >> 1][j][e & 1]);
       } else {
-        rel_logits(s, rr, key0, t, N, N, sc, kNegInf * kLog2e, KW, a.rel.inv_kw);
+        rel_logits(s, rr, key0, t, Nk, Nk, sc, kNegInf * kLog2e, KW, a.rel.inv_kw);
       }
 
       // online softmax over this tile: P = 2^(logit - max), rescale the rest
@@ -190,7 +235,7 @@ flash_relpos_fwd_bf16(FlashArgs a) {
       }
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
-        if (key0 + 16 * kk >= N) break;
+        if (key0 + 16 * kk >= Nk) break;
         const float* s0 = s[2 * kk];
         const float* s1 = s[2 * kk + 1];
         const uint32_t p[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
@@ -213,16 +258,27 @@ flash_relpos_fwd_bf16(FlashArgs a) {
       acc[j][2 * r + 1] *= inv;
     }
   }
-  bf16* oh = static_cast<bf16*>(a.o) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
-  store_rows_bf16<DV>(oh, a.out_sn, acc, row0, N, dv, g, t, a.out_vec);
+  bf16* oh = static_cast<bf16*>(a.o) + bz * a.os.b + hy * a.os.h + dv0;
+  store_rows_bf16<DV>(oh, a.os.n, acc, row0, Nq, dv, g, t, a.out_vec);
   if (chunk == 0 && t == 0) {
-    const long long base = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+    const long long base = (static_cast<long long>(bz) * a.H + hy) * Nq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + g + 8 * r;
-      if (row < N) a.lse[base + row] = (m[r] + __log2f(l[r])) * kLn2;
+      if (row < Nq) a.lse[base + row] = (m[r] + __log2f(l[r])) * kLn2;
     }
   }
+}
+
+// The forward kernels, named by mode so that a profile tells K5 from K6.
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_fwd_bf16(FlashArgs a) {
+  flash_fwd_bf16<DQ, DV, true>(a);
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs a) {
+  flash_fwd_bf16<DQ, DV, false>(a);
 }
 
 // ------------------------------------------------------- bf16 backward
@@ -663,12 +719,11 @@ __device__ void load_rows_f32(float* dst, const float* src, long long sn, int ro
 }
 
 // DC = output columns a lane (D <= 32 * DC)
-template <int DC>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_fwd_f32(FlashArgs a) {
+template <int DC, bool kRel>
+__device__ __forceinline__ void flash_fwd_f32(const FlashArgs& a) {
   constexpr int LD = 32 * DC + 1;  // odd stride: a lane a bank
   constexpr int kPerWarp = kRowsF / kWarps;
-  const int N = a.N, D = a.D;
+  const int Nq = a.Nq, Nk = a.Nk, D = a.D;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [kRowsF][LD]
   float* Ks = Qs + kRowsF * LD;                // [kTileF][LD]
@@ -677,38 +732,45 @@ flash_relpos_fwd_f32(FlashArgs a) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kRowsF;
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const float* qh = static_cast<const float*>(a.q) + in_off;
-  const float* kh = static_cast<const float*>(a.k) + in_off;
-  const float* vh = static_cast<const float*>(a.v) + in_off;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const float* qh = static_cast<const float*>(a.q) + bz * a.qs.b + hy * a.qs.h;
+  const float* kh = static_cast<const float*>(a.k) + bz * a.ks.b + hy * a.ks.h;
+  const float* vh = static_cast<const float*>(a.v) + bz * a.vs.b + hy * a.vs.h;
+  const float* kbias = a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
 
-  load_rows_f32(Qs, qh + q0 * a.in_sn, a.in_sn, kRowsF, N - q0, D, LD);
+  load_rows_f32(Qs, qh + q0 * a.qs.n, a.qs.n, kRowsF, Nq - q0, D, LD);
   float m[kPerWarp], l[kPerWarp], acc[kPerWarp][DC];
   RelRows rr[kPerWarp];
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-    rr[i] = a.rel.rows(blockIdx.z, blockIdx.y, q0 + warp * kPerWarp + i, N);
+    if constexpr (kRel) rr[i] = a.rel.rows(bz, hy, q0 + warp * kPerWarp + i, Nq);
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  for (int key0 = 0; key0 < N; key0 += kTileF) {
+  for (int key0 = 0; key0 < Nk; key0 += kTileF) {
     __syncthreads();
-    load_rows_f32(Ks, kh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
-    load_rows_f32(Vs, vh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    load_rows_f32(Ks, kh + key0 * a.ks.n, a.ks.n, kTileF, Nk - key0, D, LD);
+    load_rows_f32(Vs, vh + key0 * a.vs.n, a.vs.n, kTileF, Nk - key0, D, LD);
     __syncthreads();
     const int col = key0 + lane;
     int jh = 0, jw = 0;
-    if (col < N) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+    float kb = 0.f;  // K6: this lane's key bias
+    if constexpr (kRel) {
+      if (col < Nk) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+    } else {
+      if (col < Nk && kbias) kb = kbias[col];
+    }
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       const float* qr = Qs + (warp * kPerWarp + i) * LD;
       const float* kr = Ks + lane * LD;
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      s = col < N ? s * a.scale + rr[i].h[0][jh] + rr[i].w[0][jw] : -INFINITY;
+      if constexpr (kRel) kb = rr[i].h[0][jh] + rr[i].w[0][jw];
+      s = col < Nk ? s * a.scale + kb : -INFINITY;
       const float mnew = fmaxf(m[i], warp_max(s));
       const float alpha = expf(m[i] - mnew);
       const float p = expf(s - mnew);
@@ -724,17 +786,27 @@ flash_relpos_fwd_f32(FlashArgs a) {
     }
   }
 
-  const long long lse_base = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
-  float* oh = static_cast<float*>(a.o) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+  const long long lse_base = (static_cast<long long>(bz) * a.H + hy) * Nq;
+  float* oh = static_cast<float*>(a.o) + bz * a.os.b + hy * a.os.h;
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
     const int row = q0 + warp * kPerWarp + i;
-    if (row >= N) continue;
+    if (row >= Nq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      if (lane + 32 * c < D) oh[row * a.out_sn + lane + 32 * c] = acc[i][c] / l[i];
+      if (lane + 32 * c < D) oh[row * a.os.n + lane + 32 * c] = acc[i][c] / l[i];
     if (lane == 0) a.lse[lse_base + row] = m[i] + logf(l[i]);
   }
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_fwd_f32(FlashArgs a) {
+  flash_fwd_f32<DC, true>(a);
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_f32(FlashArgs a) {
+  flash_fwd_f32<DC, false>(a);
 }
 
 // fp32 backward (not on the main path), in the forward's fp32 layout: a
@@ -956,20 +1028,51 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& a, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DQ, int DV>
+template <int DQ, int DV, bool kRel>
 int launch_bf16(FlashArgs a, cudaStream_t stream) {
-  a.q_tiles = (a.N + kRows - 1) / kRows;
+  a.q_tiles = (a.Nq + kRows - 1) / kRows;
   const int chunks = (a.D + kChunk - 1) / kChunk;
   const size_t smem = sizeof(bf16) * ((kRows + 2 * kTile) * (DQ + 8) + 2 * kTile * (DV + 8));
-  return launch(flash_relpos_fwd_bf16<DQ, DV>, dim3(a.q_tiles * chunks, a.H, a.B), smem, a,
-                stream);
+  const dim3 grid(a.q_tiles * chunks, a.H, a.B);
+  if constexpr (kRel) return launch(flash_relpos_fwd_bf16<DQ, DV>, grid, smem, a, stream);
+  return launch(flash_keybias_fwd_bf16<DQ, DV>, grid, smem, a, stream);
 }
 
-template <int DC>
+template <int DC, bool kRel>
 int launch_f32(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kRowsF + 2 * kTileF) * (32 * DC + 1);
-  return launch(flash_relpos_fwd_f32<DC>, dim3((a.N + kRowsF - 1) / kRowsF, a.H, a.B), smem,
-                a, stream);
+  const dim3 grid((a.Nq + kRowsF - 1) / kRowsF, a.H, a.B);
+  if constexpr (kRel) return launch(flash_relpos_fwd_f32<DC>, grid, smem, a, stream);
+  return launch(flash_keybias_fwd_f32<DC>, grid, smem, a, stream);
+}
+
+// The forward of either entry point, by dtype and head dim (bf16: D rounded
+// up to 16, zero-filled; D > 128 in chunks of 128 output columns).
+template <bool kRel>
+int launch_fwd(const FlashArgs& a, int is_bf16, cudaStream_t s) {
+  if (!is_bf16) {
+    switch ((a.D + 31) / 32) {
+      case 1: return launch_f32<1, kRel>(a, s);
+      case 2: return launch_f32<2, kRel>(a, s);
+      case 3: return launch_f32<3, kRel>(a, s);
+      case 4: return launch_f32<4, kRel>(a, s);
+      case 5: return launch_f32<5, kRel>(a, s);
+      case 6: return launch_f32<6, kRel>(a, s);
+      case 7: return launch_f32<7, kRel>(a, s);
+      default: return launch_f32<8, kRel>(a, s);
+    }
+  }
+  switch ((a.D + 15) / 16 * 16) {
+    case 16: return launch_bf16<16, 16, kRel>(a, s);
+    case 32: return launch_bf16<32, 32, kRel>(a, s);
+    case 48: return launch_bf16<48, 48, kRel>(a, s);
+    case 64: return launch_bf16<64, 64, kRel>(a, s);
+    case 80: return launch_bf16<80, 80, kRel>(a, s);
+    case 96: return launch_bf16<96, 96, kRel>(a, s);
+    case 112: return launch_bf16<112, 112, kRel>(a, s);
+    case 128: return launch_bf16<128, 128, kRel>(a, s);
+    default: return launch_bf16<256, kChunk, kRel>(a, s);  // chunked output columns
+  }
 }
 
 template <typename Kernel>
@@ -1010,6 +1113,19 @@ int launch_bwd_f32(const FlashBwdArgs& a, cudaStream_t stream) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// Rows of D elements of es bytes, at these strides, can be copied 16 bytes
+// at a time (given a 16-byte aligned base).
+bool rows_vec(const Strides& st, int D, long long es) {
+  return (D * es) % 16 == 0 && (st.b * es) % 16 == 0 && (st.h * es) % 16 == 0 &&
+         (st.n * es) % 16 == 0;
+}
+
+// bf16 output pairs can be stored as 32-bit words.
+bool out_vec(const void* o, const Strides& st, int D) {
+  return (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 && st.b % 2 == 0 &&
+         st.h % 2 == 0 && st.n % 2 == 0;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q, k, v and o are device pointers
@@ -1027,52 +1143,66 @@ extern "C" int saicv_flash_attention_relpos_fwd(
       !rel_w || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long es = is_bf16 ? 2 : 4;
+  const Strides in{in_sb, in_sh, in_sn};
   FlashArgs a{};
   a.q = q;
   a.k = k;
   a.v = v;
   a.o = o;
   a.lse = lse;
-  a.in_sb = in_sb;
-  a.in_sh = in_sh;
-  a.in_sn = in_sn;
-  a.out_sb = out_sb;
-  a.out_sh = out_sh;
-  a.out_sn = out_sn;
+  a.qs = a.ks = a.vs = in;
+  a.os = Strides{out_sb, out_sh, out_sn};
   a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
   a.B = B;
   a.H = H;
-  a.N = N;
+  a.Nq = a.Nk = N;
   a.D = D;
   a.scale = scale;
-  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-          (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 && (in_sn * es) % 16 == 0;
-  a.out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 && out_sb % 2 == 0 &&
-              out_sh % 2 == 0 && out_sn % 2 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
-    switch ((D + 31) / 32) {
-      case 1: return launch_f32<1>(a, s);
-      case 2: return launch_f32<2>(a, s);
-      case 3: return launch_f32<3>(a, s);
-      case 4: return launch_f32<4>(a, s);
-      case 5: return launch_f32<5>(a, s);
-      case 6: return launch_f32<6>(a, s);
-      case 7: return launch_f32<7>(a, s);
-      default: return launch_f32<8>(a, s);
-    }
-  }
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch_bf16<16, 16>(a, s);
-    case 32: return launch_bf16<32, 32>(a, s);
-    case 48: return launch_bf16<48, 48>(a, s);
-    case 64: return launch_bf16<64, 64>(a, s);
-    case 80: return launch_bf16<80, 80>(a, s);
-    case 96: return launch_bf16<96, 96>(a, s);
-    case 112: return launch_bf16<112, 112>(a, s);
-    case 128: return launch_bf16<128, 128>(a, s);
-    default: return launch_bf16<256, kChunk>(a, s);  // chunked output columns
-  }
+  a.q_vec = a.k_vec = a.v_vec =
+      aligned16(q) && aligned16(k) && aligned16(v) && rows_vec(in, D, es);
+  a.out_vec = out_vec(o, a.os, D);
+  return launch_fwd<true>(a, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel K6: q [B, H, Nq, D], k and v [B, H, Nk, D] and o [B, H, Nq, D],
+// each with its own (batch, head, row) strides in elements and the head dim
+// contiguous, of the input dtype (is_bf16 = 1: bfloat16, 0: float32);
+// bias: the fp32 key bias [B, Nk] with batch stride bias_sb and the keys
+// contiguous, or null; lse: fp32 [B * H, Nq]. Returns a cudaError_t (0 =
+// launched).
+extern "C" int saicv_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, float* lse, const float* bias,
+    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long out_sb,
+    long long out_sh, long long out_sn, long long bias_sb, int B, int H, int Nq, int Nk, int D,
+    float scale, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Nq < 1 || Nq > (1 << 24) || Nk < 1 ||
+      Nk > (1 << 24) || D < 1 || D > 256 || !lse)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = is_bf16 ? 2 : 4;
+  FlashArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.lse = lse;
+  a.qs = Strides{q_sb, q_sh, q_sn};
+  a.ks = Strides{k_sb, k_sh, k_sn};
+  a.vs = Strides{v_sb, v_sh, v_sn};
+  a.os = Strides{out_sb, out_sh, out_sn};
+  a.kbias = bias;
+  a.kbias_sb = bias_sb;
+  a.B = B;
+  a.H = H;
+  a.Nq = Nq;
+  a.Nk = Nk;
+  a.D = D;
+  a.scale = scale;
+  a.q_vec = aligned16(q) && rows_vec(a.qs, D, es);
+  a.k_vec = aligned16(k) && rows_vec(a.ks, D, es);
+  a.v_vec = aligned16(v) && rows_vec(a.vs, D, es);
+  a.out_vec = out_vec(o, a.os, D);
+  return launch_fwd<false>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the same function: dq, dk, dv (one stride set, head dim

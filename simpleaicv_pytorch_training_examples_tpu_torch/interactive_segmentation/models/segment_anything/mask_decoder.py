@@ -23,17 +23,22 @@ __all__ = ["MLP", "MaskDecoder"]
 
 
 class MLP(nn.Module):
-    def __init__(self, inplanes, hidden_planes, planes, layer_nums):
+    """Linears ``layers.{i}`` with ``activation`` (ReLU; SAM2's Hiera uses
+    the exact GELU) between them."""
+
+    def __init__(self, inplanes, hidden_planes, planes, layer_nums,
+                 activation=F.relu):
         super().__init__()
         dims = [inplanes] + [hidden_planes] * (layer_nums - 1) + [planes]
         self.layers = nn.ModuleList(
             [nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:])])
+        self.activation = activation
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
             x = layer(x)
             if i < len(self.layers) - 1:
-                x = F.relu(x)
+                x = self.activation(x)
         return x
 
 

@@ -1,5 +1,5 @@
-"""Streaming attention with SAM's decomposed relative-position bias: kernel
-K5, forward and backward.
+"""Streaming attention: kernel K5 (SAM's decomposed relative-position bias),
+forward and backward, and kernel K6 (a per-key bias), forward.
 
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py::
 flash_attention_relpos``: q, k, v ``[B, H, N, D]`` (D <= 256; views of the
@@ -23,6 +23,20 @@ composition, and ``flash_attention_relpos_backward_reference``); a CUDA
 tensor takes the kernels, or the call raises. The wrapper counts its
 launches in ``flash_attention_relpos.launches`` and
 ``flash_attention_relpos.backward_launches``.
+
+K6 is the counterpart of the JAX package's ``flash_attention`` (its
+forward, ``_flash_forward``): q ``[B, H, Nq, D]``, k and v ``[B, H, Nk,
+D]`` (D <= 256, each read through its own strides), an optional fp32 key
+bias ``[B, Nk]`` shared by the heads and the queries, and ``sm_scale``
+(default D^-0.5). The score of query i and key j is ``q_i.k_j * sm_scale +
+bias[j]``; the bias stays finite (-1e9 masks a key), so a row whose keys
+are all masked averages V, as on the TPU. The kernel (the forward body of
+``csrc/flash_attention.cu`` with the rel-pos flag off) walks the keys once
+with an online softmax and also returns the fp32 log-sum-exp. A CPU tensor
+takes ``flash_attention_reference``, differentiable through plain ops; a
+CUDA tensor takes the kernel, or the call raises. Its backward kernel is not
+ported yet, so the autograd Function ``FlashAttention`` raises if a graph
+needs it. Launches count in ``flash_attention.launches``.
 """
 
 import ctypes
@@ -200,3 +214,105 @@ def flash_attention_relpos(q, k, v, rel_h, rel_w, return_lse=False):
 
 flash_attention_relpos.launches = 0
 flash_attention_relpos.backward_launches = 0
+
+
+# ------------------------------------------------------------------- K6
+
+
+def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
+                              return_lse=False):
+    """Plain version of K6: fp32 scores times ``sm_scale`` (default D^-0.5)
+    plus the fp32 key bias [B, Nk], fp32 softmax, probabilities cast to the
+    input dtype, P.V -> [B, H, Nq, D]; with ``return_lse`` also the fp32
+    log-sum-exp of the scores, [B, H, Nq]."""
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def check_key_bias_args(q, k, v, bias):
+    """Shape rule of K6; returns (b, h, nq, nk, d) or raises. Each of q, k,
+    v may have its own strides, with the head dim contiguous; the bias is
+    fp32 [B, Nk] with the keys contiguous."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{name}: dtype {t.dtype} is not bfloat16 or "
+                            "float32")
+        if t.dim() != 4 or t.stride(3) != 1:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} is not "
+                             "[B, H, N, D] with the head dim contiguous")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError("q, k, v must share one dtype")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if k.shape != (b, h, nk, d) or v.shape != k.shape:
+        raise ValueError(f"k, v {tuple(k.shape)}, {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    tensors = (q, k, v) if bias is None else (q, k, v, bias)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("all tensors must lie on one device")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (b, nk)
+                             or bias.stride(1) != 1):
+        raise ValueError(f"bias: {bias.dtype} {tuple(bias.shape)} is not a "
+                         f"float32 [{b}, {nk}] with the keys contiguous")
+    if d > MAX_HEAD_DIM or nq > 1 << 24 or nk > 1 << 24:
+        raise ValueError(f"K6 takes D <= {MAX_HEAD_DIM} and N <= 2^24, got "
+                         f"D={d}, Nq={nq}, Nk={nk}")
+    return b, h, nq, nk, d
+
+
+@functools.lru_cache(maxsize=None)
+def _key_bias_library():
+    fn = build.load("flash_attention").saicv_flash_attention_fwd
+    fn.argtypes = [_PTR] * 6 + [_LL] * 13 + [_INT] * 5 + [
+        ctypes.c_float, _INT, _PTR]
+    fn.restype = _INT
+    return fn
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 on a CUDA tensor; returns (out, lse), the log-sum-exp without a
+    gradient. Forward only: its backward kernel is not ported yet."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, sm_scale):
+        if q.device.type != "cuda":
+            raise ValueError(f"unsupported device {q.device}")
+        b, h, nq, nk, d = check_key_bias_args(q, k, v, bias)
+        scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+        out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+        _launch(_key_bias_library(), q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                0 if bias is None else bias.data_ptr(), *q.stride()[:3],
+                *k.stride()[:3], *v.stride()[:3], nq * h * d, d, h * d,
+                0 if bias is None else bias.stride(0), b, h, nq, nk, d, scale,
+                int(q.dtype == torch.bfloat16))
+        flash_attention.launches += 1
+        ctx.mark_non_differentiable(lse)
+        return out.transpose(1, 2), lse
+
+    @staticmethod
+    def backward(ctx, dout, _):
+        raise NotImplementedError(
+            "K6's backward kernel is not ported yet: run the tracker under "
+            "torch.no_grad(), or with the plain attention")
+
+
+def flash_attention(q, k, v, bias=None, sm_scale=None, return_lse=False):
+    """K6: [B, H, Nq, D] attention over [B, H, Nk, D] keys with an optional
+    fp32 key bias [B, Nk] -> out [B, H, Nq, D] (on the card a view of a
+    [B, Nq, H, D] tensor, so the module's transpose back to tokens costs no
+    copy); with ``return_lse`` also the fp32 log-sum-exp [B, H, Nq]."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, sm_scale, return_lse)
+    out, lse = FlashAttention.apply(q, k, v, bias, sm_scale)
+    return (out, lse) if return_lse else out
+
+
+flash_attention.launches = 0

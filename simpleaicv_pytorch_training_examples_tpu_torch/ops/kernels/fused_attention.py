@@ -5,7 +5,9 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 
 - ``fused_attention_dense`` (K1) attends straight over the packed qkv Dense
   output ``[B, N, 3C]`` (column order ``[3, H, D]``) and returns
-  ``[B, N, C]``, ready for the proj Dense. Head dim 64 or 128.
+  ``[B, N, C]``, ready for the proj Dense. Head dim 64 or 128; an optional
+  ``sm_scale`` replaces D^-0.5 (Hiera's heads padded from 56 to 64 keep the
+  56-wide scale), in the forward and the backward.
 - ``fused_attention`` (K2) takes ``q, k, v`` as ``[B, H, N, D]``, D <= 128,
   read in place through their strides (head dim contiguous), so views of
   the packed qkv output need no layout copy.
@@ -56,11 +58,16 @@ DENSE_HEAD_DIMS = (64, 128)
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def fused_attention_reference(q, k, v, n_real=None):
-    """Plain version of K2 (the JAX ``_reference``): [B, H, N, D] -> same."""
+def _scale(d, sm_scale):
+    return d ** -0.5 if sm_scale is None else float(sm_scale)
+
+
+def fused_attention_reference(q, k, v, n_real=None, sm_scale=None):
+    """Plain version of K2 (the JAX ``_reference``): [B, H, N, D] -> same;
+    scores scaled by ``sm_scale`` (default D^-0.5)."""
     n = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-    s = s * (q.shape[-1] ** -0.5)
+    s = s * _scale(q.shape[-1], sm_scale)
     if n_real is not None and n_real < n:
         keep = torch.arange(n, device=q.device) < n_real
         s = s.masked_fill(~keep, NEG_INF)
@@ -68,23 +75,25 @@ def fused_attention_reference(q, k, v, n_real=None):
     return torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(q.dtype)
 
 
-def fused_attention_dense_reference(qkv, head_nums, n_real=None):
+def fused_attention_dense_reference(qkv, head_nums, n_real=None,
+                                    sm_scale=None):
     """Plain version of K1: [B, N, 3C] -> [B, N, C] through K2's math."""
     b, n, c3 = qkv.shape
     c = c3 // 3
     q, k, v = qkv.reshape(b, n, 3, head_nums, c // head_nums).permute(
         2, 0, 3, 1, 4).unbind(0)
-    out = fused_attention_reference(q, k, v, n_real)
+    out = fused_attention_reference(q, k, v, n_real, sm_scale)
     return out.transpose(1, 2).reshape(b, n, c)
 
 
-def _backward_reference(q, k, v, dout, n_real=None, bias=None):
+def _backward_reference(q, k, v, dout, n_real=None, bias=None,
+                        sm_scale=None):
     """The TPU backward kernels' math: q, k, v, dout [B, H, N, D] and an
     optional fp32 score bias [B, H, N, N] -> dq, dk, dv (the input dtype)
     and the fp32 dS0 = P * (dP - sum_k dP * P) [B, H, N, N]."""
     dtype = q.dtype
     n = k.shape[2]
-    scale = q.shape[-1] ** -0.5
+    scale = _scale(q.shape[-1], sm_scale)
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = dout.to(dtype).float()
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
@@ -104,14 +113,15 @@ def _backward_reference(q, k, v, dout, n_real=None, bias=None):
     return dq.to(dtype), dk.to(dtype), dv.to(dtype), ds0
 
 
-def fused_attention_backward_reference(q, k, v, dout, n_real=None):
+def fused_attention_backward_reference(q, k, v, dout, n_real=None,
+                                       sm_scale=None):
     """Plain version of K2's backward (the JAX ``_bwd_kernel``): q, k, v,
     dout [B, H, N, D] -> dq, dk, dv of the same shape and dtype."""
-    return _backward_reference(q, k, v, dout, n_real)[:3]
+    return _backward_reference(q, k, v, dout, n_real, sm_scale=sm_scale)[:3]
 
 
 def fused_attention_dense_backward_reference(qkv, dout, head_nums,
-                                             n_real=None):
+                                             n_real=None, sm_scale=None):
     """Plain version of K1's backward: qkv [B, N, 3C], dout [B, N, C] ->
     packed dqkv [B, N, 3C] through K2's backward math."""
     b, n, c3 = qkv.shape
@@ -119,7 +129,7 @@ def fused_attention_dense_backward_reference(qkv, dout, head_nums,
     d = c // head_nums
     q, k, v = qkv.reshape(b, n, 3, head_nums, d).permute(2, 0, 3, 1, 4).unbind(0)
     do = dout.reshape(b, n, head_nums, d).transpose(1, 2)
-    grads = fused_attention_backward_reference(q, k, v, do, n_real)
+    grads = fused_attention_backward_reference(q, k, v, do, n_real, sm_scale)
     return torch.stack(grads).permute(1, 3, 0, 2, 4).reshape(b, n, c3)
 
 
@@ -273,25 +283,27 @@ def _library():
 
 
 def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype,
-          rel_sizes=()):
+          rel_sizes=(), sm_scale=None):
     """Launch on the current stream of ``device``; strides in elements;
     ``rel_sizes`` (KH, KW) for the rel-pos entry point."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*pointers, *strides, b, h, n, d, n_real, *rel_sizes,
-                 d ** -0.5, int(dtype == torch.bfloat16), stream)
+                 _scale(d, sm_scale), int(dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"fused attention kernel launch failed: cudaError {err}")
 
 
 def _launch(q_ptr, k_ptr, v_ptr, out, in_strides, out_strides, b, h, n, d,
-            n_real, dtype):
+            n_real, dtype, sm_scale=None):
     _call(_library()[0], out.device, (q_ptr, k_ptr, v_ptr, out.data_ptr()),
-          (*in_strides, *out_strides), b, h, n, d, n_real, dtype)
+          (*in_strides, *out_strides), b, h, n, d, n_real, dtype,
+          sm_scale=sm_scale)
 
 
 def _launch_backward(q_ptr, k_ptr, v_ptr, dout, dout_strides, grad_ptrs,
-                     in_strides, grad_strides, b, h, n, d, n_real):
+                     in_strides, grad_strides, b, h, n, d, n_real,
+                     sm_scale=None):
     """dq, dk, dv (``grad_ptrs``, one stride set) from q, k, v (one stride
     set) and ``dout``, whose head dim must be contiguous."""
     # scratch of the two launches; freed on return, which is safe because
@@ -300,7 +312,7 @@ def _launch_backward(q_ptr, k_ptr, v_ptr, dout, dout_strides, grad_ptrs,
     _call(_library()[1], dout.device,
           (q_ptr, k_ptr, v_ptr, dout.data_ptr(), *grad_ptrs, stats.data_ptr()),
           (*in_strides, *dout_strides, *grad_strides), b, h, n, d, n_real,
-          dout.dtype)
+          dout.dtype, sm_scale=sm_scale)
 
 
 def _launch_relpos(q_ptr, k_ptr, v_ptr, out, rel_h, rel_w, strides, b, h,
@@ -340,11 +352,12 @@ class FusedAttentionDense(torch.autograd.Function):
     """K1 with its backward kernel; saves qkv only."""
 
     @staticmethod
-    def forward(ctx, qkv, head_nums, n_real):
-        ctx.head_nums, ctx.n_real = head_nums, n_real
+    def forward(ctx, qkv, head_nums, n_real, sm_scale):
+        ctx.head_nums, ctx.n_real, ctx.sm_scale = head_nums, n_real, sm_scale
         ctx.save_for_backward(qkv)
         if qkv.device.type == "cpu":
-            return fused_attention_dense_reference(qkv, head_nums, n_real)
+            return fused_attention_dense_reference(qkv, head_nums, n_real,
+                                                   sm_scale)
         _require_cuda(qkv)
         b, n, c, d, n_real = check_dense_args(qkv, head_nums, n_real)
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
@@ -352,7 +365,7 @@ class FusedAttentionDense(torch.autograd.Function):
         base = qkv.data_ptr()
         _launch(base, base + c * es, base + 2 * c * es, out,
                 (n * 3 * c, d, 3 * c), (n * c, d, c), b, head_nums, n, d,
-                n_real, qkv.dtype)
+                n_real, qkv.dtype, sm_scale)
         fused_attention_dense.launches += 1
         return out
 
@@ -362,7 +375,8 @@ class FusedAttentionDense(torch.autograd.Function):
         dout = dout.to(qkv.dtype)
         if qkv.device.type == "cpu":
             return (fused_attention_dense_backward_reference(
-                qkv, dout, ctx.head_nums, ctx.n_real), None, None)
+                qkv, dout, ctx.head_nums, ctx.n_real, ctx.sm_scale), None,
+                None, None)
         b, n, c, d, n_real = check_dense_args(qkv, ctx.head_nums, ctx.n_real)
         dout = dout.contiguous()
         dqkv = torch.empty_like(qkv)
@@ -372,9 +386,9 @@ class FusedAttentionDense(torch.autograd.Function):
         _launch_backward(base, base + c * es, base + 2 * c * es, dout,
                          (n * c, d, c),
                          (grad, grad + c * es, grad + 2 * c * es), packed,
-                         packed, b, ctx.head_nums, n, d, n_real)
+                         packed, b, ctx.head_nums, n, d, n_real, ctx.sm_scale)
         fused_attention_dense.backward_launches += 1
-        return dqkv, None, None
+        return dqkv, None, None, None
 
 
 class FusedAttention(torch.autograd.Function):
@@ -419,9 +433,10 @@ class FusedAttention(torch.autograd.Function):
         return grads[0], grads[1], grads[2], None
 
 
-def fused_attention_dense(qkv, head_nums, n_real=None):
-    """K1: attention over the packed qkv Dense output [B, N, 3C] -> [B, N, C]."""
-    return FusedAttentionDense.apply(qkv, head_nums, n_real)
+def fused_attention_dense(qkv, head_nums, n_real=None, sm_scale=None):
+    """K1: attention over the packed qkv Dense output [B, N, 3C] -> [B, N, C];
+    scores scaled by ``sm_scale`` (default D^-0.5)."""
+    return FusedAttentionDense.apply(qkv, head_nums, n_real, sm_scale)
 
 
 def fused_attention(q, k, v, n_real=None):

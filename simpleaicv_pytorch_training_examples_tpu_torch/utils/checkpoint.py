@@ -1,6 +1,8 @@
 """Torch checkpoints: name- and shape-filtered loading with a ViT
 position-embedding resize for new input sizes, SAM checkpoints (whole or
-encoder only), and the train run's ``latest.pth`` / ``best.pth`` store.
+encoder only), SAM2 checkpoints (Hiera heads zero-padded to the model's
+``head_dim_padding``), and the train run's ``latest.pth`` / ``best.pth``
+store.
 
 Counterpart of the JAX package's ``utils/checkpoint.py``. The
 resize matches its ``jax.image.resize(..., "cubic")``: Keys' cubic kernel
@@ -119,6 +121,52 @@ def load_sam_checkpoint(model, path: str, logger=None):
     if saved is None:
         raise FileNotFoundError(f"no SAM checkpoint at {path!r}")
     return load_state_dict_filtered(model, saved, logger)
+
+
+HIERA_HEAD_DIM = 56  # planes // heads at every Hiera stage
+
+
+def pad_hiera_heads(sd: dict, head_dim_padding: int) -> dict:
+    """Zero-pad the Hiera qkv and proj tensors of ``sd`` (a SAM2 state dict
+    in the reference torch layout) whose heads are narrower than
+    ``head_dim_padding``, as the JAX package's converter pads them: exact,
+    since padded q and k columns add nothing to the scores and padded v
+    columns meet zero proj columns. Heads already that wide pass as they
+    are. Returns a new dict."""
+    sd = dict(sd)
+    suffix = ".attn.qkv.weight"
+    for name in [n for n in sd if n.startswith("image_encoder.trunk.")
+                 and n.endswith(suffix)]:
+        prefix = name[:-len(".qkv.weight")]
+        proj = sd[f"{prefix}.proj.weight"]              # [planes, nh * hd]
+        nh = proj.shape[0] // HIERA_HEAD_DIM
+        hd = proj.shape[1] // nh
+        if hd >= head_dim_padding:
+            continue
+        pad = (0, head_dim_padding - hd)
+        qkv = sd[name]
+        sd[name] = torch.nn.functional.pad(
+            qkv.reshape(3, nh, hd, -1).transpose(2, 3), pad).transpose(
+                2, 3).reshape(3 * nh * head_dim_padding, -1)
+        sd[f"{prefix}.qkv.bias"] = torch.nn.functional.pad(
+            sd[f"{prefix}.qkv.bias"].reshape(3, nh, hd), pad).reshape(-1)
+        sd[f"{prefix}.proj.weight"] = torch.nn.functional.pad(
+            proj.reshape(-1, nh, hd), pad).reshape(proj.shape[0], -1)
+    return sd
+
+
+def load_sam2_checkpoint(model, path: str, logger=None):
+    """A SAM2 ``.pth`` in the reference torch layout into the port's
+    ``SAM2Video``, name- and shape-filtered, its Hiera heads zero-padded to
+    the model's ``head_dim_padding`` (``pad_hiera_heads``). Keys the port does not have
+    (``no_memory_position_encoder``, which the reference never reads) are
+    skipped. Returns (num_loaded, num_total); raises if the file is
+    missing."""
+    saved = load_torch_state_dict(path)
+    if saved is None:
+        raise FileNotFoundError(f"no SAM2 checkpoint at {path!r}")
+    return load_state_dict_filtered(
+        model, pad_hiera_heads(saved, model.head_dim_padding), logger)
 
 
 class CheckpointStore:

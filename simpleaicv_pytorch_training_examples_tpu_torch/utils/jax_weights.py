@@ -16,12 +16,16 @@ the same map (the ViT's or the SAM's).
 JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
 and also undoes that converter's spatial flip of the ConvTranspose kernels
 (Flax's ``ConvTranspose`` does not flip its kernel; torch's does).
+``sam2_state_dict_from_jax`` is the inverse of ``convert_sam2_state_dict``
+for SAM2's video model, with the same flip.
 """
 
 import re
 
 import numpy as np
 import torch
+
+from .checkpoint import pad_hiera_heads
 
 _BLOCK = re.compile(r"^block_(\d+)$")
 _MODULE_RENAMES = {"patch_embedding": "patch_embed.proj",
@@ -136,3 +140,68 @@ def sam_state_dict_from_jax(params_flat: dict, constants_flat: dict) -> dict:
     for name, value in constants_flat.items():
         sd[name] = torch.from_numpy(np.array(value))
     return sd
+
+
+# the JAX package's SAM2 names -> the reference torch layout's (the prompt
+# encoder's and most of the mask decoder's follow SAM's rules above)
+_SAM2_RENAMES = tuple((re.compile(pattern), repl) for pattern, repl in (
+    (r"^image_encoder\.trunk\.patch_embed\.",
+     "image_encoder.trunk.patch_embed.proj."),
+    (r"^image_encoder\.trunk\.block_(\d+)\.mlp([12])\.",
+     lambda m: f"image_encoder.trunk.blocks.{m[1]}.mlp.layers."
+               f"{int(m[2]) - 1}."),
+    (r"^image_encoder\.trunk\.block_(\d+)\.",
+     r"image_encoder.trunk.blocks.\1."),
+    (r"^image_encoder\.conv(\d)\.", r"image_encoder.neck.convs.\1.conv."),
+    (r"^mask_decoder\.obj_score_token$",
+     "mask_decoder.obj_score_token.weight"),
+    (r"^mask_decoder\.transformer\.layer_(\d+)\.mlp_lin([12])\.",
+     lambda m: f"mask_decoder.transformer.layers.{m[1]}.mlp.layers."
+               f"{int(m[2]) - 1}."),
+    (r"^mask_decoder\.pred_obj_score_head\.layer_(\d+)\.",
+     r"mask_decoder.pred_obj_score_head.layers.\1."),
+    (r"^memory_attention\.layer_(\d+)\.", r"memory_attention.layers.\1."),
+    (r"^memory_encoder\.mask_down_(\d)\.",
+     lambda m: f"memory_encoder.mask_downsampler.encoder.{3 * int(m[1])}."),
+    (r"^memory_encoder\.mask_down_ln_(\d)\.",
+     lambda m: f"memory_encoder.mask_downsampler.encoder."
+               f"{3 * int(m[1]) + 1}."),
+    (r"^memory_encoder\.mask_down_out\.",
+     "memory_encoder.mask_downsampler.encoder.12."),
+    (r"^memory_encoder\.fuser_(\d+)\.", r"memory_encoder.fuser.layers.\1."),
+    (r"^object_pointer_projection\.layer_(\d+)\.",
+     r"object_pointer_projection.layers.\1."),
+    (r"^mask_downsample_(kernel|bias)$", r"mask_downsample.\1"),
+))
+# reference shapes of the embeddings the JAX model keeps flat
+_SAM2_RESHAPE = {
+    "mask_memory_time_position_encoder": lambda a: a[:, None, None],
+    "no_memory_embedding": lambda a: a[None]}
+def sam2_state_dict_from_jax(params_flat: dict, constants_flat: dict,
+                             head_dim_padding: int = 0) -> dict:
+    """The JAX package's SAM2 video-model parameters and constants ({Flax
+    dotted name: ndarray}) -> the port's ``SAM2Video`` state_dict (the
+    reference torch layout). SAM2's own names are renamed here, keeping
+    their ``.kernel``/``.scale`` suffixes, and everything then goes through
+    ``sam_state_dict_from_jax``'s layout rules (the prompt encoder and SAM's
+    part of the mask decoder by its renames). ``head_dim_padding`` is the
+    port model's: Hiera heads narrower than it are zero-padded, as the JAX
+    package's converter pads a reference checkpoint; heads already that
+    wide (a JAX model built with the same ``head_dim_padding``, whose pads
+    training may have filled) are carried as they are."""
+    sd, renamed = {}, {}
+    for name, value in params_flat.items():
+        array = np.array(value)
+        if name in ("image_encoder.trunk.pos_embed",
+                    "image_encoder.trunk.pos_embed_window"):   # NHWC -> NCHW
+            sd[name] = torch.from_numpy(np.ascontiguousarray(
+                array.transpose(0, 3, 1, 2)))
+        elif name in _SAM2_RESHAPE:
+            sd[name] = torch.from_numpy(np.ascontiguousarray(
+                _SAM2_RESHAPE[name](array)))
+        else:
+            for pattern, repl in _SAM2_RENAMES:
+                name = pattern.sub(repl, name)
+            renamed[name] = array
+    sd.update(sam_state_dict_from_jax(renamed, constants_flat))
+    return pad_hiera_heads(sd, head_dim_padding)

@@ -11,7 +11,12 @@ It sweeps the shapes the smoke run does not: token counts around the
 ``n_real`` at the edges, both layouts, unaligned tensors, LayerNorm widths
 on and off the vector path; for the rel-pos kernels K3, K4 and K5 also
 key grids with KH != KW, KW a multiple of 64 or not, N off the 64-key
-tiles and (K5) head dims above 128, forward and backward. Tolerances:
+tiles and (K5) head dims above 128, forward and backward; for K6 (the
+per-key bias) Nq != Nk with a ragged key tail, SAM2's slot bias with
+masked memory slots and pointers, a row whose keys are all masked, D = 56
+(zero-padded in the kernel), 256 (two output chunks) and odd widths, each
+of q, k, v with its own strides; K1 with Hiera's ``sm_scale`` and K2 at
+Hiera's d = 56. Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
 terms) the same fractions of their largest value; LayerNorm y and dx
@@ -439,3 +444,118 @@ def test_flash_relpos_backward(cuda, b, h, kh, kw, d, packed, dtype):
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         _close(x, y, dtype, name)
     _close_drel(got[3:], want[3:], dtype)
+
+
+# ------------------------------------------------ K6, K1 sm_scale, K2 d=56
+
+
+def _slot_bias(gen, b, nk, kind):
+    """[B, Nk] fp32 key bias: random, SAM2's ring of memory slots and
+    pointer tokens with all but one slot of each masked (-1e9), or every
+    key masked."""
+    if kind == "random":
+        return torch.randn(b, nk, device="cuda", generator=gen)
+    bias = torch.full((b, nk), -1e9, device="cuda")
+    if kind == "slots":         # one valid slot of 4 and one valid pointer
+        slot = (nk - 16) // 4
+        bias[:, slot:2 * slot] = 0.0
+        bias[:, -4:] = 0.0
+    return bias
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,nq,nk,d,kind,layout", [
+    (1, 1, 256, 4 * 64 + 16, 256, "slots", "memory"),
+    (1, 1, 100, 4 * 333 + 16, 256, "slots", "contiguous"),
+    (1, 2, 300, 300, 56, None, "packed"),
+    (2, 3, 130, 130, 64, None, "packed"),
+    (2, 2, 64, 37, 64, "random", "contiguous"),
+    (1, 2, 17, 200, 160, "random", "memory"),
+    (2, 1, 65, 1, 64, "masked", "contiguous"),
+    (1, 3, 33, 77, 200, "masked", "contiguous"),
+    (1, 2, 1000, 129, 8, None, "contiguous"),
+    (1, 4, 16, 64, 40, "random", "memory"),
+])
+def test_key_bias_flash_forward(cuda, b, h, nq, nk, d, kind, layout, dtype):
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(nq * nk + d)
+    if layout == "packed":      # Hiera's global block: views of one qkv
+        qkv = _randn(gen, b, nq, 3 * h * d, dtype=dtype)
+        q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    elif layout == "memory":    # SAM2's RoPEAttention: q a transposed view
+        q = _randn(gen, b, nq, h, d, dtype=dtype).transpose(1, 2)
+        k = _randn(gen, b, h, nk, d, dtype=dtype)
+        v = _randn(gen, b, nk, h, d, dtype=dtype).transpose(1, 2)
+    else:
+        q = _randn(gen, b, h, nq, d, dtype=dtype)
+        k, v = (_randn(gen, b, h, nk, d, dtype=dtype) for _ in range(2))
+    bias = None if kind is None else _slot_bias(gen, b, nk, kind)
+    scale = 0.3 if kind == "random" else None
+    before = fl.flash_attention.launches
+    out, lse = fl.flash_attention(q, k, v, bias, scale, return_lse=True)
+    torch.cuda.synchronize()
+    assert fl.flash_attention.launches == before + 1
+    assert out.shape == (b, h, nq, d) and out.dtype == dtype
+    want, want_lse = fl.flash_attention_reference(q, k, v, bias, scale,
+                                                  return_lse=True)
+    _close(out, want, dtype, "out")
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-3 * max(1.0, want_lse.abs().max().item()), err
+
+
+def test_key_bias_flash_takes_unaligned_tensors_and_refuses_the_rest(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, nq, nk, d = 1, 2, 40, 70, 64
+    flat = _randn(gen, b * h * (nq + 2 * nk) * d + 1, dtype=torch.bfloat16)
+    q = flat[1:1 + b * h * nq * d].view(b, h, nq, d)
+    k, v = flat[1 + b * h * nq * d:].view(2, b, h, nk, d).unbind(0)
+    assert q.data_ptr() % 16 == 2
+    bias = _slot_bias(gen, b, nk, "random")
+    _close(fl.flash_attention(q, k, v, bias),
+           fl.flash_attention_reference(q, k, v, bias), torch.bfloat16, "out")
+    with pytest.raises(ValueError):          # the bias is [B, Nk] fp32
+        fl.flash_attention(q, k, v, bias[:, :-1])
+    with pytest.raises(ValueError):
+        fl.flash_attention(q, k, v, bias.half())
+    wide = torch.zeros(1, 1, 8, 264, device="cuda")
+    with pytest.raises(ValueError):          # D <= 256
+        fl.flash_attention(wide, wide, wide)
+    leaf = q.detach().float().requires_grad_()
+    out = fl.flash_attention(leaf, k.float(), v.float(), bias)
+    with pytest.raises(NotImplementedError):  # no backward kernel yet
+        out.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,n,h", [(49, 64, 2), (16, 16, 4), (4, 196, 8),
+                                   (9, 49, 8)])
+def test_dense_with_hiera_sm_scale(cuda, b, n, h, dtype):
+    """K1 on Hiera's windows: heads padded from 56 to 64, scale 56^-0.5."""
+    dtype = DTYPES[dtype]
+    scale = 56 ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(n * h)
+    qkv = _randn(gen, b, n, 3 * h * 64, dtype=dtype).requires_grad_()
+    dout = _randn(gen, b, n, h * 64, dtype=dtype)
+    out = fa.fused_attention_dense(qkv, h, sm_scale=scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    _close(out, fa.fused_attention_dense_reference(qkv.detach(), h,
+                                                   sm_scale=scale),
+           dtype, "out")
+    _close(qkv.grad, fa.fused_attention_dense_backward_reference(
+        qkv.detach(), dout, h, sm_scale=scale), dtype, "dqkv")
+    default = fa.fused_attention_dense_reference(qkv.detach(), h)
+    assert (out.float() - default.float()).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,n,h", [(49, 64, 2), (4, 196, 8), (9, 49, 8)])
+def test_k2_at_hiera_head_dim_56(cuda, b, n, h, dtype):
+    """K2 on views of Hiera's packed qkv at the unpadded d = 56."""
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(n * h + 56)
+    qkv = _randn(gen, b, n, 3 * h * 56, dtype=dtype)
+    q, k, v = qkv.view(b, n, 3, h, 56).permute(2, 0, 3, 1, 4).unbind(0)
+    out = fa.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    _close(out, fa.fused_attention_reference(q, k, v), dtype, "out")

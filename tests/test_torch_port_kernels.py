@@ -1,6 +1,6 @@
-"""The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm) and
-the rel-pos attention kernels K3, K4 and K5, forward and backward, against
-the JAX package.
+"""The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm), the
+rel-pos attention kernels K3, K4 and K5, forward and backward, and the
+key-bias streaming attention K6, forward, against the JAX package.
 
 On the CPU each wrapper takes its plain PyTorch version; these tests hold
 that version against the JAX entry points run through their Pallas kernels
@@ -11,7 +11,11 @@ chip_smoke.py.
 
 K5 has no interpret mode: its plain versions are held against the JAX
 package's off-TPU composition of ``flash_attention_relpos`` and that
-composition's VJP.
+composition's VJP. K6's plain version is held against the TPU kernel
+``_flash_forward`` run in interpret mode, out and log-sum-exp, fp32 rtol
+and atol 2e-5 (the JAX package's own tolerance for it), with the JAX
+wrapper's padding (head dim to 64, keys and queries to the block, -1e9 on
+the padded keys) done here.
 
 Tolerances: fp32 atol 1e-5 (same math, another summation order; the
 rel-pos kernels atol 2e-5, rtol 1e-5, as the JAX package's own tests hold
@@ -561,3 +565,107 @@ def test_rel_backwards_in_bf16_match_jax():
         for got, w in zip(leaves[3:], want[3:]):
             np.testing.assert_allclose(_to_np(got.grad), _to_np(w), rtol=0,
                                        atol=2e-2 * scale)
+
+
+# ------------------------------------------------------------------- K6
+
+
+def _jax_flash_forward(q, k, v, bias, sm_scale):
+    """The TPU kernel ``_flash_forward`` in interpret mode, padded as the
+    JAX ``flash_attention`` wrapper pads: (out [B, H, Nq, D], lse [B, H,
+    Nq])."""
+    from jax.experimental.pallas import tpu as pltpu
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    up = lambda x, m: -(-x // m) * m
+    block_q, block_k = min(128, up(nq, 128)), min(128, up(nk, 128))
+    pad_d, pad_q, pad_k = up(d, 64) - d, up(nq, block_q) - nq, up(nk, block_k) - nk
+    q3 = jnp.pad(q.reshape(b * h, nq, d), ((0, 0), (0, pad_q), (0, pad_d)))
+    k3, v3 = (jnp.pad(t.reshape(b * h, nk, d), ((0, 0), (0, pad_k),
+                                                 (0, pad_d))) for t in (k, v))
+    bias3 = jnp.zeros((b, nk), jnp.float32) if bias is None else bias
+    bias3 = jnp.pad(jnp.repeat(bias3, h, axis=0)[:, None],
+                    ((0, 0), (0, 0), (0, pad_k)), constant_values=-1e9)
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = jax_fl._flash_forward(q3, k3, v3, bias3, block_q, block_k,
+                                         scale)
+    return (out[:, :nq, :d].reshape(b, h, nq, d),
+            lse[:, 0, :nq].reshape(b, h, nq))
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d,sm_scale,kind", [
+    (1, 2, 100, 333, 56, None, "slots"),     # d 56 zero-padded, ragged keys
+    (2, 1, 130, 200, 64, 0.3, "random"),     # sm_scale override
+    (1, 1, 64, 4 * 60 + 16, 256, None, "slots"),
+    (1, 2, 77, 77, 64, None, None),
+    (1, 1, 40, 128, 256, 0.2, "masked"),     # every key masked: averages V
+])
+def test_key_bias_flash_plain_version_matches_jax_kernel(b, h, nq, nk, d,
+                                                         sm_scale, kind):
+    rs = np.random.RandomState(nq + nk + d)
+    q = rs.standard_normal((b, h, nq, d)).astype(np.float32)
+    k, v = rs.standard_normal((2, b, h, nk, d)).astype(np.float32)
+    bias = None
+    if kind == "random":
+        bias = rs.standard_normal((b, nk)).astype(np.float32)
+    elif kind is not None:
+        bias = np.full((b, nk), -1e9, np.float32)
+        if kind == "slots":     # one valid memory slot and one pointer
+            slot = (nk - 16) // 4
+            bias[:, slot:2 * slot] = 0.0
+            bias[:, -4:] = 0.0
+    want, want_lse = _jax_flash_forward(
+        *(jnp.asarray(a) for a in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), sm_scale)
+    got, lse = port_fl.flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        None if bias is None else torch.from_numpy(bias), sm_scale,
+        return_lse=True)
+    assert got.shape == (b, h, nq, d) and lse.shape == (b, h, nq)
+    np.testing.assert_allclose(_to_np(got), _to_np(want), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(_to_np(lse), _to_np(want_lse), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_key_bias_flash_takes_the_plain_version_on_the_cpu_only():
+    rs = np.random.RandomState(21)
+    q, k, v = (torch.from_numpy(rs.standard_normal((1, 2, 9, 16)).astype(
+        np.float32)) for _ in range(3))
+    bias = torch.zeros(1, 9)
+    before = port_fl.flash_attention.launches
+    out = port_fl.flash_attention(q.requires_grad_(), k, v, bias)
+    out.sum().backward()                 # plain ops: autograd on the CPU
+    assert port_fl.flash_attention.launches == before
+    assert torch.isfinite(q.grad).all()
+    with pytest.raises(ValueError):      # the autograd Function takes CUDA
+        port_fl.FlashAttention.apply(q, k, v, bias, None)
+    with pytest.raises(ValueError):
+        port_fl.check_key_bias_args(q, k, v, torch.zeros(1, 8))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_sm_scale_matches_jax_kernel(dtype):
+    """K1 with Hiera's scale on heads padded from 56 to 64, forward and
+    backward, against the TPU kernel in interpret mode."""
+    b, n, h, d = 2, 20, 2, 64
+    scale = 56 ** -0.5
+    rs = np.random.RandomState(56)
+    x = rs.standard_normal((b, n, 3 * h * d)).astype(np.float32)
+    g = rs.standard_normal((b, n, h * d)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    jg, tg = _pair(g, dtype)
+    out, vjp = jax.vjp(lambda t: jax_fa.fused_attention_dense(
+        t, h, interpret=True, sm_scale=scale), jx)
+    (want_grad,) = vjp(jg)
+    leaf = tx.clone().requires_grad_()
+    got = port_fa.fused_attention_dense(leaf, h, sm_scale=scale)
+    got.backward(tg)
+    np.testing.assert_allclose(_to_np(got), _to_np(out), rtol=0,
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(_to_np(leaf.grad), _to_np(want_grad), rtol=0,
+                               atol=TOL[dtype])
+    if dtype == "float32":    # the default scale would be told apart
+        default = port_fa.fused_attention_dense(tx, h)
+        assert np.abs(_to_np(default) - _to_np(got)).max() > 10 * TOL[dtype]
