@@ -43,7 +43,16 @@ kernels' launch counters set to 0 just before it and read just after:
   the bf16 peak; the same weights with sharpened attention, kernels against
   plain attention on every frame, with a control; a reference-width
   (head_dim_padding=0) SAM2-B+ at reduced depth, whose windows take K2 and
-  whose global block takes K6 at d = 56, compared likewise.
+  whose global block takes K6 at d = 56, compared likewise;
+- SAM2 training: full-width, full-depth SAM2-B+ (1024^2, bf16, batch 1)
+  through the work-dir train CLI with the port's stage-2 config (gradient
+  checkpointing, condition frames, 2 point-iteration frames refined by
+  error clicks, two condition slots) on seeded synthetic 8-frame clips (two
+  epochs of 3 steps, then resumed for a third); timed train steps at the
+  JAX package's ``bench_sam2_train.py`` recipe (4 frames, frame 0 prompted,
+  frames 1-2 refined) with the kernels and with plain attention; the
+  gradients of that step, refinement off, with sharpened attention,
+  kernels against plain attention, with a control.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -99,7 +108,8 @@ relative L2 distance from the same model's fp32 gradients with plain
 attention at most the larger of 5e-2 and 1.25 times the plain bf16 path's
 (every rel-pos table included, whose gradient comes through drel alone;
 the mask decoder's attention key biases, whose exact gradient is zero, left
-out), and the loss's relative distance likewise.
+out by ``zero_gradient_leaves``), and the loss's relative distance
+likewise.
 
 K6 (key-bias streaming attention) vs its plain version at SAM2-B+'s
 shapes (the memory cross-attention with the memory bias of frame 7 and of
@@ -127,6 +137,33 @@ path's share, IoU and object logits within the larger of 2e-2 and the
 plain path's difference from fp32. The control runs the kernels with the
 memory key bias zeroed, so that empty slots are attended to, and the run
 fails unless its mask RMS from fp32 exceeds the bound.
+
+K6's backward vs its plain version at the SAM2 train step's shapes (the
+memory cross-attention with frame 7's bias, the self-attention, the Hiera
+global blocks of 4 frames at d = 64 with the 56-wide scale and at d = 56;
+fp32 at the self-attention): each of dq, dk and dv by the forward's
+reading (``key_bias_reading``, against the plain backward's fp32
+computation of the same inputs), masked keys' dk and dv exactly 0, in
+bf16 the keys' sum of dk (0 but for rounding, since each row of dS0 sums
+to 0; over the keys' sum of |dk|) at most 1.25 times the plain version's,
+and a control that masks 64 more valid keys and must fail the reading. SAM2
+training: the train CLI's loss finite on every step and its last epoch's
+mean below its first's, K1 36 / 18 and K6 62 / 59 forward / backward
+launches a step at 8 frames (30 / 27 at 4); SAM2 gradients (one bf16
+micro-batch of the 4-frame recipe, refinement off since a click drawn from
+one run's own predictions would differ between runs, Hiera's qkv and the
+memory attention's q and k sharpened as for the tracker) held like SAM's:
+per parameter, relative L2 distance from the fp32 plain path at most the
+larger of 5e-2 and 1.25 times the plain bf16 path's, read both through
+the model's plain attention and through the kernels' plain versions (the
+same math summed in another order, which lands up to ~2x apart on a
+gradient that is a small residue) and the larger taken, the loss
+likewise, and a control with the memory key bias zeroed that must fail.
+Left out, by a rule on the fp32 gradients (``zero_gradient_leaves``), are
+the biases whose gradient is zero up to rounding: the mask decoder's
+attention key biases, which softmax cancels. The memory attention's key
+biases, rotated by RoPE after the projection, have a real gradient and
+are held like the rest.
 """
 
 import json
@@ -153,6 +190,7 @@ SAM_BATCH = 8
 SAM_H_DEPTH, SAM_H_GLOBAL = 4, (3,)   # of 32 blocks, global (7, 15, 23, 31)
 SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
 SAM_FLOOR_RATIO = 1.25
+ZERO_GRADIENT_RATIO = 1e-4  # a bias's gradient norm over its weight's
 K6_FLOOR_RATIO, K6_FP32_RTOL, K6_CONTROL_KEYS = 1.25, 1e-4, 64
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
@@ -165,6 +203,9 @@ SAM2_SHARP_SEED = 5
 # the head_dim_padding=0 tracker's cut Hiera: blocks 0, 2, 5 windowed (K2),
 # 4 global (K6 at d = 56), 1, 3, 6 pooled
 SAM2_D56_BLOCKS, SAM2_D56_GLOBAL = (1, 2, 3, 1), (4,)
+SAM2_TRAIN_FRAMES, SAM2_TRAIN_CLIPS = 8, 3   # the CLI: 3 steps an epoch
+SAM2_STEP_FRAMES = 4        # the timed step: bench_sam2_train.py's recipe
+SAM2_GRAD_SEED = 7
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
 
 VIT_B_CONFIG = """
@@ -290,6 +331,53 @@ class config:
         "lr": 1e-4, "global_weight_decay": False, "weight_decay": 1e-4,
         "no_weight_decay_layer_name_list": []}})
     scheduler = ("CosineLR", {{"warm_up_epochs": 0, "min_lr": 1e-6}})
+    epochs = {epochs}
+    print_interval = 1
+    save_interval = 1
+    use_amp = True
+    use_ema_model = False
+"""
+
+
+# The port's SAM2-B+ stage-2 train config (experiments/
+# video_interactive_segmentation/hiera_b_plus_stage2/train_config.py) with
+# seeded synthetic clips in place of SA-V, batch 1 without worker processes,
+# no stage-1 checkpoint, and the epochs cut.
+SAM2_B_TRAIN_CONFIG = """
+from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation import losses
+from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.datasets.sam2_video_segmentation_dataset import (
+    SAM2VideoBatchCollater)
+from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.datasets.syntheticdataset import (
+    SyntheticSAM2VideoDataset)
+from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models import (
+    sam2_hiera_base_plus_video)
+
+
+class config:
+    network = "sam2_hiera_base_plus_video"
+    input_image_size = 1024
+    frame_nums = {frames}
+    model = sam2_hiera_base_plus_video(
+        image_size=input_image_size, use_gradient_checkpoint=True,
+        use_scan=True, use_high_res_features=True, use_flash_attention=True,
+        head_dim_padding=64, memory_cond_slots=2)
+    train_criterion = losses.SAM2Loss()
+    train_dataset = SyntheticSAM2VideoDataset(
+        n={n_train}, frame_nums=frame_nums, image_size=(768, 1024), seed=6)
+    test_dataset = None
+    train_collater = SAM2VideoBatchCollater(
+        resize=input_image_size, frame_nums=frame_nums, n_points=2,
+        prompt_probs=(0.5, 0.25, 0.25), extra_cond_frames=1,
+        point_iter_frame_num=2)
+    decoder_point_iters = 2
+    seed = 0
+    batch_size = 1
+    num_workers = 0
+    accumulation_steps = 1
+    optimizer = ("AdamW", {{
+        "lr": 5e-5, "global_weight_decay": False, "weight_decay": 1e-4,
+        "no_weight_decay_layer_name_list": []}})
+    scheduler = ("CosineLR", {{"warm_up_epochs": 1, "min_lr": 1e-6}})
     epochs = {epochs}
     print_interval = 1
     save_interval = 1
@@ -855,6 +943,24 @@ def key_bias_reading(torch, out, plain, exact):
     return ok, reading
 
 
+def key_bias_inputs(torch, case):
+    """q, k, v of one K6 case in its caller's layout (Hiera's packed qkv,
+    or SAM2's RoPEAttention with q and v transposed views), its bias and
+    scale, from the case's seed."""
+    dtype = case["dtype"]
+    b, h, nq, nk, d = case["shape"]
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    if case["layout"] == "packed":      # Hiera's global block
+        qkv = randn(b, nq, 3 * h * d)
+        q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:                               # SAM2's RoPEAttention
+        q = randn(b, nq, h, d).transpose(1, 2)
+        k = randn(b, h, nk, d)
+        v = randn(b, nk, h, d).transpose(1, 2)
+    return gen, (q, k, v), case.get("bias"), case.get("sm_scale")
+
+
 def check_key_bias_kernel(torch, F, case, results):
     """Hold K6 against its plain version at one shape: the output by
     ``key_bias_reading``, the log-sum-exp within 1e-3 of its scale; a
@@ -867,17 +973,7 @@ def check_key_bias_kernel(torch, F, case, results):
         flash_attention as fl)
     dtype = case["dtype"]
     b, h, nq, nk, d = case["shape"]
-    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
-    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
-    if case["layout"] == "packed":      # Hiera's global block
-        qkv = randn(b, nq, 3 * h * d)
-        q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
-    else:                               # SAM2's RoPEAttention
-        q = randn(b, nq, h, d).transpose(1, 2)
-        k = randn(b, h, nk, d)
-        v = randn(b, nk, h, d).transpose(1, 2)
-    bias = case.get("bias")
-    scale = case.get("sm_scale")
+    _, (q, k, v), bias, scale = key_bias_inputs(torch, case)
     kernel = lambda: fl.flash_attention(q, k, v, bias, scale, return_lse=True)
     plain = lambda: fl.flash_attention_reference(q, k, v, bias, scale,
                                                  return_lse=True)
@@ -933,6 +1029,139 @@ def check_key_bias_kernel(torch, F, case, results):
                              f"more keys passes the check ({control_reading})"
                              "; it cannot see a lost key tile")
     results.setdefault("K6", []).append(record)
+
+
+def key_bias_backward_bound(b, h, nq, n_keys, n_valid, d, dtype_name,
+                            element_size):
+    """Least time (ms) of one K6 backward on this card, and what bounds it:
+    q, dout, the output and dq over the queries and k, v, dk, dv over the
+    keys once, the fp32 bias and log-sum-exp once, against the five
+    products, 10*b*h*nq*d operations for each key that is not masked (a
+    masked key's P is exactly 0, so it adds nothing)."""
+    nbytes = (element_size * b * h * d * (4 * nq + 4 * n_keys)
+              + 4 * b * n_keys + 4 * b * h * nq)
+    flops = 10.0 * b * h * nq * n_valid * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_key_bias_backward_kernel(torch, F, case, results):
+    """Hold K6's backward against its plain version at one shape with a
+    seeded dout (a transposed view, as autograd hands it through the
+    module's transpose back to tokens): each of dq, dk, dv, and the output
+    of the forward a gradient follows (P.V at fp32 precision of P), by
+    ``key_bias_reading`` against the plain version's fp32 computation of
+    the same inputs, and masked keys' dk and dv exactly 0; in bf16 the
+    keys' sum of dk, 0 but for rounding (each row of dS0 sums to 0), its
+    norm over the keys' sum of |dk| at most K6_FLOOR_RATIO times the plain
+    version's; a control runs forward and backward with the first
+    K6_CONTROL_KEYS valid keys masked too, which must fail the same
+    reading. Time the backward alone (the
+    forward run once, outside the timed loop), the plain backward and
+    SDPA's backward with the bias as a [B, 1, 1, Nk] mask (a yardstick,
+    never used by the port), and the forward at the same shape with a
+    gradient to follow (P.V at fp32 precision of P in bf16) and without,
+    beside the forward's bound; append the record to results["K6 bwd"]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl)
+    dtype = case["dtype"]
+    b, h, nq, nk, d = case["shape"]
+    gen, (q, k, v), bias, scale = key_bias_inputs(torch, case)
+    dout = torch.randn(b, nq, h, d, device="cuda", generator=gen).to(
+        dtype).transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fl.flash_attention(*leaves, bias, scale)
+    kernel = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    plain = lambda: fl.flash_attention_backward_reference(q, k, v, bias, dout,
+                                                          scale)
+    dropped = (torch.zeros(b, nk, device="cuda") if bias is None
+               else bias.clone())
+    dropped[:, :K6_CONTROL_KEYS] = -1e9
+    before = fl.flash_attention.backward_launches
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = fl.flash_attention.backward_launches - before
+    control = torch.autograd.grad(fl.flash_attention(*leaves, dropped, scale),
+                                  leaves, dout)
+    with torch.no_grad():
+        ref = plain()
+        exact = (fl.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), bias, dout.float(), scale)
+                 if dtype == torch.bfloat16 else (None,) * 3)
+        out_exact = (fl.flash_attention_reference(
+            q.float(), k.float(), v.float(), bias, scale)
+                     if dtype == torch.bfloat16 else None)
+        out_ok, out_reading = key_bias_reading(
+            torch, out.detach(), fl.flash_attention_reference(q, k, v, bias,
+                                                              scale),
+            out_exact)
+    names = ("dq", "dk", "dv")
+    readings, control_readings, oks, control_oks = {"out": out_reading}, {}, \
+        [out_ok], []
+    for name, g, r, e, c in zip(names, got, ref, exact, control):
+        ok, readings[name] = key_bias_reading(torch, g, r, e)
+        control_ok, control_readings[name] = key_bias_reading(torch, c, r, e)
+        oks.append(ok)
+        control_oks.append(control_ok)
+    if dtype == torch.bfloat16:
+        key_sum = lambda dk: (dk.float().sum(dim=2).norm()
+                              / dk.float().abs().sum(dim=2).norm()).item()
+        readings["dk_key_sum"] = {"kernel": key_sum(got[1]),
+                                  "plain": key_sum(ref[1])}
+        oks.append(readings["dk_key_sum"]["kernel"]
+                   <= K6_FLOOR_RATIO * readings["dk_key_sum"]["plain"])
+    masked = (bias[0] < -1e8) if bias is not None else None
+    masked_zero = masked is None or all(
+        not bool(g[:, :, masked].any()) for g in got[1:])
+    record = {"case": case["label"], "shape": list(case["shape"]),
+              "dtype": str(dtype).split(".")[-1], "sm_scale": scale,
+              "masked_keys": 0 if masked is None else int(masked.sum()),
+              "max_abs_err": max((g.float() - r.float()).abs().max().item()
+                                 for g, r in zip(got, ref)),
+              "readings": readings, "control": control_readings,
+              "masked_keys_zero": masked_zero, "launches": launched,
+              "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    del ref, exact, control, out_exact
+    lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    lib_out = F.scaled_dot_product_attention(*lib_leaves, attn_mask=mask,
+                                             scale=scale)
+    library = lambda: torch.autograd.grad(lib_out, lib_leaves, dout,
+                                          retain_graph=True)
+    fast = dtype == torch.bfloat16
+    record["ms"] = time_ms(torch, kernel, iters=10 if fast else 2,
+                           warmup=2 if fast else 1)
+    record["plain_ms"] = time_ms(torch, plain, iters=3, warmup=1)
+    record["library_ms"] = time_ms(torch, library, iters=10 if fast else 2,
+                                   warmup=2 if fast else 1)
+    n_valid = nk - record["masked_keys"]
+    record["bound_ms"], record["bound_by"] = key_bias_backward_bound(
+        b, h, nq, nk, n_valid, d, record["dtype"], q.element_size())
+    # the forward at the same shape, with a gradient to follow (bf16: P.V
+    # at fp32 precision of P, one more product) and without
+    record["fwd_grad_ms"] = time_ms(
+        torch, lambda: fl.flash_attention(*leaves, bias, scale),
+        iters=10 if fast else 2, warmup=2 if fast else 1)
+    with torch.no_grad():
+        record["fwd_ms"] = time_ms(
+            torch, lambda: fl.flash_attention(q, k, v, bias, scale),
+            iters=10 if fast else 2, warmup=2 if fast else 1)
+    record["fwd_bound_ms"], _ = key_bias_attention_bound(
+        b, h, nq, nk, n_valid, d, record["dtype"], q.element_size())
+    log(f"K6 bwd {case['label']}", **record)
+    del out, lib_out, got
+    if not (record["finite"] and all(oks) and masked_zero and launched == 1):
+        raise AssertionError(f"K6 bwd {case['label']}: gradients off the "
+                             f"plain version's floor ({readings}), masked "
+                             f"keys with a gradient ({not masked_zero}), "
+                             f"{launched} launches or non-finite")
+    if all(control_oks):
+        raise AssertionError(f"K6 bwd {case['label']}: masking "
+                             f"{K6_CONTROL_KEYS} more keys passes the check "
+                             f"({control_readings})")
+    results.setdefault("K6 bwd", []).append(record)
 
 
 def sam_encoder_flops(model):
@@ -1015,12 +1244,83 @@ def sam_loss_and_gradients(torch, model, batch, criterion, use_amp):
     return loss.item(), grads
 
 
+def zero_gradient_leaves(grads_f):
+    """The biases whose fp32 gradient is zero up to rounding, by a rule on
+    ``grads_f``: its norm above 0 and below ZERO_GRADIENT_RATIO times its
+    layer's weight gradient's. A bias's gradient sums the output gradients
+    over the tokens that the weight's weighs by each token's input: where
+    softmax cancels the bias (a key bias that every key of a query row
+    shares), that sum is 0 but for rounding, some 1e-7 of the weight's; a
+    real one is 1e-2 of it or more (the RoPE-rotated key biases of SAM2's
+    memory attention included). Returns (names, the largest ratio among
+    them, the smallest among the biases held)."""
+    out, left, held = [], 0.0, math.inf
+    for name, grad in grads_f.items():
+        weight = grads_f.get(name[:-len("bias")] + "weight")
+        if not name.endswith(".bias") or weight is None:
+            continue
+        norm = grad.norm().item()
+        ratio = norm / max(weight.norm().item(), 1e-30)
+        if 0 < norm and ratio < ZERO_GRADIENT_RATIO:
+            out.append(name)
+            left = max(left, ratio)
+        elif norm > 0:
+            held = min(held, ratio)
+    return out, left, held
+
+
+def relative_errors(grads, grads_f):
+    """Per parameter, the relative L2 distance of ``grads`` from
+    ``grads_f`` (0 where both are exactly 0)."""
+    out = {}
+    for name, ref in grads_f.items():
+        diff, scale = (grads[name] - ref).norm().item(), ref.norm().item()
+        out[name] = diff / scale if scale > 0 else (0.0 if diff == 0
+                                                    else math.inf)
+    return out
+
+
+def gradient_reading(grads_k, grads_p, grads_f, losses, left_out=()):
+    """Gradients of the kernels (``grads_k``) and of plain attention
+    (``grads_p``: a list of plain bf16 paths, which compute the same math
+    and may sum in other orders), held against the fp32 plain path's
+    (``grads_f``): per parameter the kernels' relative L2 error may be at
+    most max(GRAD_REL_L2, 1.25 x the largest plain bf16 path's), and so may
+    the relative error of the loss (``losses``: kernels, the plain paths'
+    as a list, fp32).
+    ``left_out``: parameters whose exact gradient is 0
+    (``zero_gradient_leaves``), where both paths compute rounding noise
+    with no scale to hold it to. Returns (ok, fields, the kernels' and the
+    plain path's relative errors, the floors)."""
+    loss_k, plain_losses, loss_f = losses
+    rel_k = relative_errors(grads_k, grads_f)
+    rel_ps = [relative_errors(g, grads_f) for g in grads_p]
+    for name in left_out:
+        del rel_k[name]
+    rel_p = {n: max(r[n] for r in rel_ps) for n in rel_k}
+    floor = {n: max(GRAD_REL_L2, SAM_FLOOR_RATIO * rel_p[n]) for n in rel_k}
+    worst = max(rel_k, key=lambda n: rel_k[n] / floor[n])
+    loss_err = lambda x: abs(x - loss_f) / max(abs(loss_f), 1e-30)
+    loss_floor = max(GRAD_REL_L2, SAM_FLOOR_RATIO * max(
+        loss_err(x) for x in plain_losses))
+    fields = dict(
+        loss_kernels=loss_k, loss_plain=plain_losses, loss_fp32=loss_f,
+        loss_rel_err=loss_err(loss_k), loss_floor=loss_floor,
+        parameters=len(rel_k), left_out_zero_gradient=len(left_out),
+        worst_parameter=worst, worst_rel_l2=rel_k[worst],
+        worst_floor=floor[worst], worst_plain_rel_l2=rel_p[worst],
+        median_rel_l2=sorted(rel_k.values())[len(rel_k) // 2])
+    ok = (set(grads_k) == set(grads_f)
+          and all(rel_k[n] <= floor[n] for n in rel_k)
+          and loss_err(loss_k) <= loss_floor)
+    return ok, fields, rel_k, rel_p, floor
+
+
 def check_sam_gradients(torch, fa, ln, model, batch, criterion, label):
     """Gradients of one bf16 micro-batch with the kernels and with plain
     attention, each held against the same model in fp32 with plain
-    attention: per parameter, the kernels' relative L2 error may be at most
-    max(GRAD_REL_L2, 1.25 x the plain bf16 path's), and so may the relative
-    error of the loss. Returns the kernel run's launch counts."""
+    attention (``gradient_reading``), every rel-pos table included.
+    Returns the kernel run's launch counts."""
     reset_counts(fa, ln)
     loss_k, grads_k = sam_loss_and_gradients(torch, model, batch, criterion,
                                              True)
@@ -1032,46 +1332,115 @@ def check_sam_gradients(torch, fa, ln, model, batch, criterion, label):
     loss_f, grads_f = sam_loss_and_gradients(torch, model, batch, criterion,
                                              False)
     model.set_flash_attention(True)
-
-    def rel(grads):
-        out = {}
-        for name, ref in grads_f.items():
-            diff, scale = (grads[name] - ref).norm().item(), ref.norm().item()
-            out[name] = diff / scale if scale > 0 else (0.0 if diff == 0
-                                                        else math.inf)
-        return out
-    rel_k, rel_p = rel(grads_k), rel(grads_p)
     # the decoder attentions' key biases add one constant to a query row's
-    # scores, which softmax ignores: their exact gradient is 0 and both
-    # paths compute rounding noise there, with no scale to hold it to
-    noise_only = [n for n in rel_k if n.endswith("k_proj.bias")]
-    for name in noise_only:
-        del rel_k[name], rel_p[name]
-    floor = {n: max(GRAD_REL_L2, SAM_FLOOR_RATIO * rel_p[n]) for n in rel_k}
-    worst = max(rel_k, key=lambda n: rel_k[n] / floor[n])
+    # scores, which softmax ignores: their exact gradient is 0
+    noise_only, left_ratio, held_ratio = zero_gradient_leaves(grads_f)
+    ok, fields, rel_k, rel_p, floor = gradient_reading(
+        grads_k, [grads_p], grads_f, (loss_k, [loss_p], loss_f), noise_only)
     rel_pos = [n for n in rel_k if "rel_pos" in n]
     worst_rel_pos = max(rel_pos, key=lambda n: rel_k[n] / floor[n])
-    loss_err = lambda x: abs(x - loss_f) / max(abs(loss_f), 1e-30)
-    loss_floor = max(GRAD_REL_L2, SAM_FLOOR_RATIO * loss_err(loss_p))
     log(f"{label} gradients vs plain attention", batch=len(batch["image"]),
-        loss_kernels=loss_k, loss_plain=loss_p, loss_fp32=loss_f,
-        loss_rel_err=loss_err(loss_k), loss_floor=loss_floor,
-        parameters=len(rel_k), left_out_zero_gradient=len(noise_only),
-        worst_parameter=worst,
-        worst_rel_l2=rel_k[worst], worst_floor=floor[worst],
-        worst_plain_rel_l2=rel_p[worst],
-        median_rel_l2=sorted(rel_k.values())[len(rel_k) // 2],
+        **fields, left_out=noise_only, left_out_max_ratio=left_ratio,
+        held_min_ratio=held_ratio,
         rel_pos_tables=len(rel_pos), worst_rel_pos=worst_rel_pos,
         worst_rel_pos_rel_l2=rel_k[worst_rel_pos],
         worst_rel_pos_plain=rel_p[worst_rel_pos], launches=counts)
-    if not (set(grads_k) == set(grads_f) and rel_pos and noise_only
-            and all(rel_k[n] <= floor[n] for n in rel_k)
-            and all(grads_f[n].norm() > 0 for n in rel_pos)
-            and loss_err(loss_k) <= loss_floor):
+    if not (ok and rel_pos and noise_only
+            and all(grads_f[n].norm() > 0 for n in rel_pos)):
         raise AssertionError(f"{label}: gradients with the kernels disagree "
-                             f"with plain attention: {worst} {rel_k[worst]} "
-                             f"> {floor[worst]} or loss {loss_k} vs "
-                             f"{loss_f} (plain {loss_p})")
+                             f"with plain attention: {fields}")
+    return counts
+
+
+def sam2_loss_and_gradients(torch, model, batch, config, use_amp):
+    """Loss and fp32 parameter gradients of one SAM2 train micro-batch
+    through the video train tool's loss, refinement off (a click drawn
+    from one run's own predictions would differ between runs)."""
+    from types import SimpleNamespace
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_video_interactive_segmentation_model import (
+        build_loss_fn)
+    loss_fn = build_loss_fn(model, SimpleNamespace(
+        train_criterion=config.train_criterion, decoder_point_iters=0,
+        use_amp=use_amp))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(model, batch, None)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    return loss.item(), grads
+
+
+def check_sam2_gradients(torch, fa, ln, model, batch, config, label):
+    """SAM2's gradients of one bf16 micro-batch with the kernels and with
+    plain attention, each held against the same model in fp32 with plain
+    attention (``gradient_reading``). The plain bf16 path is read twice:
+    through the model's plain attention and through the kernels' plain
+    versions (``kernels_as_plain_versions``), the same math summed in
+    another order; where a gradient is a small residue of a cancellation
+    the two land apart (up to ~2x on the memory attention's key biases,
+    either one above the other's floor), so each parameter's floor takes
+    the larger. A control runs the kernels with the memory key bias
+    zeroed, so that the empty slots are attended to, and the run fails
+    unless that would fail the check. Returns the kernel run's launch
+    counts."""
+    reset_counts(fa, ln)
+    loss_k, grads_k = sam2_loss_and_gradients(torch, model, batch, config,
+                                              True)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    with without_key_bias(model):
+        loss_c, grads_c = sam2_loss_and_gradients(torch, model, batch,
+                                                  config, True)
+    with kernels_as_plain_versions():
+        loss_r, grads_r = sam2_loss_and_gradients(torch, model, batch,
+                                                  config, True)
+    model.set_flash_attention(False)
+    loss_p, grads_p = sam2_loss_and_gradients(torch, model, batch, config,
+                                              True)
+    loss_f, grads_f = sam2_loss_and_gradients(torch, model, batch, config,
+                                              False)
+    model.set_flash_attention(True)
+    # softmax cancels a key bias that every key of a row shares: the mask
+    # decoder's get an exact gradient of 0 and are left out by the rule;
+    # the memory attention's, rotated by RoPE after the projection, keep a
+    # real gradient (a residue of that cancellation, as exact as each row
+    # of dS sums to 0) and are held like every other parameter
+    left_out, left_ratio, held_ratio = zero_gradient_leaves(grads_f)
+    plain, plain_losses = [grads_p, grads_r], [loss_p, loss_r]
+    ok, fields, rel_k, rel_p, floor = gradient_reading(
+        grads_k, plain, grads_f, (loss_k, plain_losses, loss_f), left_out)
+    control_ok, control, *_ = gradient_reading(
+        grads_c, plain, grads_f, (loss_c, plain_losses, loss_f), left_out)
+    rel_pa = relative_errors(grads_p, grads_f)
+    rel_pr = relative_errors(grads_r, grads_f)
+    spread = max(rel_k, key=lambda n: max(rel_pa[n], rel_pr[n])
+                 / max(min(rel_pa[n], rel_pr[n]), 1e-30))
+    memory_kb = [n for n in rel_k if n.startswith("memory_attention.")
+                 and n.endswith("k_proj.bias")]
+    worst_kb = max(memory_kb, key=lambda n: rel_k[n] / floor[n])
+    log(f"{label} gradients vs plain attention",
+        frames=batch["image"].shape[1], **fields, left_out=left_out,
+        left_out_max_ratio=left_ratio, held_min_ratio=held_ratio,
+        memory_key_biases_held=len(memory_kb),
+        memory_key_bias_worst=worst_kb, memory_key_bias_rel_l2=rel_k[worst_kb],
+        memory_key_bias_floor=floor[worst_kb],
+        memory_key_bias_plain_attention=rel_pa[worst_kb],
+        memory_key_bias_plain_versions=rel_pr[worst_kb],
+        plain_draws_widest=spread, plain_draws_widest_rel_l2=(
+            rel_pa[spread], rel_pr[spread]), launches=counts)
+    log(f"{label} gradients, key bias zeroed",
+        worst_parameter=control["worst_parameter"],
+        worst_rel_l2=control["worst_rel_l2"],
+        worst_floor=control["worst_floor"], loss=loss_c)
+    if not (ok and left_out and len(memory_kb) == 8):
+        raise AssertionError(f"{label}: gradients with the kernels disagree "
+                             f"with plain attention: {fields}")
+    if control_ok:
+        raise AssertionError(f"{label}: the gradient check cannot see a "
+                             f"missing key bias: {control}")
     return counts
 
 
@@ -1244,15 +1613,17 @@ def sam_compare(torch, model, images, sets, label, floor_masks=False):
     return fields
 
 
-def sam2_step_flops(torch, model, frames, prompts):
-    """Operations of SAM2's ``encode_frame`` and of one ``track_frame`` with
-    every memory slot filled, counted on forwards with hooks the way
-    ``sam_encoder_flops`` and ``sam_decoder_flops`` count: every Linear,
-    convolution (per group) and transposed convolution, and the attention
-    products Q.K^T and P.V (Hiera's windows, pooled queries and global
-    blocks; memory attention over every key, masked or not; the decoder's
-    cross attentions). Norms, softmax, RoPE, the mask upsampling and the
-    adds are not counted. Returns (encode, track) operations."""
+def sam2_products(model):
+    """A context that counts the operations of the SAM2 forwards run inside
+    it with forward hooks, the way ``sam_encoder_flops`` and
+    ``sam_decoder_flops`` count: every Linear, convolution (per group) and
+    transposed convolution, and the attention products Q.K^T and P.V
+    (Hiera's windows, pooled queries and global blocks; memory attention
+    over every key, masked or not; the decoder's cross attentions). Norms,
+    softmax, RoPE, the mask upsampling and the adds are not counted. Yields
+    a one-element list holding the running count."""
+    import contextlib
+
     from torch import nn
     from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.models.segment_anything.transformer import (
         SAMCrossAttention)
@@ -1281,20 +1652,45 @@ def sam2_step_flops(torch, model, frames, prompts):
             q, k = args[0], args[1]
             total[0] += (4 * q.shape[0] * q.shape[1] * k.shape[1]
                          * module.q_proj.out_features)
-    hooks = [m.register_forward_hook(count) for m in model.modules()]
-    try:
-        with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16):
-            feat, pos, hr = model.encode_frame(frames[:1])
-            encode = total[0]
-            _, carry = model.start_track(feat, prompts, highres=hr)
-            for _ in range(model.memory_mask_nums):
-                _, carry = model.track_frame(feat, pos, carry, highres=hr)
-            total[0] = 0
-            model.track_frame(feat, pos, carry, highres=hr)
-    finally:
-        for hook in hooks:
-            hook.remove()
+
+    @contextlib.contextmanager
+    def ctx():
+        hooks = [m.register_forward_hook(count) for m in model.modules()]
+        try:
+            yield total
+        finally:
+            for hook in hooks:
+                hook.remove()
+    return ctx()
+
+
+def sam2_step_flops(torch, model, frames, prompts):
+    """Operations of SAM2's ``encode_frame`` and of one ``track_frame`` with
+    every memory slot filled (``sam2_products``). Returns (encode,
+    track) operations."""
+    with sam2_products(model) as total, torch.inference_mode(), \
+            torch.autocast("cuda", torch.bfloat16):
+        feat, pos, hr = model.encode_frame(frames[:1])
+        encode = total[0]
+        _, carry = model.start_track(feat, prompts, highres=hr)
+        for _ in range(model.memory_mask_nums):
+            _, carry = model.track_frame(feat, pos, carry, highres=hr)
+        total[0] = 0
+        model.track_frame(feat, pos, carry, highres=hr)
     return encode, total[0]
+
+
+def sam2_train_flops(torch, model, batch, config):
+    """Operations of one SAM2 train step on ``batch``: 3x the products
+    (``sam2_products``) of the train tool's forward, which are the encoder
+    on the B x T frames, the tracking and every refinement decoder pass;
+    the recompute of checkpointing not counted."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_video_interactive_segmentation_model import (
+        build_loss_fn)
+    loss_fn = build_loss_fn(model, config)
+    with sam2_products(model) as total, torch.inference_mode():
+        loss_fn(model, batch, torch.Generator(device="cuda").manual_seed(0))
+    return 3 * total[0]
 
 
 def sharpen_sam2_attention_(torch, model, seed):
@@ -1379,6 +1775,33 @@ def run_track(torch, model, frames, prompts, autocast=True):
                 out, carry = model.track_frame(feat, pos, carry, highres=hr)
             outs.append(out)
     return tuple(torch.cat([o[j].float() for o in outs]) for j in range(3))
+
+
+def kernels_as_plain_versions():
+    """A context in which SAM2's attention routes (with the kernels on) run
+    each kernel's plain version instead: the differentiable PyTorch
+    references that the kernels are held against and that the CPU runs."""
+    import contextlib
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        flash_attention as fl, fused_attention as fa)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2 import (
+        image_encoder as enc, memory as mem)
+    plain = {(enc, "fused_attention_dense"): fa.fused_attention_dense_reference,
+             (enc, "fused_attention"): fa.fused_attention_reference,
+             (enc, "flash_attention"): fl.flash_attention_reference,
+             (mem, "flash_attention"): fl.flash_attention_reference}
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {key: getattr(*key) for key in plain}
+        for (module, name), fn in plain.items():
+            setattr(module, name, fn)
+        try:
+            yield
+        finally:
+            for (module, name), fn in saved.items():
+                setattr(module, name, fn)
+    return ctx()
 
 
 def without_key_bias(model):
@@ -1489,10 +1912,10 @@ def reset_counts(fa, ln):
         flash_attention as fl)
     for wrapper in (fa.fused_attention_dense, fa.fused_attention,
                     ln.layer_norm, fa.fused_attention_relwin_dense,
-                    fa.fused_attention_relwin, fl.flash_attention_relpos):
+                    fa.fused_attention_relwin, fl.flash_attention_relpos,
+                    fl.flash_attention):
         wrapper.launches = 0
         wrapper.backward_launches = 0
-    fl.flash_attention.launches = 0     # K6: forward only
 
 
 def read_counts(fa, ln):
@@ -1510,7 +1933,8 @@ def read_counts(fa, ln):
             "K4 bwd": fa.fused_attention_relwin.backward_launches,
             "K5": fl.flash_attention_relpos.launches,
             "K5 bwd": fl.flash_attention_relpos.backward_launches,
-            "K6": fl.flash_attention.launches}
+            "K6": fl.flash_attention.launches,
+            "K6 bwd": fl.flash_attention.backward_launches}
 
 
 def expect_counts(label, counts, **expected):
@@ -1597,6 +2021,142 @@ def fit_head(torch, model, loader):
     with torch.no_grad():
         model.fc.weight.copy_(protos)
         model.fc.bias.copy_(-(protos @ mean))
+
+
+def sam2_training_slice(torch, fa, ln, results):
+    """The SAM2 training phases (23-25 of ``main``); returns the train CLI's
+    launch counts of its first run."""
+    # 23. the SAM2 training slice: SAM2-B+ at full width and depth through
+    #     the work-dir train CLI with the port's stage-2 config
+    #     (checkpointing, condition frames, 2 point-iteration frames, bf16)
+    #     on seeded synthetic clips of 8 frames, two epochs, then the same
+    #     command resumed for a third. A step encodes the 8 frames in one
+    #     call: K1 on 18 windowed blocks and K6 on 3 global blocks, each
+    #     twice (checkpointing recomputes them), with one backward; the 7
+    #     tracked frames' memory attention (4 layers of self- and
+    #     cross-attention) runs K6 8 times a frame, with one backward each
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        profile_video_interactive_segmentation_train as sam2_profile,
+        train_video_interactive_segmentation_model as sam2_train_cli)
+
+    def sam2_step_launches(frames):
+        return dict(K1=2 * 18, K1_bwd=18, K6=2 * 3 + 8 * (frames - 1),
+                    K6_bwd=3 + 8 * (frames - 1))
+    sam2_dir = SMOKE_DIR / "sam2_b+_train"
+    shutil.rmtree(sam2_dir, ignore_errors=True)
+    sam2_dir.mkdir(parents=True)
+    sam2_train_counts = {}
+    for epochs, first_epoch in ((2, 1), (3, 3)):
+        (sam2_dir / "train_config.py").write_text(SAM2_B_TRAIN_CONFIG.format(
+            frames=SAM2_TRAIN_FRAMES, n_train=SAM2_TRAIN_CLIPS, epochs=epochs))
+        reset_counts(fa, ln)
+        t0 = time.perf_counter()
+        run = sam2_train_cli.main(["--work-dir", str(sam2_dir)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fa, ln)
+        steps = (epochs - first_epoch + 1) * SAM2_TRAIN_CLIPS
+        log(f"sam2_b+ train cli epochs {first_epoch}-{epochs}",
+            resumed_from=run["resumed_from"], batch=1,
+            frames=SAM2_TRAIN_FRAMES, epochs=run["epochs"],
+            seconds=round(seconds, 2), launches=counts,
+            launches_per_step={k: v / steps for k, v in counts.items() if v})
+        expect_counts(f"SAM2-B+ train CLI to epoch {epochs}", counts, **{
+            k: v * steps
+            for k, v in sam2_step_launches(SAM2_TRAIN_FRAMES).items()})
+        ran = [e["epoch"] for e in run["epochs"]]
+        if (ran != list(range(first_epoch, epochs + 1))
+                or run["resumed_from"] != (first_epoch - 1 or None)
+                or any(e["skipped"] or not math.isfinite(e["loss_avg"])
+                       for e in run["epochs"])):
+            raise AssertionError(f"SAM2-B+ train CLI to epoch {epochs}: {run}")
+        if not sam2_train_counts:
+            sam2_train_counts = counts
+        del run
+    sam2_log = (sam2_dir / "log" / "train.log").read_text()
+    sam2_losses = [float(x) for x in re.findall(r" loss ([-\w.]+) avg ",
+                                                sam2_log)]
+    epoch_avgs = [float(x) for x in re.findall(
+        r"epoch \d+: train loss avg ([-\w.]+)", sam2_log)]
+    log("sam2_b+ train cli losses", iteration_losses=sam2_losses,
+        epoch_loss_avgs=epoch_avgs)
+    if (len(sam2_losses) != 3 * SAM2_TRAIN_CLIPS
+            or not all(map(math.isfinite, sam2_losses))
+            or not epoch_avgs[-1] < epoch_avgs[0]
+            or "resumed from epoch 2" not in sam2_log):
+        raise AssertionError(f"SAM2-B+ train log: losses {sam2_losses}, "
+                             f"epoch averages {epoch_avgs}")
+    if not ((sam2_dir / "checkpoints" / "latest.pth").is_file()
+            and (sam2_dir / "checkpoints" / "best.pth").is_file()):
+        raise AssertionError("the SAM2 train CLI left no latest.pth / "
+                             "best.pth")
+    torch.cuda.empty_cache()
+
+    # 24. SAM2-B+ at the stage-2 config's settings on its seeded init, with
+    #     sharp attention (Hiera's qkv and the memory attention's q and k
+    #     redrawn as in 21): the gradients of the timed step's batch,
+    #     kernels against plain attention, both held against the fp32 model;
+    #     a control shows the check would fail without the key bias
+    model, train_step, sam2_config = sam2_profile.build_train_step()
+    batch4 = sam2_profile.to_device(sam2_profile.recipe_batch(
+        frames=SAM2_STEP_FRAMES))
+    sharpen_sam2_attention_(torch, model, SAM2_GRAD_SEED)
+    sharp = sharpen_memory_keys_(
+        torch, model, batch4["image"][0],
+        {"prompt_point": batch4["prompt_point"][:, 0, :1]})
+    log("sam2_b+ train memory attention, sharpened", **sharp)
+    grad_counts = check_sam2_gradients(torch, fa, ln, model, batch4,
+                                       sam2_config, "sam2_b+ sharp attention")
+    expect_counts("SAM2-B+ gradients", grad_counts,
+                  **sam2_step_launches(SAM2_STEP_FRAMES))
+
+    # 25. timed SAM2-B+ train steps at bench_sam2_train.py's recipe (batch
+    #     1, 4 frames at 1024^2, frame 0 prompted, 2 refined frames, the
+    #     stage-2 config's settings), with the kernels and with plain
+    #     attention; frames/s, peak memory and the share of the bf16 peak
+    # K6's backward a step: 4 memory layers' cross- and self-attention on
+    # each tracked frame (timed at frame 7's bias; masked keys take the
+    # same time) and the 3 global blocks of the 4 frames
+    k6_bwd = [r["ms"] for r in results["K6 bwd"][:3]]
+    k6_bwd_ms = (4 * (SAM2_STEP_FRAMES - 1) * (k6_bwd[0] + k6_bwd[1])
+                 + 3 * k6_bwd[2])
+    reset_counts(fa, ln)
+    first = train_step(batch4, 0)
+    torch.cuda.synchronize()
+    step_counts = read_counts(fa, ln)
+    expect_counts("SAM2-B+ train step", step_counts,
+                  **sam2_step_launches(SAM2_STEP_FRAMES))
+    if first["skipped"].item() or not math.isfinite(first["loss"].item()):
+        raise AssertionError(f"SAM2-B+ train step skipped: {first}")
+    step = iter(range(1, 10 ** 6))
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(torch, lambda: train_step(batch4, next(step)), iters=5,
+                      warmup=1, device_only=False)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_flops = sam2_train_flops(torch, model, batch4, sam2_config)
+    model.set_flash_attention(False)
+    torch.cuda.reset_peak_memory_stats()
+    plain_step_ms = time_ms(torch, lambda: train_step(batch4, next(step)),
+                            iters=2, warmup=1, device_only=False)
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.set_flash_attention(True)
+    frames_per_step = SAM2_STEP_FRAMES * batch4["image"].shape[0]
+    log("sam2_b+ train step", batch=1, frames=SAM2_STEP_FRAMES,
+        refined_frames=list(sam2_profile.ITER_FRAMES),
+        decoder_point_iters=sam2_config.decoder_point_iters,
+        launches_per_step=step_counts, ms=step_ms,
+        frames_per_s=frames_per_step / step_ms * 1e3,
+        tflops=step_flops / step_ms / 1e9,
+        share_of_bf16_peak=step_flops / step_ms / 1e9 / 989.0,
+        counted="3x the forward's products: the encoder on 4 frames, the "
+                "tracking, every decoder pass; no recompute",
+        gflop_per_step=step_flops / 1e9, peak_memory_gb=peak_gb,
+        plain_attention_ms=plain_step_ms,
+        plain_attention_peak_memory_gb=plain_peak_gb,
+        k6_bwd_share=k6_bwd_ms / step_ms)
+    del model, train_step, batch4, first
+    torch.cuda.empty_cache()
+
+    return sam2_train_counts
 
 
 def main():
@@ -1760,6 +2320,21 @@ def main():
             dict(label="fp32_hiera_global", shape=(1, 8, 4096, 4096, 64),
                  dtype=fp32, seed=57, layout="packed", sm_scale=hiera)):
         check_key_bias_kernel(torch, F, case, results)
+    # K6's backward at the SAM2 train step's shapes: the memory attention
+    # (frame 7's bias) and the Hiera global blocks of a 4-frame clip
+    hiera4 = (SAM2_STEP_FRAMES, 8, 4096, 4096)
+    for case in (
+            dict(label="sam2_memory_cross_frame7", shape=cross, dtype=bf16,
+                 seed=60, layout="memory", bias=memory_bias(7, 8)),
+            dict(label="sam2_memory_self", shape=self_shape, dtype=bf16,
+                 seed=61, layout="memory"),
+            dict(label="hiera_global", shape=(*hiera4, 64), dtype=bf16,
+                 seed=62, layout="packed", sm_scale=hiera),
+            dict(label="hiera_global_d56", shape=(*hiera4, 56), dtype=bf16,
+                 seed=63, layout="packed"),
+            dict(label="fp32_memory_self", shape=self_shape, dtype=fp32,
+                 seed=64, layout="memory")):
+        check_key_bias_backward_kernel(torch, F, case, results)
 
     # 4. eval slice: ViT-B/16 through the work-dir eval CLI
     work_dir = SMOKE_DIR / "vit_base_patch16"
@@ -2355,8 +2930,12 @@ def main():
     sam2_compare(torch, sam2, frames, prompts,
                  "sam2_b+ head_dim_padding 0 sharp attention")
     del sam2, frames, prompts
+    torch.cuda.empty_cache()
 
-    # 23. kernels line
+    # 23-25. the SAM2 training slice
+    sam2_train_counts = sam2_training_slice(torch, fa, ln, results)
+
+    # 26. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
@@ -2399,6 +2978,8 @@ def main():
               sam_train_counts["K5 bwd"]),
         entry("K6", "K6 flash_attention fwd", "flash_attention.cu",
               "flash_attention.py:113", sam2_counts["K6"]),
+        entry("K6 bwd", "K6 flash_attention bwd", "flash_attention.cu",
+              "flash_attention.py:206", sam2_train_counts["K6 bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,6 @@
 // Streaming (flash) attention with SAM's decomposed relative-position bias,
-// forward and backward, for Hopper (sm_90a): kernel K5.
+// forward and backward, for Hopper (sm_90a): kernel K5; with a per-key bias
+// instead, forward and backward: kernel K6.
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/flash_attention.py: _fwd_rel_kernel (via _flash_rel_forward,
@@ -56,7 +57,14 @@
 // are read once a tile. D = 56 (Hiera) runs as 64 with the pad columns
 // zero-filled in shared memory, exact as the TPU wrapper's zero pad; D =
 // 256 (SAM2's memory attention) takes the 128-column chunks above. Writes
-// the fp32 log-sum-exp for the backward.
+// the fp32 log-sum-exp for the backward, whose two kernels are K5's
+// backward bodies with the same flag off (their notes are further down).
+// With a gradient to come (p_residual), P.V also multiplies P's bf16
+// residual (P - bf16(P)), one more product a key tile, so that the output
+// carries P at fp32 precision: with P rounded to bf16, the TPU kernel's
+// choice, SAM2's gradient check in chip_smoke.py put 90 parameters (Hiera's
+// blocks and the memory attention's q and k projections among them) off
+// the plain path's floor, with the residual none.
 //
 // Bound on one H100 SXM: SAM2's memory cross-attention (B = H = 1, Nq =
 // 4096, Nk = 28,736, D = 256, bf16) is 4*Nq*Nk*D = 120.5 GFLOP = 0.122 ms
@@ -97,7 +105,8 @@ struct FlashArgs {
   int B, H, Nq, Nk, D;
   float scale;
   int q_vec, k_vec, v_vec, out_vec;
-  int q_tiles;  // query-row tiles a head
+  int q_tiles;     // query-row tiles a head
+  int p_residual;  // bf16 K6: P.V also takes P's bf16 residual
 };
 
 template <int DQ, int DV, bool kRel>
@@ -241,6 +250,12 @@ __device__ __forceinline__ void flash_fwd_bf16(const FlashArgs& a) {
         const uint32_t p[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
                                pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
         accumulate_ax<DV, LDV>(acc, p, Vb + 16 * kk * LDV, lane);
+        if (!kRel && a.p_residual) {  // P.V at fp32 precision of P
+          const uint32_t r[4] = {
+              pack_bf16_residual(s0[0], s0[1]), pack_bf16_residual(s0[2], s0[3]),
+              pack_bf16_residual(s1[0], s1[1]), pack_bf16_residual(s1[2], s1[3])};
+          accumulate_ax<DV, LDV>(acc, r, Vb + 16 * kk * LDV, lane);
+        }
       }
     }
     __syncthreads();  // this tile's buffers are free for tile + 2
@@ -287,13 +302,13 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs 
 // fixed order (reproducible bit for bit). Both recompute P = exp(s - lse)
 // from the forward's log-sum-exp; delta = rowsum(dO * O) comes from the
 // wrapper (one torch op, as the JAX package computes it outside its kernel).
-//   flash_relpos_bwd_dkv_bf16: a block of 4 warps owns 64 keys (16 a warp,
-//     their K and V fragments in registers) and walks the query tiles:
+//   dK/dV kernel: a block of 4 warps owns 64 keys (16 a warp, their K and V
+//     fragments in registers) and walks the query tiles:
 //     S^T = K.Q^T, dP^T = V.dO^T, P^T, dS0^T = P^T * (dP^T - delta), then
 //     dV += bf16(P^T).dO and dK += bf16(dS0^T).Q (times the scale at the end).
-//   flash_relpos_bwd_dq_bf16: a block of 4 warps owns 64 query rows and walks
-//     the key tiles: S, dP, P, dS0 as above, dQ += bf16(dS0).K, and drel_h,
-//     drel_w, the sums of the fp32 dS0 by the key's grid row and column.
+//   dQ kernel: a block of 4 warps owns 64 query rows and walks the key
+//     tiles: S, dP, P, dS0 as above, dQ += bf16(dS0).K; K5 also sums the
+//     fp32 dS0 into drel_h and drel_w by the key's grid row and column.
 //     With KW = 64 a key tile is one row jh of the key grid: drel_h[i, jh] is
 //     the tile's row sum (one store a tile) and a lane's 16 columns of
 //     drel_w accumulate in registers over the whole walk, in the forward's
@@ -307,39 +322,80 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs 
 // device memory: 22 ms a launch instead of ~5); other KW read them through
 // L1.
 // dS0 is rounded to bf16 before the products and the scale applied after,
-// as the TPU kernel does. Head dims above 128 run in 128-column output
-// chunks that each recompute the scores over the whole head dim.
+// as the TPU kernel does (K6 carries it at fp32 precision, see its notes
+// below). Head dims above 128 run in 128-column output
+// chunks that each recompute the scores over the whole head dim; there the
+// block's own fragments (K and V, or Q and dO) are read again from shared
+// memory for each product instead of being held in registers, which would
+// spill.
 //
 // Bound on one H100 SXM: at SAM-B's global blocks (B=8, H=12, N=4096, D=64)
 // the five N x N x D products are 10*B*H*N^2*D = 1.03 TFLOP = 1.04 ms of
 // tensor-core time, against 8*B*H*N*D*2 B + the fp32 rel terms and
 // statistics = 0.31 GB = 0.09 ms: bound by operations. The two kernels
 // compute seven products (S and dP in each).
+//
+// The same bodies with the rel-pos flag off are K6's backward, replacing
+// the TPU kernel _bwd_fused_kernel of ops/pallas/flash_attention.py (via
+// _flash_backward): q and dO [B, H, Nq, D], k and v [B, H, Nk, D], each
+// with its own strides, and the key bias [B, Nk] of the forward. The dK/dV
+// grid runs over the Nk keys and walks the Nq queries, the dQ grid the
+// other way round; keys past Nk get P = 0 and no dK/dV row is written past
+// Nk. A key whose bias is -1e9 gets P = 0 exactly, so its dK and dV are 0.
+// The bias itself gets no gradient (it marks slot validity).
+// Each row of dS0 = P * (dP - delta) sums to 0 when delta = rowsum(P * dP)
+// in the backward's own P and dP. Where the keys are rotated after a
+// projection with a bias (RoPE in SAM2's memory attention), that bias's
+// gradient, the sum over the keys of the rotated dK rows, is a residue of
+// this cancellation, as exact as the rows sum to 0. The TPU kernel takes
+// delta = rowsum(dO * O) from the output in the input dtype and rounds dS0
+// to it; even from an fp32 O (P.V with P at fp32 precision), delta was
+// 1.7e-5 off at SAM2's memory self-attention, which put that sum 12x as far
+// from its float64 value as the plain path's, and the memory attention's
+// key biases off the plain path's floor in chip_smoke.py's SAM2 gradient
+// check. So in bf16 K6's dQ kernel first walks the keys once for delta =
+// rowsum(P * dP) / rowsum(P) (S and dP, no output; the division cancels
+// the rounding of the log-sum-exp), which the dK/dV kernel, launched after
+// it, reads; and both kernels also multiply dS0's bf16 residual (dS0 -
+// bf16(dS0)), so that dK and dQ carry dS0 at fp32 precision. The dK/dV
+// kernel computes S, dP, dV, dK and the residual's product; the dQ kernel
+// S and dP twice, dQ and the residual's. fp32 K6 takes delta from its fp32
+// output.
+// At SAM2's memory cross-attention (B = H = 1, Nq = 4096, Nk = 28,736, D =
+// 256) the five products are 10*Nq*Nk*D = 301 GFLOP = 0.30 ms of
+// tensor-core time against ~67 MB of q, k, v, dO and the gradients = 0.02
+// ms: bound by operations. The chunked route computes S and dP once per
+// chunk in the dK/dV kernel and twice in the dQ kernel; the dQ grid is 64
+// query tiles x 2 chunks = 128 blocks, each walking all 28,736 keys twice.
 
 struct FlashBwdArgs {
   const void *q, *k, *v, *dout;
   void *dq, *dk, *dv;
-  const float *lse, *delta;  // [B * H, N] each; lse in natural log
-  long long in_sb, in_sh, in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn;
-  RelPos rel;
+  const float *lse, *delta;  // [B * H, Nq] each; lse in natural log
+  float* delta_out;          // bf16 K6: delta, written by the dQ kernel
+  Strides qs, ks, vs, dos;   // the inputs
+  Strides dqs, dkvs;         // dq; dk and dv (one set)
+  RelPos rel;                // kRel (K5): Nq = Nk
   RelGrad drel;
-  int B, H, N, D;
+  const float* kbias;  // !kRel (K6): the key bias [B, Nk] or nullptr
+  long long kbias_sb;
+  int B, H, Nq, Nk, D;
   float scale;
-  int vec, do_vec, out_vec;
-  int rel_vec;  // rel_w rows 16-byte aligned
-  int tiles;    // 64-row tiles a head
+  int q_vec, k_vec, v_vec, do_vec, out_vec;
+  int rel_vec;           // rel_w rows 16-byte aligned
+  int q_tiles, k_tiles;  // 64-row tiles of the queries, of the keys
 };
 
 constexpr int kDsLD = kTile + 1;  // row stride of a warp's fp32 dS0 tile
 
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
+template <int DQ, int DV, bool kRel>
+__device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
   constexpr int LDQ = DQ + 8;
   constexpr int QT = DQ <= 64 ? 64 : 32;  // queries a step (registers)
   constexpr int kFrags = QT / 8;
   constexpr int LDW = kTile + 4;  // staged rel_w rows: conflict-free reads
-  const int N = a.N;
+  constexpr bool kReload = DQ > 128;
+  const int Nq = a.Nq, Nk = a.Nk;
   const float sc = a.scale * kLog2e;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -356,40 +412,48 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int chunk = blockIdx.x / a.tiles;
-  const int k0 = (blockIdx.x % a.tiles) * kRows;
+  const int chunk = blockIdx.x / a.k_tiles;
+  const int k0 = (blockIdx.x % a.k_tiles) * kRows;
   const int dv0 = chunk * kChunk;
   const int dv = min(DV, a.D - dv0);
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
-  const bf16* doh =
-      static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
-  const int KW = a.rel.KW;
-  const bool grid_row = KW == kTile;  // the block's 64 keys: one key-grid row
-  const int key_jh = k0 / max(KW, 1);
-  const float* relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
-  const float* relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const bf16* qh = static_cast<const bf16*>(a.q) + bz * a.qs.b + hy * a.qs.h;
+  const bf16* doh = static_cast<const bf16*>(a.dout) + bz * a.dos.b + hy * a.dos.h;
+  const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
+  const int KW = kRel ? a.rel.KW : kTile + 1;
+  const bool grid_row = kRel && KW == kTile;  // the block's 64 keys: one key-grid row
+  const int key_jh = kRel ? k0 / KW : 0;
+  const float* relh = kRel ? a.rel.h + bz * a.rel.h_sb + hy * a.rel.h_sh : nullptr;
+  const float* relw = kRel ? a.rel.w + bz * a.rel.w_sb + hy * a.rel.w_sh : nullptr;
 
   const int row0 = k0 + 16 * warp;  // this warp's first key row
-  const bool active = row0 < N;
-  int jh[2], jw[2];  // key-grid row and column of the lane's two keys
+  const bool active = row0 < Nk;
+  int jh[2] = {0, 0}, jw[2] = {0, 0};  // K5: key-grid row and column of the lane's two keys
+  float kb[2] = {0.f, 0.f};            // K6: their bias * log2(e), -inf past Nk
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    col_split(min(row0 + g + 8 * r, N - 1), a.rel.inv_kw, KW, jh[r], jw[r]);
+  for (int r = 0; r < 2; ++r) {
+    const int key = row0 + g + 8 * r;
+    if constexpr (kRel) {
+      col_split(min(key, Nk - 1), a.rel.inv_kw, KW, jh[r], jw[r]);
+    } else {
+      kb[r] = key >= Nk  ? -INFINITY
+              : a.kbias ? __ldg(a.kbias + bz * a.kbias_sb + key) * kLog2e
+                        : 0.f;
+    }
+  }
 
-  const int qtiles = (N + QT - 1) / QT;
+  const int qtiles = (Nq + QT - 1) / QT;
   auto issue = [&](int tile) {
     const int buf = tile & 1;
     const int q0 = tile * QT;
     const long long off = static_cast<long long>(q0);
-    load_tile_bf16<DQ, LDQ>(Qs + buf * QT * LDQ, qh + off * a.in_sn, a.in_sn, QT, N - q0, a.D,
-                            a.vec);
-    load_tile_bf16<DQ, LDQ>(dOs + buf * QT * LDQ, doh + off * a.do_sn, a.do_sn, QT, N - q0,
+    load_tile_bf16<DQ, LDQ>(Qs + buf * QT * LDQ, qh + off * a.qs.n, a.qs.n, QT, Nq - q0, a.D,
+                            a.q_vec);
+    load_tile_bf16<DQ, LDQ>(dOs + buf * QT * LDQ, doh + off * a.dos.n, a.dos.n, QT, Nq - q0,
                             a.D, a.do_vec);
     // the tile's statistics and rel terms, asynchronously as the tiles
     for (int i = threadIdx.x; i < QT; i += blockDim.x) {
-      const bool valid = q0 + i < N;
+      const bool valid = q0 + i < Nq;
       const long long row = valid ? q0 + i : 0;
       cp_async4(lse_s + buf * QT + i, a.lse + stat_off + row, valid);
       cp_async4(delta_s + buf * QT + i, a.delta + stat_off + row, valid);
@@ -399,7 +463,7 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
       const int per_row = a.rel_vec ? kTile / 4 : kTile;
       for (int i = threadIdx.x; i < QT * per_row; i += blockDim.x) {
         const int r = i / per_row;
-        const bool valid = q0 + r < N;
+        const bool valid = q0 + r < Nq;
         const float* src = relw + (valid ? q0 + r : 0) * a.rel.w_sn;
         float* dst = relw_s + (buf * QT + r) * LDW;
         if (a.rel_vec)
@@ -410,15 +474,16 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
     }
   };
 
-  const long long own = static_cast<long long>(k0) * a.in_sn;
-  load_tile_bf16<DQ, LDQ>(Ko, static_cast<const bf16*>(a.k) + in_off + own, a.in_sn, kRows,
-                          N - k0, a.D, a.vec);
-  load_tile_bf16<DQ, LDQ>(Vo, static_cast<const bf16*>(a.v) + in_off + own, a.in_sn, kRows,
-                          N - k0, a.D, a.vec);
+  load_tile_bf16<DQ, LDQ>(
+      Ko, static_cast<const bf16*>(a.k) + bz * a.ks.b + hy * a.ks.h + k0 * a.ks.n, a.ks.n,
+      kRows, Nk - k0, a.D, a.k_vec);
+  load_tile_bf16<DQ, LDQ>(
+      Vo, static_cast<const bf16*>(a.v) + bz * a.vs.b + hy * a.vs.h + k0 * a.vs.n, a.vs.n,
+      kRows, Nk - k0, a.D, a.v_vec);
   issue(0);
   cp_async_commit();
 
-  uint32_t kf[DQ / 16][4], vf[DQ / 16][4];
+  uint32_t kf[DQ / 16][4], vf[kReload ? 1 : DQ / 16][4];
   float dk[DV / 8][4], dvacc[DV / 8][4];
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) {
@@ -431,9 +496,11 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    if (tile == 0 && active) {
-      load_a_frags<DQ, LDQ>(kf, Ko + 16 * warp * LDQ, g, t);
-      load_a_frags<DQ, LDQ>(vf, Vo + 16 * warp * LDQ, g, t);
+    if constexpr (!kReload) {
+      if (tile == 0 && active) {
+        load_a_frags<DQ, LDQ>(kf, Ko + 16 * warp * LDQ, g, t);
+        load_a_frags<DQ, LDQ>(vf, Vo + 16 * warp * LDQ, g, t);
+      }
     }
     if (active) {
       const int buf = tile & 1;
@@ -441,8 +508,15 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
       const bf16* Qb = Qs + buf * QT * LDQ;
       const bf16* dOb = dOs + buf * QT * LDQ;
       float st[kFrags][4], dpt[kFrags][4];  // S^T, dP^T: rows keys, columns queries
-      own_times_other_t<DQ, LDQ, kFrags>(st, kf, Qb, qt, N, lane);
-      own_times_other_t<DQ, LDQ, kFrags>(dpt, vf, dOb, qt, N, lane);
+      if constexpr (kReload) {
+        load_a_frags<DQ, LDQ>(kf, Ko + 16 * warp * LDQ, g, t);
+        own_times_other_t<DQ, LDQ, kFrags>(st, kf, Qb, qt, Nq, lane);
+        load_a_frags<DQ, LDQ>(kf, Vo + 16 * warp * LDQ, g, t);
+        own_times_other_t<DQ, LDQ, kFrags>(dpt, kf, dOb, qt, Nq, lane);
+      } else {
+        own_times_other_t<DQ, LDQ, kFrags>(st, kf, Qb, qt, Nq, lane);
+        own_times_other_t<DQ, LDQ, kFrags>(dpt, vf, dOb, qt, Nq, lane);
+      }
 #pragma unroll
       for (int j = 0; j < kFrags; ++j)
 #pragma unroll
@@ -450,22 +524,26 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
           const int ql = 8 * j + 2 * t + (e & 1);
           const int qi = qt + ql;
           const int r = e >> 1;
-          float bias;  // rel_h + rel_w of (query qi, this key)
-          if (grid_row) {
-            bias = relh_s[buf * QT + ql] + relw_s[(buf * QT + ql) * LDW + jw[r]];
+          float logit;  // log2-domain exponent of P
+          if constexpr (kRel) {
+            float bias;  // rel_h + rel_w of (query qi, this key)
+            if (grid_row) {
+              bias = relh_s[buf * QT + ql] + relw_s[(buf * QT + ql) * LDW + jw[r]];
+            } else {
+              const int qc = min(qi, Nq - 1);
+              bias = __ldg(relh + qc * a.rel.h_sn + jh[r]) + __ldg(relw + qc * a.rel.w_sn + jw[r]);
+            }
+            logit = fmaf(st[j][e], sc, (bias - lse_s[buf * QT + ql]) * kLog2e);
           } else {
-            const int qc = min(qi, N - 1);
-            bias = __ldg(relh + qc * a.rel.h_sn + jh[r]) + __ldg(relw + qc * a.rel.w_sn + jw[r]);
+            logit = fmaf(st[j][e], sc, kb[r] - lse_s[buf * QT + ql] * kLog2e);
           }
-          const float p =
-              qi < N ? exp2_approx(fmaf(st[j][e], sc, (bias - lse_s[buf * QT + ql]) * kLog2e))
-                     : 0.f;
+          const float p = qi < Nq ? exp2_approx(logit) : 0.f;
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - delta_s[buf * QT + ql]);
         }
 #pragma unroll
       for (int kk = 0; kk < QT / 16; ++kk) {
-        if (qt + 16 * kk >= N) break;
+        if (qt + 16 * kk >= Nq) break;
         const float* p0 = st[2 * kk];
         const float* p1 = st[2 * kk + 1];
         const uint32_t pf[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
@@ -476,6 +554,12 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
         const uint32_t df[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]),
                                 pack_bf16(d1[0], d1[1]), pack_bf16(d1[2], d1[3])};
         accumulate_ax<DV, LDQ>(dk, df, Qb + 16 * kk * LDQ + dv0, lane);
+        if constexpr (!kRel) {  // K6: dS0's bf16 residual too
+          const uint32_t dr[4] = {
+              pack_bf16_residual(d0[0], d0[1]), pack_bf16_residual(d0[2], d0[3]),
+              pack_bf16_residual(d1[0], d1[1]), pack_bf16_residual(d1[2], d1[3])};
+          accumulate_ax<DV, LDQ>(dk, dr, Qb + 16 * kk * LDQ + dv0, lane);
+        }
       }
     }
     __syncthreads();  // this tile's buffers are free for tile + 2
@@ -486,19 +570,19 @@ flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
   for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] *= a.scale;
-  const long long out_off = blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
-  store_rows_bf16<DV>(static_cast<bf16*>(a.dk) + out_off, a.out_sn, dk, row0, N, dv, g, t,
+  const long long out_off = bz * a.dkvs.b + hy * a.dkvs.h + dv0;
+  store_rows_bf16<DV>(static_cast<bf16*>(a.dk) + out_off, a.dkvs.n, dk, row0, Nk, dv, g, t,
                       a.out_vec);
-  store_rows_bf16<DV>(static_cast<bf16*>(a.dv) + out_off, a.out_sn, dvacc, row0, N, dv, g, t,
+  store_rows_bf16<DV>(static_cast<bf16*>(a.dv) + out_off, a.dkvs.n, dvacc, row0, Nk, dv, g, t,
                       a.out_vec);
 }
 
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
+template <int DQ, int DV, bool kRel>
+__device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
   constexpr int LDQ = DQ + 8;
   constexpr int kFrags = kTile / 8;
-  const int N = a.N;
+  constexpr bool kReload = DQ > 128;
+  const int Nq = a.Nq, Nk = a.Nk;
   const float sc = a.scale * kLog2e;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -512,45 +596,52 @@ flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int chunk = blockIdx.x / a.tiles;
-  const int q0 = (blockIdx.x % a.tiles) * kRows;
+  const int chunk = blockIdx.x / a.q_tiles;
+  const int q0 = (blockIdx.x % a.q_tiles) * kRows;
   const int dv0 = chunk * kChunk;
   const int dv = min(DV, a.D - dv0);
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
-  const bf16* vh = static_cast<const bf16*>(a.v) + in_off;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const bf16* kh = static_cast<const bf16*>(a.k) + bz * a.ks.b + hy * a.ks.h;
+  const bf16* vh = static_cast<const bf16*>(a.v) + bz * a.vs.b + hy * a.vs.h;
+  const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
 
-  const int tiles = (N + kTile - 1) / kTile;
-  auto issue = [&](int tile) {
-    const int buf = tile & 1;
-    const long long off = static_cast<long long>(tile) * kTile * a.in_sn;
-    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + off, a.in_sn, kTile, N - tile * kTile,
-                            a.D, a.vec);
-    load_tile_bf16<DQ, LDQ>(Vs + buf * kTile * LDQ, vh + off, a.in_sn, kTile, N - tile * kTile,
-                            a.D, a.vec);
+  const int tiles = (Nk + kTile - 1) / kTile;
+  // K6 walks the keys twice: first for delta, then for dQ; the two shared-
+  // memory buffers alternate by step
+  const int steps = kRel ? tiles : 2 * tiles;
+  auto issue = [&](int step) {
+    const int buf = step & 1;
+    const int tile = step < tiles ? step : step - tiles;
+    const long long key0 = static_cast<long long>(tile) * kTile;
+    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + key0 * a.ks.n, a.ks.n, kTile,
+                            Nk - tile * kTile, a.D, a.k_vec);
+    load_tile_bf16<DQ, LDQ>(Vs + buf * kTile * LDQ, vh + key0 * a.vs.n, a.vs.n, kTile,
+                            Nk - tile * kTile, a.D, a.v_vec);
   };
-  load_tile_bf16<DQ, LDQ>(Qs, static_cast<const bf16*>(a.q) + in_off + q0 * a.in_sn, a.in_sn,
-                          kRows, N - q0, a.D, a.vec);
-  load_tile_bf16<DQ, LDQ>(dOs,
-                          static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb +
-                              blockIdx.y * a.do_sh + q0 * a.do_sn,
-                          a.do_sn, kRows, N - q0, a.D, a.do_vec);
+  load_tile_bf16<DQ, LDQ>(
+      Qs, static_cast<const bf16*>(a.q) + bz * a.qs.b + hy * a.qs.h + q0 * a.qs.n, a.qs.n,
+      kRows, Nq - q0, a.D, a.q_vec);
+  load_tile_bf16<DQ, LDQ>(
+      dOs, static_cast<const bf16*>(a.dout) + bz * a.dos.b + hy * a.dos.h + q0 * a.dos.n,
+      a.dos.n, kRows, Nq - q0, a.D, a.do_vec);
   issue(0);
   cp_async_commit();
 
   const int row0 = q0 + 16 * warp;
-  const bool active = row0 < N;
-  const bool drel = chunk == 0;  // one chunk writes drel
-  const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
-  const int KW = a.rel.KW;
-  const bool grid_row = KW == kTile;  // each key tile: one key-grid row
+  const bool active = row0 < Nq;
+  const bool drel = kRel && chunk == 0;  // one chunk writes drel
+  RelRows rr{};
+  if constexpr (kRel) rr = a.rel.rows(bz, hy, row0 + g, Nq);
+  const int KW = kRel ? a.rel.KW : kTile + 1;
+  const bool grid_row = kRel && KW == kTile;  // each key tile: one key-grid row
+  const float* kbias = !kRel && a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
   float lse2[2], delta[2];
+  float psum[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};  // K6: rowsum(P), rowsum(P * dP)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = min(row0 + g + 8 * r, N - 1);
+    const int row = min(row0 + g + 8 * r, Nq - 1);
     lse2[r] = a.lse[stat_off + row] * kLog2e;
-    delta[r] = a.delta[stat_off + row];
+    delta[r] = kRel ? a.delta[stat_off + row] : 0.f;
   }
   float rwc[2][kFrags][2], rw_acc[2][kFrags][2];  // KW = 64: rel_w * log2(e), drel_w
   if (grid_row) {
@@ -566,29 +657,52 @@ flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
   }
   float* ds_w = ds_s + warp * 16 * kDsLD;
 
-  uint32_t qf[DQ / 16][4], dof[DQ / 16][4];
+  uint32_t qf[DQ / 16][4], dof[kReload ? 1 : DQ / 16][4];
   float acc[DV / 8][4];
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int tile = 0; tile < tiles; ++tile) {
-    if (tile + 1 < tiles) issue(tile + 1);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) issue(step + 1);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
-    if (tile == 0 && active) {
-      load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
-      load_a_frags<DQ, LDQ>(dof, dOs + 16 * warp * LDQ, g, t);
+    if constexpr (!kReload) {
+      if (step == 0 && active) {
+        load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
+        load_a_frags<DQ, LDQ>(dof, dOs + 16 * warp * LDQ, g, t);
+      }
     }
+    const bool delta_walk = !kRel && step < tiles;
+    const int tile = step < tiles ? step : step - tiles;
     if (active) {
       const int key0 = tile * kTile;
-      const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
-      const bf16* Vb = Vs + (tile & 1) * kTile * LDQ;
+      const bf16* Kb = Ks + (step & 1) * kTile * LDQ;
+      const bf16* Vb = Vs + (step & 1) * kTile * LDQ;
       float s[kFrags][4], dp[kFrags][4];
-      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, N, lane);
-      own_times_other_t<DQ, LDQ, kFrags>(dp, dof, Vb, key0, N, lane);
+      if constexpr (kReload) {
+        load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
+        own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, Nk, lane);
+        load_a_frags<DQ, LDQ>(qf, dOs + 16 * warp * LDQ, g, t);
+        own_times_other_t<DQ, LDQ, kFrags>(dp, qf, Vb, key0, Nk, lane);
+      } else {
+        own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, Nk, lane);
+        own_times_other_t<DQ, LDQ, kFrags>(dp, dof, Vb, key0, Nk, lane);
+      }
       const int tile_jh = key0 / KW;
-      if (grid_row) {  // N is a multiple of 64 here: no key past N
+      if constexpr (!kRel) {
+        // K6: the key's bias, read once a tile for the lane's 16 keys; keys
+        // past Nk (the ragged last tile) get -inf
+#pragma unroll
+        for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int col = key0 + 8 * j + 2 * t + h2;
+            const float b = col >= Nk ? -INFINITY : kbias ? __ldg(kbias + col) * kLog2e : 0.f;
+            s[j][h2] = fmaf(s[j][h2], sc, b);
+            s[j][2 + h2] = fmaf(s[j][2 + h2], sc, b);
+          }
+      } else if (grid_row) {  // N is a multiple of 64 here: no key past N
         const float bh[2] = {__ldg(rr.h[0] + tile_jh) * kLog2e,
                              __ldg(rr.h[1] + tile_jh) * kLog2e};
 #pragma unroll
@@ -597,76 +711,106 @@ flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
           for (int e = 0; e < 4; ++e)
             s[j][e] = fmaf(s[j][e], sc, bh[e >> 1] + rwc[e >> 1][j][e & 1]);
       } else {
-        rel_logits(s, rr, key0, t, N, N, sc, -INFINITY, KW, a.rel.inv_kw);
+        rel_logits(s, rr, key0, t, Nk, Nk, sc, -INFINITY, KW, a.rel.inv_kw);
       }
-      // dS0 = P * (dP - delta), P = 2^(logit - lse * log2(e))
-#pragma unroll
-      for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[j][e] = exp2_approx(s[j][e] - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
-      if (drel && grid_row) {
-        float hsum[2] = {0.f, 0.f};
+      if (delta_walk) {
+        // K6's first walk: the lane's terms of rowsum(P) and rowsum(P * dP)
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            hsum[e >> 1] += s[j][e];
-            rw_acc[e >> 1][j][e & 1] += s[j][e];
+            const float p = exp2_approx(s[j][e] - lse2[e >> 1]);
+            psum[e >> 1] += p;
+            pdp[e >> 1] += p * dp[j][e];
           }
+        if (tile == tiles - 1) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 1);
-          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 2);
-          const int row = row0 + g + 8 * r;
-          if (t == 0 && row < N)
-            a.drel.h_row(blockIdx.z, blockIdx.y, row)[tile_jh] = hsum[r];
+          for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int x = 1; x < 4; x <<= 1) {
+              psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], x);
+              pdp[r] += __shfl_xor_sync(0xffffffffu, pdp[r], x);
+            }
+            delta[r] = pdp[r] / psum[r];
+            const int row = row0 + g + 8 * r;
+            if (chunk == 0 && t == 0 && row < Nq) a.delta_out[stat_off + row] = delta[r];
+          }
         }
-      } else if (drel) {
+      } else {
+        // dS0 = P * (dP - delta), P = 2^(logit - lse * log2(e))
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = s[j][e];
-        __syncwarp();
-        const int r = lane & 15;
-        const int row = row0 + r;
-        if (row < N) {
-          float* h_row = a.drel.h_row(blockIdx.z, blockIdx.y, row);
-          float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
-          const int cols = min(kTile, N - key0);
-          int run_jh = -1;
-          float run = 0.f;
-          for (int jj = 0; jj < cols; ++jj) {
-            int jh, jw;
-            col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
-            const float x = ds_w[r * kDsLD + jj];
-            if (lane >= 16) {
-              w_row[jw] += x;
-            } else {
-              if (jh != run_jh) {
-                if (run_jh >= 0) h_row[run_jh] += run;
-                run_jh = jh;
-                run = 0.f;
-              }
-              run += x;
-            }
-          }
-          if (lane < 16 && run_jh >= 0) h_row[run_jh] += run;
-        }
-        __syncwarp();
-      }
+            s[j][e] = exp2_approx(s[j][e] - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
+        if (drel && grid_row) {
+          float hsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        if (key0 + 16 * kk >= N) break;
-        const float* s0 = s[2 * kk];
-        const float* s1 = s[2 * kk + 1];
-        const uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                                pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-        accumulate_ax<DV, LDQ>(acc, af, Kb + 16 * kk * LDQ + dv0, lane);
+          for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              hsum[e >> 1] += s[j][e];
+              rw_acc[e >> 1][j][e & 1] += s[j][e];
+            }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 1);
+            hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 2);
+            const int row = row0 + g + 8 * r;
+            if (t == 0 && row < Nq) a.drel.h_row(bz, hy, row)[tile_jh] = hsum[r];
+          }
+        } else if (drel) {
+#pragma unroll
+          for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = s[j][e];
+          __syncwarp();
+          const int r = lane & 15;
+          const int row = row0 + r;
+          if (row < Nq) {
+            float* h_row = a.drel.h_row(bz, hy, row);
+            float* w_row = a.drel.w_row(bz, hy, row);
+            const int cols = min(kTile, Nk - key0);
+            int run_jh = -1;
+            float run = 0.f;
+            for (int jj = 0; jj < cols; ++jj) {
+              int jh, jw;
+              col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
+              const float x = ds_w[r * kDsLD + jj];
+              if (lane >= 16) {
+                w_row[jw] += x;
+              } else {
+                if (jh != run_jh) {
+                  if (run_jh >= 0) h_row[run_jh] += run;
+                  run_jh = jh;
+                  run = 0.f;
+                }
+                run += x;
+              }
+            }
+            if (lane < 16 && run_jh >= 0) h_row[run_jh] += run;
+          }
+          __syncwarp();
+        }
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          if (key0 + 16 * kk >= Nk) break;
+          const float* s0 = s[2 * kk];
+          const float* s1 = s[2 * kk + 1];
+          const uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                                  pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+          accumulate_ax<DV, LDQ>(acc, af, Kb + 16 * kk * LDQ + dv0, lane);
+          if constexpr (!kRel) {  // K6: dS0's bf16 residual too
+            const uint32_t ar[4] = {
+                pack_bf16_residual(s0[0], s0[1]), pack_bf16_residual(s0[2], s0[3]),
+                pack_bf16_residual(s1[0], s1[1]), pack_bf16_residual(s1[2], s1[3])};
+            accumulate_ax<DV, LDQ>(acc, ar, Kb + 16 * kk * LDQ + dv0, lane);
+          }
+        }
       }
     }
-    __syncthreads();  // this tile's buffers are free for tile + 2
+    __syncthreads();  // this step's buffers are free for step + 2
   }
 
   if (!active) return;
@@ -674,14 +818,14 @@ flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
   for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] *= a.scale;
-  bf16* dqh = static_cast<bf16*>(a.dq) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh + dv0;
-  store_rows_bf16<DV>(dqh, a.out_sn, acc, row0, N, dv, g, t, a.out_vec);
+  bf16* dqh = static_cast<bf16*>(a.dq) + bz * a.dqs.b + hy * a.dqs.h + dv0;
+  store_rows_bf16<DV>(dqh, a.dqs.n, acc, row0, Nq, dv, g, t, a.out_vec);
   if (drel && grid_row) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + g + 8 * r;
-      if (row >= N) continue;
-      float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
+      if (row >= Nq) continue;
+      float* w_row = a.drel.w_row(bz, hy, row);
 #pragma unroll
       for (int j = 0; j < kFrags; ++j)
 #pragma unroll
@@ -689,6 +833,28 @@ flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
     }
   }
 }
+
+// The backward kernels, named by mode so that a profile tells K5 from K6.
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
+  flash_bwd_dkv_bf16<DQ, DV, true>(a);
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
+  flash_bwd_dq_bf16<DQ, DV, true>(a);
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dkv_bf16(FlashBwdArgs a) {
+  flash_bwd_dkv_bf16<DQ, DV, false>(a);
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dq_bf16(FlashBwdArgs a) {
+  flash_bwd_dq_bf16<DQ, DV, false>(a);
+}
+
 
 // ------------------------------------------------------------- fp32 path
 
@@ -811,17 +977,17 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_f32(FlashArgs a
 
 // fp32 backward (not on the main path), in the forward's fp32 layout: a
 // block of 4 warps owns 16 rows (4 a warp), a lane takes one query or key of
-// a 32-wide tile and owns D / 32 output columns. drel goes through a warp's
-// tile of dS0 in shared memory: lane r (r + 4) adds row r's terms into
-// drel_h (drel_w) in device memory, in key order.
+// a 32-wide tile and owns D / 32 output columns. K5's drel goes through a
+// warp's tile of dS0 in shared memory: lane r (r + 4) adds row r's terms
+// into drel_h (drel_w) in device memory, in key order. K6 (kRel off) takes
+// the key bias of each key instead, and keys past Nk get P = 0.
 
 // DC = output columns a lane (D <= 32 * DC)
-template <int DC>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
+template <int DC, bool kRel>
+__device__ __forceinline__ void flash_bwd_dkv_f32(const FlashBwdArgs& a) {
   constexpr int LD = 32 * DC + 1;
   constexpr int kPerWarp = kRowsF / kWarps;
-  const int N = a.N, D = a.D;
+  const int Nq = a.Nq, Nk = a.Nk, D = a.D;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ko = reinterpret_cast<float*>(smem);  // own keys [kRowsF][LD]
   float* Vo = Ko + kRowsF * LD;                // own values [kRowsF][LD]
@@ -831,35 +997,41 @@ flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int k0 = blockIdx.x * kRowsF;
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const float* qh = static_cast<const float*>(a.q) + in_off;
-  const float* doh =
-      static_cast<const float*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
-  const float* relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
-  const float* relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const float* qh = static_cast<const float*>(a.q) + bz * a.qs.b + hy * a.qs.h;
+  const float* doh = static_cast<const float*>(a.dout) + bz * a.dos.b + hy * a.dos.h;
+  const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
+  const float* relh = kRel ? a.rel.h + bz * a.rel.h_sb + hy * a.rel.h_sh : nullptr;
+  const float* relw = kRel ? a.rel.w + bz * a.rel.w_sb + hy * a.rel.w_sh : nullptr;
 
-  load_rows_f32(Ko, static_cast<const float*>(a.k) + in_off + k0 * a.in_sn, a.in_sn, kRowsF,
-                N - k0, D, LD);
-  load_rows_f32(Vo, static_cast<const float*>(a.v) + in_off + k0 * a.in_sn, a.in_sn, kRowsF,
-                N - k0, D, LD);
+  load_rows_f32(Ko, static_cast<const float*>(a.k) + bz * a.ks.b + hy * a.ks.h + k0 * a.ks.n,
+                a.ks.n, kRowsF, Nk - k0, D, LD);
+  load_rows_f32(Vo, static_cast<const float*>(a.v) + bz * a.vs.b + hy * a.vs.h + k0 * a.vs.n,
+                a.vs.n, kRowsF, Nk - k0, D, LD);
   int jh[kPerWarp], jw[kPerWarp];
+  float kb[kPerWarp];  // K6: the key's bias
   float dk[kPerWarp][DC], dv[kPerWarp][DC];
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
-    col_split(min(k0 + warp * kPerWarp + i, N - 1), a.rel.inv_kw, a.rel.KW, jh[i], jw[i]);
+    const int key = min(k0 + warp * kPerWarp + i, Nk - 1);
+    jh[i] = jw[i] = 0;
+    kb[i] = 0.f;
+    if constexpr (kRel)
+      col_split(key, a.rel.inv_kw, a.rel.KW, jh[i], jw[i]);
+    else if (a.kbias)
+      kb[i] = a.kbias[bz * a.kbias_sb + key];
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
   }
 
-  for (int q0 = 0; q0 < N; q0 += kTileF) {
+  for (int q0 = 0; q0 < Nq; q0 += kTileF) {
     __syncthreads();
-    load_rows_f32(Qs, qh + q0 * a.in_sn, a.in_sn, kTileF, N - q0, D, LD);
-    load_rows_f32(dOs, doh + q0 * a.do_sn, a.do_sn, kTileF, N - q0, D, LD);
+    load_rows_f32(Qs, qh + q0 * a.qs.n, a.qs.n, kTileF, Nq - q0, D, LD);
+    load_rows_f32(dOs, doh + q0 * a.dos.n, a.dos.n, kTileF, Nq - q0, D, LD);
     __syncthreads();
     const int qi = q0 + lane;
-    const bool valid = qi < N;
-    const int qc = min(qi, N - 1);
+    const bool valid = qi < Nq;
+    const int qc = min(qi, Nq - 1);
     const float lse = a.lse[stat_off + qc];
     const float delta = a.delta[stat_off + qc];
 #pragma unroll
@@ -873,7 +1045,9 @@ flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
         s = fmaf(qr[d], kr[d], s);
         dp = fmaf(dor[d], vr[d], dp);
       }
-      const float bias = relh[qc * a.rel.h_sn + jh[i]] + relw[qc * a.rel.w_sn + jw[i]];
+      float bias = kb[i];
+      if constexpr (kRel)
+        bias = relh[qc * a.rel.h_sn + jh[i]] + relw[qc * a.rel.w_sn + jw[i]];
       const float p = valid ? expf(s * a.scale + bias - lse) : 0.f;
       const float ds0 = p * (dp - delta);
 #pragma unroll
@@ -889,27 +1063,26 @@ flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
     }
   }
 
-  const long long out_off = blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+  const long long out_off = bz * a.dkvs.b + hy * a.dkvs.h;
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
     const int row = k0 + warp * kPerWarp + i;
-    if (row >= N) continue;
+    if (row >= Nk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = lane + 32 * c;
       if (col >= D) continue;
-      static_cast<float*>(a.dk)[out_off + row * a.out_sn + col] = dk[i][c] * a.scale;
-      static_cast<float*>(a.dv)[out_off + row * a.out_sn + col] = dv[i][c];
+      static_cast<float*>(a.dk)[out_off + row * a.dkvs.n + col] = dk[i][c] * a.scale;
+      static_cast<float*>(a.dv)[out_off + row * a.dkvs.n + col] = dv[i][c];
     }
   }
 }
 
-template <int DC>
-__global__ void __launch_bounds__(32 * kWarps)
-flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
+template <int DC, bool kRel>
+__device__ __forceinline__ void flash_bwd_dq_f32(const FlashBwdArgs& a) {
   constexpr int LD = 32 * DC + 1;
   constexpr int kPerWarp = kRowsF / kWarps;
-  const int N = a.N, D = a.D;
+  const int Nq = a.Nq, Nk = a.Nk, D = a.D;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);  // [kRowsF][LD]
   float* dOs = Qs + kRowsF * LD;               // [kRowsF][LD]
@@ -920,38 +1093,43 @@ flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int q0 = blockIdx.x * kRowsF;
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const float* kh = static_cast<const float*>(a.k) + in_off;
-  const float* vh = static_cast<const float*>(a.v) + in_off;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * a.H + blockIdx.y) * N;
+  const int bz = blockIdx.z, hy = blockIdx.y;
+  const float* kh = static_cast<const float*>(a.k) + bz * a.ks.b + hy * a.ks.h;
+  const float* vh = static_cast<const float*>(a.v) + bz * a.vs.b + hy * a.vs.h;
+  const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
+  const float* kbias = !kRel && a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
 
-  load_rows_f32(Qs, static_cast<const float*>(a.q) + in_off + q0 * a.in_sn, a.in_sn, kRowsF,
-                N - q0, D, LD);
+  load_rows_f32(Qs, static_cast<const float*>(a.q) + bz * a.qs.b + hy * a.qs.h + q0 * a.qs.n,
+                a.qs.n, kRowsF, Nq - q0, D, LD);
   load_rows_f32(dOs,
-                static_cast<const float*>(a.dout) + blockIdx.z * a.do_sb +
-                    blockIdx.y * a.do_sh + q0 * a.do_sn,
-                a.do_sn, kRowsF, N - q0, D, LD);
+                static_cast<const float*>(a.dout) + bz * a.dos.b + hy * a.dos.h + q0 * a.dos.n,
+                a.dos.n, kRowsF, Nq - q0, D, LD);
   float acc[kPerWarp][DC], lse[kPerWarp], delta[kPerWarp];
   RelRows rr[kPerWarp];
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
-    const int row = min(q0 + warp * kPerWarp + i, N - 1);
+    const int row = min(q0 + warp * kPerWarp + i, Nq - 1);
     lse[i] = a.lse[stat_off + row];
     delta[i] = a.delta[stat_off + row];
-    rr[i] = a.rel.rows(blockIdx.z, blockIdx.y, row, N);
+    if constexpr (kRel) rr[i] = a.rel.rows(bz, hy, row, Nq);
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
   float* ds_w = ds_s + warp * kPerWarp * kTileF;
 
-  for (int key0 = 0; key0 < N; key0 += kTileF) {
+  for (int key0 = 0; key0 < Nk; key0 += kTileF) {
     __syncthreads();
-    load_rows_f32(Ks, kh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
-    load_rows_f32(Vs, vh + key0 * a.in_sn, a.in_sn, kTileF, N - key0, D, LD);
+    load_rows_f32(Ks, kh + key0 * a.ks.n, a.ks.n, kTileF, Nk - key0, D, LD);
+    load_rows_f32(Vs, vh + key0 * a.vs.n, a.vs.n, kTileF, Nk - key0, D, LD);
     __syncthreads();
     const int col = key0 + lane;
     int jh = 0, jw = 0;
-    if (col < N) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+    float kb = 0.f;  // K6: this lane's key bias
+    if constexpr (kRel) {
+      if (col < Nk) col_split(col, a.rel.inv_kw, a.rel.KW, jh, jw);
+    } else {
+      if (col < Nk && kbias) kb = kbias[col];
+    }
 #pragma unroll
     for (int i = 0; i < kPerWarp; ++i) {
       const float* qr = Qs + (warp * kPerWarp + i) * LD;
@@ -963,10 +1141,10 @@ flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
         s = fmaf(qr[d], kr[d], s);
         dp = fmaf(dor[d], vr[d], dp);
       }
-      const float p = col < N ? expf(s * a.scale + rr[i].h[0][jh] + rr[i].w[0][jw] - lse[i])
-                              : 0.f;
+      if constexpr (kRel) kb = rr[i].h[0][jh] + rr[i].w[0][jw];
+      const float p = col < Nk ? expf(s * a.scale + kb - lse[i]) : 0.f;
       const float ds0 = p * (dp - delta[i]);
-      ds_w[i * kTileF + lane] = ds0;
+      if constexpr (kRel) ds_w[i * kTileF + lane] = ds0;
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         float x = acc[i][c];
@@ -975,47 +1153,70 @@ flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
         acc[i][c] = x;
       }
     }
-    __syncwarp();
-    if (lane < 2 * kPerWarp) {  // lane i: row i's drel_h; lane kPerWarp + i: drel_w
-      const int i = lane % kPerWarp;
-      const int row = q0 + warp * kPerWarp + i;
-      if (row < N) {
-        float* h_row = a.drel.h_row(blockIdx.z, blockIdx.y, row);
-        float* w_row = a.drel.w_row(blockIdx.z, blockIdx.y, row);
-        const int cols = min(kTileF, N - key0);
-        int run_jh = -1;
-        float run = 0.f;
-        for (int jj = 0; jj < cols; ++jj) {
-          int kh_, kw_;
-          col_split(key0 + jj, a.rel.inv_kw, a.rel.KW, kh_, kw_);
-          const float x = ds_w[i * kTileF + jj];
-          if (lane >= kPerWarp) {
-            w_row[kw_] += x;
-          } else {
-            if (kh_ != run_jh) {
-              if (run_jh >= 0) h_row[run_jh] += run;
-              run_jh = kh_;
-              run = 0.f;
+    if constexpr (kRel) {
+      __syncwarp();
+      if (lane < 2 * kPerWarp) {  // lane i: row i's drel_h; lane kPerWarp + i: drel_w
+        const int i = lane % kPerWarp;
+        const int row = q0 + warp * kPerWarp + i;
+        if (row < Nq) {
+          float* h_row = a.drel.h_row(bz, hy, row);
+          float* w_row = a.drel.w_row(bz, hy, row);
+          const int cols = min(kTileF, Nk - key0);
+          int run_jh = -1;
+          float run = 0.f;
+          for (int jj = 0; jj < cols; ++jj) {
+            int kh_, kw_;
+            col_split(key0 + jj, a.rel.inv_kw, a.rel.KW, kh_, kw_);
+            const float x = ds_w[i * kTileF + jj];
+            if (lane >= kPerWarp) {
+              w_row[kw_] += x;
+            } else {
+              if (kh_ != run_jh) {
+                if (run_jh >= 0) h_row[run_jh] += run;
+                run_jh = kh_;
+                run = 0.f;
+              }
+              run += x;
             }
-            run += x;
           }
+          if (lane < kPerWarp && run_jh >= 0) h_row[run_jh] += run;
         }
-        if (lane < kPerWarp && run_jh >= 0) h_row[run_jh] += run;
       }
+      __syncwarp();
     }
-    __syncwarp();
   }
 
-  float* dqh = static_cast<float*>(a.dq) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
+  float* dqh = static_cast<float*>(a.dq) + bz * a.dqs.b + hy * a.dqs.h;
 #pragma unroll
   for (int i = 0; i < kPerWarp; ++i) {
     const int row = q0 + warp * kPerWarp + i;
-    if (row >= N) continue;
+    if (row >= Nq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      if (lane + 32 * c < D) dqh[row * a.out_sn + lane + 32 * c] = acc[i][c] * a.scale;
+      if (lane + 32 * c < D) dqh[row * a.dqs.n + lane + 32 * c] = acc[i][c] * a.scale;
   }
 }
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dkv_f32(FlashBwdArgs a) {
+  flash_bwd_dkv_f32<DC, true>(a);
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dq_f32(FlashBwdArgs a) {
+  flash_bwd_dq_f32<DC, true>(a);
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dkv_f32(FlashBwdArgs a) {
+  flash_bwd_dkv_f32<DC, false>(a);
+}
+
+template <int DC>
+__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dq_f32(FlashBwdArgs a) {
+  flash_bwd_dq_f32<DC, false>(a);
+}
+
 
 // ------------------------------------------------------------- launchers
 
@@ -1085,31 +1286,74 @@ int launch_bwd(Kernel kernel, dim3 grid, size_t smem, const FlashBwdArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DQ, int DV>
+template <int DQ, int DV, bool kRel>
 int launch_bwd_bf16(FlashBwdArgs a, cudaStream_t stream) {
   constexpr int QT = DQ <= 64 ? 64 : 32;
-  a.tiles = (a.N + kRows - 1) / kRows;
+  a.q_tiles = (a.Nq + kRows - 1) / kRows;
+  a.k_tiles = (a.Nk + kRows - 1) / kRows;
   const int chunks = (a.D + kChunk - 1) / kChunk;
-  const dim3 grid(a.tiles * chunks, a.H, a.B);
   const size_t dkv_smem = sizeof(bf16) * (2 * kRows + 4 * QT) * (DQ + 8) +
                           sizeof(float) * (6 * QT + 2 * QT * (kTile + 4));
-  int err = launch_bwd(flash_relpos_bwd_dkv_bf16<DQ, DV>, grid, dkv_smem, a, stream);
-  if (err != 0) return err;
   const size_t dq_smem = sizeof(bf16) * (2 * kRows + 4 * kTile) * (DQ + 8) +
                          sizeof(float) * kWarps * 16 * kDsLD;
-  return launch_bwd(flash_relpos_bwd_dq_bf16<DQ, DV>, grid, dq_smem, a, stream);
+  const dim3 dkv_grid(a.k_tiles * chunks, a.H, a.B), dq_grid(a.q_tiles * chunks, a.H, a.B);
+  int err;
+  if constexpr (kRel) {
+    err = launch_bwd(flash_relpos_bwd_dkv_bf16<DQ, DV>, dkv_grid, dkv_smem, a, stream);
+    if (err != 0) return err;
+    return launch_bwd(flash_relpos_bwd_dq_bf16<DQ, DV>, dq_grid, dq_smem, a, stream);
+  }
+  // K6: the dQ kernel writes delta, which the dK/dV kernel reads
+  err = launch_bwd(flash_keybias_bwd_dq_bf16<DQ, DV>, dq_grid, dq_smem, a, stream);
+  if (err != 0) return err;
+  return launch_bwd(flash_keybias_bwd_dkv_bf16<DQ, DV>, dkv_grid, dkv_smem, a, stream);
 }
 
-template <int DC>
+template <int DC, bool kRel>
 int launch_bwd_f32(const FlashBwdArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.N + kRowsF - 1) / kRowsF, a.H, a.B);
+  const dim3 dkv_grid((a.Nk + kRowsF - 1) / kRowsF, a.H, a.B);
+  const dim3 dq_grid((a.Nq + kRowsF - 1) / kRowsF, a.H, a.B);
   const size_t dkv_smem = sizeof(float) * (2 * kRowsF + 2 * kTileF) * (32 * DC + 1);
-  int err = launch_bwd(flash_relpos_bwd_dkv_f32<DC>, grid, dkv_smem, a, stream);
-  if (err != 0) return err;
   const size_t dq_smem = sizeof(float) * ((2 * kRowsF + 2 * kTileF) * (32 * DC + 1) +
                                           kRowsF * kTileF);
-  return launch_bwd(flash_relpos_bwd_dq_f32<DC>, grid, dq_smem, a, stream);
+  int err;
+  if constexpr (kRel)
+    err = launch_bwd(flash_relpos_bwd_dkv_f32<DC>, dkv_grid, dkv_smem, a, stream);
+  else
+    err = launch_bwd(flash_keybias_bwd_dkv_f32<DC>, dkv_grid, dkv_smem, a, stream);
+  if (err != 0) return err;
+  if constexpr (kRel) return launch_bwd(flash_relpos_bwd_dq_f32<DC>, dq_grid, dq_smem, a, stream);
+  return launch_bwd(flash_keybias_bwd_dq_f32<DC>, dq_grid, dq_smem, a, stream);
 }
+
+// The backward of either entry point, by dtype and head dim, as launch_fwd.
+template <bool kRel>
+int launch_bwd_all(const FlashBwdArgs& a, int is_bf16, cudaStream_t s) {
+  if (!is_bf16) {
+    switch ((a.D + 31) / 32) {
+      case 1: return launch_bwd_f32<1, kRel>(a, s);
+      case 2: return launch_bwd_f32<2, kRel>(a, s);
+      case 3: return launch_bwd_f32<3, kRel>(a, s);
+      case 4: return launch_bwd_f32<4, kRel>(a, s);
+      case 5: return launch_bwd_f32<5, kRel>(a, s);
+      case 6: return launch_bwd_f32<6, kRel>(a, s);
+      case 7: return launch_bwd_f32<7, kRel>(a, s);
+      default: return launch_bwd_f32<8, kRel>(a, s);
+    }
+  }
+  switch ((a.D + 15) / 16 * 16) {
+    case 16: return launch_bwd_bf16<16, 16, kRel>(a, s);
+    case 32: return launch_bwd_bf16<32, 32, kRel>(a, s);
+    case 48: return launch_bwd_bf16<48, 48, kRel>(a, s);
+    case 64: return launch_bwd_bf16<64, 64, kRel>(a, s);
+    case 80: return launch_bwd_bf16<80, 80, kRel>(a, s);
+    case 96: return launch_bwd_bf16<96, 96, kRel>(a, s);
+    case 112: return launch_bwd_bf16<112, 112, kRel>(a, s);
+    case 128: return launch_bwd_bf16<128, 128, kRel>(a, s);
+    default: return launch_bwd_bf16<256, kChunk, kRel>(a, s);  // chunked output columns
+  }
+}
+
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
@@ -1168,14 +1412,15 @@ extern "C" int saicv_flash_attention_relpos_fwd(
 // each with its own (batch, head, row) strides in elements and the head dim
 // contiguous, of the input dtype (is_bf16 = 1: bfloat16, 0: float32);
 // bias: the fp32 key bias [B, Nk] with batch stride bias_sb and the keys
-// contiguous, or null; lse: fp32 [B * H, Nq]. Returns a cudaError_t (0 =
-// launched).
+// contiguous, or null; lse: fp32 [B * H, Nq]; p_residual: 1 when a
+// gradient will follow (bf16: P.V at fp32 precision of P). Returns a
+// cudaError_t (0 = launched).
 extern "C" int saicv_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, const float* bias,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long out_sb,
     long long out_sh, long long out_sn, long long bias_sb, int B, int H, int Nq, int Nk, int D,
-    float scale, int is_bf16, void* stream) {
+    float scale, int p_residual, int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Nq < 1 || Nq > (1 << 24) || Nk < 1 ||
       Nk > (1 << 24) || D < 1 || D > 256 || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1198,6 +1443,7 @@ extern "C" int saicv_flash_attention_fwd(
   a.Nk = Nk;
   a.D = D;
   a.scale = scale;
+  a.p_residual = is_bf16 && p_residual;
   a.q_vec = aligned16(q) && rows_vec(a.qs, D, es);
   a.k_vec = aligned16(k) && rows_vec(a.ks, D, es);
   a.v_vec = aligned16(v) && rows_vec(a.vs, D, es);
@@ -1226,6 +1472,7 @@ extern "C" int saicv_flash_attention_relpos_bwd(
       !rel_w || !drel_h || !drel_w || !lse || !delta)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long es = is_bf16 ? 2 : 4;
+  const Strides in{in_sb, in_sh, in_sn}, out{out_sb, out_sh, out_sn};
   FlashBwdArgs a{};
   a.q = q;
   a.k = k;
@@ -1236,52 +1483,74 @@ extern "C" int saicv_flash_attention_relpos_bwd(
   a.dv = dv;
   a.lse = lse;
   a.delta = delta;
-  a.in_sb = in_sb;
-  a.in_sh = in_sh;
-  a.in_sn = in_sn;
-  a.do_sb = do_sb;
-  a.do_sh = do_sh;
-  a.do_sn = do_sn;
-  a.out_sb = out_sb;
-  a.out_sh = out_sh;
-  a.out_sn = out_sn;
+  a.qs = a.ks = a.vs = in;
+  a.dos = Strides{do_sb, do_sh, do_sn};
+  a.dqs = a.dkvs = out;
   a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
   a.drel = RelGrad{drel_h, drel_w, dh_sb, dh_sh, dh_sn, dw_sb, dw_sh, dw_sn};
   a.B = B;
   a.H = H;
-  a.N = N;
+  a.Nq = a.Nk = N;
   a.D = D;
   a.scale = scale;
-  a.vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-          (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 && (in_sn * es) % 16 == 0;
-  a.do_vec = aligned16(dout) && (D * es) % 16 == 0 && (do_sb * es) % 16 == 0 &&
-             (do_sh * es) % 16 == 0 && (do_sn * es) % 16 == 0;
-  const auto even4 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; };
-  a.out_vec = even4(dq) && even4(dk) && even4(dv) && D % 2 == 0 && out_sb % 2 == 0 &&
-              out_sh % 2 == 0 && out_sn % 2 == 0;
+  a.q_vec = a.k_vec = a.v_vec =
+      aligned16(q) && aligned16(k) && aligned16(v) && rows_vec(in, D, es);
+  a.do_vec = aligned16(dout) && rows_vec(a.dos, D, es);
+  a.out_vec = out_vec(dq, out, D) && out_vec(dk, out, D) && out_vec(dv, out, D);
   a.rel_vec = aligned16(rel_w) && w_sb % 4 == 0 && w_sh % 4 == 0 && w_sn % 4 == 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16) {
-    switch ((D + 31) / 32) {
-      case 1: return launch_bwd_f32<1>(a, s);
-      case 2: return launch_bwd_f32<2>(a, s);
-      case 3: return launch_bwd_f32<3>(a, s);
-      case 4: return launch_bwd_f32<4>(a, s);
-      case 5: return launch_bwd_f32<5>(a, s);
-      case 6: return launch_bwd_f32<6>(a, s);
-      case 7: return launch_bwd_f32<7>(a, s);
-      default: return launch_bwd_f32<8>(a, s);
-    }
-  }
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch_bwd_bf16<16, 16>(a, s);
-    case 32: return launch_bwd_bf16<32, 32>(a, s);
-    case 48: return launch_bwd_bf16<48, 48>(a, s);
-    case 64: return launch_bwd_bf16<64, 64>(a, s);
-    case 80: return launch_bwd_bf16<80, 80>(a, s);
-    case 96: return launch_bwd_bf16<96, 96>(a, s);
-    case 112: return launch_bwd_bf16<112, 112>(a, s);
-    case 128: return launch_bwd_bf16<128, 128>(a, s);
-    default: return launch_bwd_bf16<256, kChunk>(a, s);  // chunked output columns
-  }
+  return launch_bwd_all<true>(a, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// Backward of kernel K6: dq [B, H, Nq, D] (strides dq_*), dk and dv [B, H,
+// Nk, D] (one stride set, dkv_*), of the input dtype, from q, k, v and dout
+// (each with its own strides, head dim contiguous), the key bias of the
+// forward ([B, Nk] fp32 with batch stride bias_sb, or null), and the
+// forward's log-sum-exp, fp32 [B * H, Nq]. delta, fp32 [B * H, Nq]: in
+// bf16 the first kernel writes rowsum(P * dP) / rowsum(P) there for the
+// second; in fp32 the caller gives rowsum(dout * out). The bias gets no
+// gradient. Two launches on `stream`; returns a cudaError_t (0 = both
+// launched).
+extern "C" int saicv_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
+    void* dv, const float* lse, float* delta, const float* bias, long long q_sb,
+    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+    long long v_sb, long long v_sh, long long v_sn, long long do_sb, long long do_sh,
+    long long do_sn, long long dq_sb, long long dq_sh, long long dq_sn, long long dkv_sb,
+    long long dkv_sh, long long dkv_sn, long long bias_sb, int B, int H, int Nq, int Nk,
+    int D, float scale, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 1 || H > 65535 || Nq < 1 || Nq > (1 << 24) || Nk < 1 ||
+      Nk > (1 << 24) || D < 1 || D > 256 || !lse || !delta)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long es = is_bf16 ? 2 : 4;
+  FlashBwdArgs a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.lse = lse;
+  a.delta = delta;
+  a.delta_out = is_bf16 ? delta : nullptr;
+  a.qs = Strides{q_sb, q_sh, q_sn};
+  a.ks = Strides{k_sb, k_sh, k_sn};
+  a.vs = Strides{v_sb, v_sh, v_sn};
+  a.dos = Strides{do_sb, do_sh, do_sn};
+  a.dqs = Strides{dq_sb, dq_sh, dq_sn};
+  a.dkvs = Strides{dkv_sb, dkv_sh, dkv_sn};
+  a.kbias = bias;
+  a.kbias_sb = bias_sb;
+  a.B = B;
+  a.H = H;
+  a.Nq = Nq;
+  a.Nk = Nk;
+  a.D = D;
+  a.scale = scale;
+  a.q_vec = aligned16(q) && rows_vec(a.qs, D, es);
+  a.k_vec = aligned16(k) && rows_vec(a.ks, D, es);
+  a.v_vec = aligned16(v) && rows_vec(a.vs, D, es);
+  a.do_vec = aligned16(dout) && rows_vec(a.dos, D, es);
+  a.out_vec = out_vec(dq, a.dqs, D) && out_vec(dk, a.dkvs, D) && out_vec(dv, a.dkvs, D);
+  return launch_bwd_all<false>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }

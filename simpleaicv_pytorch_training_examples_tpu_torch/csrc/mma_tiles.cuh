@@ -69,6 +69,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The bf16 pair of what rounding lo and hi to bf16 leaves out: with
+// pack_bf16 it splits an fp32 pair into two bf16 pairs whose sum carries
+// 16 bits of mantissa.
+__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi) {
+  const float2 r = __bfloat1622float2(__floats2bfloat162_rn(lo, hi));
+  return pack_bf16(lo - r.x, hi - r.y);
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

@@ -11,6 +11,8 @@ gradient skips the update on the device, through a flag tensor that the
 optimizer takes (``utils/optimizers.py``), so no step waits for the host.
 """
 
+import os
+
 import torch
 
 from ..device import resolve_device
@@ -30,9 +32,19 @@ def init_model(model, seed: int, device=None):
 
 def apply_pretrained(model, logger=None):
     """Load the torch checkpoint recorded on the model by the config's
-    ``load_state_dict`` (name- and shape-filtered, pos-embed resized).
-    Returns the model."""
+    ``load_state_dict`` (name- and shape-filtered, pos-embed resized; a
+    model type with a ``load_pretrained(path, logger)`` method, SAM2's,
+    loads its own, when the file exists). Returns the model."""
     path = getattr(model, "pretrained_path", "")
+    if path and hasattr(model, "load_pretrained"):
+        if os.path.isfile(path):
+            loaded, total = model.load_pretrained(path, logger)
+            if logger:
+                logger.info(f"pretrained load: {loaded}/{total} tensors "
+                            f"from {path}")
+        elif logger:
+            logger.info(f"pretrained load: no file at {path}, seeded init")
+        return model
     saved = load_torch_state_dict(path)
     if saved is None:
         return model
@@ -58,7 +70,7 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
                     ema_model_decay: float = 0.9999, ema_params=None,
                     clip_max_norm: float = 0.0, clip_grad_value: float = 0.0,
                     compute_dtype=torch.bfloat16, seed: int = 0,
-                    loss_fn=None):
+                    loss_fn=None, host_keys=()):
     """Build ``train_step(batch, iteration) -> metrics``.
 
     ``batch`` is a dict of tensors whose leading dim splits into
@@ -70,6 +82,9 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
     prompt loop) and handles its own dtypes. ``iteration`` is the global
     iteration: with the micro-batch index it seeds ``generator``, which
     Dropout and DropPath draw from and which ``loss_fn`` may draw from too.
+    The entries named in ``host_keys`` stay where the batch has them (SAM2's
+    frame roles, on which ``loss_fn`` branches without waiting for the
+    card); the others go to the model's device.
     ``ema_params`` (from ``utils.ema.ema_init``) is updated in place when
     ``use_ema_model``. The model, the optimizer state and the EMA are
     updated in place; ``metrics`` holds 0-dim device tensors: 'loss' and
@@ -97,7 +112,8 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
 
     def train_step(batch, iteration):
         model.train()
-        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        batch = {k: v if k in host_keys else v.to(device, non_blocking=True)
+                 for k, v in batch.items()}
         micro_batches = [dict(zip(batch, parts)) for parts in zip(
             *(v.chunk(accumulation_steps) for v in batch.values()))]
         for p in params:

@@ -25,13 +25,15 @@ from ..utils.schedules import schedule_value
 from .engine import apply_pretrained, init_model, make_train_step
 
 
-def run_training(config, work_dir: str, *, build_loss_fn=None, device=None):
+def run_training(config, work_dir: str, *, build_loss_fn=None, device=None,
+                 host_keys=()):
     """Train ``config`` in ``work_dir`` (log in ``log/train.log``,
     checkpoints in ``checkpoints/``), resuming from ``latest.pth`` when it
     is there. Returns {'best_metric', 'resumed_from' (epoch or None),
     'model', 'epochs': [{'epoch', 'loss_avg', <metric>_avg..., 'skipped',
     'train_images_per_s', 'seconds'}, ...]} for the epochs run in this
-    call."""
+    call. ``host_keys`` name the batch entries that stay on the host
+    (``make_train_step``)."""
     device = resolve_device(device)
     set_seed(config.seed)
     work_dir = os.path.abspath(work_dir)
@@ -65,7 +67,8 @@ def run_training(config, work_dir: str, *, build_loss_fn=None, device=None):
         clip_max_norm=getattr(config, "clip_max_norm", 0.0),
         clip_grad_value=getattr(config, "clip_grad_value", 0.0),
         compute_dtype=compute_dtype, seed=config.seed,
-        loss_fn=build_loss_fn(model, config) if build_loss_fn else None)
+        loss_fn=build_loss_fn(model, config) if build_loss_fn else None,
+        host_keys=host_keys)
 
     store = CheckpointStore(os.path.join(work_dir, "checkpoints"))
     start_epoch, best_metric, train_hours, resumed_from = 1, None, 0.0, None

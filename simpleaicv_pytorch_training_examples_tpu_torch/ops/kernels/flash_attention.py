@@ -1,5 +1,5 @@
-"""Streaming attention: kernel K5 (SAM's decomposed relative-position bias),
-forward and backward, and kernel K6 (a per-key bias), forward.
+"""Streaming attention: kernel K5 (SAM's decomposed relative-position bias)
+and kernel K6 (a per-key bias), each forward and backward.
 
 Counterpart of the JAX package's ``ops/pallas/flash_attention.py::
 flash_attention_relpos``: q, k, v ``[B, H, N, D]`` (D <= 256; views of the
@@ -34,9 +34,29 @@ are all masked averages V, as on the TPU. The kernel (the forward body of
 ``csrc/flash_attention.cu`` with the rel-pos flag off) walks the keys once
 with an online softmax and also returns the fp32 log-sum-exp. A CPU tensor
 takes ``flash_attention_reference``, differentiable through plain ops; a
-CUDA tensor takes the kernel, or the call raises. Its backward kernel is not
-ported yet, so the autograd Function ``FlashAttention`` raises if a graph
-needs it. Launches count in ``flash_attention.launches``.
+CUDA tensor takes the kernel, or the call raises. ``FlashAttention`` (a
+``torch.autograd.Function``) saves the inputs, the output and the
+log-sum-exp; its backward launches the two backward kernels of the same
+source (K5's backward bodies with the rel-pos flag off), which recompute P
+from the log-sum-exp and give dq, dk and dv; the bias gets no gradient, as
+on the TPU (it marks which memory slots are filled). Where the TPU kernel
+rounds P to bf16 for P.V, a bf16 forward that a gradient will follow takes
+P.V at fp32 precision of P (P's bf16 residual is a second product): with
+P rounded, SAM2's gradient check put 90 parameters, Hiera's among them, off
+the plain path's floor, with it none. Where the TPU kernel takes delta =
+rowsum(dO * O) from the output in the input dtype and rounds dS0 = P *
+(dP - delta) to it, in bf16 the dQ kernel first walks the keys
+for delta = rowsum(P * dP) / rowsum(P) in its own P and dP, and both
+kernels add the product of dS0's bf16 residual, so that each row of dS0
+sums to 0 at fp32 precision: where values share a mean, delta from the
+output leaves a coherent error in dq and dk
+(``test_key_bias_flash_plain_backward_takes_delta_at_fp32``), and the
+gradient of a key projection's bias that RoPE rotates (SAM2's memory
+attention) is a residue of that sum (the notes in
+``csrc/flash_attention.cu``). fp32 takes delta = rowsum(dO * O) from its
+fp32 output with one torch op. ``flash_attention_backward_reference``
+is the plain version of that backward. Launches count in
+``flash_attention.launches`` and ``flash_attention.backward_launches``.
 """
 
 import ctypes
@@ -234,6 +254,32 @@ def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
     return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
+def flash_attention_backward_reference(q, k, v, bias, dout, sm_scale=None):
+    """Plain version of K6's backward (the JAX ``_bwd_fused_kernel`` with
+    delta and dS0 at fp32 precision): P = exp(s - lse) from the fp32 scores
+    s = q.k * sm_scale + bias, dV = P^T.dO with P in the input dtype, dP =
+    dO.V^T, delta = rowsum(P * dP) in fp32 (the kernel's first walk over
+    the keys; the TPU kernel takes rowsum(dO * O) from the output in the
+    input dtype), dS0 = P * (dP - delta) in fp32 (the kernel carries it as
+    its bf16 rounding plus the bf16 residual; the TPU kernel rounds it to
+    the input dtype), dK = (dS0^T.Q) * sm_scale and dQ = (dS0.K) *
+    sm_scale. Returns dq, dk, dv in the input dtype; the bias gets no
+    gradient."""
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    dof = dout.to(dtype).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :]
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
 def check_key_bias_args(q, k, v, bias):
     """Shape rule of K6; returns (b, h, nq, nk, d) or raises. Each of q, k,
     v may have its own strides, with the head dim contiguous; the bias is
@@ -268,16 +314,19 @@ def check_key_bias_args(q, k, v, bias):
 
 @functools.lru_cache(maxsize=None)
 def _key_bias_library():
-    fn = build.load("flash_attention").saicv_flash_attention_fwd
-    fn.argtypes = [_PTR] * 6 + [_LL] * 13 + [_INT] * 5 + [
-        ctypes.c_float, _INT, _PTR]
-    fn.restype = _INT
-    return fn
+    lib = build.load("flash_attention")
+    fwd, bwd = lib.saicv_flash_attention_fwd, lib.saicv_flash_attention_bwd
+    tail = [ctypes.c_float, _INT, _PTR]
+    fwd.argtypes = ([_PTR] * 6 + [_LL] * 13 + [_INT] * 5
+                    + [ctypes.c_float, _INT, _INT, _PTR])
+    bwd.argtypes = [_PTR] * 10 + [_LL] * 19 + [_INT] * 5 + tail
+    fwd.restype = bwd.restype = _INT
+    return fwd, bwd
 
 
 class FlashAttention(torch.autograd.Function):
-    """K6 on a CUDA tensor; returns (out, lse), the log-sum-exp without a
-    gradient. Forward only: its backward kernel is not ported yet."""
+    """K6 and its backward kernels on CUDA tensors; returns (out, lse), the
+    log-sum-exp without a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, sm_scale):
@@ -285,23 +334,45 @@ class FlashAttention(torch.autograd.Function):
             raise ValueError(f"unsupported device {q.device}")
         b, h, nq, nk, d = check_key_bias_args(q, k, v, bias)
         scale = d ** -0.5 if sm_scale is None else float(sm_scale)
+        bf16 = q.dtype == torch.bfloat16
         out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-        _launch(_key_bias_library(), q.device, q.data_ptr(), k.data_ptr(),
+        _launch(_key_bias_library()[0], q.device, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 0 if bias is None else bias.data_ptr(), *q.stride()[:3],
                 *k.stride()[:3], *v.stride()[:3], nq * h * d, d, h * d,
                 0 if bias is None else bias.stride(0), b, h, nq, nk, d, scale,
-                int(q.dtype == torch.bfloat16))
+                int(any(ctx.needs_input_grad[:3])), int(bf16))
         flash_attention.launches += 1
+        out = out.transpose(1, 2)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.mark_non_differentiable(lse)
-        return out.transpose(1, 2), lse
+        return out, lse
 
     @staticmethod
     def backward(ctx, dout, _):
-        raise NotImplementedError(
-            "K6's backward kernel is not ported yet: run the tracker under "
-            "torch.no_grad(), or with the plain attention")
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        b, h, nq, nk, d = check_key_bias_args(q, k, v, bias)
+        dout = dout.to(q.dtype)
+        if dout.stride(3) != 1:
+            dout = dout.contiguous()
+        # bf16: the first kernel writes delta = rowsum(P * dP) / rowsum(P)
+        delta = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+                 if q.dtype == torch.bfloat16
+                 else (dout * out).sum(dim=-1))                # [B, H, Nq]
+        dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
+        dkv = torch.empty((2, b, h, nk, d), dtype=q.dtype, device=q.device)
+        _launch(_key_bias_library()[1], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                dkv[0].data_ptr(), dkv[1].data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *dout.stride()[:3], *dq.stride()[:3], *dkv[0].stride()[:3],
+                0 if bias is None else bias.stride(0), b, h, nq, nk, d,
+                ctx.scale, int(q.dtype == torch.bfloat16))
+        flash_attention.backward_launches += 1
+        return dq, dkv[0], dkv[1], None, None
 
 
 def flash_attention(q, k, v, bias=None, sm_scale=None, return_lse=False):
@@ -316,3 +387,4 @@ def flash_attention(q, k, v, bias=None, sm_scale=None, return_lse=False):
 
 
 flash_attention.launches = 0
+flash_attention.backward_launches = 0

@@ -38,6 +38,8 @@ from ..device import resolve_device
 from ..engine import init_model
 from ..utils.checkpoint import load_sam2_checkpoint
 from ..video_interactive_segmentation import models as sam2_models
+from ..video_interactive_segmentation.datasets.syntheticdataset import (
+    moving_discs)
 from .predict_interactive_segmentation import (_timed, compute_context,
                                                prep_canvas)
 
@@ -56,18 +58,11 @@ def synthetic_clip(frames, size=SYNTHETIC_SIZE):
     size / 8 (220, 180, 60) moving right from (size / 4, size / 2) and one
     of radius size / 10 (60, 200, 220) moving left from (3 size / 4,
     size / 2), 8 pixels a frame."""
-    rs = np.random.RandomState(0)
-    yy, xx = np.mgrid[:size, :size]
-    clip = []
-    for t in range(frames):
-        img = (rs.rand(size, size, 3) * 50).astype(np.float32)
-        for cx, r, colour in ((size // 4 + 8 * t, size // 8,
-                               (220.0, 180.0, 60.0)),
-                              (3 * size // 4 - 8 * t, size // 10,
-                               (60.0, 200.0, 220.0))):
-            img[(xx - cx) ** 2 + (yy - size // 2) ** 2 <= r * r] = colour
-        clip.append(img.astype(np.uint8).astype(np.float32))
-    return np.stack(clip)
+    discs = ((size // 4, size // 2, size // 8, 8, 0, (220.0, 180.0, 60.0)),
+             (3 * size // 4, size // 2, size // 10, -8, 0,
+              (60.0, 200.0, 220.0)))
+    return moving_discs(frames, size, size, discs,
+                        np.random.RandomState(0))[0]
 
 
 def clip_and_prompts(raw, point, image_size, device):

@@ -26,6 +26,8 @@ CATEGORIES = (
     ("attention backward kernel", ("attention_bwd",)),
     ("rel-pos flash attention backward kernel (K5)", ("flash_relpos_bwd",)),
     ("rel-pos flash attention kernel (K5)", ("flash_relpos",)),
+    ("key-bias flash attention backward kernel (K6)",
+     ("flash_keybias_bwd",)),
     ("key-bias flash attention kernel (K6)", ("flash_keybias",)),
     ("attention kernel", ("attention_fwd",)),
     ("layer norm kernel", ("layer_norm_fwd_", "layer_norm_bwd_",

@@ -10,7 +10,7 @@ norm's ``scale`` -> ``weight``. Names of submodules (``fc1.kernel``,
 ``attn.qkv.bias``, ...) map the same way, so a single block or layer loads
 too. The optimizer's moments have their parameters' names and layouts, so
 ``optimizer_state_from_jax`` carries an AdamW or SGD state across through
-the same map (the ViT's or the SAM's).
+the same map (the ViT's, the SAM's or the SAM2's).
 
 ``sam_state_dict_from_jax`` does the same for SAM: it is the inverse of the
 JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
@@ -61,14 +61,19 @@ def vit_state_dict_from_jax(flat: dict) -> dict:
             for name, value in flat.items()}
 
 
-def optimizer_state_from_jax(step, model="vit", **moments) -> dict:
+def optimizer_state_from_jax(step, model="vit", head_dim_padding=0,
+                             **moments) -> dict:
     """The JAX package's optimizer state, as numpy arrays -> the state dict
     of the port's ``Optimizer``: ``step`` is the update count and each
     keyword (``mu`` and ``nu`` for AdamW, ``momentum_buf`` for SGD) a
     {Flax dotted name: ndarray} of one moment, mapped onto the port's names
-    and layouts as the weights of ``model`` ("vit" or "sam") are."""
+    and layouts as the weights of ``model`` ("vit", "sam" or "sam2") are;
+    for "sam2", ``head_dim_padding`` is the port model's, and moments of
+    narrower Hiera heads are zero-padded as their weights are."""
     to_torch = {"vit": vit_state_dict_from_jax,
-                "sam": lambda flat: sam_state_dict_from_jax(flat, {})}[model]
+                "sam": lambda flat: sam_state_dict_from_jax(flat, {}),
+                "sam2": lambda flat: sam2_state_dict_from_jax(
+                    flat, {}, head_dim_padding)}[model]
     state = {"step": int(step)}
     for slot, flat in moments.items():
         state[slot] = to_torch(flat)

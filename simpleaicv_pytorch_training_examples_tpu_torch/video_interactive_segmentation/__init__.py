@@ -1,6 +1,7 @@
 """Video interactive segmentation (SAM2): the port of the JAX package's
-``video_interactive_segmentation``. Ported so far: the SAM2 video tracker's
-inference (``models.segment_anything2``)."""
+``video_interactive_segmentation``: the SAM2 video model
+(``models.segment_anything2``: streaming tracking and the training
+forward), its losses, and the video datasets and collaters."""
 
 from . import models
 

@@ -24,6 +24,11 @@ packed qkv with that scale; blocks with at least ``_FLASH_MIN_KV`` keys
 rescaled so that K2's hdp^-0.5 nets hd^-0.5; pooled blocks, and everything
 without the flag, run the plain composition (fp32 scores and softmax).
 
+``use_gradient_checkpoint`` runs each block under
+``torch.utils.checkpoint`` (non-reentrant) while grad is enabled, so that
+the backward recomputes it: the JAX package's plain ``nn.remat`` of the
+block, a full recompute.
+
 The position embedding is resized with ``jax.image.resize``'s cubic kernel
 (Keys, a = -0.5), whose weights ``utils/checkpoint.py`` builds;
 ``F.interpolate``'s bicubic uses a = -0.75. The MLP's GELU is the exact erf
@@ -36,6 +41,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ....interactive_segmentation.models.segment_anything.image_encoder import (
     window_partition, window_unpartition)
@@ -167,8 +173,10 @@ class Hiera(nn.Module):
                  window_position_embedding_bkg_spatial_size=(14, 14),
                  window_specification=(8, 4, 14, 7),
                  global_attention_blocks=(12, 16, 20),
-                 use_flash_attention=False, head_dim_padding=0):
+                 use_flash_attention=False, head_dim_padding=0,
+                 use_gradient_checkpoint=False):
         super().__init__()
+        self.use_gradient_checkpoint = use_gradient_checkpoint
         c = embedding_planes
         self.patch_embed = _PatchEmbed(c)
         bkg = window_position_embedding_bkg_spatial_size
@@ -215,8 +223,9 @@ class Hiera(nn.Module):
                 1, h // ws0, w // ws0)
         x = (x + pe.to(x.dtype)).permute(0, 2, 3, 1)
         outs = []
+        remat = self.use_gradient_checkpoint and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             if i in self.stage_ends:
                 outs.append(x)
         return outs
@@ -275,13 +284,15 @@ class ImageEncoder(nn.Module):
                  window_position_embedding_bkg_spatial_size=(14, 14),
                  window_specification=(8, 4, 14, 7),
                  global_attention_blocks=(12, 16, 20), fpn_planes=256,
-                 use_flash_attention=False, head_dim_padding=0):
+                 use_flash_attention=False, head_dim_padding=0,
+                 use_gradient_checkpoint=False):
         super().__init__()
         self.trunk = Hiera(image_size, embedding_planes, head_nums,
                            block_nums,
                            window_position_embedding_bkg_spatial_size,
                            window_specification, global_attention_blocks,
-                           use_flash_attention, head_dim_padding)
+                           use_flash_attention, head_dim_padding,
+                           use_gradient_checkpoint)
         self.neck = _Neck([embedding_planes * 2 ** i for i in range(4)],
                           fpn_planes)
 

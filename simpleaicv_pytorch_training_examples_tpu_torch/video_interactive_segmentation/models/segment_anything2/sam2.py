@@ -28,8 +28,21 @@ jax's "nearest" (torch's "nearest" is not). RoPE, the sine positions, the
 key bias and the pointers' time positions are computed in fp32 under
 autocast, and the mask-prompt downsample as an fp32 product.
 
-``__call__``, ``track_from_features`` and the training arguments of
-``track_frame`` (point-iteration refinement) are not ported yet.
+Training (``forward``): ``encode_frames_batch`` encodes the B x T frames in
+one encoder call, then ``track_from_features`` prompts frame 0 and tracks
+the rest from the memory, in a Python loop (the JAX package's ``nn.scan``
+over the frames gives the same numbers as its loop, so ``use_scan`` is
+accepted and runs the loop). With per-frame prompts the condition frames
+fill the reserved memory slots, and on point-iteration frames
+(``_point_iter_refine``) the decoder runs ``point_iters`` more times, each
+time with a new click drawn from the error region of the best mask against
+the frame's target and that mask's logits as the mask prompt (its gradient
+kept). The frames' roles (``is_cond_frame``, ``is_iter_frame``) are host
+values: the loop branches on them without waiting for the card. The
+clicks' Gumbel noise comes from ``click_noise(shape, generator, device)``
+(``error_click.gumbel_noise`` by default), so a test can feed the JAX
+package's draws. ``use_gradient_checkpoint`` recomputes each Hiera block in
+the backward.
 """
 
 import math
@@ -38,6 +51,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ....interactive_segmentation.error_click import (
+    gumbel_noise, sample_error_points_batch)
 from ....interactive_segmentation.models.segment_anything.image_encoder import (
     LayerNorm2d)
 from ....interactive_segmentation.models.segment_anything.mask_decoder import (
@@ -135,17 +150,29 @@ class SAM2MaskDecoder(nn.Module):
 
 
 class SAM2Video(nn.Module):
-    """Memory-conditioned video tracking, streaming inference (see the module
-    docstring). Parameters are fp32; run under ``torch.autocast`` for bf16
-    compute."""
+    """Memory-conditioned video tracking: the training forward and the
+    streaming primitives (see the module docstring). Parameters are fp32;
+    run under ``torch.autocast`` for bf16 compute (``dtype`` is accepted for
+    the JAX signature: the compute type follows autocast). Only the Hiera
+    encoder is ported (``image_encoder_type="hiera"``)."""
 
     def __init__(self, image_size=1024, embedding_planes=112, head_nums=2,
                  block_nums=(2, 3, 16, 3), window_specification=(8, 4, 14, 7),
                  global_attention_blocks=(12, 16, 20), fpn_planes=256,
                  memory_planes=64, memory_mask_nums=7, memory_cond_slots=1,
                  max_object_pointers=16, use_flash_attention=False,
-                 use_high_res_features=False, head_dim_padding=0):
+                 use_high_res_features=False, head_dim_padding=0,
+                 use_gradient_checkpoint=False, use_scan=False,
+                 image_encoder_type="hiera", dtype=None):
         super().__init__()
+        if image_encoder_type != "hiera":
+            raise NotImplementedError(
+                f"image_encoder_type={image_encoder_type!r}: the DINOv3 "
+                "SAM2 encoders are not ported yet (ROADMAP.md, queue 1: "
+                "the rest of SAM2)")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: the compute type follows "
+                             "autocast (bfloat16) or is float32")
         self.image_size = image_size
         self.fpn_planes = fpn_planes
         self.memory_planes = memory_planes
@@ -158,7 +185,7 @@ class SAM2Video(nn.Module):
         self.image_encoder = ImageEncoder(
             image_size, embedding_planes, head_nums, block_nums, (14, 14),
             window_specification, global_attention_blocks, fpn_planes,
-            use_flash_attention, head_dim_padding)
+            use_flash_attention, head_dim_padding, use_gradient_checkpoint)
         self.prompt_encoder = PromptEncoder(image_size, 16, fpn_planes)
         self.mask_decoder = SAM2MaskDecoder(
             fpn_planes, use_high_res_features=use_high_res_features)
@@ -184,6 +211,15 @@ class SAM2Video(nn.Module):
         for m in self.modules():
             if isinstance(m, (MultiScaleAttention, RoPEAttention)):
                 m.use_flash = on
+
+    def load_pretrained(self, path, logger=None):
+        """The checkpoint that a config recorded with ``load_state_dict``
+        (applied by the engine's ``apply_pretrained`` when the file
+        exists): a SAM2 ``.pth`` in the reference torch layout or the
+        port's own, through ``load_sam2_checkpoint``, which pads Hiera's
+        heads to ``head_dim_padding``. Returns (num_loaded, num_total)."""
+        from ....utils.checkpoint import load_sam2_checkpoint
+        return load_sam2_checkpoint(self, path, logger)
 
     @torch.no_grad()
     def init_weights_(self, generator):
@@ -366,13 +402,46 @@ class SAM2Video(nn.Module):
         key_bias = torch.cat([mem_bias, ptr_bias])[None].expand(b, -1)
         return memory, memory_pos, key_bias
 
+    def _point_iter_refine(self, conditioned, outs, gt_mask, n_iters,
+                           generator, click_noise, highres=None):
+        """Point-iteration refinement of a tracked frame, ``n_iters`` times:
+        click the error region of the best mask against ``gt_mask`` [B, H,
+        W] and decode the same memory-conditioned features again with the
+        clicks so far and the best mask's logits as the mask prompt."""
+        b = conditioned.shape[0]
+        masks_up, ious, obj, pointer, best_mask = outs
+        device = conditioned.device
+        rows = torch.arange(b, device=device)
+        points = torch.full((b, n_iters, 3), -1.0, device=device)
+        h, w = gt_mask.shape[-2:]
+        for it in range(n_iters):
+            pred = (masks_up[rows, ious.argmax(dim=-1)] > 0).float()
+            clicks = sample_error_points_batch(
+                click_noise((b, h * w), generator, device), pred, gt_mask)
+            points = points.clone()
+            points[:, it] = clicks
+            prompts = {
+                "prompt_point": points,
+                "prompt_box": torch.zeros(b, 4, device=device),
+                "prompt_box_valid": torch.zeros(b, device=device),
+                "prompt_mask": best_mask[:, None],
+                "prompt_mask_valid": torch.ones(b, device=device),
+            }
+            masks_up, ious, obj, pointer, best_mask = self._decode_frame(
+                conditioned, prompts, highres=highres)
+        return masks_up, ious, obj, pointer, best_mask
+
     def track_frame(self, feat, pos, carry, frame_prompts=None, is_cond=None,
-                    highres=None):
+                    highres=None, gt_mask=None, iter_flag=None,
+                    generator=None, point_iters=0, click_noise=gumbel_noise):
         """A memory-conditioned frame: attend to the memory, decode, write
         the new memory. frame_prompts: the prompt dict of a prompted frame
         (all-invalid prompts map to the no-prompt embeddings); is_cond: a
         flag (bool or device tensor) that steers the frame into the
-        condition slots."""
+        condition slots. Training: with ``point_iters`` > 0 and ``gt_mask``
+        [B, H, W], the frame is refined (``_point_iter_refine``) unless the
+        host flag ``iter_flag`` is given and false; the clicks' noise is
+        ``click_noise(shape, generator, device)``."""
         b, c, s, _ = feat.shape
         memory, memory_pos, key_bias = self._memory_tokens(carry, b)
         ratio = self.fpn_planes // self.memory_planes
@@ -382,8 +451,13 @@ class SAM2Video(nn.Module):
             num_obj_ptr_tokens=self.max_object_pointers * ratio,
             key_bias=key_bias)
         conditioned = conditioned.transpose(1, 2).reshape(b, c, s, s)
-        masks, ious, obj, pointer, best_mask = self._decode_frame(
-            conditioned, frame_prompts, highres=highres)
+        outs = self._decode_frame(conditioned, frame_prompts, highres=highres)
+        if point_iters > 0 and gt_mask is not None and (
+                iter_flag is None or iter_flag):
+            outs = self._point_iter_refine(conditioned, outs, gt_mask,
+                                           point_iters, generator,
+                                           click_noise, highres=highres)
+        masks, ious, obj, pointer, best_mask = outs
         carry = self._write_memory(carry, feat, best_mask, pointer,
                                    False if is_cond is None else is_cond,
                                    obj_logits=obj)
@@ -430,6 +504,100 @@ class SAM2Video(nn.Module):
         carry = self._write_memory(carry, feat, best_mask, pointer, True,
                                    obj_logits=obj)
         return (masks, ious, obj), carry
+
+
+    # ---- training forward
+
+    @staticmethod
+    def _slice_prompts(prompts, t):
+        """Frame t of a [B, T, ...] prompt dict (None values pass)."""
+        if prompts is None:
+            return None
+        return {k: (v[:, t] if v is not None else None)
+                for k, v in prompts.items()}
+
+    def forward(self, images, frame0_prompts, gt_masks=None,
+                is_cond_frame=None, is_iter_frame=None, generator=None,
+                point_iters=0, click_noise=gumbel_noise):
+        """images [B, T, 3, H, W] -> (mask logits [B, T, 4, H, W], IoU
+        predictions [B, T, 4], object score logits [B, T, 1]).
+
+        ``frame0_prompts``: the prompt dict of frame 0 alone (``prompt_point``
+        [B, P, 3]: prompts on frame 0, pure tracking after), or per frame
+        (``prompt_point`` [B, T, P, 3] and the other prompts with a T axis:
+        the condition-frame recipe, where the other frames carry all-invalid
+        prompts). With per-frame prompts, ``is_cond_frame`` [T] marks the
+        condition frames (frame 0 always is one) and, with ``gt_masks`` [B,
+        T, H, W] and ``point_iters`` > 0, ``is_iter_frame`` [T] the frames
+        refined by error clicks. Both flags are host values (numpy, a list,
+        or a CPU tensor)."""
+        feat16, pos16, hr4, hr8 = self.encode_frames_batch(images)
+        return self.track_from_features(
+            feat16, pos16, hr4, hr8, frame0_prompts, gt_masks=gt_masks,
+            is_cond_frame=is_cond_frame, is_iter_frame=is_iter_frame,
+            generator=generator, point_iters=point_iters,
+            click_noise=click_noise)
+
+    def encode_frames_batch(self, images):
+        """images [B, T, 3, H, W] -> (feat16, pos16, hr4, hr8), each with a
+        leading [B, T] (hr4, hr8 None without the high-res skips): one
+        encoder call on the B * T frames."""
+        b, t = images.shape[:2]
+        features, positions = self.image_encoder(images.flatten(0, 1))
+        split = lambda f: f.unflatten(0, (b, t))
+        hr4 = hr8 = None
+        if self.use_high_res_features:
+            hr4, hr8 = split(features[0]), split(features[1])
+        return split(features[-1]), split(positions[-1]), hr4, hr8
+
+    def track_from_features(self, feat16, pos16, hr4, hr8, frame0_prompts,
+                            gt_masks=None, is_cond_frame=None,
+                            is_iter_frame=None, generator=None,
+                            point_iters=0, click_noise=gumbel_noise):
+        """The half of ``forward`` after the encoder: prompt frame 0, then
+        track the remaining frames from the memory."""
+        b, t_frames = feat16.shape[:2]
+
+        def hr_at(t):
+            return None if hr4 is None else (hr4[:, t], hr8[:, t])
+
+        pp = None if frame0_prompts is None else frame0_prompts.get(
+            "prompt_point")
+        per_frame = pp is not None and pp.dim() == 4
+        p0 = self._slice_prompts(frame0_prompts, 0) if per_frame \
+            else frame0_prompts
+        (masks0, ious0, obj0), carry = self.start_track(
+            feat16[:, 0], p0, highres=hr_at(0))
+        outs = [(masks0, ious0, obj0)]
+        refine = point_iters > 0 and gt_masks is not None and per_frame
+        cond = _host_flags(is_cond_frame, t_frames)
+        iters = _host_flags(is_iter_frame, t_frames)
+        for t in range(1, t_frames):
+            out, carry = self.track_frame(
+                feat16[:, t], pos16[:, t], carry,
+                frame_prompts=self._slice_prompts(frame0_prompts, t)
+                if per_frame else None,
+                is_cond=cond[t], highres=hr_at(t),
+                gt_mask=gt_masks[:, t] if refine else None,
+                iter_flag=iters[t], generator=generator,
+                point_iters=point_iters if refine else 0,
+                click_noise=click_noise)
+            outs.append(out)
+        return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
+
+
+def _host_flags(flags, n):
+    """[n] host flags (numpy, a list or a CPU tensor; None: all off) -> n
+    Python bools. A CUDA tensor is refused: reading it would wait for the
+    card."""
+    if flags is None:
+        return [False] * n
+    if isinstance(flags, torch.Tensor):
+        if flags.device.type != "cpu":
+            raise ValueError("frame flags must be host values, not on "
+                             f"{flags.device}")
+        flags = flags.tolist()
+    return [float(x) > 0 for x in flags]
 
 
 def sam2_hiera_tiny_video(**kwargs):

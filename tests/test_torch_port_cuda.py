@@ -15,8 +15,9 @@ tiles and (K5) head dims above 128, forward and backward; for K6 (the
 per-key bias) Nq != Nk with a ragged key tail, SAM2's slot bias with
 masked memory slots and pointers, a row whose keys are all masked, D = 56
 (zero-padded in the kernel), 256 (two output chunks) and odd widths, each
-of q, k, v with its own strides; K1 with Hiera's ``sm_scale`` and K2 at
-Hiera's d = 56. Tolerances:
+of q, k, v with its own strides, forward and backward (masked keys get
+exactly zero dk and dv; the backward is the same bit for bit when run
+again); K1 with Hiera's ``sm_scale`` and K2 at Hiera's d = 56. Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
 terms) the same fractions of their largest value; LayerNorm y and dx
@@ -520,10 +521,104 @@ def test_key_bias_flash_takes_unaligned_tensors_and_refuses_the_rest(cuda):
     wide = torch.zeros(1, 1, 8, 264, device="cuda")
     with pytest.raises(ValueError):          # D <= 256
         fl.flash_attention(wide, wide, wide)
-    leaf = q.detach().float().requires_grad_()
-    out = fl.flash_attention(leaf, k.float(), v.float(), bias)
-    with pytest.raises(NotImplementedError):  # no backward kernel yet
-        out.sum().backward()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    dout = _randn(gen, b, h, nq, d, dtype=torch.bfloat16)
+    out = fl.flash_attention(*leaves, bias)
+    out.backward(dout)                       # the backward on unaligned views
+    want = fl.flash_attention_backward_reference(q, k, v, bias, dout)
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        _close(leaf.grad, w, torch.bfloat16, name)
+
+
+def _key_bias_inputs(gen, b, h, nq, nk, d, layout, dtype):
+    """q, k, v in one of the callers' layouts: Hiera's global block (views
+    of one packed qkv), SAM2's RoPEAttention (q and v transposed views), or
+    contiguous."""
+    if layout == "packed":
+        qkv = _randn(gen, b, nq, 3 * h * d, dtype=dtype)
+        return qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    if layout == "memory":
+        return (_randn(gen, b, nq, h, d, dtype=dtype).transpose(1, 2),
+                _randn(gen, b, h, nk, d, dtype=dtype),
+                _randn(gen, b, nk, h, d, dtype=dtype).transpose(1, 2))
+    return (_randn(gen, b, h, nq, d, dtype=dtype),
+            *(_randn(gen, b, h, nk, d, dtype=dtype) for _ in range(2)))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,nq,nk,d,kind,layout", [
+    (1, 1, 256, 4 * 64 + 16, 256, "slots", "memory"),
+    (1, 1, 100, 4 * 333 + 16, 256, "slots", "contiguous"),
+    (1, 2, 300, 300, 56, None, "packed"),
+    (2, 3, 130, 130, 64, None, "packed"),
+    (2, 2, 64, 37, 64, "random", "contiguous"),
+    (1, 2, 17, 200, 160, "random", "memory"),
+    (1, 2, 1000, 129, 8, None, "contiguous"),
+    (1, 4, 16, 64, 40, "random", "memory"),
+    (1, 1, 70, 4 * 449 + 16, 256, "slots", "memory"),
+])
+def test_key_bias_flash_backward(cuda, b, h, nq, nk, d, kind, layout, dtype):
+    """K6's backward kernels against the plain backward: Nq != Nk both
+    ways with ragged tails, masked slots (exactly zero dk and dv), D = 56,
+    256 (two chunks, fragments read again from shared memory) and odd
+    widths, each layout's strides and a transposed dout."""
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(nq * nk + d + 1)
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, layout, dtype)
+    bias = None if kind is None else _slot_bias(gen, b, nk, kind)
+    scale = 0.3 if kind == "random" else 56 ** -0.5 if d == 64 else None
+    dout = _randn(gen, b, nq, h, d, dtype=dtype).transpose(1, 2)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (fl.flash_attention.launches, fl.flash_attention.backward_launches)
+    out = fl.flash_attention(*leaves, bias, scale)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fl.flash_attention.launches,
+            fl.flash_attention.backward_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    # with a gradient to come the forward takes P.V at fp32 precision of P
+    _close(out, fl.flash_attention_reference(q, k, v, bias, scale), dtype,
+           "out")
+    want = fl.flash_attention_backward_reference(q, k, v, bias, dout, scale)
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+        _close(leaf.grad, w, dtype, name)
+    if kind == "slots":
+        masked = bias[0] < -1e8
+        for leaf in leaves[1:]:
+            assert not leaf.grad[:, :, masked].any()
+    again = torch.autograd.grad(fl.flash_attention(*leaves, bias, scale),
+                                leaves, dout)
+    assert all(torch.equal(x, leaf.grad) for x, leaf in zip(again, leaves))
+
+
+@pytest.mark.parametrize("nq,nk,kind", [(1024, 1024, None),
+                                         (512, 4 * 200 + 16, "slots")])
+def test_key_bias_flash_backward_rows_of_ds_sum_to_zero(cuda, nq, nk, kind):
+    """bf16 tokens that share a mean (as projections of LayerNorm'd tokens
+    with a bias are) at D = 256: each row of dS0 sums to 0, so the keys' sum
+    of dk is 0 but for rounding. The kernel's residue, over the keys' sum
+    of |dk|, at most 1.25x the plain backward's (which keeps delta and dS0
+    in fp32)."""
+    gen = torch.Generator(device="cuda").manual_seed(nq + nk)
+    d = 256
+    mean_q, mean_k, mean_v = _randn(gen, 3, d, dtype=torch.float32)
+    q = (0.5 * _randn(gen, 1, 1, nq, d, dtype=torch.float32)
+         + mean_q).to(torch.bfloat16)
+    k = (0.5 * _randn(gen, 1, 1, nk, d, dtype=torch.float32)
+         + mean_k).to(torch.bfloat16)
+    v = (_randn(gen, 1, 1, nk, d, dtype=torch.float32)
+         + mean_v).to(torch.bfloat16)
+    dout = _randn(gen, 1, 1, nq, d, dtype=torch.bfloat16)
+    bias = None if kind is None else _slot_bias(gen, 1, nk, kind)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    dk = torch.autograd.grad(fl.flash_attention(*leaves, bias), leaves,
+                             dout)[1]
+    want = fl.flash_attention_backward_reference(q, k, v, bias, dout)[1]
+    key_sum = lambda x: (x.float().sum(dim=2).norm()
+                         / x.float().abs().sum(dim=2).norm()).item()
+    assert key_sum(dk) <= 1.25 * key_sum(want), (key_sum(dk), key_sum(want))
+    _close(dk, want, torch.bfloat16, "dk")
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])

@@ -35,6 +35,8 @@ from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
 from simpleaicv_pytorch_training_examples_tpu_torch.utils.jax_weights import (
     vit_state_dict_from_jax)
 from torch_port_helpers import random_flat, unflatten
+from torch_port_helpers import (  # noqa: F401 (autouse)
+    drop_work_dir_configs, one_torch_thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "simpleaicv_pytorch_training_examples_tpu_torch"

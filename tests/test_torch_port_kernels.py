@@ -1,6 +1,7 @@
 """The port's kernels K1/K2 (fused attention) and K7 (fused LayerNorm), the
 rel-pos attention kernels K3, K4 and K5, forward and backward, and the
-key-bias streaming attention K6, forward, against the JAX package.
+key-bias streaming attention K6, forward and backward, against the JAX
+package.
 
 On the CPU each wrapper takes its plain PyTorch version; these tests hold
 that version against the JAX entry points run through their Pallas kernels
@@ -15,7 +16,8 @@ composition's VJP. K6's plain version is held against the TPU kernel
 ``_flash_forward`` run in interpret mode, out and log-sum-exp, fp32 rtol
 and atol 2e-5 (the JAX package's own tolerance for it), with the JAX
 wrapper's padding (head dim to 64, keys and queries to the block, -1e9 on
-the padded keys) done here.
+the padded keys) done here; its plain backward against ``_flash_backward``
+in interpret mode, padded the same way.
 
 Tolerances: fp32 atol 1e-5 (same math, another summation order; the
 rel-pos kernels atol 2e-5, rtol 1e-5, as the JAX package's own tests hold
@@ -39,6 +41,7 @@ import torch
 from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
     build, flash_attention as port_fl, fused_attention as port_fa,
     layer_norm as port_ln)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 # the JAX package's ops.pallas re-exports a function of the module's name
 jax_fa = importlib.import_module(
@@ -627,6 +630,135 @@ def test_key_bias_flash_plain_version_matches_jax_kernel(b, h, nq, nk, d,
                                atol=2e-5)
     np.testing.assert_allclose(_to_np(lse), _to_np(want_lse), rtol=2e-5,
                                atol=2e-5)
+
+
+def _jax_flash_backward(q, k, v, bias, dout, sm_scale):
+    """The TPU kernel ``_flash_backward`` in interpret mode on the forward's
+    output and log-sum-exp, padded as the JAX ``flash_attention`` wrapper
+    pads (head dim to 64, keys and queries to the block, -1e9 on the padded
+    keys, zero dout on the padded rows): (dq, dk, dv), each [B, H, N, D]."""
+    from jax.experimental.pallas import tpu as pltpu
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    up = lambda x, m: -(-x // m) * m
+    block_q, block_k = min(128, up(nq, 128)), min(128, up(nk, 128))
+    pad_d, pad_q, pad_k = up(d, 64) - d, up(nq, block_q) - nq, up(nk, block_k) - nk
+    q3, g3 = (jnp.pad(t.reshape(b * h, nq, d), ((0, 0), (0, pad_q),
+                                                 (0, pad_d))) for t in (q, dout))
+    k3, v3 = (jnp.pad(t.reshape(b * h, nk, d), ((0, 0), (0, pad_k),
+                                                 (0, pad_d))) for t in (k, v))
+    bias3 = jnp.zeros((b, nk), jnp.float32) if bias is None else bias
+    bias3 = jnp.pad(jnp.repeat(bias3, h, axis=0)[:, None],
+                    ((0, 0), (0, 0), (0, pad_k)), constant_values=-1e9)
+    scale = d ** -0.5 if sm_scale is None else sm_scale
+    with pltpu.force_tpu_interpret_mode():
+        out, lse = jax_fl._flash_forward(q3, k3, v3, bias3, block_q, block_k,
+                                         scale)
+        grads = jax_fl._flash_backward(q3, k3, v3, bias3, out, lse, g3,
+                                       block_q, block_k, scale)
+    return tuple(g[:, :n, :d].reshape(b, h, n, d)
+                 for g, n in zip(grads, (nq, nk, nk)))
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d,sm_scale,kind,dtype", [
+    (1, 2, 100, 333, 56, None, "slots", "float32"),   # d 56, ragged keys
+    (2, 1, 130, 200, 64, 0.3, "random", "float32"),   # Nq > block, sm_scale
+    (1, 1, 64, 4 * 60 + 16, 256, None, "slots", "float32"),
+    (1, 2, 77, 77, 64, 56 ** -0.5, None, "float32"),  # Hiera's scale
+    (1, 2, 60, 150, 64, None, "slots", "bfloat16"),
+])
+def test_key_bias_flash_plain_backward_matches_jax_kernel(b, h, nq, nk, d,
+                                                          sm_scale, kind,
+                                                          dtype):
+    """K6's plain backward against the TPU kernel ``_flash_backward`` run in
+    interpret mode: Nq != Nk, masked keys (whose dk and dv are exactly 0),
+    an explicit sm_scale and d = 56. fp32 rtol and atol 2e-5; bf16, scaled
+    to each gradient: rtol 2^-7 (one bf16 ulp) and atol 2^-5 of its RMS
+    (the TPU kernel rounds dS0 and takes delta from the bf16 output, the
+    plain version keeps both at fp32 precision; rounding P and the
+    gradients)."""
+    rs = np.random.RandomState(3 * nq + nk + d)
+    q, g = rs.standard_normal((2, b, h, nq, d)).astype(np.float32)
+    k, v = rs.standard_normal((2, b, h, nk, d)).astype(np.float32)
+    bias = None
+    if kind == "random":
+        bias = rs.standard_normal((b, nk)).astype(np.float32)
+    elif kind == "slots":     # one valid memory slot and one pointer
+        bias = np.full((b, nk), -1e9, np.float32)
+        slot = (nk - 16) // 4
+        bias[:, slot:2 * slot] = 0.0
+        bias[:, -4:] = 0.0
+    (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_pair(a, dtype)
+                                              for a in (q, k, v, g))
+    want = _jax_flash_backward(
+        jq, jk, jv, None if bias is None else jnp.asarray(bias), jg, sm_scale)
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = port_fl.flash_attention_backward_reference(tq, tk, tv, tb, tg,
+                                                     sm_scale=sm_scale)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == TORCH_DTYPE[dtype] and x.shape == w.shape
+        w = _to_np(w).astype(np.float64)
+        tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else
+               dict(rtol=2 ** -7, atol=2 ** -5 * np.sqrt((w ** 2).mean())))
+        np.testing.assert_allclose(_to_np(x), w, err_msg=name, **tol)
+    if bias is not None and kind == "slots":
+        masked = torch.from_numpy(bias[0] < -1e8)
+        for x in got[1:]:
+            assert not x[:, :, masked].any()
+            assert x[:, :, ~masked].any()
+
+
+def test_key_bias_flash_plain_backward_is_the_vjp_of_the_plain_forward():
+    """In fp32 the plain backward equals autograd through the plain forward,
+    the CPU path of ``flash_attention`` (atol 1e-5: sums in another
+    order)."""
+    rs = np.random.RandomState(31)
+    q = torch.from_numpy(rs.standard_normal((2, 2, 33, 24)).astype(
+        np.float32)).requires_grad_()
+    k, v = (torch.from_numpy(rs.standard_normal((2, 2, 50, 24)).astype(
+        np.float32)).requires_grad_() for _ in range(2))
+    bias = torch.from_numpy(np.where(rs.rand(2, 50) < 0.3, -1e9, 0.0).astype(
+        np.float32))
+    g = torch.from_numpy(rs.standard_normal((2, 2, 33, 24)).astype(np.float32))
+    out = port_fl.flash_attention(q, k, v, bias, sm_scale=0.4)
+    out.backward(g)
+    got = port_fl.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), bias, g, 0.4)
+    for x, leaf in zip(got, (q, k, v)):
+        torch.testing.assert_close(x, leaf.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_key_bias_flash_plain_backward_takes_delta_at_fp32():
+    """bf16 inputs whose keys and values share a mean (as projections of
+    LayerNorm'd tokens with a bias do): the plain backward, with delta =
+    rowsum(P * dP) in fp32 (what K6's first backward kernel computes), stays
+    within the rounding of the rest of the backward of the float64
+    gradients, where delta from the output rounded to bf16 (the TPU
+    kernel's choice) turns into a coherent error of dq many times larger."""
+    rs = np.random.RandomState(41)
+    n, d = 512, 128
+    mean_k, mean_v = 3 * rs.standard_normal((2, d))
+    q = 0.25 * rs.standard_normal((1, 1, n, d))
+    k = 0.25 * rs.standard_normal((1, 1, n, d)) + mean_k
+    v = rs.standard_normal((1, 1, n, d)) + mean_v
+    g = rs.standard_normal((1, 1, n, d))
+    tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16)
+                      for a in (q, k, v, g))
+    q64, k64, v64 = (t.double().requires_grad_() for t in (tq, tk, tv))
+    out = torch.softmax(q64 @ k64.transpose(-1, -2) * d ** -0.5, -1) @ v64
+    out.backward(tg.double())
+    dq = port_fl.flash_attention_backward_reference(tq, tk, tv, None, tg)[0]
+    rel = lambda x, w: ((x.double() - w).norm() / w.norm()).item()
+    err = rel(dq, q64.grad)
+    assert err < 0.05, err
+    # the control: delta from the bf16-rounded output
+    s_ = (tq.float() @ tk.float().transpose(-1, -2)) * d ** -0.5
+    p = torch.softmax(s_, -1)
+    out_bf16 = (p.to(torch.bfloat16).float() @ tv.float()).to(torch.bfloat16)
+    dp = tg.float() @ tv.float().transpose(-1, -2)
+    delta = (tg.float() * out_bf16.float()).sum(-1, keepdim=True)
+    rounded = (p * (dp - delta)) @ tk.float() * d ** -0.5
+    assert rel(rounded, q64.grad) > 10 * err
 
 
 def test_key_bias_flash_takes_the_plain_version_on_the_cpu_only():

@@ -42,6 +42,7 @@ from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentati
 from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.sam2_stream import (
     SAM2VideoStream as PortStream)
 from torch_port_helpers import random_flat, unflatten
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 IMAGE = 128
 TINY = dict(image_size=IMAGE, embedding_planes=56, head_nums=1,
@@ -79,8 +80,9 @@ def _frames(n, seed=0):
         np.float32)
 
 
-def _jax_params(head_dim_padding, seed):
-    jnet = JaxStream(head_dim_padding=head_dim_padding, **TINY)
+def _jax_params(head_dim_padding, seed, memory_cond_slots=1):
+    jnet = JaxStream(head_dim_padding=head_dim_padding,
+                     memory_cond_slots=memory_cond_slots, **TINY)
     prompts = {"prompt_point": jnp.zeros((1, 1, 3)), "prompt_box": None,
                "prompt_mask": None}
     variables = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
@@ -90,11 +92,12 @@ def _jax_params(head_dim_padding, seed):
 
 
 @functools.lru_cache(maxsize=None)
-def _models(head_dim_padding):
+def _models(head_dim_padding, memory_cond_slots=1):
     """The tiny JAX tracker, its variables, the port with the same weights,
     and the flat JAX parameters and constants."""
-    jnet, flat, consts = _jax_params(head_dim_padding, seed=7)
-    port = PortStream(head_dim_padding=head_dim_padding, **TINY)
+    jnet, flat, consts = _jax_params(head_dim_padding, 7, memory_cond_slots)
+    port = PortStream(head_dim_padding=head_dim_padding,
+                      memory_cond_slots=memory_cond_slots, **TINY)
     port.load_state_dict(sam2_state_dict_from_jax(flat, consts,
                                                   head_dim_padding))
     variables = {"params": unflatten(flat), "constants": unflatten(consts)}
@@ -244,12 +247,15 @@ def _assert_outputs(want, got, label):
                                err_msg=f"{label}: object logits")
 
 
-@pytest.mark.parametrize("hdp", [0, 64])
-def test_tracking_matches_the_jax_stream(hdp, flash_min_kv_1):
-    """start_track on a point, three tracked frames (the 2-slot ring wraps),
-    add_prompt_frame and add_mask_frame mid-stream, one more tracked
-    frame: outputs and every carry field after each step."""
-    jnet, variables, port, _, _ = _models(hdp)
+@pytest.mark.parametrize("hdp,cond_slots", [(0, 1), (64, 1), (64, 2)])
+def test_tracking_matches_the_jax_stream(hdp, cond_slots, flash_min_kv_1):
+    """start_track on a point, three tracked frames (the ring of the slots
+    left after the condition slots wraps), add_prompt_frame and
+    add_mask_frame mid-stream, one more tracked frame: outputs and every
+    carry field after each step. With 2 condition slots (the 14.1 stage-2
+    and stage-3 configs' setting) the prompted frame fills the second one
+    and the mask frame overwrites it."""
+    jnet, variables, port, _, _ = _models(hdp, cond_slots)
     encode = _jit(jnet, JaxStream.encode_frame)
     steps = {name: _jit(jnet, getattr(JaxStream, name)) for name in (
         "start_track", "track_frame", "add_prompt_frame", "add_mask_frame")}
@@ -298,6 +304,10 @@ def test_tracking_matches_the_jax_stream(hdp, flash_min_kv_1):
             _assert_carry(jc, pc, f"frame {t} ({kind})")
     assert int(pc["frame_idx"]) == len(plan)
     assert int(pc["cond_count"]) == 3 and int(pc["track_count"]) == 4
+    # one condition slot ends with the last prompted frame (5); two keep
+    # frame 0 and the last prompted frame
+    want_cond = [5] if cond_slots == 1 else [0, 5]
+    assert pc["mem_frame"][:cond_slots].tolist() == want_cond
 
 
 def test_a_step_leaves_the_carry_it_was_given_unchanged():

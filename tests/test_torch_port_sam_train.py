@@ -50,6 +50,8 @@ from simpleaicv_pytorch_training_examples_tpu_torch.utils.jax_weights import (
 from simpleaicv_pytorch_training_examples_tpu_torch.utils.optimizers import (
     build_optimizer, compute_wd_and_lr)
 from torch_port_helpers import random_flat, unflatten
+from torch_port_helpers import (  # noqa: F401 (autouse)
+    drop_work_dir_configs, one_torch_thread)
 
 jax_tool = importlib.import_module("tools.train_interactive_segmentation_model")
 

@@ -66,6 +66,8 @@ from simpleaicv_pytorch_training_examples_tpu_torch.utils.jax_weights import (
 from simpleaicv_pytorch_training_examples_tpu_torch.utils.optimizers import (
     compute_wd_and_lr)
 from torch_port_helpers import random_flat, unflatten
+from torch_port_helpers import (  # noqa: F401 (autouse)
+    drop_work_dir_configs, one_torch_thread)
 
 VIT_KWARGS = dict(image_size=64, num_classes=10, global_pool=True,
                   use_fused_attention=True)

@@ -28,6 +28,7 @@ from simpleaicv_pytorch_training_examples_tpu_torch.utils.checkpoint import (
 from simpleaicv_pytorch_training_examples_tpu_torch.utils.jax_weights import (
     vit_state_dict_from_jax)
 from torch_port_helpers import random_flat, unflatten
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 FP32 = dict(rtol=1e-3, atol=2e-3)
 LAYER_FP32 = dict(rtol=1e-4, atol=1e-4)
