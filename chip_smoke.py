@@ -18,6 +18,15 @@ kernels' launch counters set to 0 just before it and read just after:
   attention and plain LayerNorm; full-width ViT-H/14 at reduced depth
   through init_model -> build_optimizer -> make_train_step; ViT-B/16 with
   the fused LayerNorm (use_fused_norm); timed train and eval steps;
+- the fused attention block (use_fused_block, kernel K8): ViT-B/16 through
+  the work-dir eval CLI with every block through K8, its logits against the
+  plain ops, eval steps timed with and without the flag; the train CLI with
+  the port's train config and the flag (two epochs, then resumed for a
+  third; at drop-path 0.1 only block 0 takes K8 in training); the gradients
+  of one micro-batch at drop-path 0 (all 12 blocks through K8) against the
+  plain ops, and with use_gradient_checkpoint against the unchecked ones;
+  timed train steps at drop-path 0, 4 x 64 and 1 x 256, with and without
+  the flag, with peak memory;
 - SAM interactive segmentation: full-width, full-depth SAM-B (1024^2, bf16,
   batch 8, seeded random weights) through the prediction tool on the
   synthetic image, encoding once and decoding a point, a box and both;
@@ -138,6 +147,27 @@ plain path's difference from fp32. The control runs the kernels with the
 memory key bias zeroed, so that empty slots are attended to, and the run
 fails unless its mask RMS from fp32 exceeds the bound.
 
+K8 (the fused attention block) vs its plain version at ViT-B/16's shapes
+(the train micro-batch and the eval batch at d = 64, d = 128, N = 50 and N
+= 1024), each in bf16 and fp32, held to the plain version's floor, since
+the plain version (the JAX ``_reference_block``) rounds qkv + bias and
+proj + bias before the residual add where the kernel rounds once: in bf16,
+against the plain version's computation of the same inputs in fp32, y's
+and dx's RMS difference at most 1.25x the plain bf16 version's, and each of
+dWqkv, dbqkv (its key third, whose exact gradient is 0, left out), dWproj,
+dbproj, dgamma and dbeta (fp32 sums over 12,608 to 50,432 rows) within a
+relative L2 difference of the larger of 1e-2 and 1.25x the plain version's;
+in fp32, max |kernel - plain| at most 1e-4 of the plain result's RMS; two
+backward runs bit for bit equal; a control runs the forward with gamma set
+to ones and fails the run unless that fails the same check. ViT-B/16 with
+use_fused_block: logits by the rule above; K8 12 launches an eval batch
+and none of K1; the train CLI K8 1 and K1 11 forward and backward a
+micro-batch (K8 12 an eval batch), and its last epoch's mean loss below
+its first's; the gradients of one micro-batch at drop-path 0 (K8 12 and
+K7 12 forward and backward) by the rule above, and with
+use_gradient_checkpoint (K8 24 forward, 12 backward) by the same rule
+against the unchecked kernels' gradients.
+
 K6's backward vs its plain version at the SAM2 train step's shapes (the
 memory cross-attention with frame 7's bias, the self-attention, the Hiera
 global blocks of 4 frames at d = 64 with the 56-wide scale and at d = 56;
@@ -192,6 +222,7 @@ SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
 SAM_FLOOR_RATIO = 1.25
 ZERO_GRADIENT_RATIO = 1e-4  # a bias's gradient norm over its weight's
 K6_FLOOR_RATIO, K6_FP32_RTOL, K6_CONTROL_KEYS = 1.25, 1e-4, 64
+K8_FLOOR_RATIO, K8_FP32_RTOL, K8_GRAD_REL = 1.25, 1e-4, 1e-2
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
 SAM_GRAD_BATCH = 2          # images of the SAM gradient checks
@@ -1164,6 +1195,186 @@ def check_key_bias_backward_kernel(torch, F, case, results):
     results.setdefault("K6 bwd", []).append(record)
 
 
+def attn_block_bound(b, n, c, dtype_name, element_size, backward=False):
+    """Least time (ms) of one K8 call on this card, and what bounds it. The
+    forward's products are 8NC^2 + 4N^2C a sample (qkv, proj, Q.K^T, P.V).
+    The backward, given x and dy alone, computes qkv, the scores and the
+    attention output again (6NC^2 + 4N^2C) besides its own 16NC^2 + 8N^2C
+    (dattn, dWproj, the four attention products, dWqkv, dxn): 22NC^2 +
+    12N^2C. Bytes: x (and dy) in and y (dx) out, the weights and biases in
+    (and their gradients out), gamma and beta in fp32, each once."""
+    if backward:
+        flops = b * (22.0 * n * c * c + 12.0 * n * n * c)
+        nbytes = element_size * (3 * b * n * c + 2 * (4 * c * c + 4 * c)) \
+            + 4 * 4 * c
+    else:
+        flops = b * (8.0 * n * c * c + 4.0 * n * n * c)
+        nbytes = element_size * (2 * b * n * c + 4 * c * c + 4 * c) + 4 * 2 * c
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_block_inputs(torch, case):
+    """x, wqkv, bqkv, wproj, bproj, gamma, beta and dy of one K8 case from
+    its seed: x and dy of unit scale, Linear weights that keep qkv and the
+    scores at unit scale, small biases, gamma near 1, beta near 0."""
+    b, n, h, d = case["shape"]
+    c = h * d
+    dtype = case["dtype"]
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    inputs = [randn(b, n, c).to(dtype),
+              (randn(3 * c, c) * c ** -0.5).to(dtype),
+              (0.02 * randn(3 * c)).to(dtype),
+              (randn(c, c) * c ** -0.5).to(dtype),
+              (0.02 * randn(c)).to(dtype),
+              1.0 + 0.1 * randn(c), 0.1 * randn(c)]
+    return inputs, randn(b, n, c).to(dtype)
+
+
+def unfused_block(fa, ln, F, h):
+    """The port's unfused block on K8's inputs: K7, cuBLAS, K1, cuBLAS and
+    an add (a yardstick: no single PyTorch call computes the block)."""
+    def block(x, wqkv, bqkv, wproj, bproj, gamma, beta):
+        qkv = F.linear(ln.layer_norm(x, gamma, beta, 1e-6), wqkv, bqkv)
+        return x + F.linear(fa.fused_attention_dense(qkv, h), wproj, bproj)
+    return block
+
+
+def attn_block_reading(torch, got, plain, exact, relative=False):
+    """K8 held to its plain version's floor. fp32 (``exact`` None): max
+    |got - plain| at most K8_FP32_RTOL of the plain result's RMS. bf16,
+    against ``exact``, the plain version's computation of the same inputs
+    in fp32: for y and dx the RMS difference at most K8_FLOOR_RATIO times
+    the plain bf16 version's; for a gradient summed over the rows
+    (``relative``) the relative L2 difference at most the larger of
+    K8_GRAD_REL and K8_FLOOR_RATIO times the plain version's. Returns (ok,
+    readings)."""
+    rms = lambda t: t.float().pow(2).mean().sqrt().item()
+    if exact is None:
+        err = (got.float() - plain.float()).abs().max().item()
+        bound = K8_FP32_RTOL * rms(plain)
+        return err <= bound, {"max_err": err, "bound": bound}
+    if relative:
+        rel = lambda t: ((t.float() - exact).norm() / exact.norm()).item()
+        reading = {"rel_l2": rel(got), "plain_rel_l2": rel(plain)}
+        bound = max(K8_GRAD_REL, K8_FLOOR_RATIO * reading["plain_rel_l2"])
+        return reading["rel_l2"] <= bound, dict(reading, bound=bound)
+    reading = {"rms_err": rms(got.float() - exact),
+               "plain_rms_err": rms(plain.float() - exact)}
+    return (reading["rms_err"] <= K8_FLOOR_RATIO * reading["plain_rms_err"],
+            reading)
+
+
+def check_attn_block(torch, F, fa, ln, case, results):
+    """Hold K8 forward and backward against their plain versions at one
+    shape (``attn_block_reading``; the key third of dbqkv, whose exact
+    gradient is 0, left out in bf16), two backward runs bit for bit equal,
+    and a control: the forward with gamma set to ones must fail the same
+    reading. Time the kernel, the plain version and the port's unfused
+    block (``library_ms``); append the records to results["K8"] and
+    results["K8 bwd"]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        attn_block as ab)
+    dtype = case["dtype"]
+    b, n, h, d = case["shape"]
+    c = h * d
+    inputs, dy = attn_block_inputs(torch, case)
+    names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dgamma", "dbeta")
+    bf16 = dtype == torch.bfloat16
+    with torch.no_grad():
+        y = ab.attn_block(*inputs, h)
+        control = ab.attn_block(*inputs[:5], torch.ones_like(inputs[5]),
+                                inputs[6], h)
+        torch.cuda.synchronize()
+        plain_y = ab.attn_block_reference(*inputs, h)
+        exact_in = [t.float() for t in inputs]
+        exact_y = ab.attn_block_reference(*exact_in, h) if bf16 else None
+    ok_y, reading_y = attn_block_reading(torch, y, plain_y, exact_y)
+    control_ok, control_reading = attn_block_reading(torch, control, plain_y,
+                                                     exact_y)
+    del control
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = ab.attn_block(*leaves, h)
+    before = ab.attn_block.backward_launches
+    grads = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dy, retain_graph=True)
+    torch.cuda.synchronize()
+    launched = ab.attn_block.backward_launches - before
+    repeatable = all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+    del again
+    plain = ab.attn_block_backward_reference(*inputs, dy, h)
+    exact = (ab.attn_block_backward_reference(*exact_in, dy.float(), h)
+             if bf16 else (None,) * 7)
+    readings, grad_ok = {}, True
+    for i, (name, g, p, e) in enumerate(zip(names, grads, plain, exact)):
+        if bf16 and name == "dbqkv":   # the key third's exact gradient is 0
+            g, p, e = (torch.cat([t[:c], t[2 * c:]]) for t in (g, p, e))
+        ok, readings[name] = attn_block_reading(torch, g, p, e,
+                                                relative=i > 0)
+        grad_ok = grad_ok and ok and bool(torch.isfinite(g).all())
+    grad_err = max((g.float() - p.float()).abs().max().item()
+                   for g, p in zip(grads, plain))
+    del plain, exact, exact_in
+
+    dtype_name = str(dtype).split(".")[-1]
+    iters, warmup = (20, 3) if bf16 else (3, 1)
+    library = unfused_block(fa, ln, F, h)
+    with torch.no_grad():
+        fwd = {"ms": time_ms(torch, lambda: ab.attn_block(*inputs, h),
+                             iters=iters, warmup=warmup),
+               "plain_ms": time_ms(torch, lambda: ab.attn_block_reference(
+                   *inputs, h), iters=iters, warmup=warmup),
+               "library_ms": time_ms(torch, lambda: library(*inputs),
+                                     iters=iters, warmup=warmup)}
+    lib_leaves = [t.detach().requires_grad_() for t in inputs]
+    lib_out = library(*lib_leaves)
+    bwd = {"ms": time_ms(torch, lambda: torch.autograd.grad(
+               out, leaves, dy, retain_graph=True), iters=iters,
+               warmup=warmup),
+           "plain_ms": time_ms(torch, lambda: ab.attn_block_backward_reference(
+               *inputs, dy, h), iters=max(2, iters // 4), warmup=1),
+           "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+               lib_out, lib_leaves, dy, retain_graph=True), iters=iters,
+               warmup=warmup)}
+    del out, lib_out, grads
+    common = {"case": case["label"], "shape": list(case["shape"]),
+              "dtype": dtype_name,
+              "library": "the port's unfused block (K7, cuBLAS, K1, cuBLAS, "
+                         "add); no single PyTorch call computes it"}
+    fwd_bound = attn_block_bound(b, n, c, dtype_name, inputs[0].element_size())
+    bwd_bound = attn_block_bound(b, n, c, dtype_name,
+                                 inputs[0].element_size(), backward=True)
+    record = dict(common, **fwd, max_abs_err=(y.float() - plain_y.float())
+                  .abs().max().item(), reading=reading_y,
+                  control_gamma_ones=control_reading,
+                  finite=bool(torch.isfinite(y).all()),
+                  bound_ms=fwd_bound[0], bound_by=fwd_bound[1])
+    log(f"K8 {case['label']}", **record)
+    record_bwd = dict(common, **bwd, max_abs_err=grad_err,
+                      readings=readings, bit_equal_rerun=repeatable,
+                      bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                      counted="22NC^2 + 12N^2C (the recompute included)")
+    log(f"K8 bwd {case['label']}", **record_bwd)
+    if not (ok_y and record["finite"]):
+        raise AssertionError(f"K8 {case['label']}: y off its plain "
+                             f"version's floor ({reading_y}) or non-finite")
+    if control_ok:
+        raise AssertionError(f"K8 {case['label']}: gamma set to ones passes "
+                             f"the check ({control_reading}); it cannot see "
+                             "a lost LayerNorm scale")
+    if not (grad_ok and repeatable and launched == 2):
+        raise AssertionError(f"K8 bwd {case['label']}: gradients off their "
+                             f"floor ({readings}), not bit for bit equal on "
+                             f"a rerun ({repeatable}) or {launched} backward "
+                             "launches for 2 calls")
+    results.setdefault("K8", []).append(record)
+    results.setdefault("K8 bwd", []).append(record_bwd)
+
+
 def sam_encoder_flops(model):
     """Operations of one SAM encoder forward of one image, counted from the
     model's shapes: the patch embedding, each block's qkv, proj, lin1 and
@@ -1891,50 +2102,53 @@ def first_of(sets, n):
             for name, prompts in sets.items()}
 
 
-def set_fused(model, attention=None, norm=None):
+def set_fused(model, attention=None, norm=None, block=None):
     """Switch the model's blocks between the kernels and the plain ops."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones.vit import (
+        TransformerEncoderLayer)
     from simpleaicv_pytorch_training_examples_tpu_torch.models.common import (
         FusedLayerNorm, MultiHeadSelfAttention)
-    for block in model.blocks:
-        for m in block.modules():
+    for blk in model.blocks:
+        for m in blk.modules():
             if isinstance(m, MultiHeadSelfAttention) and attention is not None:
                 m.use_fused_attention = attention
             if isinstance(m, FusedLayerNorm) and norm is not None:
                 m.use_fused = norm
+            if isinstance(m, TransformerEncoderLayer) and block is not None:
+                m.use_fused_block = block
 
 
 def set_fused_attention(model, on):
     set_fused(model, attention=on)
 
 
-def reset_counts(fa, ln):
+def set_fused_block(model, on):
+    """K8 and K1 on, or the plain ops."""
+    set_fused(model, attention=on, block=on)
+
+
+def counted_wrappers(fa, ln):
+    """{label: wrapper} of every kernel's launch counters."""
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-        flash_attention as fl)
-    for wrapper in (fa.fused_attention_dense, fa.fused_attention,
-                    ln.layer_norm, fa.fused_attention_relwin_dense,
-                    fa.fused_attention_relwin, fl.flash_attention_relpos,
-                    fl.flash_attention):
+        attn_block as ab, flash_attention as fl)
+    return {"K1": fa.fused_attention_dense, "K2": fa.fused_attention,
+            "K7": ln.layer_norm, "K3": fa.fused_attention_relwin_dense,
+            "K4": fa.fused_attention_relwin, "K5": fl.flash_attention_relpos,
+            "K6": fl.flash_attention, "K8": ab.attn_block}
+
+
+def reset_counts(fa, ln):
+    for wrapper in counted_wrappers(fa, ln).values():
         wrapper.launches = 0
         wrapper.backward_launches = 0
 
 
 def read_counts(fa, ln):
-    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-        flash_attention as fl)
-    return {"K1": fa.fused_attention_dense.launches,
-            "K1 bwd": fa.fused_attention_dense.backward_launches,
-            "K2": fa.fused_attention.launches,
-            "K2 bwd": fa.fused_attention.backward_launches,
-            "K7": ln.layer_norm.launches,
-            "K7 bwd": ln.layer_norm.backward_launches,
-            "K3": fa.fused_attention_relwin_dense.launches,
-            "K3 bwd": fa.fused_attention_relwin_dense.backward_launches,
-            "K4": fa.fused_attention_relwin.launches,
-            "K4 bwd": fa.fused_attention_relwin.backward_launches,
-            "K5": fl.flash_attention_relpos.launches,
-            "K5 bwd": fl.flash_attention_relpos.backward_launches,
-            "K6": fl.flash_attention.launches,
-            "K6 bwd": fl.flash_attention.backward_launches}
+    counts = {}
+    for label, wrapper in counted_wrappers(fa, ln).items():
+        counts[label] = wrapper.launches
+        counts[label + " bwd"] = wrapper.backward_launches
+    return counts
 
 
 def expect_counts(label, counts, **expected):
@@ -1943,6 +2157,85 @@ def expect_counts(label, counts, **expected):
     if counts != wanted:
         raise AssertionError(f"{label}: kernel launches {counts}, "
                              f"expected {wanted}")
+
+
+def run_vit_train_cli(fa, ln, train_cli, train_dir, model_kwargs, label,
+                      expected):
+    """ViT-B/16 through the work-dir train CLI with the port's train config
+    (``model_kwargs`` added to the model's), two epochs, then the same
+    command resumed for a third; ``expected(n_epochs)`` gives each run's
+    launch counts. Returns the first run's counts and both runs' epochs."""
+    shutil.rmtree(train_dir, ignore_errors=True)
+    train_dir.mkdir(parents=True)
+    first_counts, epochs_run = None, []
+    for epochs, first_epoch in ((2, 1), (3, 3)):
+        (train_dir / "train_config.py").write_text(VIT_B_TRAIN_CONFIG.format(
+            n_train=TRAIN_IMAGES, n_eval=EVAL_IMAGES, epochs=epochs,
+            trained_model_path="").replace(
+                "use_fused_attention=True)",
+                f"use_fused_attention=True{model_kwargs})"))
+        reset_counts(fa, ln)
+        t0 = time.perf_counter()
+        run = train_cli.main(["--work-dir", str(train_dir)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fa, ln)
+        n_epochs = epochs - first_epoch + 1
+        log(f"{label} epochs {first_epoch}-{epochs}",
+            resumed_from=run["resumed_from"], epochs=run["epochs"],
+            seconds=round(seconds, 2), launches=counts)
+        expect_counts(f"{label} to epoch {epochs}", counts,
+                      **expected(n_epochs))
+        ran = [e["epoch"] for e in run["epochs"]]
+        if (ran != list(range(first_epoch, epochs + 1))
+                or run["resumed_from"] != (first_epoch - 1 or None)
+                or any(e["skipped"] or not math.isfinite(e["loss_avg"])
+                       for e in run["epochs"])):
+            raise AssertionError(f"{label} to epoch {epochs}: {run}")
+        first_counts = first_counts or counts
+        epochs_run += run["epochs"]
+    return first_counts, epochs_run
+
+
+def vit_loss_and_grads(torch, model, batch, criterion):
+    """One bf16 micro-batch's loss and every parameter's gradient."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = criterion(model(batch["image"].to(torch.bfloat16)), batch["label"])
+    loss.backward()
+    return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def check_vit_gradients(torch, fa, ln, model, batch, criterion, label, switch,
+                        expected, reference=None):
+    """Gradients of one micro-batch with the kernels (``switch(True)``)
+    against the plain ops (``switch(False)``), or against ``reference``
+    (loss, gradients) when given: per parameter, relative L2 at most
+    GRAD_REL_L2, |loss difference| at most GRAD_LOSS_ATOL; the kernel run's
+    launch counts as ``expected``. Returns the kernel run's (loss,
+    gradients)."""
+    reset_counts(fa, ln)
+    loss_kernel, grads_kernel = vit_loss_and_grads(torch, model, batch,
+                                                   criterion)
+    counts = read_counts(fa, ln)
+    if reference is None:
+        switch(False)
+        reference = vit_loss_and_grads(torch, model, batch, criterion)
+        switch(True)
+    loss_plain, grads_plain = reference
+    rel = {n: ((grads_kernel[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+           for n, g in grads_plain.items()}
+    worst = max(rel, key=rel.get)
+    log(label, batch=len(batch["label"]), loss_kernels=loss_kernel,
+        loss_plain=loss_plain, max_rel_l2=rel[worst], worst_parameter=worst,
+        median_rel_l2=sorted(rel.values())[len(rel) // 2], launches=counts)
+    expect_counts(label, counts, **expected)
+    if not (abs(loss_kernel - loss_plain) <= GRAD_LOSS_ATOL
+            and rel[worst] <= GRAD_REL_L2
+            and all(map(math.isfinite, rel.values()))):
+        raise AssertionError(f"{label}: gradients disagree: loss "
+                             f"{loss_kernel} vs {loss_plain}, rel L2 "
+                             f"{rel[worst]} at {worst}")
+    return loss_kernel, grads_kernel
 
 
 def train_flops_per_image(model, image_size):
@@ -1969,17 +2262,18 @@ def logits_of(torch, eval_step, loader):
     return torch.cat(out)
 
 
-def compare_paths(torch, model, loader, label):
-    """Logits with the kernels and with plain attention on the same weights;
-    returns the kernel logits after checking the agreement."""
+def compare_paths(torch, model, loader, label, switch=set_fused_attention):
+    """Logits with the kernels and with plain attention (``switch`` off) on
+    the same weights; returns the kernel logits after checking the
+    agreement."""
     from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
         make_classification_eval_step)
     eval_step = make_classification_eval_step(model)
-    set_fused_attention(model, True)
+    switch(model, True)
     fused = logits_of(torch, eval_step, loader)
-    set_fused_attention(model, False)
+    switch(model, False)
     plain = logits_of(torch, eval_step, loader)
-    set_fused_attention(model, True)
+    switch(model, True)
     diff = (fused - plain).abs().max().item()
     scale = max(1.0, plain.std().item())
     agree = (fused.argmax(-1) == plain.argmax(-1)).float().mean().item()
@@ -2442,36 +2736,13 @@ def main():
     # 8. the training slice: ViT-B/16 through the work-dir train CLI, two
     #    epochs, then the same command resumed for a third
     train_dir = SMOKE_DIR / "vit_base_patch16_train"
-    shutil.rmtree(train_dir, ignore_errors=True)
-    train_dir.mkdir(parents=True)
     iters = TRAIN_IMAGES // BATCH
     eval_batches = -(-EVAL_IMAGES // BATCH)
-    train_counts = {}
-    for epochs, first_epoch in ((2, 1), (3, 3)):
-        (train_dir / "train_config.py").write_text(VIT_B_TRAIN_CONFIG.format(
-            n_train=TRAIN_IMAGES, n_eval=EVAL_IMAGES, epochs=epochs,
-            trained_model_path=""))
-        reset_counts(fa, ln)
-        t0 = time.perf_counter()
-        run = train_cli.main(["--work-dir", str(train_dir)])
-        seconds = time.perf_counter() - t0
-        counts = read_counts(fa, ln)
-        n_epochs = epochs - first_epoch + 1
-        log(f"vit_b16 train cli epochs {first_epoch}-{epochs}",
-            resumed_from=run["resumed_from"], epochs=run["epochs"],
-            seconds=round(seconds, 2), launches=counts)
-        expect_counts(
-            f"ViT-B/16 train CLI to epoch {epochs}", counts,
+    train_counts, _ = run_vit_train_cli(
+        fa, ln, train_cli, train_dir, "", "vit_b16 train cli",
+        lambda n_epochs: dict(
             K1=12 * n_epochs * (iters * MICRO_BATCHES + eval_batches),
-            K1_bwd=12 * n_epochs * iters * MICRO_BATCHES)
-        ran = [e["epoch"] for e in run["epochs"]]
-        if (ran != list(range(first_epoch, epochs + 1))
-                or run["resumed_from"] != (first_epoch - 1 or None)
-                or any(e["skipped"] or not math.isfinite(e["loss_avg"])
-                       for e in run["epochs"])):
-            raise AssertionError(f"train CLI to epoch {epochs}: {run}")
-        if not train_counts:
-            train_counts = counts
+            K1_bwd=12 * n_epochs * iters * MICRO_BATCHES))
     train_log = (train_dir / "log" / "train.log").read_text()
     iter_losses = [float(x) for x in re.findall(r" loss ([-\w.]+) avg ",
                                                 train_log)]
@@ -2509,36 +2780,11 @@ def main():
     batch64 = {k: v[:BATCH // MICRO_BATCHES] for k, v in batch.items()}
     criterion = losses.CELoss()
 
-    def loss_and_grads():
-        model.train()
-        model.zero_grad(set_to_none=True)
-        loss = criterion(model(batch64["image"].to(bf16)), batch64["label"])
-        loss.backward()
-        return loss.item(), {n: p.grad.clone()
-                             for n, p in model.named_parameters()}
-    reset_counts(fa, ln)
-    loss_kernel, grads_kernel = loss_and_grads()
-    grad_counts = read_counts(fa, ln)
-    set_fused(model, attention=False, norm=False)
-    loss_plain, grads_plain = loss_and_grads()
-    set_fused(model, attention=True, norm=True)
-    rel = {n: ((grads_kernel[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
-           for n, g in grads_plain.items()}
-    worst = max(rel, key=rel.get)
-    log("vit_b16 gradients vs plain attention and LayerNorm",
-        batch=BATCH // MICRO_BATCHES, loss_kernels=loss_kernel,
-        loss_plain=loss_plain, max_rel_l2=rel[worst], worst_parameter=worst,
-        median_rel_l2=sorted(rel.values())[len(rel) // 2],
-        launches=grad_counts)
-    expect_counts("ViT-B/16 one micro-batch", grad_counts, K1=12, K1_bwd=12,
-                  K7=24, K7_bwd=24)
-    if not (abs(loss_kernel - loss_plain) <= GRAD_LOSS_ATOL
-            and rel[worst] <= GRAD_REL_L2
-            and all(map(math.isfinite, rel.values()))):
-        raise AssertionError(f"gradients with the kernels disagree with the "
-                             f"plain ops: loss {loss_kernel} vs {loss_plain}, "
-                             f"rel L2 {rel[worst]} at {worst}")
-    del grads_kernel, grads_plain
+    check_vit_gradients(
+        torch, fa, ln, model, batch64, criterion,
+        "vit_b16 gradients vs plain attention and LayerNorm",
+        lambda on: set_fused(model, attention=on, norm=on),
+        dict(K1=12, K1_bwd=12, K7=24, K7_bwd=24))
     optimizer, _ = build_optimizer(OneBatchConfig, model, 20)
     train_step = make_train_step(model, criterion, optimizer)
     overfit = [train_step(batch64, i)["loss"].item() for i in range(20)]
@@ -2589,6 +2835,147 @@ def main():
                 counted="3x the forward's GEMM and attention products",
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
             del model, optimizer, train_step
+
+    # 10a. K8, the fused attention block, against its plain version,
+    #      forward and backward, bf16 and fp32: ViT-B/16's train micro-batch
+    #      (the first case: the kernels line's) and eval batch, heads of 128,
+    #      a ragged N and the largest N
+    k8_shapes = (("vit_b16_train", (BATCH // MICRO_BATCHES, 197, 12, 64)),
+                 ("vit_b16_eval", (BATCH, 197, 12, 64)),
+                 ("head_dim_128", (BATCH // MICRO_BATCHES, 197, 6, 128)),
+                 ("n50", (BATCH // MICRO_BATCHES, 50, 12, 64)),
+                 ("n1024", (4, 1024, 12, 64)))
+    for dtype, prefix in ((bf16, ""), (fp32, "fp32_")):
+        for i, (label, shape) in enumerate(k8_shapes):
+            check_attn_block(torch, F, fa, ln, dict(
+                label=prefix + label, shape=shape, dtype=dtype,
+                seed=70 + i), results)
+    torch.cuda.empty_cache()
+
+    # 10b. use_fused_block: ViT-B/16 through the work-dir eval CLI, every
+    #      block through K8; logits against the plain ops; timed eval steps
+    #      with and without the flag
+    block_dir = SMOKE_DIR / "vit_base_patch16_fused_block"
+    block_dir.mkdir(parents=True, exist_ok=True)
+    (block_dir / "test_config.py").write_text(VIT_B_CONFIG.format(
+        n=VIT_B_BATCHES * BATCH, batch=BATCH).replace(
+            "use_fused_attention=True)",
+            "use_fused_attention=True, use_fused_block=True)"))
+    reset_counts(fa, ln)
+    summary = eval_cli.main(["--work-dir", str(block_dir)])
+    block_eval_counts = read_counts(fa, ln)
+    log("vit_b16 eval cli use_fused_block", images=summary["images"],
+        images_per_s=summary["images_per_s"], top1=summary["top1"],
+        launches=block_eval_counts)
+    expect_counts("ViT-B/16 eval with K8", block_eval_counts,
+                  K8=12 * VIT_B_BATCHES)
+    config = load_config_from_work_dir(str(block_dir), "test_config")
+    model = init_model(config.model, config.seed)
+    loader = build_loader(config.test_dataset, BATCH, config.test_collater,
+                          "cuda")
+    fit_head(torch, model, loader)
+    compare_paths(torch, model, loader, "vit_b16 use_fused_block logits",
+                  switch=set_fused_block)
+    eval_step = make_classification_eval_step(model)
+    block_ms = time_ms(torch, lambda: eval_step(batch), iters=10,
+                       device_only=False)
+    set_fused(model, block=False)
+    unfused_ms = time_ms(torch, lambda: eval_step(batch), iters=10,
+                         device_only=False)
+    set_fused(model, block=True)
+    log("vit_b16 eval step use_fused_block", batch=BATCH, ms=block_ms,
+        images_per_s=BATCH / block_ms * 1e3, without_flag_ms=unfused_ms,
+        without_flag_images_per_s=BATCH / unfused_ms * 1e3,
+        k8_share=12 * results["K8"][1]["ms"] / block_ms)
+    del model, config, eval_step
+
+    # 10c. the training slice with use_fused_block: ViT-B/16 through the
+    #      work-dir train CLI with the port's train config and the flag, two
+    #      epochs, then resumed for a third. At drop-path 0.1 only block 0
+    #      (whose own probability is 0) takes K8 in training, the others K1;
+    #      every block takes K8 in the epochs' eval
+    block_train_dir = SMOKE_DIR / "vit_base_patch16_fused_block_train"
+    block_train_counts, block_epochs = run_vit_train_cli(
+        fa, ln, train_cli, block_train_dir, ", use_fused_block=True",
+        "vit_b16 use_fused_block train cli",
+        lambda n_epochs: dict(
+            K1=11 * n_epochs * iters * MICRO_BATCHES,
+            K1_bwd=11 * n_epochs * iters * MICRO_BATCHES,
+            K8=n_epochs * (iters * MICRO_BATCHES + 12 * eval_batches),
+            K8_bwd=n_epochs * iters * MICRO_BATCHES))
+    epoch_losses = [e["loss_avg"] for e in block_epochs]
+    log("vit_b16 use_fused_block train cli losses", epoch_losses=epoch_losses)
+    if not epoch_losses[-1] < epoch_losses[0]:
+        raise AssertionError(f"use_fused_block train CLI: the loss did not "
+                             f"fall over the epochs: {epoch_losses}")
+
+    # 10d. gradients at drop-path 0 (all 12 blocks through K8, norm2
+    #      through K7) against the plain ops; then with
+    #      use_gradient_checkpoint (K8 twice a block) against the unchecked
+    #      kernels' gradients
+    config = load_config_from_work_dir(str(block_train_dir), "train_config")
+    model = init_model(config.model, config.seed)
+    set_fused(model, norm=True)
+    for blk in model.blocks:
+        blk.drop_path.drop_path_prob = 0.0
+    with torch.no_grad():  # the seeded init's 2e-5 head hides the backbone
+        model.fc.weight.normal_(0.0, 0.02, generator=torch.Generator(
+            device="cuda").manual_seed(5))
+    unchecked = check_vit_gradients(
+        torch, fa, ln, model, batch64, criterion,
+        "vit_b16 use_fused_block gradients vs plain ops",
+        lambda on: set_fused(model, attention=on, norm=on, block=on),
+        dict(K8=12, K8_bwd=12, K7=12, K7_bwd=12))
+    model.use_gradient_checkpoint = True
+    check_vit_gradients(
+        torch, fa, ln, model, batch64, criterion,
+        "vit_b16 use_fused_block use_gradient_checkpoint vs unchecked", None,
+        dict(K8=24, K8_bwd=12, K7=24, K7_bwd=12), reference=unchecked)
+    del model, config, unchecked
+
+    # 10e. timed train steps at drop-path 0, 4 x 64 and 1 x 256, with and
+    #      without use_fused_block: ms, images/s, share of the peak, peak
+    #      memory
+    soft = {"image": batch["image"],
+            "label": F.one_hot(batch["label"], 1000).float()}
+    for fused_block in (False, True):
+        for micro in (MICRO_BATCHES, 1):
+            config = load_config_from_work_dir(str(block_train_dir),
+                                               "train_config")
+            model = init_model(config.model, config.seed)
+            for blk in model.blocks:
+                blk.drop_path.drop_path_prob = 0.0
+            set_fused(model, block=fused_block)
+            optimizer, _ = build_optimizer(config, model, 5004)
+            train_step = make_train_step(model, losses.OneHotLabelCELoss(),
+                                         optimizer, accumulation_steps=micro)
+            reset_counts(fa, ln)
+            first = train_step(soft, 0)
+            torch.cuda.synchronize()
+            step_counts = read_counts(fa, ln)
+            kernel = "K8" if fused_block else "K1"
+            expect_counts(f"ViT-B/16 drop-path 0 train step {micro} "
+                          f"micro-batches", step_counts,
+                          **{kernel: 12 * micro, kernel + "_bwd": 12 * micro})
+            if first["skipped"].item() or not math.isfinite(
+                    first["loss"].item()):
+                raise AssertionError(f"train step skipped: {first}")
+            torch.cuda.reset_peak_memory_stats()
+            step = iter(range(1, 10 ** 6))
+            ms = time_ms(torch, lambda: train_step(soft, next(step)), iters=5,
+                         warmup=2, device_only=False)
+            flops = BATCH * train_flops_per_image(model, 224)
+            key = (f"{micro}x{BATCH // micro}_drop_path_0"
+                   + ("_fused_block" if fused_block else ""))
+            log(f"vit_b16 train step {key}", batch=BATCH, micro_batches=micro,
+                use_fused_block=fused_block, launches_per_step=step_counts,
+                ms=ms, images_per_s=BATCH / ms * 1e3,
+                tflops=flops / ms / 1e9,
+                share_of_bf16_peak=flops / ms / 1e9 / 989.0,
+                counted="3x the forward's GEMM and attention products",
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del model, optimizer, train_step
+    torch.cuda.empty_cache()
 
     # 11. SAM-B through the prediction tool: full width and depth, 1024^2,
     #     bf16, encode once, decode a point, a box and both
@@ -2980,6 +3367,10 @@ def main():
               "flash_attention.py:113", sam2_counts["K6"]),
         entry("K6 bwd", "K6 flash_attention bwd", "flash_attention.cu",
               "flash_attention.py:206", sam2_train_counts["K6 bwd"]),
+        entry("K8", "K8 attn_block fwd", "attn_block.cu",
+              "attn_block.py:272", block_train_counts["K8"]),
+        entry("K8 bwd", "K8 attn_block bwd", "attn_block.cu",
+              "attn_block.py:291", block_train_counts["K8 bwd"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

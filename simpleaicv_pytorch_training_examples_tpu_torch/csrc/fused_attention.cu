@@ -1123,19 +1123,6 @@ int launch_bwd_dtype(const BwdArgs& a, int is_bf16) {
   return is_bf16 ? launch_bwd_bf16<DP>(a) : launch_bwd_f32<DP>(a);
 }
 
-int launch_forward(const Args& a, int is_bf16) {
-  switch ((a.D + 15) / 16 * 16) {
-    case 16: return launch_dtype<16>(a, is_bf16);
-    case 32: return launch_dtype<32>(a, is_bf16);
-    case 48: return launch_dtype<48>(a, is_bf16);
-    case 64: return launch_dtype<64>(a, is_bf16);
-    case 80: return launch_dtype<80>(a, is_bf16);
-    case 96: return launch_dtype<96>(a, is_bf16);
-    case 112: return launch_dtype<112>(a, is_bf16);
-    default: return launch_dtype<128>(a, is_bf16);
-  }
-}
-
 Args forward_args(const void* q, const void* k, const void* v, void* o, long long in_sb,
                   long long in_sh, long long in_sn, long long out_sb, long long out_sh,
                   long long out_sn, int B, int H, int N, int D, int n_real, float scale,
@@ -1178,6 +1165,24 @@ BwdArgs backward_args(const void* q, const void* k, const void* v, const void* d
                  static_cast<cudaStream_t>(stream), RelPos{}, RelGrad{}};
 }
 
+// The dispatchers over every head dim and the C entry points; a source that
+// includes this file for its kernels (attn_block.cu) defines
+// SAICV_ATTENTION_DEVICE_ONLY and instantiates only the head dims it uses.
+#ifndef SAICV_ATTENTION_DEVICE_ONLY
+
+int launch_forward(const Args& a, int is_bf16) {
+  switch ((a.D + 15) / 16 * 16) {
+    case 16: return launch_dtype<16>(a, is_bf16);
+    case 32: return launch_dtype<32>(a, is_bf16);
+    case 48: return launch_dtype<48>(a, is_bf16);
+    case 64: return launch_dtype<64>(a, is_bf16);
+    case 80: return launch_dtype<80>(a, is_bf16);
+    case 96: return launch_dtype<96>(a, is_bf16);
+    case 112: return launch_dtype<112>(a, is_bf16);
+    default: return launch_dtype<128>(a, is_bf16);
+  }
+}
+
 int launch_backward(const BwdArgs& a, int is_bf16) {
   switch ((a.D + 15) / 16 * 16) {
     case 16: return launch_bwd_dtype<16>(a, is_bf16);
@@ -1191,7 +1196,11 @@ int launch_backward(const BwdArgs& a, int is_bf16) {
   }
 }
 
+#endif  // SAICV_ATTENTION_DEVICE_ONLY
+
 }  // namespace
+
+#ifndef SAICV_ATTENTION_DEVICE_ONLY
 
 // Plain C entry point, loaded with ctypes. Pointers are device pointers of
 // the input dtype (is_bf16 = 1: bfloat16, 0: float32); strides are in
@@ -1271,3 +1280,5 @@ extern "C" int saicv_fused_attention_relpos_bwd(
   a.drel = RelGrad{drel_h, drel_w, dh_sb, dh_sh, dh_sn, dw_sb, dw_sh, dw_sn};
   return launch_backward(a, is_bf16);
 }
+
+#endif  // SAICV_ATTENTION_DEVICE_ONLY

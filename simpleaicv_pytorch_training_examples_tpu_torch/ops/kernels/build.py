@@ -3,9 +3,9 @@ interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>_<hash>.so`` at the repository root (git-ignored),
-at first use. The hash covers the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. Nothing
-here runs at import time.
+at first use. The hash covers the source, the sources it includes
+(``INCLUDES``), the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source is rebuilt. Nothing here runs at import time.
 """
 
 import ctypes
@@ -19,7 +19,9 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("fused_attention", "flash_attention", "layer_norm")
+SOURCES = ("fused_attention", "flash_attention", "layer_norm", "attn_block")
+# K8 compiles K1's device code into its own library
+INCLUDES = {"attn_block": ("fused_attention",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,7 +39,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC_DIR / f"{name}.cu").read_bytes()
+    source = b"".join((CSRC_DIR / f"{n}.cu").read_bytes()
+                      for n in (name, *INCLUDES.get(name, ())))
     headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(source + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()

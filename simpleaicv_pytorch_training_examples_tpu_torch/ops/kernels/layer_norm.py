@@ -120,12 +120,15 @@ class FusedLayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        x, gamma = ctx.saved_tensors[:2]
+        # saved_tensors read once: under non-reentrant checkpointing each
+        # read unpacks the recomputed tensors, and a second read raises
+        saved = ctx.saved_tensors
+        x, gamma = saved[:2]
         dy = dy.to(x.dtype)
         if x.device.type == "cpu":
             return (*layer_norm_backward_reference(x, gamma, dy, ctx.eps),
                     None)
-        mean, rstd = ctx.saved_tensors[2:]
+        mean, rstd = saved[2:]
         rows, c = mean.numel(), x.shape[-1]
         dy = dy.contiguous()
         dx = torch.empty_like(x)

@@ -1,7 +1,7 @@
 """Where the device time of one classification eval step goes.
 
     python -m simpleaicv_pytorch_training_examples_tpu_torch.tools.profile_classification_eval \
-        [--network vit_base_patch16] [--use-fused-norm]
+        [--network vit_base_patch16] [--use-fused-norm] [--use-fused-block]
 
 Builds the network at full width on seeded random weights (bf16 compute,
 global-pool head, fused attention, as the MAE fine-tune configs), runs
@@ -21,8 +21,11 @@ import torch
 from ..classification import backbones
 from ..engine import init_model, make_classification_eval_step
 
-# kernel-name fragments -> category, first match wins
+# kernel-name fragments -> category, first match wins; K8's own kernels
+# (its GEMMs among them) before "gemm", which would take them for cuBLAS's;
+# K8's attention core is K1's device code and counts as the attention kernel
 CATEGORIES = (
+    ("fused attention block kernel (K8)", ("attn_block_",)),
     ("attention backward kernel", ("attention_bwd",)),
     ("rel-pos flash attention backward kernel (K5)", ("flash_relpos_bwd",)),
     ("rel-pos flash attention kernel (K5)", ("flash_relpos",)),
@@ -56,6 +59,9 @@ def argument_parser(description=None):
     parser.add_argument("--network", default="vit_base_patch16")
     parser.add_argument("--use-fused-norm", action="store_true",
                         help="run the blocks' LayerNorms through kernel K7")
+    parser.add_argument("--use-fused-block", action="store_true",
+                        help="run each block's norm1, attention and residual "
+                             "through kernel K8 where it qualifies")
     return parser
 
 
@@ -63,7 +69,8 @@ def build_model(args, **kwargs):
     model = backbones.__dict__[args.network](
         image_size=IMAGE_SIZE, global_pool=True, num_classes=1000,
         dtype=torch.bfloat16, use_fused_attention=True,
-        use_fused_norm=args.use_fused_norm, **kwargs)
+        use_fused_norm=args.use_fused_norm,
+        use_fused_block=args.use_fused_block, **kwargs)
     return init_model(model, SEED, "cuda")
 
 
@@ -132,7 +139,8 @@ def main(argv=None):
     batch = random_batch()
     return profile_steps(lambda: eval_step(batch), f"{args.network} eval",
                          {"network": args.network,
-                          "use_fused_norm": args.use_fused_norm})
+                          "use_fused_norm": args.use_fused_norm,
+                          "use_fused_block": args.use_fused_block})
 
 
 if __name__ == "__main__":

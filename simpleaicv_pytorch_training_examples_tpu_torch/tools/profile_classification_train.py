@@ -1,11 +1,14 @@
 """Where the device time of one classification train step goes.
 
     python -m simpleaicv_pytorch_training_examples_tpu_torch.tools.profile_classification_train \
-        [--network vit_base_patch16] [--use-fused-norm] [--micro-batches 4]
+        [--network vit_base_patch16] [--use-fused-norm] [--use-fused-block] \
+        [--micro-batches 4] [--drop-path-prob 0.1]
 
 The train step's sibling of ``profile_classification_eval``, with its
 categories and report: the network at full width on seeded random weights
-(bf16 compute, global-pool head, fused attention, drop path 0.1), AdamW
+(bf16 compute, global-pool head, fused attention, drop path 0.1 unless
+``--drop-path-prob`` says otherwise: with ``--use-fused-block`` only the
+blocks without a live drop path take K8, all 12 at 0), AdamW
 with layer-wise lr decay as the MAE fine-tune config, soft labels, the
 batch of 256 split into ``--micro-batches``. Needs a CUDA device.
 """
@@ -34,10 +37,11 @@ def optimizer_config(n_blocks):
 def main(argv=None):
     parser = common.argument_parser(__doc__.splitlines()[0])
     parser.add_argument("--micro-batches", type=int, default=4)
+    parser.add_argument("--drop-path-prob", type=float, default=0.1)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_classification_train needs a CUDA device")
-    model = common.build_model(args, drop_path_prob=0.1)
+    model = common.build_model(args, drop_path_prob=args.drop_path_prob)
     optimizer, _ = build_optimizer(optimizer_config(len(model.blocks)), model,
                                    100)
     train_step = make_train_step(model, losses.OneHotLabelCELoss(), optimizer,
@@ -49,6 +53,8 @@ def main(argv=None):
         lambda: train_step(batch, next(iteration)),
         f"{args.network} train {args.micro_batches} micro-batches",
         {"network": args.network, "use_fused_norm": args.use_fused_norm,
+         "use_fused_block": args.use_fused_block,
+         "drop_path_prob": args.drop_path_prob,
          "micro_batches": args.micro_batches})
 
 

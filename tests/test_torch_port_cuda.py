@@ -17,19 +17,28 @@ masked memory slots and pointers, a row whose keys are all masked, D = 56
 (zero-padded in the kernel), 256 (two output chunks) and odd widths, each
 of q, k, v with its own strides, forward and backward (masked keys get
 exactly zero dk and dv; the backward is the same bit for bit when run
-again); K1 with Hiera's ``sm_scale`` and K2 at Hiera's d = 56. Tolerances:
+again); K1 with Hiera's ``sm_scale`` and K2 at Hiera's d = 56; K8 (the
+fused attention block) at d = 64 and 128, ragged N and N = 1024, forward and
+all seven gradients, reproducible bit for bit. Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
 terms) the same fractions of their largest value; LayerNorm y and dx
 bf16 two ulps of the reference's scale, fp32 1e-4; dgamma and dbeta 1e-3 of
-the largest sum.
+the largest sum. K8 is held to its plain version's floor, since the plain
+version rounds twice where the kernel rounds once (qkv + bias, proj + bias
++ x): in bf16, against the plain version's computation of the same inputs
+in fp32, y's and dx's RMS difference at most 1.25x the plain bf16
+version's and every weight, bias, gamma and beta gradient's relative L2
+difference at most the larger of 1e-2 and 1.25x the plain version's; in
+fp32, max |kernel - plain| at most 1e-4 of the plain result's RMS.
 """
 
 import pytest
 import torch
 
 from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-    flash_attention as fl, fused_attention as fa, layer_norm as ln)
+    attn_block as ab, flash_attention as fl, fused_attention as fa,
+    layer_norm as ln)
 
 pytestmark = pytest.mark.gpu
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -654,3 +663,118 @@ def test_k2_at_hiera_head_dim_56(cuda, b, n, h, dtype):
     out = fa.fused_attention(q, k, v)
     torch.cuda.synchronize()
     _close(out, fa.fused_attention_reference(q, k, v), dtype, "out")
+
+
+def _k8_inputs(gen, b, n, h, d, dtype):
+    """x of unit scale, weights that keep qkv and the scores at unit scale,
+    small biases, gamma near 1: x, wqkv, bqkv, wproj, bproj, gamma, beta."""
+    c = h * d
+    f32 = torch.float32
+    return (_randn(gen, b, n, c, dtype=dtype),
+            (_randn(gen, 3 * c, c, dtype=f32) * c ** -0.5).to(dtype),
+            (0.02 * _randn(gen, 3 * c, dtype=f32)).to(dtype),
+            (_randn(gen, c, c, dtype=f32) * c ** -0.5).to(dtype),
+            (0.02 * _randn(gen, c, dtype=f32)).to(dtype),
+            1.0 + 0.1 * _randn(gen, c, dtype=f32),
+            0.1 * _randn(gen, c, dtype=f32))
+
+
+def _rms(t):
+    return t.float().pow(2).mean().sqrt().item()
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+K8_NAMES = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "dgamma", "dbeta")
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,n,h,d", [
+    (2, 21, 4, 64), (3, 50, 2, 128), (2, 8, 1, 64), (4, 197, 12, 64),
+    (2, 197, 6, 128), (1, 1024, 2, 64), (2, 129, 3, 64)])
+def test_attn_block_forward_and_backward(cuda, b, n, h, d, dtype):
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(b * n + h * d)
+    inputs = _k8_inputs(gen, b, n, h, d, dtype)
+    dy = _randn(gen, b, n, h * d, dtype=dtype)
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    counts = (ab.attn_block.launches, ab.attn_block.backward_launches)
+    y = ab.attn_block(*leaves, h)
+    grads = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    again = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (ab.attn_block.launches, ab.attn_block.backward_launches) == (
+        counts[0] + 1, counts[1] + 2)
+    assert y.dtype == dtype and all(g.dtype == t.dtype
+                                    for g, t in zip(grads, inputs))
+    for name, g, g2 in zip(K8_NAMES, grads, again):
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+    plain_y = ab.attn_block_reference(*inputs, h)
+    plain = ab.attn_block_backward_reference(*inputs, dy, h)
+    if dtype == torch.float32:
+        for name, got, want in zip(("y",) + K8_NAMES, (y,) + grads,
+                                   (plain_y,) + plain):
+            err = (got - want).abs().max().item()
+            assert err <= 1e-4 * _rms(want), f"{name}: {err} vs {_rms(want)}"
+        return
+    exact_in = [t.float() for t in inputs]
+    exact_y = ab.attn_block_reference(*exact_in, h)
+    exact = ab.attn_block_backward_reference(*exact_in, dy.float(), h)
+    for name, got, want, ref in zip(("y", "dx"), (y, grads[0]),
+                                    (plain_y, plain[0]),
+                                    (exact_y, exact[0])):
+        assert _rms(got.float() - ref) <= 1.25 * _rms(want.float() - ref), (
+            name, _rms(got.float() - ref), _rms(want.float() - ref))
+    for name, got, want, ref in zip(K8_NAMES[1:], grads[1:], plain[1:],
+                                    exact[1:]):
+        if name == "dbqkv":   # the key third's exact gradient is 0
+            c = h * d
+            got, want, ref = (torch.cat([t[:c], t[2 * c:]])
+                              for t in (got, want, ref))
+        bound = max(1e-2, 1.25 * _rel_l2(want, ref))
+        assert _rel_l2(got, ref) <= bound, (name, _rel_l2(got, ref), bound)
+
+
+def test_attn_block_refuses_what_it_cannot_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, h, d, dtype in ((8, 2, 80, torch.bfloat16),     # head dim 80
+                           (1025, 1, 64, torch.bfloat16),  # N > 1024
+                           (8, 1, 64, torch.float16)):
+        inputs = _k8_inputs(gen, 1, n, h, d, torch.float32)
+        inputs = [t.to(dtype) if i < 5 else t for i, t in enumerate(inputs)]
+        with pytest.raises((ValueError, TypeError)):
+            ab.attn_block(*inputs, h)
+    x, wqkv, bqkv, wproj, bproj, gamma, beta = _k8_inputs(
+        gen, 1, 8, 1, 64, torch.bfloat16)
+    with pytest.raises(ValueError):   # gamma rounded to bf16
+        ab.attn_block(x, wqkv, bqkv, wproj, bproj, gamma.bfloat16(), beta, 1)
+
+
+def test_vit_blocks_under_gradient_checkpoint(cuda):
+    """use_gradient_checkpoint with K8 and K7 (norm2) on every block: the
+    recompute unpacks each kernel's saved tensors once, and the gradients
+    equal the unchecked ones bit for bit (the kernels are deterministic)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.models import common
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones import (
+        vit)
+    grads = []
+    for checkpointed in (False, True):
+        model = vit.ViT(16, 128, 2, 2, image_size=64, num_classes=5,
+                        dtype=torch.bfloat16, use_fused_attention=True,
+                        use_fused_norm=True, use_fused_block=True,
+                        use_gradient_checkpoint=checkpointed).cuda()
+        common.init_parameters_(model,
+                                torch.Generator(device="cuda").manual_seed(0))
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        images = _randn(gen, 2, 3, 64, 64, dtype=torch.bfloat16)
+        counts = (ab.attn_block.launches, ln.layer_norm.backward_launches)
+        (model(images).float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        assert ab.attn_block.launches - counts[0] == (4 if checkpointed else 2)
+        assert ln.layer_norm.backward_launches - counts[1] == 2
+        grads.append([p.grad for p in model.parameters()])
+    for g, g2 in zip(*grads):
+        assert torch.equal(g, g2)

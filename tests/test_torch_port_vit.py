@@ -213,11 +213,20 @@ def test_trunc_normal_matches_flax_truncation():
     assert abs(x.mean().item()) < 1e-3
 
 
-def test_unported_fused_kernels_raise():
-    """K8 (the fused block) still raises; K7 (the fused LayerNorm) is
-    ported and gives the plain LayerNorm's output."""
-    with pytest.raises(NotImplementedError):
-        vit.TransformerEncoderLayer(128, 2, use_fused_block=True)
+def test_unported_fused_kernels_raise(monkeypatch):
+    """Both fused kernels are ported now: K8 (the fused block) builds and
+    takes the block's first half, K7 (the fused LayerNorm) gives the plain
+    LayerNorm's output."""
+    block = vit.TransformerEncoderLayer(128, 2, use_fused_block=True).eval()
+    calls = []
+    real = vit.attn_block
+    monkeypatch.setattr(vit, "attn_block",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.randn(2, 5, 128)
+    plain = vit.TransformerEncoderLayer(128, 2).eval()
+    plain.load_state_dict(block.state_dict())
+    torch.testing.assert_close(block(x), plain(x), rtol=1e-5, atol=1e-5)
+    assert calls == [1]
     fused = common.FusedLayerNorm(8, use_fused=True)
     x = torch.randn(3, 5, 8)
     torch.testing.assert_close(fused(x), common.FusedLayerNorm(8)(x),
