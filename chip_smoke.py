@@ -7,6 +7,10 @@ per source, started together), holds each against its plain PyTorch version
 at the shapes of the main paths, then drives those paths, each with the
 kernels' launch counters set to 0 just before it and read just after:
 
+- the K9 and K2b entry points, which no model path calls:
+  ``fused_attention_qkv`` on ViT-B/16's and ViT-H/14's packed qkv and
+  ``fused_attention(..., bias=)`` on SAM-B's and SAM-H's windows with a full
+  fp32 bias, forward and backward, counted (2 launches each way);
 - eval: full-width ViT-B/16 (bf16, global-pool head, fused attention)
   through the work-dir eval CLI on seeded random weights and seeded
   synthetic images, and full-width ViT-H/14 at reduced depth through
@@ -168,6 +172,27 @@ K7 12 forward and backward) by the rule above, and with
 use_gradient_checkpoint (K8 24 forward, 12 backward) by the same rule
 against the unchecked kernels' gradients.
 
+K9 (attention over a packed [B, N, 3, H, D] qkv) vs its plain version,
+forward and packed dqkv, at ViT-B/16's and ViT-H/14's shapes, n_real 150,
+fp32 and d = 35: as K1 and K2 (bf16 atol 2e-2, fp32 1e-4), and at d = 64 (and
+128) its output and gradient bit for bit K1's on the same memory. K2b (K2
+with a full score bias) vs its plain version at SAM-B's windows (bias std
+0.3 and 3), SAM-H's, a bias shared over the windows [1, H, N, N], n_real
+150, fp32, a bf16 bias, d = 35 and N = 1024, held to the plain version's
+floor as K6 is, since a flat 2e-2 can be twice an output: out, dq, dk, dv by
+``key_bias_reading`` (bf16: RMS distance from the plain version's fp32
+computation at most 1.25x the plain bf16 version's, max at most the plain
+version's plus one bf16 ulp; fp32: max |kernel - plain| at most 1e-4 of the
+plain RMS); dbias in the bias's shape and dtype, a bf16 dbias by the same
+reading, an fp32 dbias (whose plain floor is 0: the plain version rounds
+nothing on the way to dS0) within a relative L2 distance of 1e-4 of the
+plain one; two backward runs bit for bit equal. A control raises one row of
+the bias by 4 on half its keys and fails the run unless that fails the
+forward's reading and one gradient's. On K3's SAM-B inputs, K2b with the
+rel-pos bias materialised matches K3's output by the same reading (K3 as
+the plain version) and its dbias, summed by key-grid row and column, K3's
+drel_h and drel_w within a relative L2 distance of 1e-4.
+
 K6's backward vs its plain version at the SAM2 train step's shapes (the
 memory cross-attention with frame 7's bias, the self-attention, the Hiera
 global blocks of 4 frames at d = 64 with the 56-wide scale and at d = 56;
@@ -222,6 +247,7 @@ SAM_ATOL_SCALE, SAM_AGREE, SAM_IOU_ATOL = 0.02, 0.99, 2e-2
 SAM_FLOOR_RATIO = 1.25
 ZERO_GRADIENT_RATIO = 1e-4  # a bias's gradient norm over its weight's
 K6_FLOOR_RATIO, K6_FP32_RTOL, K6_CONTROL_KEYS = 1.25, 1e-4, 64
+K2B_DBIAS_RTOL, K2B_CONTROL_UNITS = 1e-4, 4.0
 K8_FLOOR_RATIO, K8_FP32_RTOL, K8_GRAD_REL = 1.25, 1e-4, 1e-2
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
@@ -1375,6 +1401,385 @@ def check_attn_block(torch, F, fa, ln, case, results):
     results.setdefault("K8 bwd", []).append(record_bwd)
 
 
+def check_qkv_kernel(torch, F, fa, case, results):
+    """Hold K9 forward and backward against their plain versions at one
+    shape, with the tolerances of K1 and K2; at d = 64 and 128 its output
+    and packed gradient must equal K1's on the same memory bit for bit.
+    Time both directions, the plain versions and SDPA on the packed views
+    with its output copied back to [B, N, H, D] (its backward alone, into
+    the packed gradient); append the records to results["K9"] and
+    results["K9 bwd"]."""
+    dtype = case["dtype"]
+    b, n, h, d = case["shape"]
+    n_real = case.get("n_real")
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(dtype)
+    qkv, dout = randn(b, n, 3, h, d), randn(b, n, h, d)
+    leaf = qkv.clone().requires_grad_()
+    out = fa.fused_attention_qkv(leaf, n_real)
+    kernel_bwd = lambda: torch.autograd.grad(out, leaf, dout,
+                                             retain_graph=True)
+    before = fa.fused_attention_qkv.backward_launches
+    (grad,) = kernel_bwd()
+    torch.cuda.synchronize()
+    launched = fa.fused_attention_qkv.backward_launches - before
+    with torch.no_grad():
+        plain = fa.fused_attention_qkv_reference(qkv, n_real)
+        plain_grad = fa.fused_attention_qkv_backward_reference(qkv, dout,
+                                                               n_real)
+    err = (out.float() - plain.float()).abs().max().item()
+    grad_err = (grad.float() - plain_grad.float()).abs().max().item()
+    finite = bool(torch.isfinite(out).all() and torch.isfinite(grad).all())
+    del plain, plain_grad
+    same_as_k1 = None
+    if d in fa.DENSE_HEAD_DIMS:
+        dense = qkv.view(b, n, 3 * h * d).clone().requires_grad_()
+        out_dense = fa.fused_attention_dense(dense, h, n_real)
+        (grad_dense,) = torch.autograd.grad(out_dense, dense,
+                                            dout.view(b, n, h * d))
+        same_as_k1 = (torch.equal(out.view(b, n, h * d), out_dense)
+                      and torch.equal(grad.view(b, n, 3 * h * d), grad_dense))
+        del dense, out_dense, grad_dense
+    mask = None
+    if n_real is not None:
+        mask = (torch.arange(n, device="cuda") < n_real)[None, :]
+    sdpa = lambda t: F.scaled_dot_product_attention(
+        *t.permute(2, 0, 3, 1, 4).unbind(0), attn_mask=mask).transpose(
+            1, 2).contiguous()
+    lib_leaf = qkv.clone().requires_grad_()
+    lib_out = sdpa(lib_leaf)
+    fast = dtype == torch.bfloat16
+    iters, warmup = (20, 3) if fast else (5, 1)
+    with torch.no_grad():
+        fwd_times = {
+            "ms": time_ms(torch, lambda: fa.fused_attention_qkv(qkv, n_real),
+                          iters=iters, warmup=warmup),
+            "plain_ms": time_ms(
+                torch, lambda: fa.fused_attention_qkv_reference(qkv, n_real),
+                iters=5, warmup=1),
+            "library_ms": time_ms(torch, lambda: sdpa(qkv), iters=iters,
+                                  warmup=warmup)}
+    bwd_times = {
+        "ms": time_ms(torch, kernel_bwd, iters=iters, warmup=warmup),
+        "plain_ms": time_ms(
+            torch, lambda: fa.fused_attention_qkv_backward_reference(
+                qkv, dout, n_real), iters=3, warmup=1),
+        "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_leaf, dout, retain_graph=True), iters=iters,
+            warmup=warmup)}
+    del out, lib_out, grad
+    dtype_name = str(dtype).split(".")[-1]
+    n_keys = n if n_real is None else n_real
+    tol = BF16_ATOL if fast else FP32_ATOL
+    common = {"case": case["label"], "shape": [b, n, 3, h, d],
+              "dtype": dtype_name, "n_real": n_real, "tol": tol,
+              "finite": finite, "same_as_k1": same_as_k1}
+    record = dict(common, max_abs_err=err, **fwd_times)
+    record["bound_ms"], record["bound_by"] = attention_bound(
+        b, h, n, d, n_keys, dtype_name, qkv.element_size())
+    record_bwd = dict(common, max_abs_err=grad_err, launches=launched,
+                      **bwd_times)
+    record_bwd["bound_ms"], record_bwd["bound_by"] = attention_backward_bound(
+        b, h, n, d, n_keys, dtype_name, qkv.element_size())
+    log(f"K9 {case['label']}", **record)
+    log(f"K9 bwd {case['label']}", **record_bwd)
+    if not (finite and err <= tol and grad_err <= tol and launched == 1
+            and same_as_k1 is not False):
+        raise AssertionError(f"K9 {case['label']}: max |kernel - plain| "
+                             f"{err} / {grad_err} > {tol}, non-finite, "
+                             f"{launched} backward launches, or not K1 bit "
+                             f"for bit ({same_as_k1})")
+    results.setdefault("K9", []).append(record)
+    results.setdefault("K9 bwd", []).append(record_bwd)
+
+
+def bias_attention_bound(b, h, n, n_keys, d, bias, dtype_name, element_size,
+                         backward=False):
+    """Least time (ms) of one K2b call on this card, and what bounds it. The
+    forward reads q and writes the output in full, reads k, v and the bias
+    (its own elements, at its own size) for the n_keys keys that count, and
+    does 4*b*h*n*n_keys*d operations; the backward reads q and dout and
+    writes dq, dk, dv in full, reads k, v and the bias for the keys that
+    count, writes dbias (the bias's shape and dtype) in full, and does the
+    five products, 10*b*h*n*n_keys*d."""
+    bias_bytes = bias.numel() * bias.element_size()
+    rows = (5 * n if backward else 2 * n) + 2 * n_keys
+    nbytes = (element_size * b * h * d * rows + bias_bytes * n_keys / n
+              + (bias_bytes if backward else 0))
+    flops = (10.0 if backward else 4.0) * b * h * n * n_keys * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dbias_reading(torch, got, plain, exact):
+    """K2b's dbias held to its plain version. A bf16 dbias (bf16 inputs) by
+    ``key_bias_reading`` against ``exact``, the plain version's fp32
+    computation: both round the same fp32 sums to bf16. An fp32 dbias: the
+    plain version rounds nothing on the way to dS0 but the inputs, so its
+    floor against fp32 is 0; the kernel's relative L2 distance from it at
+    most K2B_DBIAS_RTOL (fp32 sums in another order, and the card's exp2
+    and log2 approximations). Returns (ok, readings)."""
+    if got.dtype == torch.bfloat16 and exact is not None:
+        return key_bias_reading(torch, got, plain, exact)
+    rel = ((got.float() - plain.float()).norm() / plain.float().norm()).item()
+    return rel <= K2B_DBIAS_RTOL, {"rel_l2": rel, "bound": K2B_DBIAS_RTOL}
+
+
+def sdpa_backend(torch, fn):
+    """The SDPA backend one call of ``fn`` ran, read from the operators that
+    ``torch.profiler`` records (``aten::_scaled_dot_product_<backend>_...``
+    and their autograd nodes), or "not measured" where it records none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if "scaleddotproduct" in e.key.lower().replace("_", "")})
+    for backend in ("flash", "efficient", "cudnn", "math"):
+        hits = [nm for nm in names if backend in nm.lower()]
+        if hits:
+            return f"{backend} ({', '.join(hits)})"
+    return "not measured"
+
+
+def bias_inputs(torch, case):
+    """q, k, v [B, H, N, D], the bias (the case's shape, dtype and spread),
+    dout (a transposed view, as autograd hands it through a module's
+    transpose back to tokens) and the control's bias (the first row's
+    first N/2 keys raised by K2B_CONTROL_UNITS) of one K2b case."""
+    dtype = case["dtype"]
+    b, h, n, d = case["shape"]
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    q, k, v = (randn(b, h, n, d).to(dtype) for _ in range(3))
+    bias = (case["spread"] * randn(*case["bias_shape"])).to(
+        case.get("bias_dtype", torch.float32))
+    dout = randn(b, n, h, d).to(dtype).transpose(1, 2)
+    control = bias.clone()
+    control[(0,) * (bias.dim() - 1)][:n // 2] += K2B_CONTROL_UNITS
+    return (q, k, v), bias, dout, control
+
+
+def check_bias_kernel(torch, F, fa, case, results):
+    """Hold K2b forward and backward against their plain versions at one
+    shape, at the plain version's floor: out, dq, dk and dv by
+    ``key_bias_reading`` (bf16: against the plain version's fp32
+    computation of the same inputs), dbias by ``dbias_reading``, in the
+    bias's shape and dtype; two backward runs bit for bit equal; a control
+    that raises one row of the bias on half its keys must fail the forward's
+    reading and one of the gradients'. Time both directions, the plain
+    versions and SDPA with the bias (cast to the input dtype, the n_real key
+    mask folded in) as its mask, the backward with the mask requiring grad,
+    and name the SDPA backend that ran; append the records to
+    results["K2b"] and results["K2b bwd"]."""
+    dtype = case["dtype"]
+    b, h, n, d = case["shape"]
+    n_real = case.get("n_real")
+    (q, k, v), bias, dout, control_bias = bias_inputs(torch, case)
+    bf16 = dtype == torch.bfloat16
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = fa.fused_attention(*leaves[:3], n_real, bias=leaves[3])
+    kernel_bwd = lambda: torch.autograd.grad(out, leaves, dout,
+                                             retain_graph=True)
+    before = fa.fused_attention_bias.backward_launches
+    grads = kernel_bwd()
+    again = kernel_bwd()
+    torch.cuda.synchronize()
+    launched = fa.fused_attention_bias.backward_launches - before
+    reproducible = all(torch.equal(g, g2) for g, g2 in zip(grads, again))
+    del again
+    control_leaves = [t.detach().requires_grad_()
+                      for t in (q, k, v, control_bias)]
+    control_out = fa.fused_attention(*control_leaves[:3], n_real,
+                                     bias=control_leaves[3])
+    control_grads = torch.autograd.grad(control_out, control_leaves, dout)
+    names = ("dq", "dk", "dv", "dbias")
+    with torch.no_grad():
+        plain = fa.fused_attention_bias_reference(q, k, v, bias, n_real)
+        plain_grads = fa.fused_attention_bias_backward_reference(
+            q, k, v, bias, dout, n_real)
+        exact_in = [t.float() for t in (q, k, v, bias)]
+        exact = (fa.fused_attention_bias_reference(*exact_in, n_real)
+                 if bf16 else None)
+        exact_grads = (fa.fused_attention_bias_backward_reference(
+            *exact_in, dout.float(), n_real) if bf16 else (None,) * 4)
+        del exact_in
+        ok, reading = key_bias_reading(torch, out.detach(), plain, exact)
+        control_ok, control_reading = key_bias_reading(
+            torch, control_out.detach(), plain, exact)
+        readings, control_readings, grads_ok, control_grads_ok = {}, {}, \
+            True, True
+        for name, g, p, e, c in zip(names, grads, plain_grads, exact_grads,
+                                    control_grads):
+            read = dbias_reading if name == "dbias" else key_bias_reading
+            g_ok, readings[name] = read(torch, g, p, e)
+            c_ok, control_readings[name] = read(torch, c, p, e)
+            grads_ok &= g_ok and g.shape == p.shape and g.dtype == p.dtype
+            control_grads_ok &= c_ok
+        errs = {"out": (out.float() - plain.float()).abs().max().item(),
+                **{nm: (g.float() - p.float()).abs().max().item()
+                   for nm, g, p in zip(names, grads, plain_grads)}}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+    del plain, plain_grads, exact, exact_grads, control_out, control_grads
+    del control_leaves, grads
+
+    lib_bias = bias.to(dtype)
+    if n_real is not None:
+        lib_bias = lib_bias.masked_fill(
+            torch.arange(n, device="cuda") >= n_real, -1e9)
+    lib_leaves = [t.detach().requires_grad_() for t in (q, k, v, lib_bias)]
+    library = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                     attn_mask=lib_bias)
+    lib_out = F.scaled_dot_product_attention(*lib_leaves[:3],
+                                             attn_mask=lib_leaves[3])
+    library_bwd = lambda: torch.autograd.grad(lib_out, lib_leaves, dout,
+                                              retain_graph=True)
+    iters, warmup = (20, 3) if bf16 else (5, 1)
+    with torch.no_grad():
+        fwd_times = {
+            "ms": time_ms(torch, lambda: fa.fused_attention(
+                q, k, v, n_real, bias=bias), iters=iters, warmup=warmup),
+            "plain_ms": time_ms(
+                torch, lambda: fa.fused_attention_bias_reference(
+                    q, k, v, bias, n_real), iters=5, warmup=1),
+            "library_ms": time_ms(torch, library, iters=iters, warmup=warmup),
+            "library_backend": sdpa_backend(torch, library)}
+    bwd_times = {
+        "ms": time_ms(torch, kernel_bwd, iters=iters, warmup=warmup),
+        "plain_ms": time_ms(
+            torch, lambda: fa.fused_attention_bias_backward_reference(
+                q, k, v, bias, dout, n_real), iters=3, warmup=1),
+        "library_ms": time_ms(torch, library_bwd, iters=iters, warmup=warmup),
+        "library_backend": sdpa_backend(torch, library_bwd)}
+    del out, lib_out, lib_leaves, leaves
+    dtype_name = str(dtype).split(".")[-1]
+    n_keys = n if n_real is None else n_real
+    common = {"case": case["label"], "shape": [b, h, n, d],
+              "bias_shape": list(bias.shape),
+              "bias_dtype": str(bias.dtype).split(".")[-1],
+              "bias_std": case["spread"], "dtype": dtype_name,
+              "n_real": n_real, "finite": finite}
+    record = dict(common, max_abs_err=errs["out"], reading=reading,
+                  control=control_reading, **fwd_times)
+    record["bound_ms"], record["bound_by"] = bias_attention_bound(
+        b, h, n, n_keys, d, bias, dtype_name, q.element_size())
+    record_bwd = dict(common, max_abs_err=max(errs[nm] for nm in names),
+                      errs=errs, readings=readings, control=control_readings,
+                      reproducible=reproducible, launches=launched,
+                      **bwd_times)
+    record_bwd["bound_ms"], record_bwd["bound_by"] = bias_attention_bound(
+        b, h, n, n_keys, d, bias, dtype_name, q.element_size(), backward=True)
+    log(f"K2b {case['label']}", **record)
+    log(f"K2b bwd {case['label']}", **record_bwd)
+    if not (finite and ok and grads_ok and reproducible and launched == 2):
+        raise AssertionError(f"K2b {case['label']}: off the plain version's "
+                             f"floor (out {reading}, grads {readings}), "
+                             f"non-finite, not reproducible or {launched} "
+                             "backward launches for 2 calls")
+    if control_ok or control_grads_ok:
+        raise AssertionError(f"K2b {case['label']}: a bias raised by "
+                             f"{K2B_CONTROL_UNITS} on half of one row passes "
+                             f"the check (out {control_reading}, grads "
+                             f"{control_readings})")
+    results.setdefault("K2b", []).append(record)
+    results.setdefault("K2b bwd", []).append(record_bwd)
+
+
+def check_bias_against_k3(torch, fa, case, results):
+    """K2b with SAM's rel-pos bias materialised (``rel_bias``) against K3 on
+    K3's inputs of ``case`` (drawn as ``check_rel_kernel`` draws them): the
+    output by ``key_bias_reading`` with K3's output as the plain version
+    (against the fp32 plain K3), and dbias summed over each key-grid row
+    and column against K3's drel_h and drel_w, relative L2 at most
+    K2B_DBIAS_RTOL."""
+    dtype = case["dtype"]
+    b, h, kh, kw, d = case["shape"]
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(case["seed"])
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    qkv = randn(b, n, 3 * h * d).to(dtype)
+    rel_h, rel_w = randn(b, n, h, kh), randn(b, n, h, kw)
+    dout = randn(b, n, h * d).to(dtype)
+    k3_leaves = [t.detach().requires_grad_() for t in (qkv, rel_h, rel_w)]
+    k3_out = fa.fused_attention_relwin_dense(*k3_leaves, h)
+    _, drel_h, drel_w = torch.autograd.grad(k3_out, k3_leaves, dout)
+    leaf = qkv.detach().requires_grad_()
+    q, k, v = leaf.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    bias = fa.rel_bias(rel_h.transpose(1, 2),
+                       rel_w.transpose(1, 2)).requires_grad_()
+    out = fa.fused_attention(q, k, v, bias=bias).transpose(1, 2).reshape(
+        b, n, h * d)
+    (dbias,) = torch.autograd.grad(out, bias, dout)
+    with torch.no_grad():
+        exact = fa.fused_attention_relwin_dense_reference(qkv.float(), rel_h,
+                                                          rel_w, h)
+        ok, reading = key_bias_reading(torch, out, k3_out, exact)
+        grid = dbias.unflatten(-1, (kh, kw))
+        rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+        drel = {"drel_h_rel_l2": rel(grid.sum(-1).transpose(1, 2), drel_h),
+                "drel_w_rel_l2": rel(grid.sum(-2).transpose(1, 2), drel_w)}
+    record = {"case": case["label"], "shape": list(case["shape"]),
+              "reading": reading, **drel, "drel_bound": K2B_DBIAS_RTOL}
+    log(f"K2b vs K3 {case['label']}", **record)
+    if not (ok and max(drel.values()) <= K2B_DBIAS_RTOL):
+        raise AssertionError(f"K2b with the rel-pos bias disagrees with K3: "
+                             f"{record}")
+    results.setdefault("K2b vs K3", []).append(record)
+
+
+def drive_qkv_and_bias(torch, fa):
+    """This slice's path: no model calls K9 or K2b, so their entry points
+    are driven as a user would call them, forward and backward, K9 at
+    ViT-B/16's and ViT-H/14's packed qkv and K2b at SAM-B's and SAM-H's
+    windows with a full fp32 bias; each output and gradient finite, of its
+    input's shape, and within the attention tolerance of its plain version
+    on the first sample. Returns nothing; the caller reads the counters."""
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    for b, n, h, d in ((BATCH, 197, 12, 64), (BATCH, 257, 16, 80)):
+        qkv = randn(b, n, 3, h, d).to(torch.bfloat16).requires_grad_()
+        dout = randn(b, n, h, d).to(torch.bfloat16)
+        out = fa.fused_attention_qkv(qkv)
+        out.backward(dout)
+        with torch.no_grad():
+            err = max((out[:1].float() - fa.fused_attention_qkv_reference(
+                qkv[:1]).float()).abs().max().item(),
+                      (qkv.grad[:1].float()
+                       - fa.fused_attention_qkv_backward_reference(
+                           qkv[:1], dout[:1]).float()).abs().max().item())
+        if not (out.shape == (b, n, h, d) and qkv.grad.shape == qkv.shape
+                and torch.isfinite(out).all()
+                and torch.isfinite(qkv.grad).all() and err <= BF16_ATOL):
+            raise AssertionError(f"K9 entry point at {(b, n, h, d)}: "
+                                 f"{err} from the plain version or non-finite")
+        log("K9 entry point", shape=[b, n, 3, h, d], max_abs_err_sample0=err)
+    for b, h, n, d in ((25 * SAM_BATCH, 12, 196, 64),
+                       (25 * SAM_BATCH, 16, 196, 80)):
+        leaves = [randn(b, h, n, d).to(torch.bfloat16).requires_grad_()
+                  for _ in range(3)]
+        bias = (0.3 * randn(b, h, n, n)).requires_grad_()
+        dout = randn(b, h, n, d).to(torch.bfloat16)
+        out = fa.fused_attention(*leaves, bias=bias)
+        out.backward(dout)
+        with torch.no_grad():
+            first = [t[:1] for t in (*leaves, bias)]
+            want = (fa.fused_attention_bias_reference(*first),
+                    *fa.fused_attention_bias_backward_reference(
+                        *first, dout[:1]))
+            got = (out[:1], *(t.grad[:1] for t in (*leaves, bias)))
+            err = max((g.float() - w.float()).abs().max().item()
+                      for g, w in zip(got, want))
+        if not (bias.grad.shape == bias.shape and err <= BF16_ATOL
+                and all(torch.isfinite(t).all() for t in got)):
+            raise AssertionError(f"K2b entry point at {(b, h, n, d)}: {err} "
+                                 "from the plain version or non-finite")
+        log("K2b entry point", shape=[b, h, n, d], bias_shape=[b, h, n, n],
+            max_abs_err_sample0=err)
+
+
 def sam_encoder_flops(model):
     """Operations of one SAM encoder forward of one image, counted from the
     model's shapes: the patch embedding, each block's qkv, proj, lin1 and
@@ -2134,7 +2539,8 @@ def counted_wrappers(fa, ln):
     return {"K1": fa.fused_attention_dense, "K2": fa.fused_attention,
             "K7": ln.layer_norm, "K3": fa.fused_attention_relwin_dense,
             "K4": fa.fused_attention_relwin, "K5": fl.flash_attention_relpos,
-            "K6": fl.flash_attention, "K8": ab.attn_block}
+            "K6": fl.flash_attention, "K8": ab.attn_block,
+            "K9": fa.fused_attention_qkv, "K2b": fa.fused_attention_bias}
 
 
 def reset_counts(fa, ln):
@@ -2453,6 +2859,69 @@ def sam2_training_slice(torch, fa, ln, results):
     return sam2_train_counts
 
 
+def qkv_and_bias_slice(torch, F, fa, ln, results):
+    """Phases 3a-3b of ``main``: K9 and K2b against their plain versions,
+    then their entry points driven and counted; returns the counts."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # 3a. K9 (a packed [B, N, 3, H, D] qkv; shape (B, N, H, D)) and K2b (a
+    #     full score bias; shape (B, H, N, D)), forward and backward, against
+    #     their plain versions; K9 against K1 bit for bit at d = 64 and 128,
+    #     K2b at its plain version's floor with a control, and against K3
+    for case in (
+            dict(label="vit_b16", shape=(BATCH, 197, 12, 64), dtype=bf16,
+                 seed=80),
+            dict(label="vit_h14", shape=(BATCH, 257, 16, 80), dtype=bf16,
+                 seed=81),
+            dict(label="n_real_150", shape=(BATCH, 197, 12, 64), dtype=bf16,
+                 seed=82, n_real=150),
+            dict(label="fp32", shape=(8, 197, 12, 64), dtype=fp32, seed=83),
+            dict(label="head_dim_35", shape=(8, 50, 4, 35), dtype=bf16,
+                 seed=84)):
+        check_qkv_kernel(torch, F, fa, case, results)
+    sam_windows = 25 * SAM_BATCH      # SAM's 14 x 14 windows of 8 images
+    window_bias = lambda h: (sam_windows, h, 196, 196)
+    for case in (
+            dict(label="sam_b", shape=(sam_windows, 12, 196, 64), dtype=bf16,
+                 seed=85, bias_shape=window_bias(12), spread=0.3),
+            dict(label="sam_b_sharp", shape=(sam_windows, 12, 196, 64),
+                 dtype=bf16, seed=86, bias_shape=window_bias(12), spread=3.0),
+            dict(label="sam_h", shape=(sam_windows, 16, 196, 80), dtype=bf16,
+                 seed=87, bias_shape=window_bias(16), spread=3.0),
+            dict(label="shared_bias", shape=(sam_windows, 12, 196, 64),
+                 dtype=bf16, seed=88, bias_shape=(1, 12, 196, 196),
+                 spread=0.3),
+            dict(label="n_real_150", shape=(sam_windows, 12, 196, 64),
+                 dtype=bf16, seed=89, bias_shape=window_bias(12), spread=3.0,
+                 n_real=150),
+            dict(label="fp32", shape=(8, 12, 196, 64), dtype=fp32, seed=90,
+                 bias_shape=(8, 12, 196, 196), spread=3.0),
+            dict(label="bf16_bias", shape=(sam_windows, 12, 196, 64),
+                 dtype=bf16, seed=91, bias_shape=window_bias(12), spread=3.0,
+                 bias_dtype=bf16),
+            dict(label="head_dim_35", shape=(8, 4, 50, 35), dtype=bf16,
+                 seed=92, bias_shape=(8, 4, 50, 50), spread=0.3),
+            # K/V too large to stay in shared memory: walked in chunks
+            dict(label="streamed_n1024", shape=(8, 2, 1024, 128), dtype=bf16,
+                 seed=93, bias_shape=(8, 2, 1024, 1024), spread=3.0)):
+        check_bias_kernel(torch, F, fa, case, results)
+    check_bias_against_k3(torch, fa, dict(
+        label="sam_b", shape=(sam_windows, 12, 14, 14, 64), dtype=bf16,
+        seed=20), results)
+    torch.cuda.empty_cache()
+
+    # 3b. this slice's path: the K9 and K2b entry points as a user calls
+    #     them (no model calls either), counted
+    reset_counts(fa, ln)
+    drive_qkv_and_bias(torch, fa)
+    torch.cuda.synchronize()
+    entry_counts = read_counts(fa, ln)
+    log("K9 and K2b entry points", launches=entry_counts)
+    expect_counts("K9 and K2b entry points", entry_counts, K9=2, K9_bwd=2,
+                  K2b=2, K2b_bwd=2)
+    torch.cuda.empty_cache()
+    return entry_counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2527,6 +2996,10 @@ def main():
             check_kernel(torch, F, fa, name, case, results)
         for case in cases:
             check_backward_kernel(torch, F, fa, name, case, results)
+    # 3a-3b. K9 and K2b against their plain versions, then their entry
+    #        points driven and counted
+    entry_counts = qkv_and_bias_slice(torch, F, fa, ln, results)
+
     for case in (
             dict(label="vit_b16", shape=(BATCH * 197, 768), dtype=bf16,
                  seed=10),
@@ -3326,7 +3799,7 @@ def main():
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
-    def entry(key, label, file, replaces, launches):
+    def entry(key, label, file, replaces, launches, **extra):
         main_case = results[key][0]
         return {"name": label, "route": "cuda", "source": source + file,
                 "replaces": pallas + replaces, "launches": launches,
@@ -3334,7 +3807,9 @@ def main():
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                 "bound_ms": main_case["bound_ms"],
                 "bound_by": main_case["bound_by"],
-                "library_ms": main_case["library_ms"]}
+                "library_ms": main_case["library_ms"], **extra}
+    no_model = {"caller": "no model path; launches of the K9 and K2b "
+                          "entry-point phase"}
     kernels = [
         entry("K1", "K1 fused_attention_dense fwd", "fused_attention.cu",
               "fused_attention.py:536", train_counts["K1"]),
@@ -3371,7 +3846,19 @@ def main():
               "attn_block.py:272", block_train_counts["K8"]),
         entry("K8 bwd", "K8 attn_block bwd", "attn_block.cu",
               "attn_block.py:291", block_train_counts["K8 bwd"]),
+        entry("K9", "K9 fused_attention_qkv fwd", "fused_attention.cu",
+              "fused_attention.py:718", entry_counts["K9"], **no_model),
+        entry("K9 bwd", "K9 fused_attention_qkv bwd", "fused_attention.cu",
+              "fused_attention.py:734", entry_counts["K9 bwd"], **no_model),
+        entry("K2b", "K2b fused_attention bias fwd", "fused_attention.cu",
+              "fused_attention.py:321", entry_counts["K2b"], **no_model),
+        entry("K2b bwd", "K2b fused_attention bias bwd",
+              "fused_attention.cu", "fused_attention.py:338",
+              entry_counts["K2b bwd"], **no_model),
     ]
+    if len(kernels) != 20:
+        raise AssertionError(f"{len(kernels)} rows in the kernels line, "
+                             "expected every kernel of the table, 20")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

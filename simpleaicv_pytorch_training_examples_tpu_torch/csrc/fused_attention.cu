@@ -18,6 +18,15 @@
 //       rel-pos bias, score(i, j) += rel_h[i, j / KW] + rel_w[i, j % KW]
 //       (fp32, N = KH * KW, each term read through its own strides); the
 //       backward also gives drel_h and drel_w (fp32).
+//   K2b _fwd_kernel_bias / _bwd_kernel_bias (via _pallas_fwd_bias and
+//       _pallas_bwd_bias, entry fused_attention(bias=)): K2 with a full
+//       additive score bias, score(i, j) += bias[b, h, i, j] (fp32 or bf16,
+//       read through its own strides, 0 on an axis it is broadcast over);
+//       the backward also writes dbias = dS0 (fp32, [B, H, N, N]).
+//   K9  _fwd_kernel_packed / _bwd_kernel_packed (via _pallas_fwd_packed and
+//       _pallas_bwd_packed, entry fused_attention_qkv): K1's launch at the
+//       strides of a packed [B, N, 3, H, D] qkv, any D <= 128; out [B, N, H,
+//       D]; backward: dqkv packed the same way. No device code of its own.
 // One kernel body per dtype and direction serves all of them: the wrapper
 // passes the (batch, head, row) strides of the inputs and of the outputs,
 // and each head's columns are read and written in place in either layout
@@ -58,7 +67,7 @@
 // memory by ldmatrix.x4, two key groups at once: with two 4-byte loads per
 // mma.sync instead, instruction issue held the kernel 13-19% slower.
 //
-// The rel-pos bias (K3, K4; a template flag, so K1 and K2 are compiled
+// The rel-pos bias (K3, K4; a template parameter, so K1 and K2 are compiled
 // without it): each score becomes a log2-domain logit s*scale*log2(e) +
 // (rel_h + rel_w)*log2(e) as it leaves the tensor cores, with both terms
 // read through the L1 cache (KW = 14 does not align with the 64-key
@@ -67,6 +76,13 @@
 // at 3.35 TB/s, against 23.6 GFLOP = 24 us: bound by bytes. The bias loads,
 // two a score in each of the two passes, cost it about 1.7x K1's time for
 // the same bytes (PERF.md).
+//
+// The full bias (K2b; a third value of the same template parameter) enters
+// the same way: s*scale*log2(e) + bias*log2(e), one load a score in each
+// pass, through L1. At SAM-B's windows with an fp32 bias [200, 12, 196,
+// 196] a launch moves 241 MB of q, k, v and out and 369 MB of bias: 0.182
+// ms at 3.35 TB/s, bound by bytes (23.6 GFLOP = 0.024 ms); the bias is read
+// twice, once a pass, the second time mostly from L2.
 //
 // fp32 design (not on the main path): one block per 32 query rows keeps
 // the whole fp32 score row in shared memory and uses plain FMA loops, so
@@ -108,23 +124,80 @@ constexpr int kKeyTile = 64;   // keys per pipeline stage
 // the two-stage pipeline.
 constexpr int kResidentBytes = 160000;
 
-// REL adds the decomposed rel-pos bias (K3, K4): each score becomes the
-// log2-domain logit s*scale*log2(e) + (rel_h + rel_w)*log2(e) as soon as it
-// leaves the tensor cores, and the softmax then runs with c = 1.
-template <int DP, bool REL>
+// What the scores gain: nothing (K1, K2), SAM's decomposed rel-pos bias (K3,
+// K4) or a full bias (K2b). With either bias each score becomes the
+// log2-domain logit s*scale*log2(e) + bias*log2(e) as soon as it leaves the
+// tensor cores, and the softmax then runs with c = 1.
+enum BiasMode { kNoBias, kRelBias, kFullBias };
+
+// A full additive score bias (K2b): bias[b, h, i, j] of query i and key j,
+// fp32 or bf16, read through its (batch, head, row) strides, 0 on an axis
+// it is broadcast over; the key axis is contiguous. When `grad` is set, the
+// dq kernel writes dS0, the bias's fp32 gradient, to it as a contiguous
+// [B, H, N, N].
+struct FullBias {
+  const void* p;  // nullptr: no full bias
+  long long sb, sh, sn;
+  int is_bf16;
+  float* grad;
+
+  __device__ __forceinline__ long long row(int b, int hd, int i) const {
+    return b * sb + hd * sh + static_cast<long long>(i) * sn;
+  }
+  __device__ __forceinline__ float at(long long off) const {
+    return is_bf16 ? __bfloat162float(__ldg(static_cast<const bf16*>(p) + off))
+                   : __ldg(static_cast<const float*>(p) + off);
+  }
+};
+
+// Raw scores q.k of one key tile (FR fragments of 8 keys from key0) ->
+// log2-domain logits s*sc + bias*log2(e), the bias read at `rows`, the
+// offsets of the lane's fragment rows g and g + 8; keys at or past N get
+// -inf, keys at or past n_real `masked`.
+template <int FR>
+__device__ __forceinline__ void full_logits(float (&s)[FR][4], const FullBias& fb,
+                                            const long long (&rows)[2], int key0, int t,
+                                            int N, int n_real, float sc, float masked) {
+#pragma unroll
+  for (int j = 0; j < FR; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = key0 + 8 * j + 2 * t + half;
+      if (col >= N) {
+        s[j][half] = s[j][2 + half] = -INFINITY;
+      } else if (col >= n_real) {
+        s[j][half] = s[j][2 + half] = masked;
+      } else {
+        s[j][half] = fmaf(s[j][half], sc, fb.at(rows[0] + col) * kLog2e);
+        s[j][2 + half] = fmaf(s[j][2 + half], sc, fb.at(rows[1] + col) * kLog2e);
+      }
+    }
+}
+
+// The full-bias row offsets of a lane's fragment rows `row` and row + 8;
+// rows past N read row N - 1 (their scores are never stored).
+__device__ __forceinline__ void full_bias_rows(long long (&rows)[2], const FullBias& fb, int b,
+                                               int hd, int row, int N) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) rows[i] = fb.row(b, hd, min(row + 8 * i, N - 1));
+}
+
+template <int DP, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    long long in_sb, long long in_sh, long long in_sn,
                    long long out_sb, long long out_sh, long long out_sn,
                    int N, int D, int n_real, float scale, int vec, int out_vec,
-                   int resident, RelPos rel) {
+                   int resident, RelPos rel, FullBias bias) {
+  constexpr bool REL = MODE == kRelBias;
+  constexpr bool FULL = MODE == kFullBias;
   constexpr int LD = DP + 8;       // 16-byte pad: conflict-free fragment loads
   // exp(s*scale - max) = 2^(s*c - max*log2 e): one FFMA and one ex2 per score
   const float sc = scale * kLog2e;
-  const float c = REL ? 1.f : sc;
-  // raw score that scales to -1e9 (REL: the logit itself)
-  const float masked_raw = REL ? kNegInf * kLog2e : kNegInf / sc;
+  const float c = MODE != kNoBias ? 1.f : sc;
+  // raw score that scales to -1e9 (with a bias: the logit itself)
+  const float masked_raw = MODE != kNoBias ? kNegInf * kLog2e : kNegInf / sc;
   constexpr int kSteps = DP / 16;  // k-steps of Q.K^T
   constexpr int kOutTiles = DP / 8;
   constexpr int kKeyFrags = kKeyTile / 8;
@@ -176,6 +249,8 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bool active = row0 < N;
   RelRows rr{};
   if (REL) rr = rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
+  long long brows[2] = {0, 0};
+  if (FULL) full_bias_rows(brows, bias, blockIdx.z, blockIdx.y, row0 + g, N);
   uint32_t qf[kSteps][4];
   // rows g and g+8: running max of s*c, then max + log2(sum); sum per lane
   float m[2] = {-INFINITY, -INFINITY};
@@ -208,6 +283,8 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       own_times_other_t<DP, LD, kKeyFrags>(s, qf, Kb, key0, N, lane);
       if (REL) {
         rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, rel.KW, rel.inv_kw);
+      } else if (FULL) {
+        full_logits(s, bias, brows, key0, t, N, n_real, sc, masked_raw);
       } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
 #pragma unroll
         for (int j = 0; j < kKeyFrags; ++j)
@@ -287,14 +364,15 @@ __device__ void load_rows_f32(float* dst, const float* src, long long sn, int ro
   }
 }
 
-// With rel.h set (K3, K4) each score gains rel_h[q, j / KW] + rel_w[q, j % KW].
+// With rel.h set (K3, K4) each score gains rel_h[q, j / KW] + rel_w[q, j % KW];
+// with fb.p set (K2b) it gains the full bias.
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
                   long long in_sb, long long in_sh, long long in_sn,
                   long long out_sb, long long out_sh, long long out_sn,
-                  int N, int D, int n_real, float scale, RelPos rel) {
+                  int N, int D, int n_real, float scale, RelPos rel, FullBias fb) {
   constexpr int LD = DP + kPadF;
   constexpr int kPer = kMaxN / 32;
   const int NP = (N + 15) & ~15;
@@ -334,6 +412,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = warp; r < kQTile; r += kWarps) {
     float* row = S + r * LDS;
     const RelRows rr = rel.h ? rel.rows(blockIdx.z, blockIdx.y, q0 + r, N) : RelRows{};
+    const long long brow = fb.p ? fb.row(blockIdx.z, blockIdx.y, min(q0 + r, N - 1)) : 0;
     float vals[kPer];
     float mx = -INFINITY;
 #pragma unroll
@@ -346,6 +425,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         col_split(c, rel.inv_kw, rel.KW, jh, jw);
         bias = rr.h[0][jh] + rr.w[0][jw];
       }
+      if (fb.p && c < N) bias = fb.at(brow + c);
       vals[i] = c >= N ? -INFINITY : (c < n_real ? row[c] * scale + bias : kNegInf);
       mx = fmaxf(mx, vals[i]);
     }
@@ -414,7 +494,7 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // the forward. A head whose rows do not fit in shared memory is walked in
 // chunks of whole 64-row tiles, loaded one after another.
 //
-// With the rel-pos bias (K3, K4; a template flag of both kernels) the
+// With the rel-pos bias (K3, K4; a template parameter of both kernels) the
 // scores become the forward's log2-domain logits, and the dq kernel, which
 // owns the query rows, also sums the fp32 dS0 = P * (dP - row) (unscaled)
 // into drel_h[i, kh] and drel_w[i, kw]: each warp writes its 16 x 64 dS0
@@ -426,6 +506,15 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // backward moves qkv, dout, dqkv (7*B'*N*C*2 B = 422 MB) and the fp32 rel
 // terms and their gradients (2*B'*N*H*28*4 B = 105 MB): 0.16 ms, bound by
 // bytes (the five products are 59 GFLOP = 0.06 ms).
+//
+// With the full bias (K2b) the scores become logits the same way, and the
+// dq kernel, which owns the query rows, writes each fp32 dS0 straight from
+// its fragments to dbias [B, H, N, N]: one owner an element, no atomics;
+// the wrapper sums it over the axes the bias was broadcast over. The dK/dV
+// kernel reads bias[qi, key] through L1, one load a score. At SAM-B's
+// windows with an fp32 bias a backward moves 422 MB of q, k, v, dout and
+// their gradients, and reads 369 MB of bias and writes 369 MB of dbias:
+// 0.346 ms, bound by bytes.
 //
 // Bound on one H100 SXM: at the ViT-B/16 shape (B=256, N=197, H=12, D=64,
 // bf16) the backward reads qkv and dout and writes dqkv, 7*B*N*C*2 B =
@@ -446,6 +535,7 @@ struct BwdArgs {
   cudaStream_t stream;
   RelPos rel;    // rel.h == nullptr: no rel-pos bias (K1, K2)
   RelGrad drel;  // K3, K4: written by the dq kernel
+  FullBias bias;  // bias.p == nullptr: no full bias; K2b's dbias in bias.grad
 };
 
 // The dq kernel's rel-pos scratch (K3, K4), per warp: the fp32 dS0 of one
@@ -454,15 +544,18 @@ struct BwdArgs {
 constexpr int kDsLD = kKeyTile + 1;
 __host__ __device__ inline int rel_ld(int KH, int KW) { return (KH + KW) | 1; }
 
-template <int DP, bool REL>
+template <int DP, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
+  constexpr bool REL = MODE == kRelBias;
+  constexpr bool FULL = MODE == kFullBias;
   constexpr int LD = DP + 8;
   constexpr int kFrags = kKeyTile / 8;
   const int N = a.N, D = a.D, n_real = a.n_real;
   const float sc = a.scale * kLog2e;
-  const float c = REL ? 1.f : sc;  // REL: the scores are log2-domain logits
-  const float masked_raw = REL ? kNegInf * kLog2e : kNegInf / sc;
+  // with a bias the scores are log2-domain logits
+  const float c = MODE != kNoBias ? 1.f : sc;
+  const float masked_raw = MODE != kNoBias ? kNegInf * kLog2e : kNegInf / sc;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32;
@@ -501,6 +594,10 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
     rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
     for (int i = lane; i < 16 * RL; i += 32) drel_s[i] = 0.f;
   }
+  long long brows[2] = {0, 0};
+  if (FULL) full_bias_rows(brows, a.bias, blockIdx.z, blockIdx.y, row0 + g, N);
+  // FULL: dS0 of this head's rows in dbias, or nullptr
+  float* dbias = FULL && a.bias.grad ? a.bias.grad + stat_off * N : nullptr;
 
   load_tile_bf16<DP, LD>(Qs, qh + q0 * a.in_sn, a.in_sn, rows, N - q0, D, a.vec);
   load_tile_bf16<DP, LD>(dOs, doh + q0 * a.do_sn, a.do_sn, rows, N - q0, D, a.do_vec);
@@ -537,6 +634,8 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
         own_times_other_t<DP, LD, kFrags>(dp, dof, Vs + (key0 - c0) * LD, key0, N, lane);
         if (REL) {
           rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, KW, a.rel.inv_kw);
+        } else if (FULL) {
+          full_logits(s, a.bias, brows, key0, t, N, n_real, sc, masked_raw);
         } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
 #pragma unroll
           for (int j = 0; j < kFrags; ++j)
@@ -574,8 +673,8 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
           }
           continue;
         }
-        // pass 1: dS0 = P * (dP - row) (REL: kept in fp32 for drel), dS =
-        // dS0 * scale in bf16, dQ += dS.K
+        // pass 1: dS0 = P * (dP - row) (REL: kept in fp32 for drel; FULL:
+        // written to dbias), dS = dS0 * scale in bf16, dQ += dS.K
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
@@ -583,6 +682,11 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
             const float ds0 =
                 exp2_approx(fmaf(s[j][e], c, -m[e >> 1])) * (dp[j][e] - rowsum[e >> 1]);
             if (REL) ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = ds0;
+            if (FULL && dbias) {
+              const int row = row0 + g + 8 * (e >> 1);
+              const int col = key0 + 8 * j + 2 * t + (e & 1);
+              if (row < N && col < N) dbias[static_cast<long long>(row) * N + col] = ds0;
+            }
             s[j][e] = ds0 * a.scale;
           }
         if (REL) {
@@ -651,9 +755,11 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
   }
 }
 
-template <int DP, bool REL>
+template <int DP, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
+  constexpr bool REL = MODE == kRelBias;
+  constexpr bool FULL = MODE == kFullBias;
   constexpr int LD = DP + 8;
   constexpr int kQTileB = DP <= 64 ? 64 : 32;  // queries per step (registers)
   constexpr int kFrags = kQTileB / 8;
@@ -698,6 +804,8 @@ attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
     for (int r = 0; r < 2; ++r)
       col_split(min(row0 + g + 8 * r, N - 1), a.rel.inv_kw, a.rel.KW, key_jh[r], key_jw[r]);
   }
+  // FULL: bias[qi, key] at bias_head + qi * bias.sn + key
+  const long long bias_head = FULL ? a.bias.row(blockIdx.z, blockIdx.y, 0) : 0;
 
   load_tile_bf16<DP, LD>(Ko, kh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
   load_tile_bf16<DP, LD>(Vo, vh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
@@ -744,10 +852,13 @@ attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
           // masked keys carry exp(-1e9 - max) = 0 in fp32, as on the TPU
           const bool valid = qi < N && key < n_real;
           const int ql = valid ? qi - c0 : 0;
-          float bias = 0.f;  // REL: (rel_h + rel_w) * log2(e) of (query qi, key)
+          // the bias of (query qi, key) times log2(e): REL rel_h + rel_w, FULL
+          // bias[qi, key]
+          float bias = 0.f;
           if (REL && valid)
             bias = (__ldg(relh + qi * a.rel.h_sn + key_jh[e >> 1]) +
                     __ldg(relw + qi * a.rel.w_sn + key_jw[e >> 1])) * kLog2e;
+          if (FULL && valid) bias = a.bias.at(bias_head + qi * a.bias.sn + key) * kLog2e;
           const float p = valid ? exp2_approx(fmaf(st[j][e], sc, bias - lse_s[ql])) : 0.f;
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - delta_s[ql]) * a.scale;
@@ -871,12 +982,15 @@ attention_bwd_dq_f32(BwdArgs a) {
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const bool rel = a.rel.h != nullptr;  // K3, K4
+  const bool rel = a.rel.h != nullptr;   // K3, K4
+  const bool full = a.bias.p != nullptr;  // K2b
+  const bool unscaled = rel || full;      // drel and dbias read dS0 before the scale
   const int KH = a.rel.KH, KW = a.rel.KW;
   for (int r = warp; r < kBwdRows; r += kWarps) {
     float* srow = S + r * LDS;
     const float* dprow = dP + r * LDS;
     const RelRows rr = rel ? a.rel.rows(blockIdx.z, blockIdx.y, q0 + r, N) : RelRows{};
+    const long long brow = full ? a.bias.row(blockIdx.z, blockIdx.y, min(q0 + r, N - 1)) : 0;
     float mx = -INFINITY;
     for (int c = lane; c < N; c += 32) {
       float bias = 0.f;
@@ -885,6 +999,7 @@ attention_bwd_dq_f32(BwdArgs a) {
         col_split(c, a.rel.inv_kw, KW, jh, jw);
         bias = rr.h[0][jh] + rr.w[0][jw];
       }
+      if (full) bias = a.bias.at(brow + c);
       srow[c] = c < n_real ? srow[c] * a.scale + bias : kNegInf;
       mx = fmaxf(mx, srow[c]);
     }
@@ -895,9 +1010,10 @@ attention_bwd_dq_f32(BwdArgs a) {
     float row = 0.f;
     for (int c = lane; c < N; c += 32) row += expf(srow[c] - lse) * dprow[c];
     row = warp_sum(row);
-    // dS0 = P * (dP - row), times the scale (rel: after drel has read it)
+    // dS0 = P * (dP - row), times the scale (rel, full: after drel or dbias
+    // has read it)
     for (int c = lane; c < NP; c += 32)
-      srow[c] = c < N ? expf(srow[c] - lse) * (dprow[c] - row) * (rel ? 1.f : a.scale) : 0.f;
+      srow[c] = c < N ? expf(srow[c] - lse) * (dprow[c] - row) * (unscaled ? 1.f : a.scale) : 0.f;
     if (lane == 0 && q0 + r < N) {
       a.lse[stat_off + q0 + r] = lse;
       a.delta[stat_off + q0 + r] = row;
@@ -919,8 +1035,13 @@ attention_bwd_dq_f32(BwdArgs a) {
         }
       }
       __syncwarp();
-      for (int c = lane; c < N; c += 32) srow[c] *= a.scale;
     }
+    if (full && a.bias.grad && q0 + r < N) {  // dbias = dS0
+      float* gb = a.bias.grad + (stat_off + q0 + r) * N;
+      for (int c = lane; c < N; c += 32) gb[c] = srow[c];
+    }
+    if (unscaled)
+      for (int c = lane; c < N; c += 32) srow[c] *= a.scale;
   }
 
   float acc[kBwdRows * DP / kThreads];
@@ -969,13 +1090,15 @@ attention_bwd_dkv_f32(BwdArgs a) {
     const int r = i / NP;
     const int c = i % NP;
     const bool valid = c < N && k0 + r < n_real;
-    float bias = 0.f;  // K3, K4: rel_h[c, jh(key)] + rel_w[c, jw(key)]
+    // K3, K4: rel_h[c, jh(key)] + rel_w[c, jw(key)]; K2b: bias[c, key]
+    float bias = 0.f;
     if (a.rel.h && valid) {
       int jh, jw;
       col_split(k0 + r, a.rel.inv_kw, a.rel.KW, jh, jw);
       const RelRows rr = a.rel.rows(blockIdx.z, blockIdx.y, c, N);
       bias = rr.h[0][jh] + rr.w[0][jw];
     }
+    if (a.bias.p && valid) bias = a.bias.at(a.bias.row(blockIdx.z, blockIdx.y, c) + k0 + r);
     const float p = valid ? expf(PT[r * LDS + c] * a.scale + bias - lse_s[c]) : 0.f;
     PT[r * LDS + c] = p;
     dST[r * LDS + c] = p * (dST[r * LDS + c] - delta_s[c]) * a.scale;
@@ -1000,7 +1123,8 @@ struct Args {
   float scale;
   int vec, out_vec;
   cudaStream_t stream;
-  RelPos rel;  // rel.h == nullptr: no rel-pos bias
+  RelPos rel;     // rel.h == nullptr: no rel-pos bias
+  FullBias bias;  // bias.p == nullptr: no full bias
 };
 
 template <int DP>
@@ -1015,7 +1139,9 @@ int launch_bf16(const Args& a) {
   const int resident = resident_bytes <= kResidentBytes;
   const size_t smem =
       resident ? resident_bytes : sizeof(bf16) * (16 * warps + 4 * kKeyTile) * LD;
-  auto kernel = a.rel.h ? attention_fwd_bf16<DP, true> : attention_fwd_bf16<DP, false>;
+  auto kernel = a.rel.h    ? attention_fwd_bf16<DP, kRelBias>
+                : a.bias.p ? attention_fwd_bf16<DP, kFullBias>
+                           : attention_fwd_bf16<DP, kNoBias>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1024,7 +1150,7 @@ int launch_bf16(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.in_sb, a.in_sh, a.in_sn,
       a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.vec, a.out_vec,
-      resident, a.rel);
+      resident, a.rel, a.bias);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1041,7 +1167,7 @@ int launch_f32(const Args& a) {
   kernel<<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.o), a.in_sb, a.in_sh, a.in_sn,
-      a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.rel);
+      a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.rel, a.bias);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1085,8 +1211,12 @@ int launch_bwd_bf16(const BwdArgs& a) {
     chunk_rows = static_cast<int>((kResidentBytes - own_bytes) / row_bytes) / kKeyTile * kKeyTile;
   const size_t smem = own_bytes + chunk_rows * row_bytes;
   const dim3 grid(blocks, a.H, a.B);
-  auto dq_kernel = rel ? attention_bwd_dq_bf16<DP, true> : attention_bwd_dq_bf16<DP, false>;
-  auto dkv_kernel = rel ? attention_bwd_dkv_bf16<DP, true> : attention_bwd_dkv_bf16<DP, false>;
+  auto dq_kernel = rel        ? attention_bwd_dq_bf16<DP, kRelBias>
+                   : a.bias.p ? attention_bwd_dq_bf16<DP, kFullBias>
+                              : attention_bwd_dq_bf16<DP, kNoBias>;
+  auto dkv_kernel = rel        ? attention_bwd_dkv_bf16<DP, kRelBias>
+                    : a.bias.p ? attention_bwd_dkv_bf16<DP, kFullBias>
+                               : attention_bwd_dkv_bf16<DP, kNoBias>;
   cudaError_t err = allow_smem(dq_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem(dkv_kernel, smem);
@@ -1135,7 +1265,7 @@ Args forward_args(const void* q, const void* k, const void* v, void* o, long lon
                       out_sb % 2 == 0 && out_sh % 2 == 0 && out_sn % 2 == 0;
   return Args{q,      k,     v,      o, in_sb, in_sh, in_sn,   out_sb, out_sh,
               out_sn, B,     H,      N, D,     n_real, scale, vec,    out_vec,
-              static_cast<cudaStream_t>(stream), RelPos{}};
+              static_cast<cudaStream_t>(stream), RelPos{}, FullBias{}};
 }
 
 bool bad_shape(int B, int H, int N, int D, int n_real) {
@@ -1162,7 +1292,7 @@ BwdArgs backward_args(const void* q, const void* k, const void* v, const void* d
                  lse + static_cast<long long>(B) * H * N,
                  in_sb, in_sh, in_sn, do_sb, do_sh,  do_sn,  out_sb, out_sh, out_sn,
                  B,     H,     N,     D,     n_real, scale,  vec,    do_vec, out_vec,
-                 static_cast<cudaStream_t>(stream), RelPos{}, RelGrad{}};
+                 static_cast<cudaStream_t>(stream), RelPos{}, RelGrad{}, FullBias{}};
 }
 
 // The dispatchers over every head dim and the C entry points; a source that
@@ -1235,6 +1365,24 @@ extern "C" int saicv_fused_attention_relpos_fwd(
   return launch_forward(a, is_bf16);
 }
 
+// The same forward with a full additive score bias (K2b): the score of
+// query i and key j of (batch b, head h) gains bias[b * b_sb + h * b_sh + i *
+// b_sn + j], fp32 (bias_bf16 = 0) or bf16 (1); a stride is 0 on an axis the
+// bias is broadcast over.
+extern "C" int saicv_fused_attention_bias_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* bias,
+    long long in_sb, long long in_sh, long long in_sn,
+    long long out_sb, long long out_sh, long long out_sn,
+    long long b_sb, long long b_sh, long long b_sn,
+    int B, int H, int N, int D, int n_real, float scale, int is_bf16, int bias_bf16,
+    void* stream) {
+  if (bad_shape(B, H, N, D, n_real) || !bias) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, B, H, N, D,
+                        n_real, scale, is_bf16, stream);
+  a.bias = FullBias{bias, b_sb, b_sh, b_sn, bias_bf16, nullptr};
+  return launch_forward(a, is_bf16);
+}
+
 // Backward of the same function: dq, dk, dv (one stride set, head dim
 // contiguous) from q, k, v (one stride set) and dout (its own strides).
 // `stats` is fp32 scratch of 2 * B * H * N elements. Two launches on
@@ -1278,6 +1426,26 @@ extern "C" int saicv_fused_attention_relpos_bwd(
                             is_bf16, stream);
   a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
   a.drel = RelGrad{drel_h, drel_w, dh_sb, dh_sh, dh_sn, dw_sb, dw_sh, dw_sn};
+  return launch_backward(a, is_bf16);
+}
+
+// Backward of the full-bias forward (K2b): as saicv_fused_attention_bwd,
+// and, unless dbias is null, dbias = dS0 = P * (dP - sum_k dP * P),
+// unscaled, fp32, a contiguous [B, H, N, N] whatever the bias's strides.
+extern "C" int saicv_fused_attention_bias_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    void* dq, void* dk, void* dv, void* stats, const void* bias, float* dbias,
+    long long in_sb, long long in_sh, long long in_sn,
+    long long do_sb, long long do_sh, long long do_sn,
+    long long out_sb, long long out_sh, long long out_sn,
+    long long b_sb, long long b_sh, long long b_sn,
+    int B, int H, int N, int D, int n_real, float scale, int is_bf16, int bias_bf16,
+    void* stream) {
+  if (bad_shape(B, H, N, D, n_real) || !bias) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a = backward_args(q, k, v, dout, dq, dk, dv, stats, in_sb, in_sh, in_sn, do_sb,
+                            do_sh, do_sn, out_sb, out_sh, out_sn, B, H, N, D, n_real, scale,
+                            is_bf16, stream);
+  a.bias = FullBias{bias, b_sb, b_sh, b_sn, bias_bf16, dbias};
   return launch_backward(a, is_bf16);
 }
 

@@ -19,7 +19,13 @@ of q, k, v with its own strides, forward and backward (masked keys get
 exactly zero dk and dv; the backward is the same bit for bit when run
 again); K1 with Hiera's ``sm_scale`` and K2 at Hiera's d = 56; K8 (the
 fused attention block) at d = 64 and 128, ragged N and N = 1024, forward and
-all seven gradients, reproducible bit for bit. Tolerances:
+all seven gradients, reproducible bit for bit; K9 (the packed [B, N, 3, H,
+D] qkv) at odd and even head dims, with a strided dout and unaligned
+tensors, bit for bit K1 at d = 64 and 128; K2b (the full score bias) with
+fp32 and bf16 biases broadcast from [1, H, N, N], [H, N, N] and [B, 1, 1,
+N], N up to 1024, dbias in the bias's shape and dtype (skipped when the
+bias needs no gradient), and the shapes, dtypes and layouts both refuse.
+Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
 terms) the same fractions of their largest value; LayerNorm y and dx
@@ -778,3 +784,197 @@ def test_vit_blocks_under_gradient_checkpoint(cuda):
         grads.append([p.grad for p in model.parameters()])
     for g, g2 in zip(*grads):
         assert torch.equal(g, g2)
+
+
+# -------------------------------------------------------------- K9, K2b
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,n,h,d,n_real", [
+    (2, 37, 4, 32, None), (2, 37, 4, 32, 30), (1, 16, 6, 16, None),
+    (2, 197, 12, 64, 150), (1, 257, 4, 80, None), (2, 50, 4, 35, None),
+    (1, 1024, 2, 128, 700), (3, 1, 2, 8, None),
+])
+def test_qkv_forward_and_backward(cuda, b, n, h, d, n_real, dtype):
+    """K9 against its plain version; masked keys get no gradient; a rerun
+    is the same bit for bit; at d = 64 and 128 it is K1 bit for bit."""
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(n * d + (n_real or 0))
+    qkv = _randn(gen, b, n, 3, h, d, dtype=dtype)
+    dout = _randn(gen, b, n, h, d, dtype=dtype)
+    counts = (fa.fused_attention_qkv.launches,
+              fa.fused_attention_qkv.backward_launches)
+    leaf = qkv.clone().requires_grad_()
+    out = fa.fused_attention_qkv(leaf, n_real)
+    (grad,) = torch.autograd.grad(out, leaf, dout, retain_graph=True)
+    (again,) = torch.autograd.grad(out, leaf, dout)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_qkv.launches,
+            fa.fused_attention_qkv.backward_launches) == (
+                counts[0] + 1, counts[1] + 2)
+    assert out.shape == (b, n, h, d) and grad.shape == qkv.shape
+    _close(out, fa.fused_attention_qkv_reference(qkv, n_real), dtype, "out")
+    _close(grad, fa.fused_attention_qkv_backward_reference(qkv, dout, n_real),
+           dtype, "dqkv")
+    assert torch.equal(grad, again)
+    if n_real is not None:      # masked keys: no dk, no dv
+        assert torch.count_nonzero(grad[:, n_real:, 1:]) == 0
+    if d in fa.DENSE_HEAD_DIMS:
+        dense = qkv.view(b, n, 3 * h * d).clone().requires_grad_()
+        out_dense = fa.fused_attention_dense(dense, h, n_real)
+        (grad_dense,) = torch.autograd.grad(out_dense, dense,
+                                            dout.view(b, n, h * d))
+        assert torch.equal(out.view(b, n, h * d), out_dense)
+        assert torch.equal(grad.view(b, n, 3 * h * d), grad_dense)
+
+
+def test_qkv_takes_a_strided_dout_and_unaligned_tensors(cuda):
+    """dout as a transposed view (head dim contiguous), and a qkv and dout
+    that start 2 bytes off a 16-byte boundary (element-wise loads)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    b, n, h, d = 2, 33, 2, 64
+    flat = _randn(gen, b * n * 3 * h * d + 1, dtype=torch.bfloat16)
+    qkv = flat[1:].view(b, n, 3, h, d)
+    assert qkv.data_ptr() % 16 == 2 and qkv.is_contiguous()
+    for dout in (_randn(gen, b, h, n, d, dtype=torch.bfloat16).transpose(1, 2),
+                 _randn(gen, b * n * h * d + 1,
+                        dtype=torch.bfloat16)[1:].view(b, n, h, d)):
+        leaf = qkv.clone().requires_grad_()
+        out = fa.fused_attention_qkv(leaf)
+        out.backward(dout)
+        _close(out, fa.fused_attention_qkv_reference(qkv), torch.bfloat16,
+               "out")
+        _close(leaf.grad, fa.fused_attention_qkv_backward_reference(
+            qkv, dout), torch.bfloat16, "dqkv")
+    unaligned = flat[1:].view(b, n, 3, h, d)
+    _close(fa.fused_attention_qkv(unaligned),
+           fa.fused_attention_qkv_reference(unaligned), torch.bfloat16,
+           "unaligned out")
+
+
+def _bias_shape(kind, b, h, n):
+    return {"full": (b, h, n, n), "heads": (1, h, n, n), "shared": (h, n, n),
+            "keys": (b, 1, 1, n)}[kind]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,n,d,n_real,kind,bias_dtype,packed", [
+    (2, 3, 20, 16, None, "full", "fp32", False),
+    (2, 3, 20, 16, 13, "shared", "fp32", False),
+    (2, 2, 196, 64, None, "full", "fp32", True),
+    (2, 2, 196, 64, 150, "heads", "bf16", True),
+    (1, 2, 257, 80, None, "full", "bf16", True),
+    (2, 2, 50, 35, None, "full", "fp32", False),
+    (1, 2, 1024, 128, 1000, "full", "fp32", False),
+    (2, 2, 64, 64, None, "keys", "fp32", False),
+    (1, 1, 1, 8, None, "full", "fp32", False),
+])
+def test_bias_forward_and_backward(cuda, b, h, n, d, n_real, kind, bias_dtype,
+                                   packed, dtype):
+    """K2b against its plain version, the bias of std 3 so that an error in
+    it shows in P; dbias in the bias's shape and dtype, 0 on masked keys;
+    masked keys get no dk, dv; a rerun is the same bit for bit; K2's
+    counters do not move."""
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(n * d + (n_real or 0))
+    if packed:
+        qkv = _randn(gen, b, n, 3 * h * d, dtype=dtype)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (_randn(gen, b, h, n, d, dtype=dtype) for _ in range(3))
+    bias = (3.0 * _randn(gen, *_bias_shape(kind, b, h, n),
+                         dtype=torch.float32)).to(DTYPES[bias_dtype])
+    dout = _randn(gen, b, n, h, d, dtype=dtype).transpose(1, 2)
+    k2 = (fa.fused_attention.launches, fa.fused_attention.backward_launches)
+    counts = (fa.fused_attention_bias.launches,
+              fa.fused_attention_bias.backward_launches)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = fa.fused_attention(*leaves[:3], n_real, bias=leaves[3])
+    grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_bias.launches,
+            fa.fused_attention_bias.backward_launches) == (
+                counts[0] + 1, counts[1] + 2)
+    assert (fa.fused_attention.launches,
+            fa.fused_attention.backward_launches) == k2
+    _close(out, fa.fused_attention_bias_reference(q, k, v, bias, n_real),
+           dtype, "out")
+    want = fa.fused_attention_bias_backward_reference(q, k, v, bias, dout,
+                                                      n_real)
+    for name, g, w, g2 in zip(("dq", "dk", "dv", "dbias"), grads, want,
+                              again):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        # a bf16 dbias: the fp32 dS0 sums rounded to bf16 on either side
+        _close(g, w, torch.bfloat16 if torch.bfloat16 in (dtype, w.dtype)
+               else dtype, name)
+        assert torch.equal(g, g2), f"{name} differs between two runs"
+    if n_real is not None:
+        assert torch.count_nonzero(grads[1][:, :, n_real:]) == 0
+        assert torch.count_nonzero(grads[2][:, :, n_real:]) == 0
+        assert torch.count_nonzero(grads[3][..., n_real:]) == 0
+
+
+def test_bias_without_a_gradient_skips_dbias(cuda):
+    """A bias that needs no gradient: the backward writes no dbias, and dq,
+    dk, dv are those of the run that writes it, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    b, h, n, d = 2, 2, 100, 64
+    q, k, v, dout = (_randn(gen, b, h, n, d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    bias = _randn(gen, b, h, n, n, dtype=torch.float32)
+    grads = []
+    for bias_grad in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        b_leaf = bias.clone().requires_grad_(bias_grad)
+        fa.fused_attention(*leaves, bias=b_leaf).backward(dout)
+        assert (b_leaf.grad is not None) == bias_grad
+        grads.append([t.grad for t in leaves])
+    for g0, g1 in zip(*grads):
+        assert torch.equal(g0, g1)
+
+
+def test_bias_takes_unaligned_tensors(cuda):
+    """q, k, v and a bf16 bias 2 bytes off a 16-byte boundary."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    b, h, n, d = 2, 2, 33, 64
+    flat = _randn(gen, 3 * b * h * n * d + 1, dtype=torch.bfloat16)
+    q, k, v = flat[1:].view(3, b, h, n, d).unbind(0)
+    bias = _randn(gen, b * h * n * n + 1, dtype=torch.bfloat16)[1:].view(
+        b, h, n, n)
+    assert q.data_ptr() % 16 == 2 and bias.data_ptr() % 16 == 2
+    dout = _randn(gen, b, h, n, d, dtype=torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+    out = fa.fused_attention(*leaves[:3], bias=leaves[3])
+    grads = torch.autograd.grad(out, leaves, dout)
+    _close(out, fa.fused_attention_bias_reference(q, k, v, bias),
+           torch.bfloat16, "out")
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), grads,
+                          fa.fused_attention_bias_backward_reference(
+                              q, k, v, bias, dout)):
+        _close(g, w, torch.bfloat16, name)
+
+
+def test_qkv_and_bias_refuse_what_they_cannot_take(cuda):
+    qkv = torch.zeros(2, 8, 3, 2, 64, device="cuda")
+    with pytest.raises(ValueError):          # not contiguous
+        fa.fused_attention_qkv(qkv.transpose(0, 1))
+    with pytest.raises(ValueError):          # D past 128
+        fa.fused_attention_qkv(torch.zeros(1, 8, 3, 1, 144, device="cuda"))
+    with pytest.raises(ValueError):          # N past 1024
+        fa.fused_attention_qkv(torch.zeros(1, 1025, 3, 1, 64, device="cuda"))
+    with pytest.raises(TypeError):
+        fa.fused_attention_qkv(qkv.half())
+    q = torch.zeros(1, 2, 8, 64, device="cuda")
+    bias = torch.zeros(1, 2, 8, 8, device="cuda")
+    with pytest.raises(TypeError):           # fp32 or bf16 only
+        fa.fused_attention(q, q, q, bias=bias.half())
+    with pytest.raises(ValueError):          # the key axis broadcast
+        fa.fused_attention(q, q, q, bias=bias[..., :1])
+    with pytest.raises(ValueError):          # the key axis strided
+        fa.fused_attention(q, q, q, bias=bias.transpose(2, 3))
+    with pytest.raises(ValueError):          # on another device
+        fa.fused_attention(q, q, q, bias=bias.cpu())
+    q = torch.zeros(1, 2, 8, 144, device="cuda")
+    with pytest.raises(ValueError):          # D past 128
+        fa.fused_attention(q, q, q, bias=bias)
