@@ -194,14 +194,17 @@ the plain version) and its dbias, summed by key-grid row and column, K3's
 drel_h and drel_w within a relative L2 distance of 1e-4.
 
 K6's backward vs its plain version at the SAM2 train step's shapes (the
-memory cross-attention with frame 7's bias, the self-attention, the Hiera
-global blocks of 4 frames at d = 64 with the 56-wide scale and at d = 56;
-fp32 at the self-attention): each of dq, dk and dv by the forward's
-reading (``key_bias_reading``, against the plain backward's fp32
-computation of the same inputs), masked keys' dk and dv exactly 0, in
-bf16 the keys' sum of dk (0 but for rounding, since each row of dS0 sums
-to 0; over the keys' sum of |dk|) at most 1.25 times the plain version's,
-and a control that masks 64 more valid keys and must fail the reading. SAM2
+memory cross-attention with frame 7's bias and with frames 1-3's, whose
+empty slots the bf16 backward skips, the self-attention, the Hiera global
+blocks of 4 frames at d = 64 with the 56-wide scale and at d = 56; fp32 at
+the self-attention): each of dq, dk and dv by the forward's reading
+(``key_bias_reading``, against the plain backward's fp32 computation of
+the same inputs), masked keys' dk and dv exactly 0, in bf16 the keys' sum
+of dk (0 but for rounding, since each row of dS0 sums to 0; over the
+keys' sum of |dk|) at most 1.25 times the plain version's, two runs of the
+backward equal bit for bit, and a control that masks 64 more valid keys
+and must fail the reading. The bf16 backward's kernels must show HGMMA
+(``wgmma``) in the SASS of the built library. SAM2
 training: the train CLI's loss finite on every step and its last epoch's
 mean below its first's, K1 36 / 18 and K6 62 / 59 forward / backward
 launches a step at 8 frames (30 / 27 at 4); SAM2 gradients (one bf16
@@ -1104,6 +1107,58 @@ def key_bias_backward_bound(b, h, nq, n_keys, n_valid, d, dtype_name,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+K6_BWD_KERNELS = ("flash_keybias_bwd_delta", "flash_keybias_bwd_dq",
+                  "flash_keybias_bwd_dkv", "flash_keybias_bwd_reduce")
+
+
+def hgmma_counts(library):
+    """{kernel: HGMMA instructions} in the SASS of a built library, by
+    ``cuobjdump -sass`` from the CUDA toolkit that built it."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        build)
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
+
+
+def kernel_split_ms(torch, fn, names, iters=3):
+    """{name: (device ms a call of fn, launches a call)} of the kernels named
+    in ``names``, from torch.profiler over ``iters`` calls, each
+    synchronised, after a warm-up step that the profiler records and drops
+    (without it the first call's first kernels can go unrecorded)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=iters,
+                                       repeat=1)
+    with torch.profiler.profile(activities=activities,
+                                schedule=schedule) as prof:
+        for _ in range(1 + iters):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    split = {n: [0.0, 0] for n in names}
+    for event in prof.key_averages():
+        found = re.search(r"\b(\w+)(<[^>]*>)?\(", event.key)
+        if found and found.group(1) in split:
+            us = getattr(event, "device_time_total", None)
+            if us is None:
+                us = event.cuda_time_total
+            split[found.group(1)][0] += us / 1e3 / iters
+            split[found.group(1)][1] += event.count / iters
+    return {n: (ms, launches) for n, (ms, launches) in split.items()}
+
+
 def check_key_bias_backward_kernel(torch, F, case, results):
     """Hold K6's backward against its plain version at one shape with a
     seeded dout (a transposed view, as autograd hands it through the
@@ -1115,7 +1170,9 @@ def check_key_bias_backward_kernel(torch, F, case, results):
     norm over the keys' sum of |dk| at most K6_FLOOR_RATIO times the plain
     version's; a control runs forward and backward with the first
     K6_CONTROL_KEYS valid keys masked too, which must fail the same
-    reading. Time the backward alone (the
+    reading; in bf16 a second run of the backward must equal the first bit
+    for bit, and the record takes each of the backward's kernels' device ms
+    (``kernel_split_ms``). Time the backward alone (the
     forward run once, outside the timed loop), the plain backward and
     SDPA's backward with the bias as a [B, 1, 1, Nk] mask (a yardstick,
     never used by the port), and the forward at the same shape with a
@@ -1140,6 +1197,7 @@ def check_key_bias_backward_kernel(torch, F, case, results):
     got = kernel()
     torch.cuda.synchronize()
     launched = fl.flash_attention.backward_launches - before
+    reproducible = all(torch.equal(x, y) for x, y in zip(got, kernel()))
     control = torch.autograd.grad(fl.flash_attention(*leaves, dropped, scale),
                                   leaves, dout)
     with torch.no_grad():
@@ -1179,6 +1237,7 @@ def check_key_bias_backward_kernel(torch, F, case, results):
                                  for g, r in zip(got, ref)),
               "readings": readings, "control": control_readings,
               "masked_keys_zero": masked_zero, "launches": launched,
+              "reproducible": reproducible,
               "finite": all(bool(torch.isfinite(g).all()) for g in got)}
     del ref, exact, control, out_exact
     lib_leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -1207,13 +1266,20 @@ def check_key_bias_backward_kernel(torch, F, case, results):
             iters=10 if fast else 2, warmup=2 if fast else 1)
     record["fwd_bound_ms"], _ = key_bias_attention_bound(
         b, h, nq, nk, n_valid, d, record["dtype"], q.element_size())
+    if fast:    # the bf16 backward's kernels, device ms and launches a call
+        record["split_ms"] = {
+            name.replace("flash_keybias_bwd_", ""): value
+            for name, value in kernel_split_ms(torch, kernel,
+                                               K6_BWD_KERNELS).items()}
     log(f"K6 bwd {case['label']}", **record)
     del out, lib_out, got
-    if not (record["finite"] and all(oks) and masked_zero and launched == 1):
+    if not (record["finite"] and all(oks) and masked_zero and launched == 1
+            and reproducible):
         raise AssertionError(f"K6 bwd {case['label']}: gradients off the "
                              f"plain version's floor ({readings}), masked "
                              f"keys with a gradient ({not masked_zero}), "
-                             f"{launched} launches or non-finite")
+                             f"{launched} launches, not reproducible "
+                             f"({not reproducible}) or non-finite")
     if all(control_oks):
         raise AssertionError(f"K6 bwd {case['label']}: masking "
                              f"{K6_CONTROL_KEYS} more keys passes the check "
@@ -2814,11 +2880,14 @@ def sam2_training_slice(torch, fa, ln, results):
     #     stage-2 config's settings), with the kernels and with plain
     #     attention; frames/s, peak memory and the share of the bf16 peak
     # K6's backward a step: 4 memory layers' cross- and self-attention on
-    # each tracked frame (timed at frame 7's bias; masked keys take the
-    # same time) and the 3 global blocks of the 4 frames
-    k6_bwd = [r["ms"] for r in results["K6 bwd"][:3]]
-    k6_bwd_ms = (4 * (SAM2_STEP_FRAMES - 1) * (k6_bwd[0] + k6_bwd[1])
-                 + 3 * k6_bwd[2])
+    # each tracked frame t (the cross-attention timed at frame t's own
+    # bias: t valid slots and pointers, the rest skipped) and the 3 global
+    # blocks of the 4 frames
+    k6_bwd = {r["case"]: r["ms"] for r in results["K6 bwd"]}
+    k6_bwd_ms = (sum(4 * (k6_bwd[f"sam2_memory_cross_frame{t}"]
+                          + k6_bwd["sam2_memory_self"])
+                     for t in range(1, SAM2_STEP_FRAMES))
+                 + 3 * k6_bwd["hiera_global"])
     reset_counts(fa, ln)
     first = train_step(batch4, 0)
     torch.cuda.synchronize()
@@ -2969,6 +3038,14 @@ def main():
         kernels_compiled=len(ptxas),
         max_registers=max((int(l.split("Used ")[1].split()[0])
                            for l in ptxas), default="cached"))
+    # K6's bf16 backward runs its products on wgmma: HGMMA in each of its
+    # three walks' kernels, at every head dim
+    hgmma = {name: n for name, n in hgmma_counts(
+        build.library_path("flash_keybias_bwd")).items()
+        if any(k in name for k in K6_BWD_KERNELS[:3])}
+    log("sass flash_keybias_bwd", hgmma=hgmma)
+    if len(hgmma) != 9 or not all(hgmma.values()):
+        raise AssertionError(f"K6 backward kernels without HGMMA: {hgmma}")
 
     # 3. each kernel against its plain version at the main paths' shapes
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -3088,11 +3165,16 @@ def main():
                  dtype=fp32, seed=57, layout="packed", sm_scale=hiera)):
         check_key_bias_kernel(torch, F, case, results)
     # K6's backward at the SAM2 train step's shapes: the memory attention
-    # (frame 7's bias) and the Hiera global blocks of a 4-frame clip
+    # (frame 7's bias, and those of the 4-frame recipe's tracked frames
+    # 1-3: t valid slots and t pointers) and the Hiera global blocks of a
+    # 4-frame clip
     hiera4 = (SAM2_STEP_FRAMES, 8, 4096, 4096)
     for case in (
             dict(label="sam2_memory_cross_frame7", shape=cross, dtype=bf16,
                  seed=60, layout="memory", bias=memory_bias(7, 8)),
+            *(dict(label=f"sam2_memory_cross_frame{t}", shape=cross,
+                   dtype=bf16, seed=64 + t, layout="memory",
+                   bias=memory_bias(t, t)) for t in (1, 2, 3)),
             dict(label="sam2_memory_self", shape=self_shape, dtype=bf16,
                  seed=61, layout="memory"),
             dict(label="hiera_global", shape=(*hiera4, 64), dtype=bf16,
@@ -3840,7 +3922,7 @@ def main():
               sam_train_counts["K5 bwd"]),
         entry("K6", "K6 flash_attention fwd", "flash_attention.cu",
               "flash_attention.py:113", sam2_counts["K6"]),
-        entry("K6 bwd", "K6 flash_attention bwd", "flash_attention.cu",
+        entry("K6 bwd", "K6 flash_attention bwd", "flash_keybias_bwd.cu",
               "flash_attention.py:206", sam2_train_counts["K6 bwd"]),
         entry("K8", "K8 attn_block fwd", "attn_block.cu",
               "attn_block.py:272", block_train_counts["K8"]),

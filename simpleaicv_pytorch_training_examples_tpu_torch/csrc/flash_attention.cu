@@ -57,8 +57,8 @@
 // are read once a tile. D = 56 (Hiera) runs as 64 with the pad columns
 // zero-filled in shared memory, exact as the TPU wrapper's zero pad; D =
 // 256 (SAM2's memory attention) takes the 128-column chunks above. Writes
-// the fp32 log-sum-exp for the backward, whose two kernels are K5's
-// backward bodies with the same flag off (their notes are further down).
+// the fp32 log-sum-exp for the backward (bf16: flash_keybias_bwd.cu; fp32:
+// K5's fp32 backward bodies with the same flag off, further down).
 // With a gradient to come (p_residual), P.V also multiplies P's bf16
 // residual (P - bf16(P)), one more product a key tile, so that the output
 // carries P at fp32 precision: with P rounded to bf16, the TPU kernel's
@@ -298,7 +298,8 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs 
 
 // ------------------------------------------------------- bf16 backward
 //
-// Two kernels, no atomics, every output element written by one thread in a
+// K5's backward (K6's bf16 backward is flash_keybias_bwd.cu). Two kernels,
+// no atomics, every output element written by one thread in a
 // fixed order (reproducible bit for bit). Both recompute P = exp(s - lse)
 // from the forward's log-sum-exp; delta = rowsum(dO * O) comes from the
 // wrapper (one torch op, as the JAX package computes it outside its kernel).
@@ -322,8 +323,8 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs 
 // device memory: 22 ms a launch instead of ~5); other KW read them through
 // L1.
 // dS0 is rounded to bf16 before the products and the scale applied after,
-// as the TPU kernel does (K6 carries it at fp32 precision, see its notes
-// below). Head dims above 128 run in 128-column output
+// as the TPU kernel does (K6 carries it at fp32 precision, see
+// flash_keybias_bwd.cu). Head dims above 128 run in 128-column output
 // chunks that each recompute the scores over the whole head dim; there the
 // block's own fragments (K and V, or Q and dO) are read again from shared
 // memory for each product instead of being held in registers, which would
@@ -335,49 +336,19 @@ __global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs 
 // statistics = 0.31 GB = 0.09 ms: bound by operations. The two kernels
 // compute seven products (S and dP in each).
 //
-// The same bodies with the rel-pos flag off are K6's backward, replacing
-// the TPU kernel _bwd_fused_kernel of ops/pallas/flash_attention.py (via
-// _flash_backward): q and dO [B, H, Nq, D], k and v [B, H, Nk, D], each
-// with its own strides, and the key bias [B, Nk] of the forward. The dK/dV
-// grid runs over the Nk keys and walks the Nq queries, the dQ grid the
-// other way round; keys past Nk get P = 0 and no dK/dV row is written past
-// Nk. A key whose bias is -1e9 gets P = 0 exactly, so its dK and dV are 0.
-// The bias itself gets no gradient (it marks slot validity).
-// Each row of dS0 = P * (dP - delta) sums to 0 when delta = rowsum(P * dP)
-// in the backward's own P and dP. Where the keys are rotated after a
-// projection with a bias (RoPE in SAM2's memory attention), that bias's
-// gradient, the sum over the keys of the rotated dK rows, is a residue of
-// this cancellation, as exact as the rows sum to 0. The TPU kernel takes
-// delta = rowsum(dO * O) from the output in the input dtype and rounds dS0
-// to it; even from an fp32 O (P.V with P at fp32 precision), delta was
-// 1.7e-5 off at SAM2's memory self-attention, which put that sum 12x as far
-// from its float64 value as the plain path's, and the memory attention's
-// key biases off the plain path's floor in chip_smoke.py's SAM2 gradient
-// check. So in bf16 K6's dQ kernel first walks the keys once for delta =
-// rowsum(P * dP) / rowsum(P) (S and dP, no output; the division cancels
-// the rounding of the log-sum-exp), which the dK/dV kernel, launched after
-// it, reads; and both kernels also multiply dS0's bf16 residual (dS0 -
-// bf16(dS0)), so that dK and dQ carry dS0 at fp32 precision. The dK/dV
-// kernel computes S, dP, dV, dK and the residual's product; the dQ kernel
-// S and dP twice, dQ and the residual's. fp32 K6 takes delta from its fp32
-// output.
-// At SAM2's memory cross-attention (B = H = 1, Nq = 4096, Nk = 28,736, D =
-// 256) the five products are 10*Nq*Nk*D = 301 GFLOP = 0.30 ms of
-// tensor-core time against ~67 MB of q, k, v, dO and the gradients = 0.02
-// ms: bound by operations. The chunked route computes S and dP once per
-// chunk in the dK/dV kernel and twice in the dQ kernel; the dQ grid is 64
-// query tiles x 2 chunks = 128 blocks, each walking all 28,736 keys twice.
+// K6's fp32 backward (off the main path) is the fp32 pair further down
+// with the rel-pos flag off; it takes delta = rowsum(dO * O) from its fp32
+// output through the wrapper.
 
 struct FlashBwdArgs {
   const void *q, *k, *v, *dout;
   void *dq, *dk, *dv;
   const float *lse, *delta;  // [B * H, Nq] each; lse in natural log
-  float* delta_out;          // bf16 K6: delta, written by the dQ kernel
   Strides qs, ks, vs, dos;   // the inputs
   Strides dqs, dkvs;         // dq; dk and dv (one set)
   RelPos rel;                // kRel (K5): Nq = Nk
   RelGrad drel;
-  const float* kbias;  // !kRel (K6): the key bias [B, Nk] or nullptr
+  const float* kbias;  // fp32 K6: the key bias [B, Nk] or nullptr
   long long kbias_sb;
   int B, H, Nq, Nk, D;
   float scale;
@@ -388,7 +359,7 @@ struct FlashBwdArgs {
 
 constexpr int kDsLD = kTile + 1;  // row stride of a warp's fp32 dS0 tile
 
-template <int DQ, int DV, bool kRel>
+template <int DQ, int DV>
 __device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
   constexpr int LDQ = DQ + 8;
   constexpr int QT = DQ <= 64 ? 64 : 32;  // queries a step (registers)
@@ -420,27 +391,18 @@ __device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
   const bf16* qh = static_cast<const bf16*>(a.q) + bz * a.qs.b + hy * a.qs.h;
   const bf16* doh = static_cast<const bf16*>(a.dout) + bz * a.dos.b + hy * a.dos.h;
   const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
-  const int KW = kRel ? a.rel.KW : kTile + 1;
-  const bool grid_row = kRel && KW == kTile;  // the block's 64 keys: one key-grid row
-  const int key_jh = kRel ? k0 / KW : 0;
-  const float* relh = kRel ? a.rel.h + bz * a.rel.h_sb + hy * a.rel.h_sh : nullptr;
-  const float* relw = kRel ? a.rel.w + bz * a.rel.w_sb + hy * a.rel.w_sh : nullptr;
+  const int KW = a.rel.KW;
+  const bool grid_row = KW == kTile;  // the block's 64 keys: one key-grid row
+  const int key_jh = k0 / KW;
+  const float* relh = a.rel.h + bz * a.rel.h_sb + hy * a.rel.h_sh;
+  const float* relw = a.rel.w + bz * a.rel.w_sb + hy * a.rel.w_sh;
 
   const int row0 = k0 + 16 * warp;  // this warp's first key row
   const bool active = row0 < Nk;
-  int jh[2] = {0, 0}, jw[2] = {0, 0};  // K5: key-grid row and column of the lane's two keys
-  float kb[2] = {0.f, 0.f};            // K6: their bias * log2(e), -inf past Nk
+  int jh[2], jw[2];  // key-grid row and column of the lane's two keys
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = row0 + g + 8 * r;
-    if constexpr (kRel) {
-      col_split(min(key, Nk - 1), a.rel.inv_kw, KW, jh[r], jw[r]);
-    } else {
-      kb[r] = key >= Nk  ? -INFINITY
-              : a.kbias ? __ldg(a.kbias + bz * a.kbias_sb + key) * kLog2e
-                        : 0.f;
-    }
-  }
+  for (int r = 0; r < 2; ++r)
+    col_split(min(row0 + g + 8 * r, Nk - 1), a.rel.inv_kw, KW, jh[r], jw[r]);
 
   const int qtiles = (Nq + QT - 1) / QT;
   auto issue = [&](int tile) {
@@ -524,19 +486,15 @@ __device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
           const int ql = 8 * j + 2 * t + (e & 1);
           const int qi = qt + ql;
           const int r = e >> 1;
-          float logit;  // log2-domain exponent of P
-          if constexpr (kRel) {
-            float bias;  // rel_h + rel_w of (query qi, this key)
-            if (grid_row) {
-              bias = relh_s[buf * QT + ql] + relw_s[(buf * QT + ql) * LDW + jw[r]];
-            } else {
-              const int qc = min(qi, Nq - 1);
-              bias = __ldg(relh + qc * a.rel.h_sn + jh[r]) + __ldg(relw + qc * a.rel.w_sn + jw[r]);
-            }
-            logit = fmaf(st[j][e], sc, (bias - lse_s[buf * QT + ql]) * kLog2e);
+          float bias;  // rel_h + rel_w of (query qi, this key)
+          if (grid_row) {
+            bias = relh_s[buf * QT + ql] + relw_s[(buf * QT + ql) * LDW + jw[r]];
           } else {
-            logit = fmaf(st[j][e], sc, kb[r] - lse_s[buf * QT + ql] * kLog2e);
+            const int qc = min(qi, Nq - 1);
+            bias = __ldg(relh + qc * a.rel.h_sn + jh[r]) + __ldg(relw + qc * a.rel.w_sn + jw[r]);
           }
+          // log2-domain exponent of P
+          const float logit = fmaf(st[j][e], sc, (bias - lse_s[buf * QT + ql]) * kLog2e);
           const float p = qi < Nq ? exp2_approx(logit) : 0.f;
           st[j][e] = p;
           dpt[j][e] = p * (dpt[j][e] - delta_s[buf * QT + ql]);
@@ -554,12 +512,6 @@ __device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
         const uint32_t df[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]),
                                 pack_bf16(d1[0], d1[1]), pack_bf16(d1[2], d1[3])};
         accumulate_ax<DV, LDQ>(dk, df, Qb + 16 * kk * LDQ + dv0, lane);
-        if constexpr (!kRel) {  // K6: dS0's bf16 residual too
-          const uint32_t dr[4] = {
-              pack_bf16_residual(d0[0], d0[1]), pack_bf16_residual(d0[2], d0[3]),
-              pack_bf16_residual(d1[0], d1[1]), pack_bf16_residual(d1[2], d1[3])};
-          accumulate_ax<DV, LDQ>(dk, dr, Qb + 16 * kk * LDQ + dv0, lane);
-        }
       }
     }
     __syncthreads();  // this tile's buffers are free for tile + 2
@@ -577,7 +529,7 @@ __device__ __forceinline__ void flash_bwd_dkv_bf16(const FlashBwdArgs& a) {
                       a.out_vec);
 }
 
-template <int DQ, int DV, bool kRel>
+template <int DQ, int DV>
 __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
   constexpr int LDQ = DQ + 8;
   constexpr int kFrags = kTile / 8;
@@ -606,12 +558,8 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
   const long long stat_off = (static_cast<long long>(bz) * a.H + hy) * Nq;
 
   const int tiles = (Nk + kTile - 1) / kTile;
-  // K6 walks the keys twice: first for delta, then for dQ; the two shared-
-  // memory buffers alternate by step
-  const int steps = kRel ? tiles : 2 * tiles;
-  auto issue = [&](int step) {
-    const int buf = step & 1;
-    const int tile = step < tiles ? step : step - tiles;
+  auto issue = [&](int tile) {
+    const int buf = tile & 1;
     const long long key0 = static_cast<long long>(tile) * kTile;
     load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + key0 * a.ks.n, a.ks.n, kTile,
                             Nk - tile * kTile, a.D, a.k_vec);
@@ -629,19 +577,16 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
 
   const int row0 = q0 + 16 * warp;
   const bool active = row0 < Nq;
-  const bool drel = kRel && chunk == 0;  // one chunk writes drel
-  RelRows rr{};
-  if constexpr (kRel) rr = a.rel.rows(bz, hy, row0 + g, Nq);
-  const int KW = kRel ? a.rel.KW : kTile + 1;
-  const bool grid_row = kRel && KW == kTile;  // each key tile: one key-grid row
-  const float* kbias = !kRel && a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
+  const bool drel = chunk == 0;  // one chunk writes drel
+  const RelRows rr = a.rel.rows(bz, hy, row0 + g, Nq);
+  const int KW = a.rel.KW;
+  const bool grid_row = KW == kTile;  // each key tile: one key-grid row
   float lse2[2], delta[2];
-  float psum[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};  // K6: rowsum(P), rowsum(P * dP)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = min(row0 + g + 8 * r, Nq - 1);
     lse2[r] = a.lse[stat_off + row] * kLog2e;
-    delta[r] = kRel ? a.delta[stat_off + row] : 0.f;
+    delta[r] = a.delta[stat_off + row];
   }
   float rwc[2][kFrags][2], rw_acc[2][kFrags][2];  // KW = 64: rel_w * log2(e), drel_w
   if (grid_row) {
@@ -662,23 +607,21 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
 #pragma unroll
   for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps) issue(step + 1);
+  for (int tile = 0; tile < tiles; ++tile) {
+    if (tile + 1 < tiles) issue(tile + 1);
     cp_async_commit();
     cp_async_wait_one();
     __syncthreads();
     if constexpr (!kReload) {
-      if (step == 0 && active) {
+      if (tile == 0 && active) {
         load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
         load_a_frags<DQ, LDQ>(dof, dOs + 16 * warp * LDQ, g, t);
       }
     }
-    const bool delta_walk = !kRel && step < tiles;
-    const int tile = step < tiles ? step : step - tiles;
     if (active) {
       const int key0 = tile * kTile;
-      const bf16* Kb = Ks + (step & 1) * kTile * LDQ;
-      const bf16* Vb = Vs + (step & 1) * kTile * LDQ;
+      const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
+      const bf16* Vb = Vs + (tile & 1) * kTile * LDQ;
       float s[kFrags][4], dp[kFrags][4];
       if constexpr (kReload) {
         load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
@@ -690,19 +633,7 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
         own_times_other_t<DQ, LDQ, kFrags>(dp, dof, Vb, key0, Nk, lane);
       }
       const int tile_jh = key0 / KW;
-      if constexpr (!kRel) {
-        // K6: the key's bias, read once a tile for the lane's 16 keys; keys
-        // past Nk (the ragged last tile) get -inf
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int col = key0 + 8 * j + 2 * t + h2;
-            const float b = col >= Nk ? -INFINITY : kbias ? __ldg(kbias + col) * kLog2e : 0.f;
-            s[j][h2] = fmaf(s[j][h2], sc, b);
-            s[j][2 + h2] = fmaf(s[j][2 + h2], sc, b);
-          }
-      } else if (grid_row) {  // N is a multiple of 64 here: no key past N
+      if (grid_row) {  // N is a multiple of 64 here: no key past N
         const float bh[2] = {__ldg(rr.h[0] + tile_jh) * kLog2e,
                              __ldg(rr.h[1] + tile_jh) * kLog2e};
 #pragma unroll
@@ -713,104 +644,73 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
       } else {
         rel_logits(s, rr, key0, t, Nk, Nk, sc, -INFINITY, KW, a.rel.inv_kw);
       }
-      if (delta_walk) {
-        // K6's first walk: the lane's terms of rowsum(P) and rowsum(P * dP)
+      // dS0 = P * (dP - delta), P = 2^(logit - lse * log2(e))
+#pragma unroll
+      for (int j = 0; j < kFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] = exp2_approx(s[j][e] - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
+      if (drel && grid_row) {
+        float hsum[2] = {0.f, 0.f};
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float p = exp2_approx(s[j][e] - lse2[e >> 1]);
-            psum[e >> 1] += p;
-            pdp[e >> 1] += p * dp[j][e];
+            hsum[e >> 1] += s[j][e];
+            rw_acc[e >> 1][j][e & 1] += s[j][e];
           }
-        if (tile == tiles - 1) {
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-#pragma unroll
-            for (int x = 1; x < 4; x <<= 1) {
-              psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], x);
-              pdp[r] += __shfl_xor_sync(0xffffffffu, pdp[r], x);
-            }
-            delta[r] = pdp[r] / psum[r];
-            const int row = row0 + g + 8 * r;
-            if (chunk == 0 && t == 0 && row < Nq) a.delta_out[stat_off + row] = delta[r];
-          }
+        for (int r = 0; r < 2; ++r) {
+          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 1);
+          hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 2);
+          const int row = row0 + g + 8 * r;
+          if (t == 0 && row < Nq) a.drel.h_row(bz, hy, row)[tile_jh] = hsum[r];
         }
-      } else {
-        // dS0 = P * (dP - delta), P = 2^(logit - lse * log2(e))
+      } else if (drel) {
 #pragma unroll
         for (int j = 0; j < kFrags; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            s[j][e] = exp2_approx(s[j][e] - lse2[e >> 1]) * (dp[j][e] - delta[e >> 1]);
-        if (drel && grid_row) {
-          float hsum[2] = {0.f, 0.f};
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              hsum[e >> 1] += s[j][e];
-              rw_acc[e >> 1][j][e & 1] += s[j][e];
-            }
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 1);
-            hsum[r] += __shfl_xor_sync(0xffffffffu, hsum[r], 2);
-            const int row = row0 + g + 8 * r;
-            if (t == 0 && row < Nq) a.drel.h_row(bz, hy, row)[tile_jh] = hsum[r];
-          }
-        } else if (drel) {
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = s[j][e];
-          __syncwarp();
-          const int r = lane & 15;
-          const int row = row0 + r;
-          if (row < Nq) {
-            float* h_row = a.drel.h_row(bz, hy, row);
-            float* w_row = a.drel.w_row(bz, hy, row);
-            const int cols = min(kTile, Nk - key0);
-            int run_jh = -1;
-            float run = 0.f;
-            for (int jj = 0; jj < cols; ++jj) {
-              int jh, jw;
-              col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
-              const float x = ds_w[r * kDsLD + jj];
-              if (lane >= 16) {
-                w_row[jw] += x;
-              } else {
-                if (jh != run_jh) {
-                  if (run_jh >= 0) h_row[run_jh] += run;
-                  run_jh = jh;
-                  run = 0.f;
-                }
-                run += x;
+            ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = s[j][e];
+        __syncwarp();
+        const int r = lane & 15;
+        const int row = row0 + r;
+        if (row < Nq) {
+          float* h_row = a.drel.h_row(bz, hy, row);
+          float* w_row = a.drel.w_row(bz, hy, row);
+          const int cols = min(kTile, Nk - key0);
+          int run_jh = -1;
+          float run = 0.f;
+          for (int jj = 0; jj < cols; ++jj) {
+            int jh, jw;
+            col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
+            const float x = ds_w[r * kDsLD + jj];
+            if (lane >= 16) {
+              w_row[jw] += x;
+            } else {
+              if (jh != run_jh) {
+                if (run_jh >= 0) h_row[run_jh] += run;
+                run_jh = jh;
+                run = 0.f;
               }
+              run += x;
             }
-            if (lane < 16 && run_jh >= 0) h_row[run_jh] += run;
           }
-          __syncwarp();
+          if (lane < 16 && run_jh >= 0) h_row[run_jh] += run;
         }
+        __syncwarp();
+      }
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
-          if (key0 + 16 * kk >= Nk) break;
-          const float* s0 = s[2 * kk];
-          const float* s1 = s[2 * kk + 1];
-          const uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                                  pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-          accumulate_ax<DV, LDQ>(acc, af, Kb + 16 * kk * LDQ + dv0, lane);
-          if constexpr (!kRel) {  // K6: dS0's bf16 residual too
-            const uint32_t ar[4] = {
-                pack_bf16_residual(s0[0], s0[1]), pack_bf16_residual(s0[2], s0[3]),
-                pack_bf16_residual(s1[0], s1[1]), pack_bf16_residual(s1[2], s1[3])};
-            accumulate_ax<DV, LDQ>(acc, ar, Kb + 16 * kk * LDQ + dv0, lane);
-          }
-        }
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        if (key0 + 16 * kk >= Nk) break;
+        const float* s0 = s[2 * kk];
+        const float* s1 = s[2 * kk + 1];
+        const uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
+                                pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
+        accumulate_ax<DV, LDQ>(acc, af, Kb + 16 * kk * LDQ + dv0, lane);
       }
     }
-    __syncthreads();  // this step's buffers are free for step + 2
+    __syncthreads();  // this tile's buffers are free for tile + 2
   }
 
   if (!active) return;
@@ -834,25 +734,14 @@ __device__ __forceinline__ void flash_bwd_dq_bf16(const FlashBwdArgs& a) {
   }
 }
 
-// The backward kernels, named by mode so that a profile tells K5 from K6.
 template <int DQ, int DV>
 __global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dkv_bf16(FlashBwdArgs a) {
-  flash_bwd_dkv_bf16<DQ, DV, true>(a);
+  flash_bwd_dkv_bf16<DQ, DV>(a);
 }
 
 template <int DQ, int DV>
 __global__ void __launch_bounds__(32 * kWarps) flash_relpos_bwd_dq_bf16(FlashBwdArgs a) {
-  flash_bwd_dq_bf16<DQ, DV, true>(a);
-}
-
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dkv_bf16(FlashBwdArgs a) {
-  flash_bwd_dkv_bf16<DQ, DV, false>(a);
-}
-
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps) flash_keybias_bwd_dq_bf16(FlashBwdArgs a) {
-  flash_bwd_dq_bf16<DQ, DV, false>(a);
+  flash_bwd_dq_bf16<DQ, DV>(a);
 }
 
 
@@ -1286,7 +1175,7 @@ int launch_bwd(Kernel kernel, dim3 grid, size_t smem, const FlashBwdArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DQ, int DV, bool kRel>
+template <int DQ, int DV>
 int launch_bwd_bf16(FlashBwdArgs a, cudaStream_t stream) {
   constexpr int QT = DQ <= 64 ? 64 : 32;
   a.q_tiles = (a.Nq + kRows - 1) / kRows;
@@ -1297,16 +1186,9 @@ int launch_bwd_bf16(FlashBwdArgs a, cudaStream_t stream) {
   const size_t dq_smem = sizeof(bf16) * (2 * kRows + 4 * kTile) * (DQ + 8) +
                          sizeof(float) * kWarps * 16 * kDsLD;
   const dim3 dkv_grid(a.k_tiles * chunks, a.H, a.B), dq_grid(a.q_tiles * chunks, a.H, a.B);
-  int err;
-  if constexpr (kRel) {
-    err = launch_bwd(flash_relpos_bwd_dkv_bf16<DQ, DV>, dkv_grid, dkv_smem, a, stream);
-    if (err != 0) return err;
-    return launch_bwd(flash_relpos_bwd_dq_bf16<DQ, DV>, dq_grid, dq_smem, a, stream);
-  }
-  // K6: the dQ kernel writes delta, which the dK/dV kernel reads
-  err = launch_bwd(flash_keybias_bwd_dq_bf16<DQ, DV>, dq_grid, dq_smem, a, stream);
+  const int err = launch_bwd(flash_relpos_bwd_dkv_bf16<DQ, DV>, dkv_grid, dkv_smem, a, stream);
   if (err != 0) return err;
-  return launch_bwd(flash_keybias_bwd_dkv_bf16<DQ, DV>, dkv_grid, dkv_smem, a, stream);
+  return launch_bwd(flash_relpos_bwd_dq_bf16<DQ, DV>, dq_grid, dq_smem, a, stream);
 }
 
 template <int DC, bool kRel>
@@ -1326,7 +1208,8 @@ int launch_bwd_f32(const FlashBwdArgs& a, cudaStream_t stream) {
   return launch_bwd(flash_keybias_bwd_dq_f32<DC>, dq_grid, dq_smem, a, stream);
 }
 
-// The backward of either entry point, by dtype and head dim, as launch_fwd.
+// The backward of either entry point, by dtype and head dim, as launch_fwd;
+// bf16 only for K5 (K6's bf16 backward is flash_keybias_bwd.cu).
 template <bool kRel>
 int launch_bwd_all(const FlashBwdArgs& a, int is_bf16, cudaStream_t s) {
   if (!is_bf16) {
@@ -1341,16 +1224,20 @@ int launch_bwd_all(const FlashBwdArgs& a, int is_bf16, cudaStream_t s) {
       default: return launch_bwd_f32<8, kRel>(a, s);
     }
   }
-  switch ((a.D + 15) / 16 * 16) {
-    case 16: return launch_bwd_bf16<16, 16, kRel>(a, s);
-    case 32: return launch_bwd_bf16<32, 32, kRel>(a, s);
-    case 48: return launch_bwd_bf16<48, 48, kRel>(a, s);
-    case 64: return launch_bwd_bf16<64, 64, kRel>(a, s);
-    case 80: return launch_bwd_bf16<80, 80, kRel>(a, s);
-    case 96: return launch_bwd_bf16<96, 96, kRel>(a, s);
-    case 112: return launch_bwd_bf16<112, 112, kRel>(a, s);
-    case 128: return launch_bwd_bf16<128, 128, kRel>(a, s);
-    default: return launch_bwd_bf16<256, kChunk, kRel>(a, s);  // chunked output columns
+  if constexpr (!kRel) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    switch ((a.D + 15) / 16 * 16) {
+      case 16: return launch_bwd_bf16<16, 16>(a, s);
+      case 32: return launch_bwd_bf16<32, 32>(a, s);
+      case 48: return launch_bwd_bf16<48, 48>(a, s);
+      case 64: return launch_bwd_bf16<64, 64>(a, s);
+      case 80: return launch_bwd_bf16<80, 80>(a, s);
+      case 96: return launch_bwd_bf16<96, 96>(a, s);
+      case 112: return launch_bwd_bf16<112, 112>(a, s);
+      case 128: return launch_bwd_bf16<128, 128>(a, s);
+      default: return launch_bwd_bf16<256, kChunk>(a, s);  // chunked output columns
+    }
   }
 }
 
@@ -1501,18 +1388,17 @@ extern "C" int saicv_flash_attention_relpos_bwd(
   return launch_bwd_all<true>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
-// Backward of kernel K6: dq [B, H, Nq, D] (strides dq_*), dk and dv [B, H,
-// Nk, D] (one stride set, dkv_*), of the input dtype, from q, k, v and dout
+// Backward of kernel K6 in fp32 (is_bf16 = 0; bf16 is flash_keybias_bwd.cu
+// and returns cudaErrorInvalidValue here): dq [B, H, Nq, D] (strides dq_*),
+// dk and dv [B, H, Nk, D] (one stride set, dkv_*), from q, k, v and dout
 // (each with its own strides, head dim contiguous), the key bias of the
-// forward ([B, Nk] fp32 with batch stride bias_sb, or null), and the
-// forward's log-sum-exp, fp32 [B * H, Nq]. delta, fp32 [B * H, Nq]: in
-// bf16 the first kernel writes rowsum(P * dP) / rowsum(P) there for the
-// second; in fp32 the caller gives rowsum(dout * out). The bias gets no
-// gradient. Two launches on `stream`; returns a cudaError_t (0 = both
-// launched).
+// forward ([B, Nk] fp32 with batch stride bias_sb, or null), the forward's
+// log-sum-exp and delta = rowsum(dout * out), fp32 [B * H, Nq] each. The
+// bias gets no gradient. Two launches on `stream`; returns a cudaError_t
+// (0 = both launched).
 extern "C" int saicv_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk,
-    void* dv, const float* lse, float* delta, const float* bias, long long q_sb,
+    void* dv, const float* lse, const float* delta, const float* bias, long long q_sb,
     long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
     long long v_sb, long long v_sh, long long v_sn, long long do_sb, long long do_sh,
     long long do_sn, long long dq_sb, long long dq_sh, long long dq_sn, long long dkv_sb,
@@ -1532,7 +1418,6 @@ extern "C" int saicv_flash_attention_bwd(
   a.dv = dv;
   a.lse = lse;
   a.delta = delta;
-  a.delta_out = is_bf16 ? delta : nullptr;
   a.qs = Strides{q_sb, q_sh, q_sn};
   a.ks = Strides{k_sb, k_sh, k_sn};
   a.vs = Strides{v_sb, v_sh, v_sn};

@@ -36,27 +36,39 @@ with an online softmax and also returns the fp32 log-sum-exp. A CPU tensor
 takes ``flash_attention_reference``, differentiable through plain ops; a
 CUDA tensor takes the kernel, or the call raises. ``FlashAttention`` (a
 ``torch.autograd.Function``) saves the inputs, the output and the
-log-sum-exp; its backward launches the two backward kernels of the same
-source (K5's backward bodies with the rel-pos flag off), which recompute P
-from the log-sum-exp and give dq, dk and dv; the bias gets no gradient, as
-on the TPU (it marks which memory slots are filled). Where the TPU kernel
-rounds P to bf16 for P.V, a bf16 forward that a gradient will follow takes
-P.V at fp32 precision of P (P's bf16 residual is a second product): with
-P rounded, SAM2's gradient check put 90 parameters, Hiera's among them, off
-the plain path's floor, with it none. Where the TPU kernel takes delta =
-rowsum(dO * O) from the output in the input dtype and rounds dS0 = P *
-(dP - delta) to it, in bf16 the dQ kernel first walks the keys
-for delta = rowsum(P * dP) / rowsum(P) in its own P and dP, and both
-kernels add the product of dS0's bf16 residual, so that each row of dS0
-sums to 0 at fp32 precision: where values share a mean, delta from the
-output leaves a coherent error in dq and dk
+log-sum-exp. Where the TPU kernel rounds P to bf16 for P.V, a bf16 forward
+that a gradient will follow takes P.V at fp32 precision of P (P's bf16
+residual is a second product): with P rounded, SAM2's gradient check put
+90 parameters, Hiera's among them, off the plain path's floor, with it
+none. The bias gets no gradient, as on the TPU (it marks which memory
+slots are filled).
+
+K6's bf16 backward is ``csrc/flash_keybias_bwd.cu``: wgmma products on
+tiles that TMA loads, in three walks (delta = rowsum(P * dP) / rowsum(P)
+from the backward's own P and dP, then dQ, then dK and dV) and split
+reductions. The delta and dQ walks split the keys when the query tiles of
+all heads are fewer than the SMs, the dK/dV walk the queries likewise,
+each split writing fp32 partials that are summed in a fixed order (no
+atomics: the same bits every run; ``key_bias_backward_splits``). dS0 = P
+* (dP - delta) goes into dQ and dK as its bf16 rounding plus the bf16
+residual, so that each row of dS0 sums to 0 at fp32 precision: where
+values share a mean, delta from the output, the TPU kernel's choice, leaves
+a coherent error in dq and dk
 (``test_key_bias_flash_plain_backward_takes_delta_at_fp32``), and the
 gradient of a key projection's bias that RoPE rotates (SAM2's memory
-attention) is a residue of that sum (the notes in
-``csrc/flash_attention.cu``). fp32 takes delta = rowsum(dO * O) from its
-fp32 output with one torch op. ``flash_attention_backward_reference``
-is the plain version of that backward. Launches count in
-``flash_attention.launches`` and ``flash_attention.backward_launches``.
+attention) is a residue of that sum (the kernel's notes). A pair of a
+query tile and a key tile is skipped when every key of the tile is masked
+(bias <= -5e8) and every row of the query tile has lse > -2.5e8: its P is
+exactly 0, so the pair adds exact zeros (the tests replace masked keys' k
+and v and find every other gradient the same bit for bit), and the empty
+slots of SAM2's memory cost nothing. The tensor maps read q, k, v and dO
+in place where TMA can (``tma_operand``). The fp32 backward launches the
+FMA kernels of ``csrc/flash_attention.cu`` (K5's fp32 bodies with the
+rel-pos flag off) with delta = rowsum(dO * O) from its fp32 output.
+``flash_attention_backward_reference`` is the plain version of the
+backward. Launches count in ``flash_attention.launches`` and
+``flash_attention.backward_launches`` (one a backward, however many
+kernels it takes).
 """
 
 import ctypes
@@ -258,11 +270,13 @@ def flash_attention_backward_reference(q, k, v, bias, dout, sm_scale=None):
     """Plain version of K6's backward (the JAX ``_bwd_fused_kernel`` with
     delta and dS0 at fp32 precision): P = exp(s - lse) from the fp32 scores
     s = q.k * sm_scale + bias, dV = P^T.dO with P in the input dtype, dP =
-    dO.V^T, delta = rowsum(P * dP) in fp32 (the kernel's first walk over
-    the keys; the TPU kernel takes rowsum(dO * O) from the output in the
-    input dtype), dS0 = P * (dP - delta) in fp32 (the kernel carries it as
-    its bf16 rounding plus the bf16 residual; the TPU kernel rounds it to
-    the input dtype), dK = (dS0^T.Q) * sm_scale and dQ = (dS0.K) *
+    dO.V^T, delta = rowsum(P * dP) / rowsum(P) in fp32 (the bf16 kernels'
+    own walk over the keys; the division cancels the rounding of lse, which
+    matters where every key of a row is masked: there lse rounds to the
+    bias and P to 1; the TPU kernel takes rowsum(dO * O) from the output in
+    the input dtype), dS0 = P * (dP - delta) in fp32 (the kernel carries it
+    as its bf16 rounding plus the bf16 residual; the TPU kernel rounds it
+    to the input dtype), dK = (dS0^T.Q) * sm_scale and dQ = (dS0.K) *
     sm_scale. Returns dq, dk, dv in the input dtype; the bias gets no
     gradient."""
     dtype = q.dtype
@@ -274,7 +288,8 @@ def flash_attention_backward_reference(q, k, v, bias, dout, sm_scale=None):
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dtype).float(), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
-    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True)
+              / p.sum(dim=-1, keepdim=True))
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     return dq.to(dtype), dk.to(dtype), dv.to(dtype)
@@ -324,6 +339,79 @@ def _key_bias_library():
     return fwd, bwd
 
 
+@functools.lru_cache(maxsize=None)
+def _key_bias_bf16_backward():
+    fn = build.load("flash_keybias_bwd").saicv_flash_keybias_bwd_bf16
+    fn.argtypes = [_PTR] * 13 + [_LL] * 19 + [_INT] * 7 + [ctypes.c_float,
+                                                            _PTR]
+    fn.restype = _INT
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def padded_head_dim(d):
+    """The columns the bf16 backward computes for head dim d: 64, 128 or
+    256."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def key_bias_backward_splits(b, h, nq, nk, d, sms):
+    """(splits of the key walk of a query block, splits of the query walk
+    of a key block) of the bf16 backward: the SMs over the blocks of all
+    heads (64 rows a block, 128 at head dims up to 64), rounded down, at
+    least 1 and at most the 64-row tiles walked."""
+    rows = 128 if padded_head_dim(d) == 64 else 64
+    q_blocks, k_blocks = -(-nq // rows), -(-nk // rows)
+    return (max(1, min(-(-nk // 64), sms // (q_blocks * b * h))),
+            max(1, min(-(-nq // 64), sms // (k_blocks * b * h))))
+
+
+def tma_operand(t):
+    """t itself where the bf16 backward's tensor maps read it in place (a
+    16-byte aligned base and (batch, head, row) strides that are multiples
+    of 8 elements on every axis longer than 1), else a copy with the head
+    dim padded to a multiple of 8 (the maps read its first D columns)."""
+    if t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 or n == 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+        return t
+    d = t.shape[-1]
+    out = t.new_zeros(*t.shape[:3], -(-d // 8) * 8)
+    out[..., :d] = t
+    return out
+
+
+def _key_bias_backward_bf16(q, k, v, bias, dout, lse, scale):
+    """The bf16 backward's launches (``csrc/flash_keybias_bwd.cu``):
+    returns dq [B, H, Nq, D], dk and dv [B, H, Nk, D]."""
+    b, h, nq, nk, d = *q.shape[:3], k.shape[2], q.shape[3]
+    dp = padded_head_dim(d)
+    sq, skv = key_bias_backward_splits(b, h, nq, nk, d,
+                                       _sm_count(q.device.index or 0))
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    stats = torch.empty((2, sq, b * h, nq), **f32)
+    delta = torch.empty((b * h, nq), **f32)
+    dq_part = torch.empty((sq, b * h, nq, dp), **f32) if sq > 1 else None
+    dkv_part = (torch.empty((2, skv, b * h, nk, dp), **f32) if skv > 1
+                else None)
+    dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
+    dkv = torch.empty((2, b, h, nk, d), dtype=q.dtype, device=q.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _launch(_key_bias_bf16_backward(), q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dkv[0].data_ptr(),
+            dkv[1].data_ptr(), lse.data_ptr(), ptr(bias), stats.data_ptr(),
+            delta.data_ptr(), ptr(dq_part), ptr(dkv_part), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            *dq.stride()[:3], *dkv[0].stride()[:3],
+            0 if bias is None else bias.stride(0), b, h, nq, nk, d, sq, skv,
+            scale)
+    return dq, dkv[0], dkv[1]
+
+
 class FlashAttention(torch.autograd.Function):
     """K6 and its backward kernels on CUDA tensors; returns (out, lse), the
     log-sum-exp without a gradient."""
@@ -357,10 +445,12 @@ class FlashAttention(torch.autograd.Function):
         dout = dout.to(q.dtype)
         if dout.stride(3) != 1:
             dout = dout.contiguous()
-        # bf16: the first kernel writes delta = rowsum(P * dP) / rowsum(P)
-        delta = (torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-                 if q.dtype == torch.bfloat16
-                 else (dout * out).sum(dim=-1))                # [B, H, Nq]
+        if q.dtype == torch.bfloat16:
+            dq, dk, dv = _key_bias_backward_bf16(q, k, v, bias, dout, lse,
+                                                 ctx.scale)
+            flash_attention.backward_launches += 1
+            return dq, dk, dv, None, None
+        delta = (dout * out).sum(dim=-1)                       # [B, H, Nq]
         dq = torch.empty((b, h, nq, d), dtype=q.dtype, device=q.device)
         dkv = torch.empty((2, b, h, nk, d), dtype=q.dtype, device=q.device)
         _launch(_key_bias_library()[1], q.device, q.data_ptr(), k.data_ptr(),
@@ -370,7 +460,7 @@ class FlashAttention(torch.autograd.Function):
                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                 *dout.stride()[:3], *dq.stride()[:3], *dkv[0].stride()[:3],
                 0 if bias is None else bias.stride(0), b, h, nq, nk, d,
-                ctx.scale, int(q.dtype == torch.bfloat16))
+                ctx.scale, 0)
         flash_attention.backward_launches += 1
         return dq, dkv[0], dkv[1], None, None
 

@@ -84,10 +84,12 @@ def random_batch():
 
 def profile_steps(step, label, extra=None, batch_size=BATCH_SIZE):
     """Run ``step()`` 3 times to warm up, then ``STEPS`` times under the
-    profiler; print and return the device time per step by category."""
+    profiler; print and return the device time per step by category and
+    the peak device memory of those steps."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -111,9 +113,10 @@ def profile_steps(step, label, extra=None, batch_size=BATCH_SIZE):
         key = category(name)
         by_category[key] = by_category.get(key, 0.0) + us / 1e3 / STEPS
     device = torch.cuda.get_device_name(0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} bs{batch_size} on {device}: "
           f"{wall_ms:.3f} ms/step wall (profiler on), device busy "
-          f"{device_ms:.3f} ms/step")
+          f"{device_ms:.3f} ms/step, peak memory {peak_gb:.3f} GB")
     if device_ms == 0.0:
         print("the profiler recorded no device time: not measured")
         return None
@@ -126,6 +129,7 @@ def profile_steps(step, label, extra=None, batch_size=BATCH_SIZE):
                   device=device, wall_ms_per_step=wall_ms,
                   device_ms_per_step=device_ms,
                   device_busy_share=device_ms / wall_ms,
+                  peak_memory_gb=peak_gb,
                   ms_per_step_by_category=by_category)
     print(json.dumps(result))
     return result

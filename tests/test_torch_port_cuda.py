@@ -571,12 +571,17 @@ def _key_bias_inputs(gen, b, h, nq, nk, d, layout, dtype):
     (1, 2, 1000, 129, 8, None, "contiguous"),
     (1, 4, 16, 64, 40, "random", "memory"),
     (1, 1, 70, 4 * 449 + 16, 256, "slots", "memory"),
+    (2, 2, 300, 500, 256, "slots", "contiguous"),
+    (2, 3, 200, 333, 56, "slots", "memory"),
+    (2, 2, 200, 200, 64, "random", "packed"),
+    (1, 1, 40, 128, 256, "masked", "contiguous"),
+    (2, 1, 64, 200, 64, "masked", "contiguous"),
 ])
 def test_key_bias_flash_backward(cuda, b, h, nq, nk, d, kind, layout, dtype):
     """K6's backward kernels against the plain backward: Nq != Nk both
     ways with ragged tails, masked slots (exactly zero dk and dv), D = 56,
-    256 (two chunks, fragments read again from shared memory) and odd
-    widths, each layout's strides and a transposed dout."""
+    64 and 256 (B * H > 1 too) and odd widths, each layout's strides, a
+    transposed dout, and every key masked (each row averages V)."""
     dtype = DTYPES[dtype]
     gen = torch.Generator(device="cuda").manual_seed(nq * nk + d + 1)
     q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, layout, dtype)
@@ -605,6 +610,101 @@ def test_key_bias_flash_backward(cuda, b, h, nq, nk, d, kind, layout, dtype):
     again = torch.autograd.grad(fl.flash_attention(*leaves, bias, scale),
                                 leaves, dout)
     assert all(torch.equal(x, leaf.grad) for x, leaf in zip(again, leaves))
+
+
+def _memory_slot_bias(b, valid_slots, slots=7, slot_tokens=128, pointers=16,
+                      valid_pointers=1):
+    """SAM2's memory bias [B, slots * slot_tokens + 4 * pointers]: 0 on the
+    valid slots (any of them, empty slots before and after) and on the
+    first valid_pointers pointers of 4 tokens, -1e9 elsewhere."""
+    bias = torch.full((b, slots * slot_tokens + 4 * pointers), -1e9,
+                      device="cuda")
+    for i in valid_slots:
+        bias[:, i * slot_tokens:(i + 1) * slot_tokens] = 0.0
+    start = slots * slot_tokens
+    bias[:, start:start + 4 * valid_pointers] = 0.0
+    return bias
+
+
+def _key_bias_grads(q, k, v, bias, dout, scale=None):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(fl.flash_attention(*leaves, bias, scale),
+                               leaves, dout)
+
+
+@pytest.mark.parametrize("valid_slots,slot_tokens", [
+    ((0,), 128), ((3,), 128), ((1, 4), 128), ((0, 6), 96), ((2, 3, 5), 100)])
+def test_key_bias_flash_backward_skips_empty_slots(cuda, valid_slots,
+                                                    slot_tokens):
+    """The bf16 backward skips the key tiles of empty memory slots: frame-1
+    style biases (one or a few valid slots, empty ones before and after,
+    whole 64-key runs masked or slots off the tiles) at D = 256 against the
+    plain backward, masked keys' dk and dv exactly 0, and the same bit for
+    bit when run again."""
+    gen = torch.Generator(device="cuda").manual_seed(sum(valid_slots)
+                                                     + slot_tokens)
+    b, h, nq, d = 1, 1, 300, 256
+    bias = _memory_slot_bias(b, valid_slots, slot_tokens=slot_tokens)
+    nk = bias.shape[1]
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, "memory", torch.bfloat16)
+    dout = _randn(gen, b, nq, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    got = _key_bias_grads(q, k, v, bias, dout)
+    want = fl.flash_attention_backward_reference(q, k, v, bias, dout)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _close(x, w, torch.bfloat16, name)
+    masked = bias[0] < -1e8
+    for x in got[1:]:
+        assert not x[:, :, masked].any() and x[:, :, ~masked].any()
+    again = _key_bias_grads(q, k, v, bias, dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_key_bias_flash_backward_all_masked_rows(cuda, d):
+    """Batch 0's keys all masked (its rows average V and are never
+    skipped), batch 1's in slots, through the bf16 backward against the
+    plain backward."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    b, h, nq = 2, 2, 150
+    bias = _memory_slot_bias(b, (1,), slots=3, slot_tokens=64)
+    bias[0] = -1e9
+    nk = bias.shape[1]
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, "contiguous",
+                               torch.bfloat16)
+    dout = _randn(gen, b, h, nq, d, dtype=torch.bfloat16)
+    got = _key_bias_grads(q, k, v, bias, dout)
+    want = fl.flash_attention_backward_reference(q, k, v, bias, dout)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        _close(x, w, torch.bfloat16, name)
+        assert x[0].any()
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("slot_tokens", [64, 96])
+def test_key_bias_flash_backward_ignores_masked_keys_bit_for_bit(
+        cuda, dtype, slot_tokens):
+    """With the masked keys' k and v replaced by other finite values, the
+    kernel's dq and the valid keys' dk and dv are the same bit for bit (a
+    masked key's P is exactly 0; the bf16 backward skips whole masked
+    tiles and multiplies the rest by exact zeros), and the masked keys' dk
+    and dv stay exactly 0."""
+    dtype = DTYPES[dtype]
+    gen = torch.Generator(device="cuda").manual_seed(slot_tokens)
+    b, h, nq, d = 2, 2, 200, 256
+    bias = _memory_slot_bias(b, (1, 3), slots=5, slot_tokens=slot_tokens)
+    nk = bias.shape[1]
+    masked = bias[0] < -1e8
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, "memory", dtype)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, masked] = 3 * _randn(gen, b, h, int(masked.sum()), d, dtype=dtype)
+    v2[:, :, masked] = 3 * _randn(gen, b, h, int(masked.sum()), d, dtype=dtype)
+    dout = _randn(gen, b, nq, h, d, dtype=dtype).transpose(1, 2)
+    got = _key_bias_grads(q, k, v, bias, dout)
+    other = _key_bias_grads(q, k2, v2, bias, dout)
+    assert torch.equal(got[0], other[0])
+    for x, y in zip(got[1:], other[1:]):
+        assert torch.equal(x[:, :, ~masked], y[:, :, ~masked])
+        assert not x[:, :, masked].any() and not y[:, :, masked].any()
 
 
 @pytest.mark.parametrize("nq,nk,kind", [(1024, 1024, None),

@@ -660,19 +660,34 @@ def _jax_flash_backward(q, k, v, bias, dout, sm_scale):
                  for g, n in zip(grads, (nq, nk, nk)))
 
 
+def _interleaved_slot_bias(b, nk):
+    """A memory of 64-key slots, valid and empty in turn from slot 0 (whole
+    masked 64-key runs between valid ones), and 16 pointer keys of which the
+    first 4 are valid: [B, Nk] fp32, 0 or -1e9."""
+    bias = np.full((b, nk), -1e9, np.float32)
+    for start in range(0, nk - 16, 128):
+        bias[:, start:start + 64] = 0.0
+    bias[:, nk - 16:nk - 12] = 0.0
+    return bias
+
+
 @pytest.mark.parametrize("b,h,nq,nk,d,sm_scale,kind,dtype", [
     (1, 2, 100, 333, 56, None, "slots", "float32"),   # d 56, ragged keys
     (2, 1, 130, 200, 64, 0.3, "random", "float32"),   # Nq > block, sm_scale
     (1, 1, 64, 4 * 60 + 16, 256, None, "slots", "float32"),
     (1, 2, 77, 77, 64, 56 ** -0.5, None, "float32"),  # Hiera's scale
     (1, 2, 60, 150, 64, None, "slots", "bfloat16"),
+    (1, 1, 40, 128, 64, None, "masked", "float32"),   # every key masked
+    (1, 1, 50, 5 * 64 + 16, 256, None, "interleaved", "float32"),
 ])
 def test_key_bias_flash_plain_backward_matches_jax_kernel(b, h, nq, nk, d,
                                                           sm_scale, kind,
                                                           dtype):
     """K6's plain backward against the TPU kernel ``_flash_backward`` run in
     interpret mode: Nq != Nk, masked keys (whose dk and dv are exactly 0),
-    an explicit sm_scale and d = 56. fp32 rtol and atol 2e-5; bf16, scaled
+    an explicit sm_scale, d = 56, a bias with every key masked (each row
+    averages V; Nk a whole key block, so the wrapper pads no key) and empty
+    64-key slots between valid ones. fp32 rtol and atol 2e-5; bf16, scaled
     to each gradient: rtol 2^-7 (one bf16 ulp) and atol 2^-5 of its RMS
     (the TPU kernel rounds dS0 and takes delta from the bf16 output, the
     plain version keeps both at fp32 precision; rounding P and the
@@ -688,6 +703,10 @@ def test_key_bias_flash_plain_backward_matches_jax_kernel(b, h, nq, nk, d,
         slot = (nk - 16) // 4
         bias[:, slot:2 * slot] = 0.0
         bias[:, -4:] = 0.0
+    elif kind == "masked":
+        bias = np.full((b, nk), -1e9, np.float32)
+    elif kind == "interleaved":
+        bias = _interleaved_slot_bias(b, nk)
     (jq, tq), (jk, tk), (jv, tv), (jg, tg) = (_pair(a, dtype)
                                               for a in (q, k, v, g))
     want = _jax_flash_backward(
@@ -701,11 +720,38 @@ def test_key_bias_flash_plain_backward_matches_jax_kernel(b, h, nq, nk, d,
         tol = (dict(rtol=2e-5, atol=2e-5) if dtype == "float32" else
                dict(rtol=2 ** -7, atol=2 ** -5 * np.sqrt((w ** 2).mean())))
         np.testing.assert_allclose(_to_np(x), w, err_msg=name, **tol)
-    if bias is not None and kind == "slots":
+    if kind in ("slots", "interleaved"):
         masked = torch.from_numpy(bias[0] < -1e8)
         for x in got[1:]:
             assert not x[:, :, masked].any()
             assert x[:, :, ~masked].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_key_bias_flash_plain_backward_ignores_masked_keys_bit_for_bit(dtype):
+    """The premise of the bf16 backward's skipped tiles: with the masked
+    keys' k and v replaced by other finite values, dq and the valid keys'
+    dk and dv are the same bit for bit (a masked key's P is exactly 0, so
+    it adds exact zeros), and the masked keys' dk and dv stay exactly 0."""
+    rs = np.random.RandomState(47)
+    b, h, nq, nk, d = 2, 2, 70, 5 * 64 + 16, 64
+    q, g = rs.standard_normal((2, b, h, nq, d)).astype(np.float32)
+    k, v, k2, v2 = 3 * rs.standard_normal((4, b, h, nk, d)).astype(np.float32)
+    bias = _interleaved_slot_bias(b, nk)
+    masked = bias[0] < -1e8
+    k2[:, :, ~masked], v2[:, :, ~masked] = k[:, :, ~masked], v[:, :, ~masked]
+    tq, tg, tk, tv, tk2, tv2 = (torch.from_numpy(a).to(TORCH_DTYPE[dtype])
+                                for a in (q, g, k, v, k2, v2))
+    tb = torch.from_numpy(bias)
+    got = port_fl.flash_attention_backward_reference(tq, tk, tv, tb, tg)
+    other = port_fl.flash_attention_backward_reference(tq, tk2, tv2, tb, tg)
+    valid = torch.from_numpy(~masked)
+    assert not torch.equal(tk, tk2) and not torch.equal(tv, tv2)
+    assert torch.equal(got[0], other[0])
+    for x, y in zip(got[1:], other[1:]):
+        assert torch.equal(x[:, :, valid], y[:, :, valid])
+        assert not x[:, :, ~valid].any() and not y[:, :, ~valid].any()
+        assert x[:, :, valid].any()
 
 
 def test_key_bias_flash_plain_backward_is_the_vjp_of_the_plain_forward():
@@ -759,6 +805,41 @@ def test_key_bias_flash_plain_backward_takes_delta_at_fp32():
     delta = (tg.float() * out_bf16.float()).sum(-1, keepdim=True)
     rounded = (p * (dp - delta)) @ tk.float() * d ** -0.5
     assert rel(rounded, q64.grad) > 10 * err
+
+
+@pytest.mark.parametrize("b,h,nq,nk,d,want", [
+    (1, 1, 4096, 7 * 4096 + 64, 256, (2, 1)),   # SAM2's memory cross-attention
+    (1, 1, 4096, 4096, 256, (2, 2)),            # its self-attention
+    (4, 8, 4096, 4096, 64, (1, 1)),             # Hiera's global blocks
+    (4, 8, 4096, 4096, 56, (1, 1)),
+    (1, 1, 100, 70, 128, (2, 2)),               # capped by the tiles walked
+    (1, 2, 300, 300, 56, (5, 5)),
+])
+def test_key_bias_backward_splits(b, h, nq, nk, d, want):
+    """The bf16 backward's split rule on an H100's 132 SMs: the SMs over
+    the blocks of all heads (64 rows a block, 128 at head dims up to 64),
+    rounded down, at least 1, at most the 64-row tiles walked."""
+    assert port_fl.key_bias_backward_splits(b, h, nq, nk, d, 132) == want
+    assert port_fl.padded_head_dim(d) == (64 if d <= 64 else
+                                          128 if d <= 128 else 256)
+
+
+def test_tma_operand_reads_aligned_views_in_place_and_copies_the_rest():
+    """Views that TMA can read (16-byte aligned base, strides multiples of 8
+    elements on axes longer than 1) pass through; others become a copy with
+    the head dim padded to a multiple of 8 and zeros past D."""
+    qkv = torch.randn(2, 5, 3 * 4 * 56, dtype=torch.bfloat16)
+    q = qkv.view(2, 5, 3, 4, 56).permute(2, 0, 3, 1, 4)[0]   # Hiera's views
+    assert port_fl.tma_operand(q) is q
+    flat = torch.randn(1 + 2 * 3 * 7 * 20, dtype=torch.bfloat16)
+    odd = flat[1:].view(2, 3, 7, 20)                          # base off 16 B
+    got = port_fl.tma_operand(odd)
+    assert got.shape == (2, 3, 7, 24) and got.is_contiguous()
+    assert torch.equal(got[..., :20], odd) and not got[..., 20:].any()
+    narrow = torch.randn(1, 2, 9, 50, dtype=torch.bfloat16)   # row stride 50
+    assert port_fl.tma_operand(narrow).shape[-1] == 56
+    one_head = torch.randn(1, 1, 33, 40, dtype=torch.bfloat16)
+    assert port_fl.tma_operand(one_head) is one_head
 
 
 def test_key_bias_flash_takes_the_plain_version_on_the_cpu_only():
