@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sam2-gradients   # the SAM2 gradient check alone
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, started together), holds each against its plain PyTorch version
@@ -219,9 +220,16 @@ gradient that is a small residue) and the larger taken, the loss
 likewise, and a control with the memory key bias zeroed that must fail.
 Left out, by a rule on the fp32 gradients (``zero_gradient_leaves``), are
 the biases whose gradient is zero up to rounding: the mask decoder's
-attention key biases, which softmax cancels. The memory attention's key
-biases, rotated by RoPE after the projection, have a real gradient and
-are held like the rest.
+attention key biases, which softmax cancels. The memory attention's 8 key
+biases, rotated by RoPE after the projection, have a real gradient, a
+small residue of a cancellation, whose distance from the fp32 model moved
+with other layers' atomics from run to run; each is held on its own
+layer's inputs and output gradient, recorded in the kernel run: its
+relative L2 distance from that layer's gradient recomputed at float64
+with plain attention at most the larger of 5e-2 and 1.25 times the plain
+bf16 paths' (the module's plain attention and the kernels' plain
+versions, run on the same recorded inputs). The control must fail the
+reading of the other parameters.
 """
 
 import json
@@ -1962,7 +1970,8 @@ def relative_errors(grads, grads_f):
     return out
 
 
-def gradient_reading(grads_k, grads_p, grads_f, losses, left_out=()):
+def gradient_reading(grads_k, grads_p, grads_f, losses, left_out=(),
+                     held_apart=()):
     """Gradients of the kernels (``grads_k``) and of plain attention
     (``grads_p``: a list of plain bf16 paths, which compute the same math
     and may sum in other orders), held against the fp32 plain path's
@@ -1972,12 +1981,13 @@ def gradient_reading(grads_k, grads_p, grads_f, losses, left_out=()):
     as a list, fp32).
     ``left_out``: parameters whose exact gradient is 0
     (``zero_gradient_leaves``), where both paths compute rounding noise
-    with no scale to hold it to. Returns (ok, fields, the kernels' and the
+    with no scale to hold it to; ``held_apart``: parameters the caller holds
+    by a reading of its own. Returns (ok, fields, the kernels' and the
     plain path's relative errors, the floors)."""
     loss_k, plain_losses, loss_f = losses
     rel_k = relative_errors(grads_k, grads_f)
     rel_ps = [relative_errors(g, grads_f) for g in grads_p]
-    for name in left_out:
+    for name in (*left_out, *held_apart):
         del rel_k[name]
     rel_p = {n: max(r[n] for r in rel_ps) for n in rel_k}
     floor = {n: max(GRAD_REL_L2, SAM_FLOOR_RATIO * rel_p[n]) for n in rel_k}
@@ -1989,6 +1999,7 @@ def gradient_reading(grads_k, grads_p, grads_f, losses, left_out=()):
         loss_kernels=loss_k, loss_plain=plain_losses, loss_fp32=loss_f,
         loss_rel_err=loss_err(loss_k), loss_floor=loss_floor,
         parameters=len(rel_k), left_out_zero_gradient=len(left_out),
+        held_apart=len(held_apart),
         worst_parameter=worst, worst_rel_l2=rel_k[worst],
         worst_floor=floor[worst], worst_plain_rel_l2=rel_p[worst],
         median_rel_l2=sorted(rel_k.values())[len(rel_k) // 2])
@@ -2055,22 +2066,154 @@ def sam2_loss_and_gradients(torch, model, batch, config, use_amp):
     return loss.item(), grads
 
 
+def memory_attention_calls(torch, model):
+    """A context that records, for every attention of SAM2's memory
+    attention (each layer's self- and cross-attention), the inputs of each
+    call whose output takes a gradient and that output's gradient. Yields
+    {the attention's ``k_proj.bias`` name: (the module, [(args, kwargs,
+    dout), ...])}."""
+    import contextlib
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.memory import (
+        RoPEAttention)
+
+    def keep(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+
+    @contextlib.contextmanager
+    def ctx():
+        calls, handles = {}, []
+        for name, module in model.named_modules():
+            if not (name.startswith("memory_attention.")
+                    and isinstance(module, RoPEAttention)):
+                continue
+            record = calls[name + ".k_proj.bias"] = (module, [])
+
+            def hook(mod, args, kwargs, out, record=record):
+                if not (torch.is_grad_enabled() and out.requires_grad):
+                    return
+                saved = ([keep(a) for a in args],
+                         {k: keep(v) for k, v in kwargs.items()})
+                out.register_hook(lambda g, saved=saved: record[1].append(
+                    (*saved, g.detach().clone())))
+            handles.append(module.register_forward_hook(hook,
+                                                        with_kwargs=True))
+        try:
+            yield calls
+        finally:
+            for handle in handles:
+                handle.remove()
+    return ctx()
+
+
+def key_bias_gradient_f64(torch, module, calls):
+    """The gradient of a memory attention's ``k_proj.bias`` summed over its
+    recorded calls, at float64 with plain attention: the module's function
+    (projections, RoPE of q and of the rotated keys, softmax attention with
+    the key bias, the output projection) written out on float64 copies of
+    its weights, RoPE tables and the calls' inputs and output gradients."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2.memory import (
+        apply_rope)
+    f64 = torch.float64
+    w = {n: p.detach().to(f64) for n, p in module.named_parameters()}
+    key_bias_leaf = w["k_proj.bias"].clone().requires_grad_()
+    linear = lambda x, name, bias=None: x @ w[name + ".weight"].T + (
+        w[name + ".bias"] if bias is None else bias)
+    total = torch.zeros_like(key_bias_leaf)
+    for (q, k, v), kwargs, dout in calls:
+        with torch.autocast("cuda", enabled=False):
+            qp = linear(q.to(f64), "q_proj")
+            kp = linear(k.to(f64), "k_proj", key_bias_leaf)
+            vp = linear(v.to(f64), "v_proj")
+            b, nq, inter = qp.shape
+            nk, nh = kp.shape[1], module.head_nums
+            hd = inter // nh
+            qp, kp, vp = (x.reshape(b, -1, nh, hd).transpose(1, 2)
+                          for x in (qp, kp, vp))
+            cos, sin = module.rope_cos.to(f64), module.rope_sin.to(f64)
+            qp = apply_rope(qp, cos, sin)
+            n_rope = nk - kwargs.get("num_k_exclude_rope", 0)
+            if n_rope > 0:
+                if module.rope_k_repeat:
+                    repeat = n_rope // cos.shape[0]
+                    cos, sin = cos.repeat(repeat, 1), sin.repeat(repeat, 1)
+                kp = torch.cat([apply_rope(kp[:, :, :n_rope], cos, sin),
+                                kp[:, :, n_rope:]], dim=2)
+            s = torch.einsum("bhqd,bhkd->bhqk", qp, kp) * hd ** -0.5
+            if kwargs.get("key_bias") is not None:
+                s = s + kwargs["key_bias"].to(f64)[:, None, None, :]
+            out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), vp)
+            out = linear(out.transpose(1, 2).reshape(b, nq, inter), "out_proj")
+            (g,) = torch.autograd.grad(out, key_bias_leaf, dout.to(f64))
+        total += g
+    return total
+
+
+def key_bias_gradient_bf16(torch, module, calls, use_flash):
+    """The same gradient through the module itself in bf16 autocast, as the
+    train step runs it: its plain attention (``use_flash`` False) or its
+    attention route (the kernels, or their plain versions inside
+    ``kernels_as_plain_versions``), on the recorded inputs."""
+    saved = module.use_flash
+    module.use_flash = use_flash
+    total = torch.zeros_like(module.k_proj.bias, dtype=torch.float32)
+    try:
+        for args, kwargs, dout in calls:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                out = module(*args, **kwargs)
+            (g,) = torch.autograd.grad(out, module.k_proj.bias, dout)
+            total += g.float()
+    finally:
+        module.use_flash = saved
+    return total
+
+
+def key_bias_readings(torch, calls, grads_k):
+    """The memory attention's key biases, each held on its own layer's
+    inputs: the kernel run's gradient (``grads_k``), whose layer inputs and
+    output gradients ``calls`` recorded, against that layer's gradient
+    recomputed once at float64 with plain attention on the same inputs
+    (``key_bias_gradient_f64``); the floor is gradient_reading's rule over
+    the plain bf16 paths' gradients of the same layer on the same inputs,
+    the module's plain attention and the kernels' plain versions. Returns
+    {name: (ok, fields)}."""
+    out = {}
+    for name, (module, recorded) in calls.items():
+        exact = key_bias_gradient_f64(torch, module, recorded)
+        rel = lambda g: ((g.double() - exact).norm() / exact.norm()).item()
+        plain_attention = rel(key_bias_gradient_bf16(torch, module, recorded,
+                                                     False))
+        with kernels_as_plain_versions():
+            plain_versions = rel(key_bias_gradient_bf16(torch, module,
+                                                        recorded, True))
+        floor = max(GRAD_REL_L2, SAM_FLOOR_RATIO * max(plain_attention,
+                                                       plain_versions))
+        kernels = rel(grads_k[name])
+        out[name] = (kernels <= floor, dict(
+            calls=len(recorded), rel_l2=kernels, floor=floor,
+            plain_attention=plain_attention, plain_versions=plain_versions))
+    return out
+
+
 def check_sam2_gradients(torch, fa, ln, model, batch, config, label):
     """SAM2's gradients of one bf16 micro-batch with the kernels and with
     plain attention, each held against the same model in fp32 with plain
     attention (``gradient_reading``). The plain bf16 path is read twice:
     through the model's plain attention and through the kernels' plain
     versions (``kernels_as_plain_versions``), the same math summed in
-    another order; where a gradient is a small residue of a cancellation
-    the two land apart (up to ~2x on the memory attention's key biases,
-    either one above the other's floor), so each parameter's floor takes
-    the larger. A control runs the kernels with the memory key bias
+    another order, and each parameter's floor takes the larger. The memory
+    attention's 8 key biases, whose gradient is a small residue of a
+    cancellation (each row of dS sums to 0) and whose floor moved from run
+    to run with other layers' atomics, are held apart, each on its own
+    layer's inputs (``key_bias_readings``: against a float64 recompute of
+    that layer, the floor from the plain bf16 paths of the same layer on
+    the same inputs). A control runs the kernels with the memory key bias
     zeroed, so that the empty slots are attended to, and the run fails
     unless that would fail the check. Returns the kernel run's launch
     counts."""
     reset_counts(fa, ln)
-    loss_k, grads_k = sam2_loss_and_gradients(torch, model, batch, config,
-                                              True)
+    with memory_attention_calls(torch, model) as calls:
+        loss_k, grads_k = sam2_loss_and_gradients(torch, model, batch,
+                                                  config, True)
     torch.cuda.synchronize()
     counts = read_counts(fa, ln)
     with without_key_bias(model):
@@ -2091,35 +2234,41 @@ def check_sam2_gradients(torch, fa, ln, model, batch, config, label):
     # real gradient (a residue of that cancellation, as exact as each row
     # of dS sums to 0) and are held like every other parameter
     left_out, left_ratio, held_ratio = zero_gradient_leaves(grads_f)
+    memory_kb = sorted(calls)
     plain, plain_losses = [grads_p, grads_r], [loss_p, loss_r]
     ok, fields, rel_k, rel_p, floor = gradient_reading(
-        grads_k, plain, grads_f, (loss_k, plain_losses, loss_f), left_out)
+        grads_k, plain, grads_f, (loss_k, plain_losses, loss_f), left_out,
+        memory_kb)
     control_ok, control, *_ = gradient_reading(
-        grads_c, plain, grads_f, (loss_c, plain_losses, loss_f), left_out)
+        grads_c, plain, grads_f, (loss_c, plain_losses, loss_f), left_out,
+        memory_kb)
     rel_pa = relative_errors(grads_p, grads_f)
     rel_pr = relative_errors(grads_r, grads_f)
     spread = max(rel_k, key=lambda n: max(rel_pa[n], rel_pr[n])
                  / max(min(rel_pa[n], rel_pr[n]), 1e-30))
-    memory_kb = [n for n in rel_k if n.startswith("memory_attention.")
-                 and n.endswith("k_proj.bias")]
-    worst_kb = max(memory_kb, key=lambda n: rel_k[n] / floor[n])
+    kb = key_bias_readings(torch, calls, grads_k)
+    kb_ok = all(k_ok for k_ok, _ in kb.values())
+    worst_kb = max(kb, key=lambda n: kb[n][1]["rel_l2"] / kb[n][1]["floor"])
+    full_model_rel = relative_errors(grads_k, grads_f)
     log(f"{label} gradients vs plain attention",
         frames=batch["image"].shape[1], **fields, left_out=left_out,
         left_out_max_ratio=left_ratio, held_min_ratio=held_ratio,
-        memory_key_biases_held=len(memory_kb),
-        memory_key_bias_worst=worst_kb, memory_key_bias_rel_l2=rel_k[worst_kb],
-        memory_key_bias_floor=floor[worst_kb],
-        memory_key_bias_plain_attention=rel_pa[worst_kb],
-        memory_key_bias_plain_versions=rel_pr[worst_kb],
         plain_draws_widest=spread, plain_draws_widest_rel_l2=(
             rel_pa[spread], rel_pr[spread]), launches=counts)
+    log(f"{label} memory key biases on their layers' inputs vs float64",
+        held=len(kb), worst=worst_kb, **kb[worst_kb][1],
+        all={n: {k: r[k] for k in ("rel_l2", "floor")}
+             for n, (_, r) in kb.items()},
+        worst_against_the_fp32_model=full_model_rel[worst_kb])
     log(f"{label} gradients, key bias zeroed",
         worst_parameter=control["worst_parameter"],
         worst_rel_l2=control["worst_rel_l2"],
         worst_floor=control["worst_floor"], loss=loss_c)
-    if not (ok and left_out and len(memory_kb) == 8):
+    if not (ok and kb_ok and left_out and len(memory_kb) == 8
+            and all(r["calls"] > 0 for _, r in kb.values())):
         raise AssertionError(f"{label}: gradients with the kernels disagree "
-                             f"with plain attention: {fields}")
+                             f"with plain attention: {fields}, memory key "
+                             f"biases {kb}")
     if control_ok:
         raise AssertionError(f"{label}: the gradient check cannot see a "
                              f"missing key bias: {control}")
@@ -2457,6 +2606,39 @@ def run_track(torch, model, frames, prompts, autocast=True):
                 out, carry = model.track_frame(feat, pos, carry, highres=hr)
             outs.append(out)
     return tuple(torch.cat([o[j].float() for o in outs]) for j in range(3))
+
+
+def sam2_step_launches(frames):
+    """Launches of one SAM2-B+ train step of ``frames`` frames: K1 on 18
+    windowed blocks and K6 on 3 global blocks, each twice (checkpointing
+    recomputes them), with one backward; 8 K6 a tracked frame (4 memory
+    layers' self- and cross-attention), with one backward each."""
+    return dict(K1=2 * 18, K1_bwd=18, K6=2 * 3 + 8 * (frames - 1),
+                K6_bwd=3 + 8 * (frames - 1))
+
+
+def sam2_gradient_phase(torch, fa, ln):
+    """Phase 24 of ``main``: SAM2-B+ at the stage-2 config's settings on its
+    seeded init, with sharp attention (Hiera's qkv and the memory
+    attention's q and k redrawn as in 21): the gradients of the timed
+    step's batch, kernels against plain attention, both held against the
+    fp32 model; a control shows the check would fail without the key bias.
+    Returns the model, its train step, the batch and the config."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        profile_video_interactive_segmentation_train as sam2_profile)
+    model, train_step, sam2_config = sam2_profile.build_train_step()
+    batch4 = sam2_profile.to_device(sam2_profile.recipe_batch(
+        frames=SAM2_STEP_FRAMES))
+    sharpen_sam2_attention_(torch, model, SAM2_GRAD_SEED)
+    sharp = sharpen_memory_keys_(
+        torch, model, batch4["image"][0],
+        {"prompt_point": batch4["prompt_point"][:, 0, :1]})
+    log("sam2_b+ train memory attention, sharpened", **sharp)
+    grad_counts = check_sam2_gradients(torch, fa, ln, model, batch4,
+                                       sam2_config, "sam2_b+ sharp attention")
+    expect_counts("SAM2-B+ gradients", grad_counts,
+                  **sam2_step_launches(SAM2_STEP_FRAMES))
+    return model, train_step, batch4, sam2_config
 
 
 def kernels_as_plain_versions():
@@ -2805,9 +2987,6 @@ def sam2_training_slice(torch, fa, ln, results):
         profile_video_interactive_segmentation_train as sam2_profile,
         train_video_interactive_segmentation_model as sam2_train_cli)
 
-    def sam2_step_launches(frames):
-        return dict(K1=2 * 18, K1_bwd=18, K6=2 * 3 + 8 * (frames - 1),
-                    K6_bwd=3 + 8 * (frames - 1))
     sam2_dir = SMOKE_DIR / "sam2_b+_train"
     shutil.rmtree(sam2_dir, ignore_errors=True)
     sam2_dir.mkdir(parents=True)
@@ -2857,23 +3036,9 @@ def sam2_training_slice(torch, fa, ln, results):
                              "best.pth")
     torch.cuda.empty_cache()
 
-    # 24. SAM2-B+ at the stage-2 config's settings on its seeded init, with
-    #     sharp attention (Hiera's qkv and the memory attention's q and k
-    #     redrawn as in 21): the gradients of the timed step's batch,
-    #     kernels against plain attention, both held against the fp32 model;
-    #     a control shows the check would fail without the key bias
-    model, train_step, sam2_config = sam2_profile.build_train_step()
-    batch4 = sam2_profile.to_device(sam2_profile.recipe_batch(
-        frames=SAM2_STEP_FRAMES))
-    sharpen_sam2_attention_(torch, model, SAM2_GRAD_SEED)
-    sharp = sharpen_memory_keys_(
-        torch, model, batch4["image"][0],
-        {"prompt_point": batch4["prompt_point"][:, 0, :1]})
-    log("sam2_b+ train memory attention, sharpened", **sharp)
-    grad_counts = check_sam2_gradients(torch, fa, ln, model, batch4,
-                                       sam2_config, "sam2_b+ sharp attention")
-    expect_counts("SAM2-B+ gradients", grad_counts,
-                  **sam2_step_launches(SAM2_STEP_FRAMES))
+    # 24. SAM2-B+ gradients with sharp attention (sam2_gradient_phase)
+    model, train_step, batch4, sam2_config = sam2_gradient_phase(torch, fa,
+                                                                 ln)
 
     # 25. timed SAM2-B+ train steps at bench_sam2_train.py's recipe (batch
     #     1, 4 frames at 1024^2, frame 0 prompted, 2 refined frames, the
@@ -3032,8 +3197,11 @@ def main():
     t0 = time.perf_counter()
     build_logs = build.build()
     built = {n: build.library_path(n).name for n in build.SOURCES}
+    # ptxas's "Used N registers" line of each kernel (its notes on wgmma
+    # also name registers)
     ptxas = [line.strip() for text in build_logs.values()
-             for line in text.splitlines() if "registers" in line]
+             for line in text.splitlines() if "Used " in line
+             and "registers" in line]
     log("build", seconds=round(time.perf_counter() - t0, 2), libraries=built,
         kernels_compiled=len(ptxas),
         max_registers=max((int(l.split("Used ")[1].split()[0])
@@ -3906,10 +4074,11 @@ def main():
         entry("K7 bwd", "K7 layer_norm bwd", "layer_norm.cu",
               "layer_norm.py:120", norm_train_counts["K7 bwd"]),
         entry("K3", "K3 fused_attention_relwin_dense fwd",
-              "fused_attention.cu", "fused_attention.py:1146",
+              "short_attention_bias_fwd.cu", "fused_attention.py:1146",
               sam_counts["K3"]),
-        entry("K4", "K4 fused_attention_relwin fwd", "fused_attention.cu",
-              "fused_attention.py:901", sam_h_counts["K4"]),
+        entry("K4", "K4 fused_attention_relwin fwd",
+              "short_attention_bias_fwd.cu", "fused_attention.py:901",
+              sam_h_counts["K4"]),
         entry("K5", "K5 flash_attention_relpos fwd", "flash_attention.cu",
               "flash_attention.py:505", sam_counts["K5"]),
         entry("K3 bwd", "K3 fused_attention_relwin_dense bwd",
@@ -3932,8 +4101,9 @@ def main():
               "fused_attention.py:718", entry_counts["K9"], **no_model),
         entry("K9 bwd", "K9 fused_attention_qkv bwd", "fused_attention.cu",
               "fused_attention.py:734", entry_counts["K9 bwd"], **no_model),
-        entry("K2b", "K2b fused_attention bias fwd", "fused_attention.cu",
-              "fused_attention.py:321", entry_counts["K2b"], **no_model),
+        entry("K2b", "K2b fused_attention bias fwd",
+              "short_attention_bias_fwd.cu", "fused_attention.py:321",
+              entry_counts["K2b"], **no_model),
         entry("K2b bwd", "K2b fused_attention bias bwd",
               "fused_attention.cu", "fused_attention.py:338",
               entry_counts["K2b bwd"], **no_model),
@@ -3948,6 +4118,28 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def sam2_gradients_only():
+    """``python3 chip_smoke.py --sam2-gradients``: the kernels' build and
+    phase 24 alone (SAM2-B+'s gradient check and its control), for
+    repeated readings of the check on one tree."""
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "needs an NVIDIA GPU")
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        build, fused_attention as fa, layer_norm as ln)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi_line(), flush=True)
+    log.card = torch.cuda.get_device_name(0)
+    build.build()
+    sam2_gradient_phase(torch, fa, ln)
+    log("sam2 gradients only", ok=True)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, str(REPO))
-    main()
+    if sys.argv[1:] == ["--sam2-gradients"]:
+        sam2_gradients_only()
+    else:
+        main()

@@ -95,15 +95,16 @@
 // index to the consumers in its stage; -1 ends the walk.
 //
 // The tensor maps need libcuda's cuTensorMapEncodeTiled, fetched through
-// the runtime (cudaGetDriverEntryPoint, by version from CUDA 12.5), so
-// nothing links against libcuda. The wrapper copies an operand whose base or strides are
-// not 16-byte aligned (TMA's rule) before the call.
+// the runtime (hopper.cuh), so nothing links against libcuda. The wrapper
+// copies an operand whose base or strides are not 16-byte aligned (TMA's
+// rule) before the call.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -144,62 +145,8 @@ struct BwdParams {
 };
 
 // ------------------------------------------------------------ primitives
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// Registers a thread of this warpgroup: the producer warpgroup gives them
-// up (40), the consumers take them (232; at launch 168 each).
-template <int N>
-__device__ __forceinline__ void regs_down() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void regs_up() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// One 64 x 64 box of a 4-D map {D, N, H, B} at (col, row, head, batch).
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                        int row, int head, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row), "r"(head),
-      "r"(batch)
-      : "memory");
-}
+//
+// The TMA, mbarrier, wgmma and setmaxnreg helpers are in hopper.cuh.
 
 // A 64 x Dp tile: Dp / 64 boxes, 8 KB apart.
 template <int kBlk>
@@ -209,95 +156,10 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* 
   for (int c = 0; c < kBlk; ++c) tma_box(dst + c * kBox, map, bar, 64 * c, row, head, batch);
 }
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from touching accumulators across wgmma's asynchrony.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands (rows
-// of 64 K-values, 128 bytes): 8-row groups 1024 bytes apart (SBO), the
-// leading offset unused. MN-major operands (K rows of 64 MN-values): 8-row
-// groups of K 1024 bytes apart (SBO), 64-column boxes 8 KB apart (LBO).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
+// Descriptors of a 64 x Dp tile (128-byte swizzle): read K-major, or
+// MN-major with its 64-column boxes kBox apart.
 __device__ __forceinline__ uint64_t kmajor(uint32_t addr) { return sw128_desc(addr, 16); }
 __device__ __forceinline__ uint64_t mnmajor(uint32_t addr) { return sw128_desc(addr, kBox); }
-
-// d (64 x N, fp32) = (acc ? d : 0) + A (64 x 16) . B (16 x N), A K-major,
-// B K-major (kTransB = 0) or MN-major (1).
-template <int N, int kTransB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t a, uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64, 1>(float (&d)[32], uint64_t a, uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128, 1>(float (&d)[64], uint64_t a, uint64_t b,
-                                                  int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
 
 // ------------------------------------------------------------- tile math
 //
@@ -352,31 +214,6 @@ __device__ __forceinline__ void put_bf16(unsigned char* hi, unsigned char* lo,
       const float a = s[4 * jj + 2 * h], b = s[4 * jj + 2 * h + 1];
       *reinterpret_cast<uint32_t*>(hi + off) = pack_bf16(a, b);
       if (kResidual) *reinterpret_cast<uint32_t*>(lo + off) = pack_bf16_residual(a, b);
-    }
-}
-
-// Rows row0 + 16w + g (+8) of a warpgroup's 64 x NH accumulators, columns
-// col0.., as bf16 (times scale) at out (row stride sn), or as fp32 at part
-// (row stride Dp).
-template <int NH>
-__device__ __forceinline__ void store_bf16(bf16* out, long long sn, const float (&acc)[NH / 2],
-                                           float scale, int row0, int N, int col0, int D, int t,
-                                           int vec) {
-#pragma unroll
-  for (int jj = 0; jj < NH / 8; ++jj)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      const int col = col0 + 8 * jj + 2 * t;
-      if (row >= N || col >= D) continue;
-      const float a = acc[4 * jj + 2 * h] * scale, b = acc[4 * jj + 2 * h + 1] * scale;
-      bf16* dst = out + row * sn + col;
-      if (vec) {
-        *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
-      } else {
-        dst[0] = __float2bfloat16_rn(a);
-        if (col + 1 < D) dst[1] = __float2bfloat16_rn(b);
-      }
     }
 }
 
@@ -1203,54 +1040,9 @@ __global__ void __launch_bounds__(256)
 
 
 // ------------------------------------------------------------- host side
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D map {D, N, H, B} of one bf16 operand (strides in elements, each a
-// multiple of 8, the base 16-byte aligned): boxes of 64 x 64, 128-byte
-// swizzle, zeros past every edge. A stride of an axis of size 1 is never
-// used and is set to a packed one.
-bool make_map(CUtensorMap* map, const void* base, long long sb, long long sh, long long sn, int B,
-              int H, int N, int D) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
-                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const long long given[3] = {sn, sh, sb};
-  cuuint64_t strides[3];
-  long long packed = (static_cast<long long>(D) * 2 + 15) / 16 * 16;  // bytes
-  for (int i = 0; i < 3; ++i) {
-    strides[i] = static_cast<cuuint64_t>(dims[i + 1] == 1 ? packed : given[i] * 2);
-    packed = static_cast<long long>(strides[i]) * static_cast<long long>(dims[i + 1]);
-  }
-  const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+//
+// make_map (hopper.cuh): 4-D maps {D, N, H, B}, boxes of 64 x 64, 128-byte
+// swizzle, zeros past every edge.
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int smem, const BwdParams& p, cudaStream_t stream) {

@@ -1,5 +1,6 @@
 // Short-sequence fused self-attention, forward and backward, for Hopper
-// (sm_90a).
+// (sm_90a); the bf16 forward of the biased variants (K2b, K3, K4) is in
+// short_attention_bias_fwd.cu.
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_attention.py:
@@ -67,22 +68,14 @@
 // memory by ldmatrix.x4, two key groups at once: with two 4-byte loads per
 // mma.sync instead, instruction issue held the kernel 13-19% slower.
 //
-// The rel-pos bias (K3, K4; a template parameter, so K1 and K2 are compiled
-// without it): each score becomes a log2-domain logit s*scale*log2(e) +
-// (rel_h + rel_w)*log2(e) as it leaves the tensor cores, with both terms
-// read through the L1 cache (KW = 14 does not align with the 64-key
-// tiles). At SAM-B's windows (B' = 200 windows of 196 tokens, H = 12, D =
-// 64, bf16) a launch moves 294 MB (qkv, out and the fp32 rel terms), 88 us
-// at 3.35 TB/s, against 23.6 GFLOP = 24 us: bound by bytes. The bias loads,
-// two a score in each of the two passes, cost it about 1.7x K1's time for
-// the same bytes (PERF.md).
-//
-// The full bias (K2b; a third value of the same template parameter) enters
-// the same way: s*scale*log2(e) + bias*log2(e), one load a score in each
-// pass, through L1. At SAM-B's windows with an fp32 bias [200, 12, 196,
-// 196] a launch moves 241 MB of q, k, v and out and 369 MB of bias: 0.182
-// ms at 3.35 TB/s, bound by bytes (23.6 GFLOP = 0.024 ms); the bias is read
-// twice, once a pass, the second time mostly from L2.
+// The biased forwards in bf16 (K2b, K3, K4) are short_attention_bias_fwd.cu's
+// (wgmma, the bias staged once, one pass over the keys where a row fits);
+// this file keeps their fp32 forward and the backward of all three. In
+// those kernels the rel-pos bias (K3, K4) and the full bias (K2b) are values
+// of a template parameter, so K1 and K2 are compiled without them: each
+// score becomes a log2-domain logit s*scale*log2(e) + bias*log2(e) as it
+// leaves the tensor cores, the rel terms (rel_h + rel_w) or the bias read
+// through the L1 cache.
 //
 // fp32 design (not on the main path): one block per 32 query rows keeps
 // the whole fp32 score row in shared memory and uses plain FMA loops, so
@@ -182,22 +175,21 @@ __device__ __forceinline__ void full_bias_rows(long long (&rows)[2], const FullB
   for (int i = 0; i < 2; ++i) rows[i] = fb.row(b, hd, min(row + 8 * i, N - 1));
 }
 
-template <int DP, int MODE>
+// The bf16 forward of K1, K2 and K9 (no bias; the biased forwards of K2b,
+// K3 and K4 are short_attention_bias_fwd.cu's).
+template <int DP>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o,
                    long long in_sb, long long in_sh, long long in_sn,
                    long long out_sb, long long out_sh, long long out_sn,
                    int N, int D, int n_real, float scale, int vec, int out_vec,
-                   int resident, RelPos rel, FullBias bias) {
-  constexpr bool REL = MODE == kRelBias;
-  constexpr bool FULL = MODE == kFullBias;
+                   int resident) {
   constexpr int LD = DP + 8;       // 16-byte pad: conflict-free fragment loads
   // exp(s*scale - max) = 2^(s*c - max*log2 e): one FFMA and one ex2 per score
-  const float sc = scale * kLog2e;
-  const float c = MODE != kNoBias ? 1.f : sc;
-  // raw score that scales to -1e9 (with a bias: the logit itself)
-  const float masked_raw = MODE != kNoBias ? kNegInf * kLog2e : kNegInf / sc;
+  const float c = scale * kLog2e;
+  // raw score that scales to -1e9
+  const float masked_raw = kNegInf / c;
   constexpr int kSteps = DP / 16;  // k-steps of Q.K^T
   constexpr int kOutTiles = DP / 8;
   constexpr int kKeyFrags = kKeyTile / 8;
@@ -247,10 +239,6 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row0 = q0 + 16 * warp;  // this warp's first query row
   const bool active = row0 < N;
-  RelRows rr{};
-  if (REL) rr = rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
-  long long brows[2] = {0, 0};
-  if (FULL) full_bias_rows(brows, bias, blockIdx.z, blockIdx.y, row0 + g, N);
   uint32_t qf[kSteps][4];
   // rows g and g+8: running max of s*c, then max + log2(sum); sum per lane
   float m[2] = {-INFINITY, -INFINITY};
@@ -281,11 +269,7 @@ attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* Kb = Ks + (resident ? key0 : (step & 1) * kKeyTile) * LD;
       float s[kKeyFrags][4];
       own_times_other_t<DP, LD, kKeyFrags>(s, qf, Kb, key0, N, lane);
-      if (REL) {
-        rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, rel.KW, rel.inv_kw);
-      } else if (FULL) {
-        full_logits(s, bias, brows, key0, t, N, n_real, sc, masked_raw);
-      } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
+      if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
 #pragma unroll
         for (int j = 0; j < kKeyFrags; ++j)
 #pragma unroll
@@ -1129,6 +1113,8 @@ struct Args {
 
 template <int DP>
 int launch_bf16(const Args& a) {
+  // the biased bf16 forwards (K2b, K3, K4) are short_attention_bias_fwd.cu's
+  if (a.rel.h || a.bias.p) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int LD = DP + 8;
   // the head's 16-row tiles split evenly over the fewest blocks of <= 8 warps
   const int row_tiles = (a.N + 15) / 16;
@@ -1139,9 +1125,7 @@ int launch_bf16(const Args& a) {
   const int resident = resident_bytes <= kResidentBytes;
   const size_t smem =
       resident ? resident_bytes : sizeof(bf16) * (16 * warps + 4 * kKeyTile) * LD;
-  auto kernel = a.rel.h    ? attention_fwd_bf16<DP, kRelBias>
-                : a.bias.p ? attention_fwd_bf16<DP, kFullBias>
-                           : attention_fwd_bf16<DP, kNoBias>;
+  auto kernel = attention_fwd_bf16<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1150,7 +1134,7 @@ int launch_bf16(const Args& a) {
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.in_sb, a.in_sh, a.in_sn,
       a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.vec, a.out_vec,
-      resident, a.rel, a.bias);
+      resident);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1350,7 +1334,8 @@ extern "C" int saicv_fused_attention_fwd(
 // The same forward with SAM's decomposed rel-pos bias (K3, K4): the score of
 // query i and key j gains rel_h[i, j / KW] + rel_w[i, j % KW], with N = KH *
 // KW. rel_h and rel_w are fp32, each with its own (batch, head, row)
-// strides and a contiguous last axis of KH or KW values.
+// strides and a contiguous last axis of KH or KW values. fp32 inputs only
+// (is_bf16 = 0): the bf16 forward is short_attention_bias_fwd.cu's.
 extern "C" int saicv_fused_attention_relpos_fwd(
     const void* q, const void* k, const void* v, void* o, const float* rel_h,
     const float* rel_w, long long in_sb, long long in_sh, long long in_sn,
@@ -1368,7 +1353,7 @@ extern "C" int saicv_fused_attention_relpos_fwd(
 // The same forward with a full additive score bias (K2b): the score of
 // query i and key j of (batch b, head h) gains bias[b * b_sb + h * b_sh + i *
 // b_sn + j], fp32 (bias_bf16 = 0) or bf16 (1); a stride is 0 on an axis the
-// bias is broadcast over.
+// bias is broadcast over. fp32 inputs only, as above.
 extern "C" int saicv_fused_attention_bias_fwd(
     const void* q, const void* k, const void* v, void* o, const void* bias,
     long long in_sb, long long in_sh, long long in_sn,

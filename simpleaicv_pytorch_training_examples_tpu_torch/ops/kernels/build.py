@@ -19,8 +19,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("fused_attention", "flash_attention", "flash_keybias_bwd", "layer_norm",
-           "attn_block")
+SOURCES = ("fused_attention", "short_attention_bias_fwd", "flash_attention",
+           "flash_keybias_bwd", "layer_norm", "attn_block")
 # K8 compiles K1's device code into its own library
 INCLUDES = {"attn_block": ("fused_attention",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

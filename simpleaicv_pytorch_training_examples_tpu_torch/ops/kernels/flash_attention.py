@@ -78,7 +78,7 @@ import torch
 
 from . import build
 from .fused_attention import (check_rel_args, fused_attention_relwin_reference,
-                              rel_bias)
+                              rel_bias, tma_operand)
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.bfloat16, torch.float32)
@@ -368,20 +368,6 @@ def key_bias_backward_splits(b, h, nq, nk, d, sms):
     q_blocks, k_blocks = -(-nq // rows), -(-nk // rows)
     return (max(1, min(-(-nk // 64), sms // (q_blocks * b * h))),
             max(1, min(-(-nq // 64), sms // (k_blocks * b * h))))
-
-
-def tma_operand(t):
-    """t itself where the bf16 backward's tensor maps read it in place (a
-    16-byte aligned base and (batch, head, row) strides that are multiples
-    of 8 elements on every axis longer than 1), else a copy with the head
-    dim padded to a multiple of 8 (the maps read its first D columns)."""
-    if t.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 or n == 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
-        return t
-    d = t.shape[-1]
-    out = t.new_zeros(*t.shape[:3], -(-d // 8) * 8)
-    out[..., :d] = t
-    return out
 
 
 def _key_bias_backward_bf16(q, k, v, bias, dout, lse, scale):

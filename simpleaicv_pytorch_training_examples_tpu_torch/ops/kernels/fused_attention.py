@@ -27,8 +27,12 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
   qkv (any D <= 128) and returns ``[B, N, H, D]``; its backward writes the
   packed dqkv. It is K1's launch at other strides.
 
-All launch one CUDA kernel body (``csrc/fused_attention.cu``) that never
-writes the scores or the probabilities to device memory; N <= 1024. The
+The kernels never write the scores or the probabilities to device memory;
+N <= 1024. The forwards of K1, K2 and K9, every fp32 forward and every
+backward are ``csrc/fused_attention.cu``'s; the bf16 forwards of K2b, K3
+and K4 are ``csrc/short_attention_bias_fwd.cu``'s (``wgmma`` on TMA-fed
+tiles, the bias staged once, one pass over the keys where a row fits),
+which reads q, k and v in place where TMA can (``tma_operand``). The
 math is the TPU kernels': fp32 scores scaled by D^-0.5, plus the fp32
 rel-pos bias or the full bias (read as fp32), keys at or past ``n_real``
 set to -1e9, fp32 softmax, probabilities normalised and then cast to the
@@ -382,6 +386,50 @@ def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype,
         raise RuntimeError(f"fused attention kernel launch failed: cudaError {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _biased_library():
+    """The bf16 forwards of K3/K4 and K2b (``csrc/short_attention_bias_fwd.cu``)."""
+    lib = build.load("short_attention_bias_fwd")
+    rel = lib.saicv_short_attention_relpos_fwd
+    bias = lib.saicv_short_attention_bias_fwd
+    rel.argtypes = ([ctypes.c_void_p] * 6 + _STRIDES * 6 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_void_p])
+    bias.argtypes = ([ctypes.c_void_p] * 5 + _STRIDES * 5 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    rel.restype = bias.restype = ctypes.c_int
+    return rel, bias
+
+
+def tma_operand(t):
+    """t itself where a TMA tensor map reads it in place (a 16-byte aligned
+    base and (batch, head, row) strides that are multiples of 8 elements on
+    every axis longer than 1), else a copy with the head dim padded to a
+    multiple of 8 (the maps read its first D columns)."""
+    if t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 or n == 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+        return t
+    d = t.shape[-1]
+    out = t.new_zeros(*t.shape[:3], -(-d // 8) * 8)
+    out[..., :d] = t
+    return out
+
+
+def _launch_biased(fn, q, k, v, out, out_strides, extra, extra_strides,
+                   shape, after_scale=()):
+    """A bf16 biased forward: q, k, v [B, H, N, D] (each read in place where
+    TMA can, else copied), ``extra`` the bias pointers and their strides,
+    ``shape`` (B, H, N, D, n_real[, KH, KW])."""
+    q, k, v = (tma_operand(t) for t in (q, k, v))
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *extra, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *out_strides, *extra_strides, *shape, _scale(shape[3], None),
+                 *after_scale, stream)
+    if err != 0:
+        raise RuntimeError(f"biased attention kernel launch failed: cudaError {err}")
+
+
 def _launch(q_ptr, k_ptr, v_ptr, out, in_strides, out_strides, b, h, n, d,
             n_real, dtype, sm_scale=None):
     _call(_library()[0], out.device, (q_ptr, k_ptr, v_ptr, out.data_ptr()),
@@ -557,11 +605,17 @@ class FusedAttentionBias(torch.autograd.Function):
         b, h, n, d, n_real = check_args(q, k, v, n_real)
         full = check_bias_args(bias, (b, h, n, n))
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
-        _call(_library()[4], q.device,
-              (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               full.data_ptr()),
-              (*q.stride()[:3], h * n * d, n * d, d, *full.stride()[:3]), b, h,
-              n, d, n_real, q.dtype, bias_dtype=bias.dtype)
+        if q.dtype == torch.bfloat16:
+            _launch_biased(_biased_library()[1], q, k, v, out,
+                           (h * n * d, n * d, d), (full.data_ptr(),),
+                           full.stride()[:3], (b, h, n, d, n_real),
+                           (int(bias.dtype == torch.bfloat16),))
+        else:
+            _call(_library()[4], q.device,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   full.data_ptr()),
+                  (*q.stride()[:3], h * n * d, n * d, d, *full.stride()[:3]),
+                  b, h, n, d, n_real, q.dtype, bias_dtype=bias.dtype)
         fused_attention_bias.launches += 1
         return out
 
@@ -668,13 +722,19 @@ class FusedAttentionRelwinDense(torch.autograd.Function):
         b, n, c, d, _ = check_dense_args(qkv, head_nums)
         kh, kw = check_rel_args(rel_h, rel_w, (b, n, head_nums), n)
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-        es = qkv.element_size()
-        base = qkv.data_ptr()
-        _launch_relpos(base, base + c * es, base + 2 * c * es, out, rel_h,
-                       rel_w, (*_packed_strides(n, head_nums, d), n * c, d, c,
-                               *_dense_rel_strides(rel_h),
-                               *_dense_rel_strides(rel_w)),
-                       b, head_nums, n, d, n, kh, kw, qkv.dtype)
+        rel_strides = (*_dense_rel_strides(rel_h), *_dense_rel_strides(rel_w))
+        if qkv.dtype == torch.bfloat16:
+            q, k, v = _unpack(qkv.view(b, n, 3, head_nums, d))
+            _launch_biased(_biased_library()[0], q, k, v, out, (n * c, d, c),
+                           (rel_h.data_ptr(), rel_w.data_ptr()), rel_strides,
+                           (b, head_nums, n, d, n, kh, kw))
+        else:
+            es = qkv.element_size()
+            base = qkv.data_ptr()
+            _launch_relpos(base, base + c * es, base + 2 * c * es, out, rel_h,
+                           rel_w, (*_packed_strides(n, head_nums, d), n * c, d,
+                                   c, *rel_strides),
+                           b, head_nums, n, d, n, kh, kw, qkv.dtype)
         fused_attention_relwin_dense.launches += 1
         return out
 
@@ -723,10 +783,17 @@ class FusedAttentionRelwin(torch.autograd.Function):
         b, h, n, d, n_real = check_args(q, k, v, n_real)
         kh, kw = check_rel_args(rel_h, rel_w, (b, h, n), n)
         out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-        _launch_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, rel_h,
-                       rel_w, (*q.stride()[:3], n * h * d, d, h * d,
-                               *rel_h.stride()[:3], *rel_w.stride()[:3]),
-                       b, h, n, d, n_real, kh, kw, q.dtype)
+        rel_strides = (*rel_h.stride()[:3], *rel_w.stride()[:3])
+        if q.dtype == torch.bfloat16:
+            _launch_biased(_biased_library()[0], q, k, v, out,
+                           (n * h * d, d, h * d),
+                           (rel_h.data_ptr(), rel_w.data_ptr()), rel_strides,
+                           (b, h, n, d, n_real, kh, kw))
+        else:
+            _launch_relpos(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, rel_h,
+                           rel_w, (*q.stride()[:3], n * h * d, d, h * d,
+                                   *rel_strides), b, h, n, d, n_real, kh, kw,
+                           q.dtype)
         fused_attention_relwin.launches += 1
         return out.transpose(1, 2)
 

@@ -1,0 +1,243 @@
+"""Time the short-sequence attention forwards of two checkouts of this
+repository in turns on one card, and hold their K6 bf16 backwards to the
+same bits.
+
+    python3 simpleaicv_pytorch_training_examples_tpu_torch/tools/compare_attention_kernels.py \
+        --other DIR
+
+DIR is another checkout of the repository (for example an earlier commit
+unpacked with ``git archive``); "this" is the checkout that holds this
+script. The turns run other, this, this, other, each in a process of its
+own that imports the port's package from one checkout, whose kernels
+build into that checkout's ``build/kernels``, and times every case at its
+main-path shape: K2b's forward at SAM-B's windows with an fp32 and a bf16
+bias, at SAM-H's and at N = 1024; K4's at SAM-H's windows on views of a
+packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and K9's at ViT's
+(device ms a launch between CUDA events, the card spun first so that the
+host queues ahead; SDPA on the same inputs beside each, with the bias as a
+mask in the input dtype). Each
+turn also runs K6's bf16 backward twice on seeded inputs (SAM2's memory
+self-attention with masked slots, Hiera's global blocks) and hashes its
+gradients. The script prints one JSON line a turn, then one a case with
+both checkouts' times (the mean of their turns) and their ratio, and
+whether the K6 gradients are equal bit for bit between the checkouts and
+between two runs. Needs a CUDA device.
+"""
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+THIS = Path(__file__).resolve().parents[2]
+HBM_BYTES_PER_S = 3.35e12   # one H100 SXM
+BF16_FLOPS = 989e12
+SAM_WINDOWS = 200           # 8 images of 25 windows
+ORDER = ("other", "this", "this", "other")   # turns, so that drift shows
+
+
+def time_ms(torch, fn, iters=30, warmup=3):
+    """Device ms a call between two CUDA events, the card spun first."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops):
+    return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS)
+
+
+def forward_cases(torch, fa):
+    """(name, kernel, SDPA, bound ms) of every timed forward; inputs made
+    from a seed on the card."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+
+    def bias_case(b, h, n, d, bias_dtype, spread):
+        q, k, v = (randn(b, h, n, d).to(bf16) for _ in range(3))
+        bias = (spread * randn(b, h, n, n)).to(bias_dtype)
+        mask = bias.to(bf16)
+        nbytes = 2 * b * h * n * d * 4 + bias.numel() * bias.element_size()
+        return (lambda: fa.fused_attention(q, k, v, bias=bias),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask),
+                bound_ms(nbytes, 4.0 * b * h * n * n * d))
+
+    def rel_case(b, h, kh, kw, d, dense):
+        n = kh * kw
+        qkv = randn(b, n, 3 * h * d).to(bf16)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        lead = (b, n, h) if dense else (b, h, n)
+        rel_h, rel_w = randn(*lead, kh), randn(*lead, kw)
+        heads_h = rel_h.transpose(1, 2) if dense else rel_h
+        heads_w = rel_w.transpose(1, 2) if dense else rel_w
+        mask = fa.rel_bias(heads_h, heads_w).to(bf16)
+        kernel = ((lambda: fa.fused_attention_relwin_dense(qkv, rel_h, rel_w,
+                                                           h)) if dense else
+                  (lambda: fa.fused_attention_relwin(q, k, v, rel_h, rel_w)))
+        nbytes = 2 * b * h * n * d * 4 + 4 * b * h * n * (kh + kw)
+        return (kernel,
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask),
+                bound_ms(nbytes, 4.0 * b * h * n * n * d))
+
+    def plain_case(b, n, h, d, kind):
+        qkv = randn(b, n, 3, h, d).to(bf16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        kernel = {"K1": lambda: fa.fused_attention_dense(
+                      qkv.view(b, n, 3 * h * d), h),
+                  "K2": lambda: fa.fused_attention(q, k, v),
+                  "K9": lambda: fa.fused_attention_qkv(qkv)}[kind]
+        return (kernel, lambda: F.scaled_dot_product_attention(q, k, v),
+                bound_ms(2 * b * h * n * d * 4, 4.0 * b * h * n * n * d))
+
+    yield "K2b fwd sam_b", bias_case(SAM_WINDOWS, 12, 196, 64,
+                                     torch.float32, 0.3)
+    yield "K2b fwd bf16_bias", bias_case(SAM_WINDOWS, 12, 196, 64, bf16, 3.0)
+    yield "K2b fwd sam_h", bias_case(SAM_WINDOWS, 16, 196, 80,
+                                     torch.float32, 3.0)
+    yield "K2b fwd streamed_n1024", bias_case(8, 2, 1024, 128,
+                                              torch.float32, 3.0)
+    yield "K4 fwd sam_h", rel_case(SAM_WINDOWS, 16, 14, 14, 80, dense=False)
+    yield "K3 fwd sam_b", rel_case(SAM_WINDOWS, 12, 14, 14, 64, dense=True)
+    # K3's shape through K4's entry, the rel terms [B, H, N, K] contiguous
+    yield "K4 fwd sam_b", rel_case(SAM_WINDOWS, 12, 14, 14, 64, dense=False)
+    yield "K1 fwd vit_b16", plain_case(256, 197, 12, 64, "K1")
+    yield "K2 fwd vit_h14", plain_case(256, 257, 16, 80, "K2")
+    yield "K9 fwd vit_b16", plain_case(256, 197, 12, 64, "K9")
+
+
+def key_bias_backward_cases(torch, fl):
+    """(name, run) of K6's bf16 backward on seeded inputs; run() returns
+    dq, dk, dv."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+
+    def case(b, h, nq, nk, d, masked_keys, scale):
+        q, k, v = (randn(b, h, n, d).to(bf16) for n in (nq, nk, nk))
+        dout = randn(b, h, nq, d).to(bf16)
+        bias = None
+        if masked_keys:   # the last memory slots empty
+            bias = torch.zeros(b, nk, device="cuda")
+            bias[:, nk - masked_keys:] = -1e9
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        out = fl.flash_attention(*leaves, bias, scale)
+        return lambda: torch.autograd.grad(out, leaves, dout,
+                                           retain_graph=True)
+
+    # 7 slots of 512 keys, 3 of them empty
+    yield "K6 bwd memory slots", case(1, 1, 4096, 7 * 512, 256, 3 * 512,
+                                      None)
+    yield "K6 bwd hiera global", case(4, 8, 4096, 4096, 64, 0, 56 ** -0.5)
+
+
+def digest(torch, tensors):
+    """The first 16 hex digits of the sha256 of bf16 tensors' bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.int16).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def worker(root, build_only):
+    """One turn: import the package from ``root`` and print one JSON line."""
+    sys.path.insert(0, str(root))
+    import torch
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        build, flash_attention as fl, fused_attention as fa)
+    build.build()
+    if build_only:
+        return
+    record = {"root": str(root), "card": torch.cuda.get_device_name(0),
+              "cases": {}}
+    for name, (kernel, library, bound) in forward_cases(torch, fa):
+        with torch.no_grad():
+            record["cases"][name] = {"ms": time_ms(torch, kernel),
+                                     "library_ms": time_ms(torch, library),
+                                     "bound_ms": bound}
+        torch.cuda.empty_cache()
+    for name, run in key_bias_backward_cases(torch, fl):
+        first, second = digest(torch, run()), digest(torch, run())
+        record["cases"][name] = {"ms": time_ms(torch, run, iters=5),
+                                 "digest": first,
+                                 "reproducible": first == second}
+        torch.cuda.empty_cache()
+    print(json.dumps(record), flush=True)
+
+
+def run_turn(root, build_only=False):
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--worker", str(root)]
+                         + (["--build-only"] if build_only else []),
+                         cwd=root, capture_output=True, text=True,
+                         env=dict(os.environ))
+    if out.returncode != 0:
+        raise SystemExit(f"turn in {root} failed:\n{out.stdout}\n"
+                         f"{out.stderr[-4000:]}")
+    return out.stdout
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--other", type=Path,
+                        help="the other checkout's root (required)")
+    parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--build-only", action="store_true",
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker is not None:
+        worker(args.worker.resolve(), args.build_only)
+        return
+    if args.other is None:
+        parser.error("--other is required")
+    roots = {"this": THIS, "other": args.other.resolve()}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    builds = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                "--worker", str(r), "--build-only"], cwd=r)
+              for r in roots.values()]
+    if any(p.wait() != 0 for p in builds):
+        raise SystemExit("a kernel build failed")
+    turns = {"this": [], "other": []}
+    for which in ORDER:
+        record = json.loads(run_turn(roots[which]).strip().splitlines()[-1])
+        record["turn"] = which
+        print(json.dumps(record), flush=True)
+        turns[which].append(record["cases"])
+    for name in turns["this"][0]:
+        mean = lambda key, side: sum(t[name][key] for t in turns[side]) / len(
+            turns[side])
+        line = {"case": name, "this_ms": [t[name]["ms"] for t in turns["this"]],
+                "other_ms": [t[name]["ms"] for t in turns["other"]],
+                "speedup": mean("ms", "other") / mean("ms", "this")}
+        if "digest" in turns["this"][0][name]:
+            digests = {t[name]["digest"] for s in turns.values() for t in s}
+            line["same_bits_in_both"] = len(digests) == 1
+            line["reproducible"] = all(t[name]["reproducible"]
+                                       for s in turns.values() for t in s)
+        else:
+            line["library_ms"] = mean("library_ms", "this")
+            line["bound_ms"] = turns["this"][0][name]["bound_ms"]
+            line["this_over_library"] = mean("ms", "this") / line["library_ms"]
+        print(json.dumps(line), flush=True)
+
+
+if __name__ == "__main__":
+    main()

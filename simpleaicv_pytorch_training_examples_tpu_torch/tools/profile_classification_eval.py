@@ -32,7 +32,7 @@ CATEGORIES = (
     ("key-bias flash attention backward kernel (K6)",
      ("flash_keybias_bwd",)),
     ("key-bias flash attention kernel (K6)", ("flash_keybias",)),
-    ("attention kernel", ("attention_fwd",)),
+    ("attention kernel", ("attention_fwd", "attention_bias_fwd")),
     ("layer norm kernel", ("layer_norm_fwd_", "layer_norm_bwd_",
                            "reduce_partials")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")),

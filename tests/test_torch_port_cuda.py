@@ -24,7 +24,11 @@ D] qkv) at odd and even head dims, with a strided dout and unaligned
 tensors, bit for bit K1 at d = 64 and 128; K2b (the full score bias) with
 fp32 and bf16 biases broadcast from [1, H, N, N], [H, N, N] and [B, 1, 1,
 N], N up to 1024, dbias in the bias's shape and dtype (skipped when the
-bias needs no gradient), and the shapes, dtypes and layouts both refuse.
+bias needs no gradient), and the shapes, dtypes and layouts both refuse;
+the bf16 forward of K2b, K3 and K4 (``short_attention_bias_fwd.cu``) where
+its plan changes: N from 50 to 1024 (one pass up to 256 keys, groups of
+256 past it), D = 35, 64, 80 and 128, masked key tails, every bias layout
+and K3's and K4's layouts, two runs equal bit for bit.
 Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
@@ -1078,3 +1082,117 @@ def test_qkv_and_bias_refuse_what_they_cannot_take(cuda):
     q = torch.zeros(1, 2, 8, 144, device="cuda")
     with pytest.raises(ValueError):          # D past 128
         fa.fused_attention(q, q, q, bias=bias)
+
+
+# ------------------------- the biased forward on wgmma (K2b, K3, K4, bf16)
+
+# N -> (KH, KW) of a key grid with KH * KW = N
+KEY_GRIDS = {50: (5, 10), 63: (7, 9), 160: (10, 16), 196: (14, 14),
+             256: (16, 16), 257: (1, 257), 1024: (32, 32)}
+
+
+def _twice(wrapper, run):
+    """Two runs of a forward: (out, the second run's out), counting one
+    launch each."""
+    before = wrapper.launches
+    out, again = run(), run()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    return out, again
+
+
+@pytest.mark.parametrize("n", sorted(KEY_GRIDS))
+@pytest.mark.parametrize("d", [35, 64, 80, 128])
+def test_biased_forward_row_lengths_and_head_dims(cuda, n, d):
+    """K2b's and K4's bf16 forward (``short_attention_bias_fwd.cu``) where
+    the kernel's plan changes: one pass up to 256 keys (the last 64-key
+    chunk 8 to 64 keys wide), groups of 256 keys past it; columns in one
+    box (D = 35, zero-padded to 48, and 64), 64 + 16 (80) and 64 + 64 (128).
+    Against the plain versions, two runs equal bit for bit."""
+    kh, kw = KEY_GRIDS[n]
+    b, h = (1, 2) if n > 256 else (2, 2)
+    gen = torch.Generator(device="cuda").manual_seed(n * 131 + d)
+    q, k, v = (_randn(gen, b, h, n, d, dtype=torch.bfloat16) for _ in range(3))
+    bias = 3.0 * _randn(gen, b, h, n, n, dtype=torch.float32)
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    out, again = _twice(fa.fused_attention_bias,
+                        lambda: fa.fused_attention(q, k, v, bias=bias))
+    assert torch.equal(out, again)
+    _close(out, fa.fused_attention_bias_reference(q, k, v, bias),
+           torch.bfloat16, f"K2b N={n} D={d}")
+    out, again = _twice(fa.fused_attention_relwin, lambda: (
+        fa.fused_attention_relwin(q, k, v, rel_h, rel_w)))
+    assert torch.equal(out, again)
+    _close(out, fa.fused_attention_relwin_reference(q, k, v, rel_h, rel_w),
+           torch.bfloat16, f"K4 N={n} D={d}")
+
+
+@pytest.mark.parametrize("n,n_real", [
+    (196, 150), (196, 128), (196, 64), (196, 1), (63, 57), (257, 256),
+    (257, 200), (1024, 256), (1024, 700)])
+def test_biased_forward_masks_the_key_tail(cuda, n, n_real):
+    """Keys at or past n_real: ragged, a whole 64-key chunk or 256-key
+    group masked, one key left."""
+    kh, kw = KEY_GRIDS[n]
+    gen = torch.Generator(device="cuda").manual_seed(n + n_real)
+    q, k, v = (_randn(gen, 2, 2, n, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    bias = 3.0 * _randn(gen, 2, 2, n, n, dtype=torch.float32)
+    rel_h, rel_w = _rel(gen, (2, 2, n), kh, kw)
+    _close(fa.fused_attention(q, k, v, n_real, bias=bias),
+           fa.fused_attention_bias_reference(q, k, v, bias, n_real),
+           torch.bfloat16, "K2b")
+    _close(fa.fused_attention_relwin(q, k, v, rel_h, rel_w, n_real),
+           fa.fused_attention_relwin_reference(q, k, v, rel_h, rel_w, n_real),
+           torch.bfloat16, "K4")
+
+
+@pytest.mark.parametrize("kind", ["full", "heads", "shared", "keys"])
+@pytest.mark.parametrize("bias_dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n", [196, 63, 257])
+def test_biased_forward_takes_every_bias_layout(cuda, kind, bias_dtype, n):
+    """K2b's bias broadcast from [1, H, N, N], [H, N, N] and [B, 1, 1, N]
+    (staged once, its rows addressed through stride 0), fp32 or bf16 (bf16
+    rows of 392 bytes take 8-byte copies, of 126 bytes element loads), in
+    SAM's windows' layout (views of a packed qkv)."""
+    b, h, d = 2, 3, 64
+    gen = torch.Generator(device="cuda").manual_seed(n * 7 + len(kind))
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    bias = (3.0 * _randn(gen, *_bias_shape(kind, b, h, n),
+                         dtype=torch.float32)).to(DTYPES[bias_dtype])
+    out, again = _twice(fa.fused_attention_bias,
+                        lambda: fa.fused_attention(q, k, v, n - 5, bias=bias))
+    assert torch.equal(out, again)
+    _close(out, fa.fused_attention_bias_reference(q, k, v, bias, n - 5),
+           torch.bfloat16, f"K2b {kind} {bias_dtype}")
+
+
+@pytest.mark.parametrize("b,h,kh,kw,d,packed", [
+    (3, 16, 14, 14, 80, True), (2, 12, 14, 14, 64, False),
+    (2, 4, 14, 14, 128, True), (1, 2, 32, 32, 80, True)])
+def test_biased_forward_relwin_layouts(cuda, b, h, kh, kw, d, packed):
+    """K4 on q, k, v [B, H, N, D] and on views of a packed qkv (SAM-H's
+    layout, read in place by the tensor maps), K3 on the packed qkv itself
+    (head dim 64 or 128); the rel terms in the modules' layouts."""
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n + d + h)
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=torch.bfloat16)
+    if packed:
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    else:
+        q, k, v = (_randn(gen, b, h, n, d, dtype=torch.bfloat16)
+                   for _ in range(3))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    out, again = _twice(fa.fused_attention_relwin, lambda: (
+        fa.fused_attention_relwin(q, k, v, rel_h, rel_w)))
+    assert torch.equal(out, again)
+    _close(out, fa.fused_attention_relwin_reference(q, k, v, rel_h, rel_w),
+           torch.bfloat16, "K4")
+    if d in (64, 128):
+        dense_h, dense_w = _rel(gen, (b, n, h), kh, kw)
+        out, again = _twice(fa.fused_attention_relwin_dense, lambda: (
+            fa.fused_attention_relwin_dense(qkv, dense_h, dense_w, h)))
+        assert torch.equal(out, again)
+        _close(out, fa.fused_attention_relwin_dense_reference(
+            qkv, dense_h, dense_w, h), torch.bfloat16, "K3")
