@@ -37,12 +37,15 @@
 // allocates and frees; the autograd graph keeps only x:
 //   forward : LN1 (row statistics and xn, one warp a row); the qkv GEMM with
 //             the bias in its epilogue; the attention core by K1's device
-//             code (fused_attention.cu, which reads exactly this packed [B, N,
-//             3C] layout); the proj GEMM with bias and residual in its
-//             epilogue, rounded once;
+//             code, which reads exactly this packed [B, N, 3C] layout (bf16:
+//             short_attention_fwd.cu's wgmma kernel; fp32:
+//             fused_attention.cu's); the proj GEMM with bias and residual in
+//             its epilogue, rounded once;
 //   backward: the same, then dattn = dy.Wproj, K1's backward into the packed
-//             dqkv, dWproj = dy^T.attn and dWqkv = dqkv^T.xn, dxn = dqkv.Wqkv
-//             (fp32), the column sums dbproj, dbqkv, dgamma, dbeta, and dx.
+//             dqkv (bf16: short_attention_bwd.cu's; fp32:
+//             fused_attention.cu's), dWproj = dy^T.attn and dWqkv =
+//             dqkv^T.xn, dxn = dqkv.Wqkv (fp32), the column sums dbproj,
+//             dbqkv, dgamma, dbeta, and dx.
 // The GEMM (attn_block_gemm_bf16) is one mma.sync m16n8k16 template with fp32
 // accumulation, 128 x 128 x 32 tiles, 8 warps of 64 x 32, a ring of four
 // tiles in flight by cp.async, two blocks an SM; each operand is read in
@@ -55,6 +58,8 @@
 
 #define SAICV_ATTENTION_DEVICE_ONLY
 #include "fused_attention.cu"
+#include "short_attention_bwd.cu"
+#include "short_attention_fwd.cu"
 
 namespace k8 {
 
@@ -674,13 +679,25 @@ long long workspace_bytes(const Shape& s, bool backward, Workspace* w, char* bas
   return off;
 }
 
+// (batch, head, row) strides of q, k, v in the packed qkv, and of the
+// attention output
+long long packed_sb(const Shape& s) { return static_cast<long long>(s.N) * 3 * s.C; }
+
 template <int DP>
 int attention_forward(const Shape& s, const Workspace& w) {
   const long long es = s.bf16 ? 2 : 4;
   const long long c = s.C;
+  const float scale = 1.f / sqrtf(static_cast<float>(DP));
+  if (s.bf16) {
+    const long long st[12] = {packed_sb(s), DP, 3 * c, packed_sb(s), DP, 3 * c,
+                              packed_sb(s), DP, 3 * c, s.N * c,      DP, c};
+    return saicv::short_attn::fwd::run_plain<DP == 64 ? 0 : 64>(
+        w.qkv, w.qkv + c * es, w.qkv + 2 * c * es, w.attn, st, s.B, s.H, s.N, DP, s.N, scale,
+        s.stream);
+  }
   const Args a = forward_args(w.qkv, w.qkv + c * es, w.qkv + 2 * c * es, w.attn,
-                              s.N * 3 * c, DP, 3 * c, s.N * c, DP, c, s.B, s.H, s.N, DP, s.N,
-                              1.f / sqrtf(static_cast<float>(DP)), s.bf16, s.stream);
+                              packed_sb(s), DP, 3 * c, s.N * c, DP, c, s.B, s.H, s.N, DP, s.N,
+                              scale, s.stream);
   return launch_dtype<DP>(a, s.bf16);
 }
 
@@ -688,10 +705,20 @@ template <int DP>
 int attention_backward(const Shape& s, const Workspace& w) {
   const long long es = s.bf16 ? 2 : 4;
   const long long c = s.C;
+  const float scale = 1.f / sqrtf(static_cast<float>(DP));
+  if (s.bf16) {
+    const void* const in[4] = {w.qkv, w.qkv + c * es, w.qkv + 2 * c * es, w.dattn};
+    void* const grads[3] = {w.dqkv, w.dqkv + c * es, w.dqkv + 2 * c * es};
+    const long long st[15] = {packed_sb(s), DP, 3 * c, packed_sb(s), DP, 3 * c,
+                              packed_sb(s), DP, 3 * c, s.N * c,      DP, c,
+                              packed_sb(s), DP, 3 * c};
+    return saicv::short_attn::bwd::run_plain<DP == 64 ? 0 : 64>(
+        in, grads, w.att_stats, st, s.B, s.H, s.N, DP, s.N, scale, s.stream);
+  }
   const BwdArgs a = backward_args(
       w.qkv, w.qkv + c * es, w.qkv + 2 * c * es, w.dattn, w.dqkv, w.dqkv + c * es,
-      w.dqkv + 2 * c * es, w.att_stats, s.N * 3 * c, DP, 3 * c, s.N * c, DP, c, s.N * 3 * c,
-      DP, 3 * c, s.B, s.H, s.N, DP, s.N, 1.f / sqrtf(static_cast<float>(DP)), s.bf16, s.stream);
+      w.dqkv + 2 * c * es, w.att_stats, packed_sb(s), DP, 3 * c, s.N * c, DP, c, packed_sb(s),
+      DP, 3 * c, s.B, s.H, s.N, DP, s.N, scale, s.bf16, s.stream);
   return launch_bwd_dtype<DP>(a, s.bf16);
 }
 

@@ -1,6 +1,7 @@
 // Short-sequence fused self-attention, forward and backward, for Hopper
-// (sm_90a); the bf16 forward of the biased variants (K2b, K3, K4) is in
-// short_attention_bias_fwd.cu.
+// (sm_90a): every fp32 kernel, and the bf16 backward of the biased variants
+// (K2b, K3, K4). Every bf16 forward is short_attention_fwd.cu's, the bf16
+// backward without a bias (K1, K2, K9) short_attention_bwd.cu's.
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_attention.py:
@@ -39,47 +40,11 @@
 // normalised, then cast to the input dtype; P.V accumulates in fp32 and the
 // output is written in the input dtype. N <= 1024, D <= 128.
 //
-// Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at the ViT-B/16
-// eval shape (B=256, N=197, H=12, D=64, bf16) one launch reads 232 MB of qkv
-// and writes 77 MB, 92 us of memory time, against 30.5 GFLOP = 31 us of
-// tensor-core time: the kernel is bound by bytes. At the ViT-H/14 shape
-// (B=256, H=16, N=257, D=80) it moves 4 x 256*16*257*80*2 B = 674 MB, 201 us,
-// against 4*B*H*N^2*D = 86.6 GFLOP = 88 us: bound by bytes as well.
-//
-// bf16 design: one warp per 16 query rows, the head's row tiles split
-// evenly over the fewest blocks of at most 8 warps (ViT-B/16: 13 tiles, two
-// blocks of 7 warps), scores in registers (mma.sync m16n8k16, fp32
-// accumulation). The block copies K and V of its head into shared memory
-// once with cp.async (V landing while the first pass runs); a head too
-// large for that streams 64-key tiles through a two-stage pipeline. Two
-// passes over the keys: the first keeps each row's running max and sum
-// (online softmax), the second recomputes the scores, forms P = exp(s - max)
-// / sum, casts it to bf16 and multiplies it by V. P is thus normalised
-// before its cast, as on the TPU, and the score matrix never leaves the
-// registers. exp runs as one FFMA and one ex2.approx per score, with the
-// scale and 1/sum folded in: P differs from the plain version's in the last
-// fp32 bits, far below its bf16 rounding. The head dim is zero-padded to a
-// multiple of 16 in shared memory and every tile masks its ragged edge
-// (N = 197 and 257 are not multiples of 16; D = 80 is not a power of two).
-//
-// What bounds it now (diagnostic builds, H100): the copies from L2 and the
-// Q.K^T products, which the second pass repeats; the softmax arithmetic and
-// P.V cost little beside them. The B fragments of Q.K^T come from shared
-// memory by ldmatrix.x4, two key groups at once: with two 4-byte loads per
-// mma.sync instead, instruction issue held the kernel 13-19% slower.
-//
-// The biased forwards in bf16 (K2b, K3, K4) are short_attention_bias_fwd.cu's
-// (wgmma, the bias staged once, one pass over the keys where a row fits);
-// this file keeps their fp32 forward and the backward of all three. In
-// those kernels the rel-pos bias (K3, K4) and the full bias (K2b) are values
-// of a template parameter, so K1 and K2 are compiled without them: each
-// score becomes a log2-domain logit s*scale*log2(e) + bias*log2(e) as it
-// leaves the tensor cores, the rel terms (rel_h + rel_w) or the bias read
-// through the L1 cache.
-//
 // fp32 design (not on the main path): one block per 32 query rows keeps
 // the whole fp32 score row in shared memory and uses plain FMA loops, so
-// fp32 inputs keep full fp32 precision.
+// fp32 inputs keep full fp32 precision. The C entry points refuse bf16
+// forwards (short_attention_fwd.cu's) and the bf16 backward without a bias
+// (short_attention_bwd.cu's).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,17 +75,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ------------------------------------------------------------ bf16 path
 
-constexpr int kMaxWarps = 8;   // one warp per 16 query rows, up to 8 a block
-constexpr int kKeyTile = 64;   // keys per pipeline stage
-// K and V of a whole head stay in shared memory when Q, K and V fit in this
-// budget (ViT-B/16's and ViT-H/14's heads do); larger heads stream through
-// the two-stage pipeline.
+constexpr int kMaxWarps = 8;   // one warp per 16 rows, up to 8 a block
+constexpr int kKeyTile = 64;   // rows of the other operand a step
+// The other operand's rows of a whole head stay in shared memory when they
+// fit in this budget beside the block's own (SAM's windows do); larger
+// heads are walked in chunks of whole 64-row tiles.
 constexpr int kResidentBytes = 160000;
 
-// What the scores gain: nothing (K1, K2), SAM's decomposed rel-pos bias (K3,
-// K4) or a full bias (K2b). With either bias each score becomes the
-// log2-domain logit s*scale*log2(e) + bias*log2(e) as soon as it leaves the
-// tensor cores, and the softmax then runs with c = 1.
+// What the scores gain: SAM's decomposed rel-pos bias (K3, K4) or a full
+// bias (K2b); each score becomes the log2-domain logit s*scale*log2(e) +
+// bias*log2(e) as soon as it leaves the tensor cores. kNoBias (K1, K2, K9)
+// is short_attention_bwd.cu's and not instantiated here.
 enum BiasMode { kNoBias, kRelBias, kFullBias };
 
 // A full additive score bias (K2b): bias[b, h, i, j] of query i and key j,
@@ -173,159 +138,6 @@ __device__ __forceinline__ void full_bias_rows(long long (&rows)[2], const FullB
                                                int hd, int row, int N) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) rows[i] = fb.row(b, hd, min(row + 8 * i, N - 1));
-}
-
-// The bf16 forward of K1, K2 and K9 (no bias; the biased forwards of K2b,
-// K3 and K4 are short_attention_bias_fwd.cu's).
-template <int DP>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-attention_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o,
-                   long long in_sb, long long in_sh, long long in_sn,
-                   long long out_sb, long long out_sh, long long out_sn,
-                   int N, int D, int n_real, float scale, int vec, int out_vec,
-                   int resident) {
-  constexpr int LD = DP + 8;       // 16-byte pad: conflict-free fragment loads
-  // exp(s*scale - max) = 2^(s*c - max*log2 e): one FFMA and one ex2 per score
-  const float c = scale * kLog2e;
-  // raw score that scales to -1e9
-  const float masked_raw = kNegInf / c;
-  constexpr int kSteps = DP / 16;  // k-steps of Q.K^T
-  constexpr int kOutTiles = DP / 8;
-  constexpr int kKeyFrags = kKeyTile / 8;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  // Q [rows][LD]; K and V each [NP][LD] when resident, else
-  // [2][kKeyTile][LD] (two pipeline stages)
-  const int rows = 16 * (blockDim.x / 32);  // query rows of this block
-  const int NP = (N + 15) & ~15;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + rows * LD;
-  bf16* Vs = Ks + (resident ? NP : 2 * kKeyTile) * LD;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and +8)
-  const int t = lane % 4;  // fragment column pair
-  const int q0 = blockIdx.x * rows;
-  const long long in_off = blockIdx.z * in_sb + blockIdx.y * in_sh;
-  const bf16* qh = q + in_off;
-  const bf16* kh = k + in_off;
-  const bf16* vh = v + in_off;
-  bf16* oh = o + blockIdx.z * out_sb + blockIdx.y * out_sh;
-
-  const int tiles = (N + kKeyTile - 1) / kKeyTile;
-  const int steps = 2 * tiles;  // pass 1: K tiles; pass 2: K and V tiles
-  auto issue = [&](int step) {
-    const int tile = step < tiles ? step : step - tiles;
-    const int buf = step & 1;
-    const long long off = static_cast<long long>(tile) * kKeyTile * in_sn;
-    load_tile_bf16<DP, LD>(Ks + buf * kKeyTile * LD, kh + off, in_sn, kKeyTile,
-                           N - tile * kKeyTile, D, vec);
-    if (step >= tiles)
-      load_tile_bf16<DP, LD>(Vs + buf * kKeyTile * LD, vh + off, in_sn, kKeyTile,
-                             N - tile * kKeyTile, D, vec);
-  };
-
-  load_tile_bf16<DP, LD>(Qs, qh + q0 * in_sn, in_sn, rows, N - q0, D, vec);
-  if (resident) {  // two groups: Q and all of K, then all of V
-    load_tile_bf16<DP, LD>(Ks, kh, in_sn, NP, N, D, vec);
-    cp_async_commit();
-    load_tile_bf16<DP, LD>(Vs, vh, in_sn, NP, N, D, vec);
-  } else {
-    issue(0);
-  }
-  cp_async_commit();
-
-  const int row0 = q0 + 16 * warp;  // this warp's first query row
-  const bool active = row0 < N;
-  uint32_t qf[kSteps][4];
-  // rows g and g+8: running max of s*c, then max + log2(sum); sum per lane
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int j = 0; j < kOutTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int step = 0; step < steps; ++step) {
-    if (!resident) {
-      if (step + 1 < steps) issue(step + 1);
-      cp_async_commit();  // one group per step, possibly empty
-      cp_async_wait_one();
-      __syncthreads();
-    } else if (step == 0) {  // Q and K have landed
-      cp_async_wait_one();
-      __syncthreads();
-    } else if (step == tiles) {  // V has landed
-      cp_async_wait_all();
-      __syncthreads();
-    }
-
-    if (step == 0 && active) load_a_frags<DP, LD>(qf, Qs + 16 * warp * LD, g, t);
-
-    if (active) {
-      const int tile = step < tiles ? step : step - tiles;
-      const int key0 = tile * kKeyTile;
-      const bf16* Kb = Ks + (resident ? key0 : (step & 1) * kKeyTile) * LD;
-      float s[kKeyFrags][4];
-      own_times_other_t<DP, LD, kKeyFrags>(s, qf, Kb, key0, N, lane);
-      if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
-#pragma unroll
-        for (int j = 0; j < kKeyFrags; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = key0 + 8 * j + 2 * t + (e & 1);
-            s[j][e] = col >= N ? -INFINITY : (col >= n_real ? masked_raw : s[j][e]);
-          }
-      }
-
-      if (step < tiles) {  // pass 1: online row max and sum
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float tmax = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < kKeyFrags; ++j)
-            tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-          tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-          const float mnew = fmaxf(m[r], tmax * c);
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < kKeyFrags; ++j)
-            if (key0 + 8 * j < N)
-              sum += exp2_approx(fmaf(s[j][2 * r], c, -mnew)) +
-                     exp2_approx(fmaf(s[j][2 * r + 1], c, -mnew));
-          l[r] = l[r] * exp2_approx(m[r] - mnew) + sum;
-          m[r] = mnew;
-        }
-        if (step == tiles - 1) {  // row sums over the quad; fold 1/sum into m
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-            m[r] += __log2f(l[r]);
-          }
-        }
-      } else {  // pass 2: P = 2^(s*c - max - log2 sum) in bf16, O += P.V
-        const bf16* Vb = Vs + (resident ? key0 : (step & 1) * kKeyTile) * LD;
-#pragma unroll
-        for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-          if (key0 + 16 * kk >= N) break;
-          const float* s0 = s[2 * kk];
-          const float* s1 = s[2 * kk + 1];
-          uint32_t a[4];
-          a[0] = pack_bf16(exp2_approx(fmaf(s0[0], c, -m[0])), exp2_approx(fmaf(s0[1], c, -m[0])));
-          a[1] = pack_bf16(exp2_approx(fmaf(s0[2], c, -m[1])), exp2_approx(fmaf(s0[3], c, -m[1])));
-          a[2] = pack_bf16(exp2_approx(fmaf(s1[0], c, -m[0])), exp2_approx(fmaf(s1[1], c, -m[0])));
-          a[3] = pack_bf16(exp2_approx(fmaf(s1[2], c, -m[1])), exp2_approx(fmaf(s1[3], c, -m[1])));
-          accumulate_ax<DP, LD>(acc, a, Vb + 16 * kk * LD, lane);
-        }
-      }
-    }
-    if (!resident) __syncthreads();  // this step's buffers are free for step + 2
-  }
-
-  if (active) store_rows_bf16<DP>(oh, out_sn, acc, row0, N, D, g, t, out_vec);
 }
 
 // ------------------------------------------------------------- fp32 path
@@ -460,10 +272,11 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // -------------------------------------------------------- bf16 backward
 //
-// Two kernels, both shaped like the forward (one warp owns 16 rows whose
-// fragments stay in registers; the other operand's rows sit in shared
-// memory), so that every output row has exactly one owner and no atomics
-// are needed: the result is reproducible bit for bit.
+// Of the biased modes (K2b, K3, K4); the backward without a bias (K1, K2,
+// K9) is short_attention_bwd.cu's (wgmma). Two kernels on mma.sync (one
+// warp owns 16 rows whose fragments stay in registers; the other operand's
+// rows sit in shared memory), so that every output row has exactly one
+// owner and no atomics are needed: the result is reproducible bit for bit.
 //   attention_bwd_dq_bf16: a warp owns 16 query rows and walks the keys
 //     twice: first the row max and sum (online, as the forward) and, in the
 //     same walk, row = sum_k dP*P with the fp32 P (its numerator rescaled
@@ -500,11 +313,9 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // their gradients, and reads 369 MB of bias and writes 369 MB of dbias:
 // 0.346 ms, bound by bytes.
 //
-// Bound on one H100 SXM: at the ViT-B/16 shape (B=256, N=197, H=12, D=64,
-// bf16) the backward reads qkv and dout and writes dqkv, 7*B*N*C*2 B =
-// 542 MB, 162 us, against 10*B*H*N^2*D = 76 GFLOP = 77 us: bound by bytes.
-// Measured there: 1.39 ms, 8.6 times the bound and twice the backward of
-// PyTorch's fused attention. The kernels hold 166 (dq) and 236 (dk/dv)
+// Measured without a bias at the ViT-B/16 shape (B=256, N=197, H=12, D=64,
+// bf16), before that mode moved to short_attention_bwd.cu: 1.39 ms, 8.6
+// times the 162 us bound. The kernels hold 166 (dq) and 236 (dk/dv)
 // registers a thread at D = 64, so one block of 7 warps runs on an SM at a
 // time: registers, not bytes, set their pace.
 
@@ -531,15 +342,16 @@ __host__ __device__ inline int rel_ld(int KH, int KW) { return (KH + KW) | 1; }
 template <int DP, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
+  static_assert(MODE != kNoBias, "the backward without a bias is short_attention_bwd.cu's");
   constexpr bool REL = MODE == kRelBias;
   constexpr bool FULL = MODE == kFullBias;
   constexpr int LD = DP + 8;
   constexpr int kFrags = kKeyTile / 8;
   const int N = a.N, D = a.D, n_real = a.n_real;
   const float sc = a.scale * kLog2e;
-  // with a bias the scores are log2-domain logits
-  const float c = MODE != kNoBias ? 1.f : sc;
-  const float masked_raw = MODE != kNoBias ? kNegInf * kLog2e : kNegInf / sc;
+  // the scores are log2-domain logits
+  constexpr float c = 1.f;
+  const float masked_raw = kNegInf * kLog2e;
 
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32;
@@ -616,19 +428,10 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
         float s[kFrags][4], dp[kFrags][4];
         own_times_other_t<DP, LD, kFrags>(s, qf, Kb, key0, N, lane);
         own_times_other_t<DP, LD, kFrags>(dp, dof, Vs + (key0 - c0) * LD, key0, N, lane);
-        if (REL) {
+        if (REL)
           rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, KW, a.rel.inv_kw);
-        } else if (FULL) {
+        else
           full_logits(s, a.bias, brows, key0, t, N, n_real, sc, masked_raw);
-        } else if (key0 + kKeyTile > n_real) {  // edge tile: mask padding and n_real
-#pragma unroll
-          for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int col = key0 + 8 * j + 2 * t + (e & 1);
-              s[j][e] = col >= N ? -INFINITY : (col >= n_real ? masked_raw : s[j][e]);
-            }
-        }
         if (pass == 0) {
           // online over the key tiles: row max, sum_k e and sum_k e * dP with
           // e = exp(s - max), both rescaled when the max moves
@@ -742,6 +545,7 @@ attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
 template <int DP, int MODE>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
+  static_assert(MODE != kNoBias, "the backward without a bias is short_attention_bwd.cu's");
   constexpr bool REL = MODE == kRelBias;
   constexpr bool FULL = MODE == kFullBias;
   constexpr int LD = DP + 8;
@@ -1105,38 +909,10 @@ struct Args {
   long long in_sb, in_sh, in_sn, out_sb, out_sh, out_sn;
   int B, H, N, D, n_real;
   float scale;
-  int vec, out_vec;
   cudaStream_t stream;
   RelPos rel;     // rel.h == nullptr: no rel-pos bias
   FullBias bias;  // bias.p == nullptr: no full bias
 };
-
-template <int DP>
-int launch_bf16(const Args& a) {
-  // the biased bf16 forwards (K2b, K3, K4) are short_attention_bias_fwd.cu's
-  if (a.rel.h || a.bias.p) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int LD = DP + 8;
-  // the head's 16-row tiles split evenly over the fewest blocks of <= 8 warps
-  const int row_tiles = (a.N + 15) / 16;
-  const int blocks = (row_tiles + kMaxWarps - 1) / kMaxWarps;
-  const int warps = (row_tiles + blocks - 1) / blocks;
-  const int NP = 16 * row_tiles;
-  const size_t resident_bytes = sizeof(bf16) * (16 * warps + 2 * NP) * LD;
-  const int resident = resident_bytes <= kResidentBytes;
-  const size_t smem =
-      resident ? resident_bytes : sizeof(bf16) * (16 * warps + 4 * kKeyTile) * LD;
-  auto kernel = attention_fwd_bf16<DP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(blocks, a.H, a.B);
-  kernel<<<grid, 32 * warps, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o), a.in_sb, a.in_sh, a.in_sn,
-      a.out_sb, a.out_sh, a.out_sn, a.N, a.D, a.n_real, a.scale, a.vec, a.out_vec,
-      resident);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <int DP>
 int launch_f32(const Args& a) {
@@ -1155,9 +931,10 @@ int launch_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 only: every bf16 forward is short_attention_fwd.cu's
 template <int DP>
 int launch_dtype(const Args& a, int is_bf16) {
-  return is_bf16 ? launch_bf16<DP>(a) : launch_f32<DP>(a);
+  return is_bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_f32<DP>(a);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
@@ -1172,6 +949,8 @@ template <int DP>
 int launch_bwd_bf16(const BwdArgs& a) {
   constexpr int LD = DP + 8;
   const bool rel = a.rel.h != nullptr;
+  // without a bias (K1, K2, K9) the bf16 backward is short_attention_bwd.cu's
+  if (!rel && !a.bias.p) return static_cast<int>(cudaErrorInvalidValue);
   // per warp: its own 16 rows of two operands and (K3, K4) the dq kernel's
   // rel-pos scratch; per row of the other operand (dK/dV kernel): two
   // operands and two fp32 statistics
@@ -1195,12 +974,9 @@ int launch_bwd_bf16(const BwdArgs& a) {
     chunk_rows = static_cast<int>((kResidentBytes - own_bytes) / row_bytes) / kKeyTile * kKeyTile;
   const size_t smem = own_bytes + chunk_rows * row_bytes;
   const dim3 grid(blocks, a.H, a.B);
-  auto dq_kernel = rel        ? attention_bwd_dq_bf16<DP, kRelBias>
-                   : a.bias.p ? attention_bwd_dq_bf16<DP, kFullBias>
-                              : attention_bwd_dq_bf16<DP, kNoBias>;
-  auto dkv_kernel = rel        ? attention_bwd_dkv_bf16<DP, kRelBias>
-                    : a.bias.p ? attention_bwd_dkv_bf16<DP, kFullBias>
-                               : attention_bwd_dkv_bf16<DP, kNoBias>;
+  auto dq_kernel = rel ? attention_bwd_dq_bf16<DP, kRelBias> : attention_bwd_dq_bf16<DP, kFullBias>;
+  auto dkv_kernel =
+      rel ? attention_bwd_dkv_bf16<DP, kRelBias> : attention_bwd_dkv_bf16<DP, kFullBias>;
   cudaError_t err = allow_smem(dq_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem(dkv_kernel, smem);
@@ -1240,15 +1016,9 @@ int launch_bwd_dtype(const BwdArgs& a, int is_bf16) {
 Args forward_args(const void* q, const void* k, const void* v, void* o, long long in_sb,
                   long long in_sh, long long in_sn, long long out_sb, long long out_sh,
                   long long out_sn, int B, int H, int N, int D, int n_real, float scale,
-                  int is_bf16, void* stream) {
-  const long long es = is_bf16 ? 2 : 4;
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
-                  (in_sn * es) % 16 == 0;
-  const int out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 &&
-                      out_sb % 2 == 0 && out_sh % 2 == 0 && out_sn % 2 == 0;
-  return Args{q,      k,     v,      o, in_sb, in_sh, in_sn,   out_sb, out_sh,
-              out_sn, B,     H,      N, D,     n_real, scale, vec,    out_vec,
+                  void* stream) {
+  return Args{q,      k, v, o, in_sb,  in_sh, in_sn, out_sb, out_sh,
+              out_sn, B, H, N, D, n_real, scale,
               static_cast<cudaStream_t>(stream), RelPos{}, FullBias{}};
 }
 
@@ -1327,7 +1097,7 @@ extern "C" int saicv_fused_attention_fwd(
     void* stream) {
   if (bad_shape(B, H, N, D, n_real)) return static_cast<int>(cudaErrorInvalidValue);
   return launch_forward(forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn,
-                                     B, H, N, D, n_real, scale, is_bf16, stream),
+                                     B, H, N, D, n_real, scale, stream),
                         is_bf16);
 }
 
@@ -1335,7 +1105,7 @@ extern "C" int saicv_fused_attention_fwd(
 // query i and key j gains rel_h[i, j / KW] + rel_w[i, j % KW], with N = KH *
 // KW. rel_h and rel_w are fp32, each with its own (batch, head, row)
 // strides and a contiguous last axis of KH or KW values. fp32 inputs only
-// (is_bf16 = 0): the bf16 forward is short_attention_bias_fwd.cu's.
+// (is_bf16 = 0): the bf16 forward is short_attention_fwd.cu's.
 extern "C" int saicv_fused_attention_relpos_fwd(
     const void* q, const void* k, const void* v, void* o, const float* rel_h,
     const float* rel_w, long long in_sb, long long in_sh, long long in_sn,
@@ -1345,7 +1115,7 @@ extern "C" int saicv_fused_attention_relpos_fwd(
   if (bad_shape(B, H, N, D, n_real) || KH < 1 || KW < 1 || KH * KW != N || !rel_h || !rel_w)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, B, H, N, D,
-                        n_real, scale, is_bf16, stream);
+                        n_real, scale, stream);
   a.rel = RelPos{rel_h, rel_w, h_sb, h_sh, h_sn, w_sb, w_sh, w_sn, KH, KW, 1.f / KW};
   return launch_forward(a, is_bf16);
 }
@@ -1363,7 +1133,7 @@ extern "C" int saicv_fused_attention_bias_fwd(
     void* stream) {
   if (bad_shape(B, H, N, D, n_real) || !bias) return static_cast<int>(cudaErrorInvalidValue);
   Args a = forward_args(q, k, v, o, in_sb, in_sh, in_sn, out_sb, out_sh, out_sn, B, H, N, D,
-                        n_real, scale, is_bf16, stream);
+                        n_real, scale, stream);
   a.bias = FullBias{bias, b_sb, b_sh, b_sn, bias_bf16, nullptr};
   return launch_forward(a, is_bf16);
 }

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) helpers shared by the kernels that run wgmma products on
-// TMA-fed tiles (flash_keybias_bwd.cu, short_attention_bias_fwd.cu): named
-// barriers, setmaxnreg, mbarriers, TMA box loads, the wgmma fences, shared
-// memory matrix descriptors, the wgmma shapes the kernels use, the store of
-// a warpgroup's accumulators, and the host's tensor-map encoding through
-// libcuda's cuTensorMapEncodeTiled, fetched through the runtime
-// (cudaGetDriverEntryPoint, by version from CUDA 12.5), so that nothing
-// links against libcuda.
+// TMA-fed tiles (flash_keybias_bwd.cu, short_attention_fwd.cu,
+// short_attention_bwd.cu): named barriers, setmaxnreg, mbarriers, TMA box
+// loads, the wgmma fences, shared memory matrix descriptors, the wgmma
+// shapes the kernels use, the store of a warpgroup's accumulators, and the
+// host's tensor-map encoding through libcuda's cuTensorMapEncodeTiled,
+// fetched through the runtime (cudaGetDriverEntryPoint, by version from
+// CUDA 12.5), so that nothing links against libcuda.
 //
 // Accumulator layout of a 64 x N wgmma product in a warpgroup: warp w holds
 // rows 16w.. 16w+15; register i of a thread (lane = 4g + t) is row 16w + g +
@@ -91,6 +91,10 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most one committed group is in flight.
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Keep the compiler from touching accumulators across wgmma's asynchrony.
 template <int N>
@@ -305,6 +309,10 @@ inline bool make_map(CUtensorMap* map, const void* base, long long sb, long long
                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  // the CUDA driver's encode fails on a thread with no current context, as
+  // autograd's device thread is in a backward before its first runtime call;
+  // cudaFree(nullptr) makes the device's primary context current
+  cudaFree(nullptr);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const long long given[3] = {sn, sh, sb};

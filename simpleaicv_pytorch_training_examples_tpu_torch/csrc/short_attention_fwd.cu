@@ -1,8 +1,16 @@
-// Forward of the biased short-sequence attention kernels in bf16, for
-// Hopper (sm_90a): wgmma products on TMA-fed tiles, the bias staged once.
+// Forward of the short-sequence attention kernels in bf16, for Hopper
+// (sm_90a): wgmma products on TMA-fed tiles, any bias staged once.
 //
 // Replaces, for bf16 inputs, the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_attention.py:
+//   K1  _fwd_kernel_pairs (via _pallas_fwd_pairs, entry
+//       fused_attention_dense): q, k, v read in place from the packed qkv
+//       [B, N, 3C], an optional sm_scale;
+//   K2  _fwd_kernel (via _pallas_fwd, entry fused_attention): q, k, v [B,
+//       H, N, D] through their strides (views of a packed qkv included);
+//   K9  _fwd_kernel_packed (via _pallas_fwd_packed, entry
+//       fused_attention_qkv): q, k, v read in place from a packed [B, N, 3,
+//       H, D];
 //   K2b _fwd_kernel_bias (via _pallas_fwd_bias, entry fused_attention(bias=)):
 //       a full additive score bias, score(i, j) += bias[b, h, i, j], fp32 or
 //       bf16, read through its own strides (0 on an axis it is broadcast
@@ -12,12 +20,13 @@
 //       _relwin_fwd_factory, entry fused_attention_relwin): SAM's decomposed
 //       rel-pos bias, score(i, j) += rel_h[i, j / KW] + rel_w[i, j % KW]
 //       (fp32, N = KH * KW, each term through its own strides).
-// q, k and v are read in place through 4-D tensor maps {D, N, H, B} (K3's
-// packed [B, N, 3C] qkv and K4's views of a packed qkv included), each with
-// its own strides; the output is written through its own. fp32 inputs keep
-// fused_attention.cu's FMA forward, and the backward of all three is
-// fused_attention.cu's: it reads neither this kernel's output nor any
-// statistics of it.
+// The bias is a template value of the one kernel (kNoBias for K1, K2 and
+// K9). q, k and v are read in place through 4-D tensor maps {D, N, H, B},
+// each with its own strides; the output is written through its own. fp32
+// inputs keep fused_attention.cu's FMA forward. The backward reads neither
+// this kernel's output nor any statistics of it: short_attention_bwd.cu's
+// (no bias) and fused_attention.cu's (the biased modes) recompute P.
+// K8's attention core (attn_block.cu) is this kernel's kNoBias mode too.
 //
 // Math, as the TPU kernels: s = q.k^T * scale in fp32, plus the bias in
 // fp32; keys at or past n_real get -1e9, padding -inf; softmax over the
@@ -25,49 +34,54 @@
 // fp32 and written in bf16. Each score becomes the log2-domain logit
 // s*scale*log2(e) + bias*log2(e) as it leaves the tensor cores; the row's
 // sum of 2^(logit - max) is folded into the max, and P = 2^(logit - max -
-// log2(sum)) (two ex2.approx a score), as fused_attention.cu's backward
-// kernels recompute it: P differs from the plain version's in the last
-// fp32 bits, far below its bf16 rounding.
+// log2(sum)) (two ex2.approx a score), as the backward kernels recompute
+// it: P differs from the plain version's in the last fp32 bits, far below
+// its bf16 rounding.
 // N <= 1024, D <= 128.
 //
-// Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at SAM-B's
-// windows (B' = 200 windows of N = 196 tokens, H = 12, D = 64) a launch
-// reads q, k, v and writes the output, 241 MB, and K2b reads an fp32 bias
+// Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at ViT-B/16
+// (B = 256, N = 197, H = 12, D = 64) a launch reads q, k, v and writes the
+// output, 310 MB: 0.092 ms, against 30.5 GFLOP = 0.031 ms of products; at
+// ViT-H/14 (B = 256, H = 16, N = 257, D = 80) 674 MB, 0.201 ms, against
+// 86.6 GFLOP = 0.088 ms. At SAM-B's windows (B' = 200 windows of N = 196
+// tokens, H = 12, D = 64) a launch moves 241 MB, and K2b reads an fp32 bias
 // [200, 12, 196, 196] of 369 MB: 0.182 ms, against 23.6 GFLOP = 0.024 ms of
-// products; K3's rel terms are 53 MB (0.088 ms). SAM-H's K4 (H = 16, D = 80)
-// moves 472 MB: 0.141 ms against 39 GFLOP = 0.040 ms. Every case is bound by
-// bytes, the bias first.
+// products; K3's rel terms are 53 MB (0.088 ms). SAM-H's K4 (H = 16, D =
+// 80) moves 472 MB: 0.141 ms against 39 GFLOP = 0.040 ms. Every case is
+// bound by bytes, the bias first where there is one.
 //
 // Design.
 //   - A block is one warpgroup (128 threads) that owns 64 query rows of one
 //     (batch, head). At its start one thread issues the TMA copies of its Q
 //     tile and of the head's whole K and V (each in one box of N rows
-//     rounded up to 16) and the bias: where the tile's bias rows lie back to
-//     back (a dense [B, H, N, N] bias; K4's [B, H, N, K] rel terms) one bulk
-//     copy of each term (K2b: 64 x N, fp32 50 KB or bf16 25 KB at N = 196;
-//     K4: 64 x (KH + KW) fp32, 7 KB), else the 128 threads copy the rows
-//     with cp.async (K3's [B, N, H, K] terms, broadcast or unaligned
-//     biases). The block then runs S = Q.K^T while the bias is in flight.
-//     Every byte the block needs is requested at once, and two or three
-//     blocks share an SM (all of its 228 KB as shared memory: 110 KB a
-//     block at K2b's fp32 case, 70 KB at K3's, 85 KB at K4's; 168 registers
-//     a thread at N = 196, D = 64), so one block's copies are in flight
-//     while another computes: a block walks one tile, so it needs no
-//     producer warp or ring.
+//     rounded up to 16, two boxes past 256 rows) and the bias: where the
+//     tile's bias rows lie back to back (a dense [B, H, N, N] bias; K4's
+//     [B, H, N, K] rel terms) one bulk copy of each term (K2b: 64 x N, fp32
+//     50 KB or bf16 25 KB at N = 196; K4: 64 x (KH + KW) fp32, 7 KB), else
+//     the 128 threads copy the rows with cp.async (K3's [B, N, H, K] terms,
+//     broadcast or unaligned biases). The block then runs S = Q.K^T while
+//     the bias is in flight. Every byte the block needs is requested at
+//     once, and two or three blocks share an SM (all of its 228 KB as shared
+//     memory: 110 KB a block at K2b's fp32 case, 70 KB at K3's, 85 KB at
+//     K4's, 62 KB without a bias at ViT-B; 168 registers a thread at N =
+//     196, D = 64), so one block's copies are in flight while another
+//     computes: a block walks one tile, so it needs no producer warp or
+//     ring.
 //   - The row tiles of a head are adjacent in launch order (blockIdx.x), so
 //     the head's K and V come from device memory once and from L2 for the
 //     head's other blocks (196 rows: four blocks; 132 SMs hold 66 heads'
 //     worth at a time, a few MB against L2's 50 MB).
 //   - S = Q.K^T runs as wgmma m64nNk16, Q and K K-major from shared memory,
 //     64 keys a chunk; the last chunk only as wide as the keys rounded up to
-//     8 (at N = 196 an n = 8 product, and the accumulators of 200 keys, not
-//     256, as a template value). Where N <= 256 (SAM's 196-token windows and
-//     every main-path case) the whole score row stays in the accumulators:
-//     one pass takes the logits, the row max, the sum of 2^(logit - max),
-//     the 1/sum fold, P and its bf16 cast, so Q.K^T is computed once and the
-//     bias read once. P.V then runs as a register-A wgmma (P's accumulator
-//     layout is the A operand's), V read MN-major, so nothing is transposed.
-//   - Where 256 < N <= 1024 the keys go in groups of 256 in two passes, the
+//     8 (at N = 196 and 197 an n = 8 product, and the accumulators of 200
+//     keys, not 256, as a template value; at N = 257 (ViT-H/14) four chunks
+//     and an n = 8 one, 132 accumulators). Where N <= 264 (every main-path
+//     case) the whole score row stays in the accumulators: one pass takes
+//     the logits, the row max, the sum of 2^(logit - max), the 1/sum fold, P
+//     and its bf16 cast, so Q.K^T is computed once and the bias read once.
+//     P.V then runs as a register-A wgmma (P's accumulator layout is the A
+//     operand's), V read MN-major, so nothing is transposed.
+//   - Where 264 < N <= 1024 the keys go in groups of 256 in two passes, the
 //     row statistics, then the output, each group's K, V and bias staged as
 //     above (the same code with the group count above 1).
 //   - Head dims: the k-steps run over D rounded up to 16 (D = 35: 48), the
@@ -91,20 +105,11 @@
 
 #include "hopper.cuh"
 #include "mma_tiles.cuh"
+#include "short_attention.cuh"
 
-namespace {
-
-using namespace saicv;
-
-constexpr int kThreads = 128;    // one warpgroup
-constexpr int kRows = 64;        // query rows a block
-constexpr int kGroupKeys = 256;  // keys a pass holds in the accumulators
-constexpr int kMaxN = 1024;
-constexpr float kNegInf = -1e9f;  // _NEG_INF of the TPU kernels
-
-// What the scores gain: SAM's decomposed rel-pos bias (K3, K4) or a full
-// bias (K2b). kNoBias is not instantiated here.
-enum BiasMode { kNoBias, kRelBias, kFullBias };
+namespace saicv {
+namespace short_attn {
+namespace fwd {
 
 // Byte offsets in a block's dynamic shared memory (1024-byte aligned): Q, K
 // and V in boxes of 64 columns, their column tails (columns 64..), the
@@ -133,19 +138,13 @@ struct FwdParams {
   int rel_bulk;                        // each term's rows as one bulk copy
   int rel_unit;                        // else bytes a cp.async: 16, 8 or 4
   int N, D, n_real;
-  int ksteps;                          // 16-column k-steps of Q.K^T
   int groups;                          // groups of kGroupKeys keys (1: one pass)
-  int key_rows;                        // rows of a K or V box
+  int key_rows;                        // rows of K or V staged
+  int key_box;                         // rows of a K or V box (key_rows in one or two)
   int out_vec;                         // bf16 pairs of the output stored as 32-bit words
   float scale;
   Smem sm;
 };
-
-__device__ __forceinline__ unsigned char* aligned_smem() {
-  extern __shared__ unsigned char smem_raw[];
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-}
 
 // An async copy of `bytes` (<= unit) of one unit (16, 8 or 4 bytes, both
 // addresses aligned to it); the rest of the unit is zero-filled.
@@ -196,7 +195,7 @@ __device__ __forceinline__ void bulk_bias(const FwdParams& p, unsigned char* dst
 __device__ __forceinline__ void stage_bias(const FwdParams& p, unsigned char* dst, int b, int hd,
                                            int q0, int key0) {
   const int es = p.bias_bf16 ? 2 : 4;
-  const int row_bytes = min(p.N - key0, kGroupKeys) * es;
+  const int row_bytes = (p.groups == 1 ? p.N : min(p.N - key0, kGroupKeys)) * es;
   const int unit = p.bias_unit;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < p.bias_rows; r += kThreads / 32) {
@@ -251,103 +250,53 @@ __device__ __forceinline__ void stage_rel(const FwdParams& p, float* rh, float* 
   }
 }
 
-// Accumulator registers of chunk c: 32 (64 keys), or kLast / 2 for the last
-// chunk of a block whose last chunk is narrower (kLast = 8 at N = 196).
-template <int KC, int kLast>
-__host__ __device__ constexpr int regs_of(int c) {
-  return c + 1 < KC ? 32 : kLast / 2;
-}
-
-// d (64 x width) = (acc ? d : 0) + A . B^T over one k-step, B K-major at
-// `b` with `row_bytes` a key row: n = 64, or the pieces of 32, 16 and 8 keys
-// of a narrower last chunk (width a multiple of 8; registers past it are
-// left alone).
-__device__ __forceinline__ void chunk_product(float (&d)[32], uint64_t a, uint32_t b,
-                                              int row_bytes, bool sw32, int width, int acc) {
-  auto desc = [&](int key) {
-    const uint32_t at = b + key * row_bytes;
-    return sw32 ? sw32_desc(at) : sw128_desc(at, 16);
-  };
-  auto n32 = [&](int key) {
-    wgmma_ss<32, 0>(*reinterpret_cast<float(*)[16]>(&d[key / 2]), a, desc(key), acc);
-  };
-  auto n16 = [&](int key) {
-    wgmma_ss<16, 0>(*reinterpret_cast<float(*)[8]>(&d[key / 2]), a, desc(key), acc);
-  };
-  auto n8 = [&](int key) {
-    wgmma_ss<8, 0>(*reinterpret_cast<float(*)[4]>(&d[key / 2]), a, desc(key), acc);
-  };
-  switch (width >> 3) {
-    case 8: wgmma_ss<64, 0>(d, a, desc(0), acc); break;
-    case 7: n32(0); n16(32); n8(48); break;
-    case 6: n32(0); n16(32); break;
-    case 5: n32(0); n8(32); break;
-    case 4: n32(0); break;
-    case 3: n16(0); n8(16); break;
-    case 2: n16(0); break;
-    default: n8(0); break;
-  }
-}
-
-// s[c] (64 x 64: keys 64c.. of the staged group) = Q . K^T over `ksteps`
-// 16-column steps; the last chunk only `width` keys wide (kLast = 8: an n =
-// 8 product). Committed, not waited for.
-template <int KC, int kLast, int kTail>
-__device__ __forceinline__ void scores(float (&s)[KC][32], uint32_t q, uint32_t qt, uint32_t k,
-                                       uint32_t kt, int ksteps, int width) {
-  wg_fence();
-  for (int kk = 0; kk < ksteps; ++kk) {
-    const bool head = kk < 4;  // columns 0-63
-    const bool sw32 = !head && kTail == 16;
-    const uint64_t a = head ? sw128_desc(q + 32 * kk, 16)
-                            : sw32 ? sw32_desc(qt) : sw128_desc(qt + 32 * (kk - 4), 16);
-    const uint32_t b = head ? k + 32 * kk : sw32 ? kt : kt + 32 * (kk - 4);
-    const int row_bytes = sw32 ? 32 : 128;
-#pragma unroll
-    for (int c = 0; c < KC; ++c) {
-      const uint32_t bc = b + 64 * c * row_bytes;
-      const uint64_t bd = sw32 ? sw32_desc(bc) : sw128_desc(bc, 16);
-      if (c + 1 < KC)
-        wgmma_ss<64, 0>(s[c], a, bd, kk > 0);
-      else if constexpr (kLast == 8)
-        wgmma_ss<8, 0>(*reinterpret_cast<float(*)[4]>(&s[c][0]), a, bd, kk > 0);
-      else
-        chunk_product(s[c], a, bc, row_bytes, sw32, width, kk > 0);
-    }
-  }
-  wg_commit();
-}
-
-// o (64 x 64, columns 0-63) and ot (64 x kTail, columns 64..) = (first ? 0
-// : o, ot) + P . V, P the bf16 rounding of s (already normalised), `steps`
-// 16-key steps of the staged group, V MN-major. Committed, not waited for.
+// o (64 x 64, columns 0-63) and ot (64 x kTail, columns 64..) += P . V, P
+// the bf16 rounding of s (already normalised), `steps` 16-key steps of the
+// staged group (all of them where the last chunk is 8 keys), V MN-major.
+// A chunk of keys a commit group: the next chunk's fragments are packed
+// while it runs, and at most two chunks' fragments are live (each kept
+// live, by settle, until the wait that ends its products). Returns when
+// every product is done.
 template <int KC, int kLast, int kTail>
 __device__ __forceinline__ void times_v(float (&o)[32], float (&ot)[kTail == 0 ? 1 : kTail / 2],
                                         const float (&s)[KC][32], uint32_t v, uint32_t vt,
-                                        int steps, bool first) {
-  constexpr int kSteps = 4 * (KC - 1) + (kLast + 15) / 16;
-  uint32_t a[kSteps][4];
+                                        int steps) {
+  uint32_t a[KC][4][4];
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-    const int c = j / 4, i = 8 * (j % 4);  // registers i.. of chunk c
+  for (int c = 0; c < KC; ++c) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      a[j][r] = 2 * r + i < regs_of<KC, kLast>(c) ? pack_bf16(s[c][i + 2 * r], s[c][i + 2 * r + 1])
-                                                  : 0u;
-  }
-  wg_fence();
+    for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) {
-    if (j < steps) {
-      const int acc = !(first && j == 0);
-      wgmma_rs<64>(o, a[j], sw128_desc(v + 16 * 128 * j, 16), acc);
-      if constexpr (kTail == 16)
-        wgmma_rs<16>(ot, a[j], sw32_desc(vt + 16 * 32 * j), acc);
-      else if constexpr (kTail == 64)
-        wgmma_rs<64>(ot, a[j], sw128_desc(vt + 16 * 128 * j, 16), acc);
+      for (int r = 0; r < 4; ++r) {
+        const int i = 8 * jj + 2 * r;  // registers i, i + 1 of chunk c
+        a[c][jj][r] = i < regs_of<KC, kLast>(c) ? pack_bf16(s[c][i], s[c][i + 1]) : 0u;
+      }
+      settle(a[c][jj]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * c + jj;  // 16-key step of the group
+      if (8 * jj < regs_of<KC, kLast>(c) && (kLast == 8 || j < steps)) {
+        wgmma_rs<64>(o, a[c][jj], sw128_desc(v + 16 * 128 * j, 16), 1);
+        if constexpr (kTail == 16)
+          wgmma_rs<16>(ot, a[c][jj], sw32_desc(vt + 16 * 32 * j), 1);
+        else if constexpr (kTail == 64)
+          wgmma_rs<64>(ot, a[c][jj], sw128_desc(vt + 16 * 128 * j, 16), 1);
+      }
+    }
+    wg_commit();
+    if (c > 0) {  // chunk c - 1's products are done
+      wg_wait_one();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) settle(a[c - 1][jj]);
     }
   }
-  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) settle(a[KC - 1][jj]);
+  fence_regs(o);
+  fence_regs(ot);
 }
 
 // Raw scores of the staged group (keys key0..) -> log2-domain logits
@@ -356,6 +305,10 @@ template <int KC, int kLast, int MODE>
 __device__ __forceinline__ void logits(float (&s)[KC][32], const FwdParams& p,
                                        const unsigned char* sm, int key0, int warp, int g,
                                        int t, float sc, float masked) {
+  if constexpr (MODE == kNoBias) {
+    plain_logits<KC, kLast>(s, key0, t, p.N, p.n_real, sc, masked);
+    return;
+  }
   const int rl0 = 16 * warp + g;  // local rows rl0 and rl0 + 8
 #pragma unroll
   for (int c = 0; c < KC; ++c)
@@ -395,49 +348,15 @@ __device__ __forceinline__ void logits(float (&s)[KC][32], const FwdParams& p,
       }
 }
 
-// The row maxima of the thread's rows g and g + 8 over the staged logits,
-// over the quad's four lanes.
-template <int KC, int kLast>
-__device__ __forceinline__ void row_max(const float (&s)[KC][32], float (&mx)[2]) {
-  mx[0] = mx[1] = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < KC; ++c)
-#pragma unroll
-    for (int i = 0; i < regs_of<KC, kLast>(c); ++i)
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[c][i]);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-  }
-}
-
-// s = 2^(s - m) in place; returns the thread's share of each row's sum.
-template <int KC, int kLast>
-__device__ __forceinline__ void exp2_rows(float (&s)[KC][32], const float (&m)[2],
-                                          float (&sum)[2]) {
-  sum[0] = sum[1] = 0.f;
-#pragma unroll
-  for (int c = 0; c < KC; ++c)
-#pragma unroll
-    for (int i = 0; i < regs_of<KC, kLast>(c); ++i) {
-      s[c][i] = exp2_approx(s[c][i] - m[(i >> 1) & 1]);
-      sum[(i >> 1) & 1] += s[c][i];
-    }
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Block (row tile, head, batch): 64 query rows. KC: 64-key chunks of a
-// pass (4 when the keys go in groups); kLast: keys of the last chunk (8,
-// or 64 with the width decided at run time); kTail: the columns past 64
-// (0, 16 or 64). SAM-B's K3 (N = 196, D = 64) fits three blocks an SM.
+// pass (4 when the keys go in groups, 5 for 257..264 keys); kLast: keys of
+// the last chunk (8, or 64 with the width decided at run time); kTail: the
+// columns past 64 (0, 16 or 64). Two blocks an SM: with the wgmma pipeline
+// not serialized, N = 196 at D = 64 needs more than the 168 registers of
+// three (it spilled there, and ran 30% slower than at two).
 template <int KC, int kLast, int kTail, int MODE>
-__global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
-    short_attention_bias_fwd(const __grid_constant__ FwdParams p) {
+__global__ void __launch_bounds__(kThreads, 2)
+    short_attention_fwd(const __grid_constant__ FwdParams p) {
   unsigned char* sm = aligned_smem();
   const int hd = blockIdx.y, b = blockIdx.z;
   const int q0 = kRows * blockIdx.x;
@@ -467,12 +386,18 @@ __global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
       tma_box(sm + p.sm.q, &p.q_map, bar_k, 0, q0, hd, b);
       if (kTail) tma_box(sm + p.sm.qt, kTail == 16 ? &p.q_tail : &p.q_map, bar_k, 64, q0, hd, b);
     }
-    tma_box(sm + p.sm.k, &p.k_map, bar_k, 0, key0, hd, b);
-    if (kTail) tma_box(sm + p.sm.kt, kTail == 16 ? &p.k_tail : &p.k_map, bar_k, 64, key0, hd, b);
+    // one box of the staged rows, or two past 256 rows
+    auto rows = [&](int at, int at_t, const CUtensorMap* map, const CUtensorMap* tail,
+                    uint64_t* bar) {
+      for (int r = 0; r < p.key_rows; r += p.key_box) {
+        tma_box(sm + at + r * 128, map, bar, 0, key0 + r, hd, b);
+        if (kTail) tma_box(sm + at_t + r * kTailBytes, kTail == 16 ? tail : map, bar, 64, key0 + r, hd, b);
+      }
+    };
+    rows(p.sm.k, p.sm.kt, &p.k_map, &p.k_tail, bar_k);
     if (with_v) {
       mbar_expect_tx(bar_v, kv_bytes);
-      tma_box(sm + p.sm.v, &p.v_map, bar_v, 0, key0, hd, b);
-      if (kTail) tma_box(sm + p.sm.vt, kTail == 16 ? &p.v_tail : &p.v_map, bar_v, 64, key0, hd, b);
+      rows(p.sm.v, p.sm.vt, &p.v_map, &p.v_tail, bar_v);
     }
   };
 
@@ -485,7 +410,13 @@ __global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
   const int pv_steps = groups == 1 ? (p.N + 15) / 16 : kGroupKeys / 16;
 
   float s[KC][32];
-  float o[32], ot[kTail == 0 ? 1 : kTail / 2];  // set by the first P.V
+  float o[32], ot[kTail == 0 ? 1 : kTail / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < tail_regs<kTail>(); ++i) ot[i] = 0.f;
+  fence_regs(o);
+  fence_regs(ot);
   // running row max and sum of the statistics pass (two passes only)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   int k_phase = 0, v_phase = 0;
@@ -513,18 +444,16 @@ __global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
 
       mbar_wait(bar_k, k_phase);
       k_phase ^= 1;
-#pragma unroll
-      for (int c = 0; c < KC; ++c)
-#pragma unroll
-        for (int i = 0; i < regs_of<KC, kLast>(c); ++i) s[c][i] = 0.f;
-      scores<KC, kLast, kTail>(s, qa, qta, ka, kta, p.ksteps, width);
+      scores<KC, kLast, kTail>(s, qa, qta, ka, kta, width);
       wg_wait_all();
 #pragma unroll
       for (int c = 0; c < KC; ++c) fence_regs(s[c]);
-      if (first && (MODE == kFullBias ? p.bias_bulk : p.rel_bulk))
-        mbar_wait(bar_b, 0);  // the bulk or TMA copy of the bias
-      cp_async_wait_all();
-      __syncthreads();  // the staged bias (and table) of every thread
+      if constexpr (MODE != kNoBias) {
+        if (first && (MODE == kFullBias ? p.bias_bulk : p.rel_bulk))
+          mbar_wait(bar_b, 0);  // the bulk or TMA copy of the bias
+        cp_async_wait_all();
+        __syncthreads();  // the staged bias (and table) of every thread
+      }
       logits<KC, kLast, MODE>(s, p, sm, key0, warp, g, t, sc, masked);
 
       float mx[2], sum[2];
@@ -557,10 +486,7 @@ __global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
       exp2_rows<KC, kLast>(s, m, sum);  // P = 2^(logit - max - log2(sum))
       mbar_wait(bar_v, v_phase);
       v_phase ^= 1;
-      times_v<KC, kLast, kTail>(o, ot, s, va, vta, pv_steps, gi == 0);
-      wg_wait_all();
-      fence_regs(o);
-      fence_regs(ot);
+      times_v<KC, kLast, kTail>(o, ot, s, va, vta, pv_steps);
     }
     if (pass == 0) {  // fold 1/sum into the max
 #pragma unroll
@@ -575,15 +501,6 @@ __global__ void __launch_bounds__(kThreads, kLast == 8 && kTail == 0 ? 3 : 2)
 }
 
 // ------------------------------------------------------------- host side
-
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
-
-// TMA reads an operand in place: a 16-byte aligned base and (batch, head,
-// row) strides that are multiples of 8 elements on every axis longer than 1.
-bool tma_ok(const void* ptr, long long sb, long long sh, long long sn, int B, int H, int N) {
-  return aligned16(ptr) && (B == 1 || sb % 8 == 0) && (H == 1 || sh % 8 == 0) &&
-         (N == 1 || sn % 8 == 0);
-}
 
 Smem layout(int kTail, int mode, const FwdParams& p) {
   const int tail = kTail == 16 ? 32 : kTail == 64 ? 128 : 0;
@@ -608,7 +525,7 @@ template <int KC, int kLast, int kTail, int MODE>
 int launch(FwdParams& p, int B, int H, cudaStream_t stream) {
   p.sm = layout(kTail, MODE, p);
   const int smem = p.sm.bytes + 1024;  // room to align the base to 1024 bytes
-  auto kernel = short_attention_bias_fwd<KC, kLast, kTail, MODE>;
+  auto kernel = short_attention_fwd<KC, kLast, kTail, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   // all of the SM's 228 KB as shared memory, so that two or three blocks
@@ -624,8 +541,11 @@ int launch(FwdParams& p, int B, int H, cudaStream_t stream) {
 template <int kTail, int MODE>
 int launch_chunks(FwdParams& p, int B, int H, cudaStream_t stream) {
   const int chunks = p.groups > 1 ? 4 : (p.N + 63) / 64;
-  if (p.groups == 1 && chunks == 4 && (p.N + 7) / 8 * 8 == 200)  // SAM's 14 x 14 windows
+  // SAM's 14 x 14 windows, ViT-B/16's 197 tokens
+  if (p.groups == 1 && chunks == 4 && (p.N + 7) / 8 * 8 == 200)
     return launch<4, 8, kTail, MODE>(p, B, H, stream);
+  if (p.groups == 1 && chunks == 5)  // 257..264 keys: ViT-H/14's 257 tokens
+    return launch<5, 8, kTail, MODE>(p, B, H, stream);
   switch (chunks) {
     case 1: return launch<1, 64, kTail, MODE>(p, B, H, stream);
     case 2: return launch<2, 64, kTail, MODE>(p, B, H, stream);
@@ -645,20 +565,15 @@ int prepare(FwdParams& p, const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 3; ++i)
     if (!tma_ok(in[i], st[3 * i], st[3 * i + 1], st[3 * i + 2], B, H, N))
       return static_cast<int>(cudaErrorInvalidValue);
-  p.groups = N <= kGroupKeys ? 1 : (N + kGroupKeys - 1) / kGroupKeys;
-  p.key_rows = p.groups == 1 ? (N + 15) / 16 * 16 : kGroupKeys;
+  p.groups = N <= kOnePassKeys ? 1 : (N + kGroupKeys - 1) / kGroupKeys;
+  p.key_rows = staged_rows(N, p.groups);
+  p.key_box = box_rows(p.key_rows);
   CUtensorMap* main_maps[3] = {&p.q_map, &p.k_map, &p.v_map};
   CUtensorMap* tail_maps[3] = {&p.q_tail, &p.k_tail, &p.v_tail};
-  for (int i = 0; i < 3; ++i) {
-    const int rows = i == 0 ? kRows : p.key_rows;
-    if (!make_map(main_maps[i], in[i], st[3 * i], st[3 * i + 1], st[3 * i + 2], B, H, N, D, 64,
-                  rows, CU_TENSOR_MAP_SWIZZLE_128B))
+  for (int i = 0; i < 3; ++i)
+    if (!make_maps(main_maps[i], tail_maps[i], in[i], st[3 * i], st[3 * i + 1], st[3 * i + 2], B,
+                   H, N, D, i == 0 ? kRows : p.key_box))
       return static_cast<int>(cudaErrorInvalidValue);
-    if (D > 64 && D <= 80 &&
-        !make_map(tail_maps[i], in[i], st[3 * i], st[3 * i + 1], st[3 * i + 2], B, H, N, D, 16,
-                  rows, CU_TENSOR_MAP_SWIZZLE_32B))
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   p.o = static_cast<bf16*>(o);
   p.o_sb = st[9];
   p.o_sh = st[10];
@@ -666,21 +581,44 @@ int prepare(FwdParams& p, const void* q, const void* k, const void* v, void* o,
   p.N = N;
   p.D = D;
   p.n_real = n_real;
-  p.ksteps = (D + 15) / 16;
   p.out_vec = (reinterpret_cast<uintptr_t>(o) & 3u) == 0 && D % 2 == 0 && p.o_sb % 2 == 0 &&
               p.o_sh % 2 == 0 && p.o_sn % 2 == 0;
   p.scale = scale;
   return 0;
 }
 
-template <int MODE>
+// kOnly >= 0: only that tail's kernels (a caller that knows its head dims).
+template <int MODE, int kOnly = -1>
 int launch_mode(FwdParams& p, int B, int H, cudaStream_t stream) {
-  if (p.D <= 64) return launch_chunks<0, MODE>(p, B, H, stream);
-  if (p.D <= 80) return launch_chunks<16, MODE>(p, B, H, stream);
-  return launch_chunks<64, MODE>(p, B, H, stream);
+  if constexpr (kOnly >= 0) {
+    return launch_chunks<kOnly, MODE>(p, B, H, stream);
+  } else {
+    if (p.D <= 64) return launch_chunks<0, MODE>(p, B, H, stream);
+    if (p.D <= 80) return launch_chunks<16, MODE>(p, B, H, stream);
+    return launch_chunks<64, MODE>(p, B, H, stream);
+  }
 }
 
-}  // namespace
+// K1, K2, K9 and K8's attention core (no bias): `st` the (batch, head, row)
+// strides of q, k, v and the output; returns 0 or a cudaError_t.
+template <int kOnly = -1>
+int run_plain(const void* q, const void* k, const void* v, void* o, const long long (&st)[12],
+              int B, int H, int N, int D, int n_real, float scale, cudaStream_t stream) {
+  FwdParams p{};
+  const int err = prepare(p, q, k, v, o, st, B, H, N, D, n_real, scale);
+  return err != 0 ? err : launch_mode<kNoBias, kOnly>(p, B, H, stream);
+}
+
+}  // namespace fwd
+}  // namespace short_attn
+}  // namespace saicv
+
+// The dispatchers' C entry points; a source that includes this file for its
+// kernels (attn_block.cu) defines SAICV_ATTENTION_DEVICE_ONLY.
+#ifndef SAICV_ATTENTION_DEVICE_ONLY
+
+using namespace saicv::short_attn;
+using namespace saicv::short_attn::fwd;
 
 // Plain C entry points, loaded with ctypes. q, k, v and the output are
 // bf16 device pointers, each with its own (batch, head, row) strides in
@@ -689,6 +627,19 @@ int launch_mode(FwdParams& p, int B, int H, cudaStream_t stream) {
 // than 1: the wrapper copies an operand that is not). Launch on `stream`;
 // return a cudaError_t (0 = launched; cudaErrorInvalidValue for a shape,
 // an operand or a tensor map the kernel cannot take).
+
+// K1, K2, K9: no bias; scores scaled by `scale` (K1's sm_scale).
+extern "C" int saicv_short_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                         long long q_sb, long long q_sh, long long q_sn,
+                                         long long k_sb, long long k_sh, long long k_sn,
+                                         long long v_sb, long long v_sh, long long v_sn,
+                                         long long out_sb, long long out_sh, long long out_sn,
+                                         int B, int H, int N, int D, int n_real, float scale,
+                                         void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
+                            v_sb, v_sh, v_sn, out_sb, out_sh, out_sn};
+  return run_plain(q, k, v, o, st, B, H, N, D, n_real, scale, static_cast<cudaStream_t>(stream));
+}
 
 // K3/K4: the score of query i and key j gains rel_h[i, j / KW] + rel_w[i,
 // j % KW] (fp32, N = KH * KW, each with its own (batch, head, row) strides
@@ -778,3 +729,5 @@ extern "C" int saicv_short_attention_bias_fwd(
   }
   return launch_mode<kFullBias>(p, B, H, static_cast<cudaStream_t>(stream));
 }
+
+#endif  // SAICV_ATTENTION_DEVICE_ONLY

@@ -19,10 +19,11 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = ("fused_attention", "short_attention_bias_fwd", "flash_attention",
-           "flash_keybias_bwd", "layer_norm", "attn_block")
+SOURCES = ("fused_attention", "short_attention_fwd", "short_attention_bwd",
+           "flash_attention", "flash_keybias_bwd", "layer_norm", "attn_block")
 # K8 compiles K1's device code into its own library
-INCLUDES = {"attn_block": ("fused_attention",)}
+INCLUDES = {"attn_block": ("fused_attention", "short_attention_fwd",
+                           "short_attention_bwd")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -28,15 +28,17 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
   packed dqkv. It is K1's launch at other strides.
 
 The kernels never write the scores or the probabilities to device memory;
-N <= 1024. The forwards of K1, K2 and K9, every fp32 forward and every
-backward are ``csrc/fused_attention.cu``'s; the bf16 forwards of K2b, K3
-and K4 are ``csrc/short_attention_bias_fwd.cu``'s (``wgmma`` on TMA-fed
-tiles, the bias staged once, one pass over the keys where a row fits),
-which reads q, k and v in place where TMA can (``tma_operand``). The
-math is the TPU kernels': fp32 scores scaled by D^-0.5, plus the fp32
-rel-pos bias or the full bias (read as fp32), keys at or past ``n_real``
-set to -1e9, fp32 softmax, probabilities normalised and then cast to the
-input dtype, P.V with fp32 accumulation.
+N <= 1024. Every bf16 forward is ``csrc/short_attention_fwd.cu``'s
+(``wgmma`` on TMA-fed tiles, any bias staged once, one pass over the keys
+where a row of up to 264 keys fits), the bf16 backward of K1, K2 and K9
+``csrc/short_attention_bwd.cu``'s (``wgmma``, the whole score row of 64
+queries in the accumulators); both read q, k, v and dout in place where
+TMA can (``tma_operand``). Every fp32 kernel and the bf16 backward of K2b,
+K3 and K4 are ``csrc/fused_attention.cu``'s. The math is the TPU kernels':
+fp32 scores scaled by D^-0.5, plus the fp32 rel-pos bias or the full bias
+(read as fp32), keys at or past ``n_real`` set to -1e9, fp32 softmax,
+probabilities normalised and then cast to the input dtype, P.V with fp32
+accumulation.
 
 All are ``torch.autograd.Function``s (``FusedAttentionDense``,
 ``FusedAttention``, ``FusedAttentionRelwinDense``, ``FusedAttentionRelwin``,
@@ -387,17 +389,31 @@ def _call(fn, device, pointers, strides, b, h, n, d, n_real, dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def _biased_library():
-    """The bf16 forwards of K3/K4 and K2b (``csrc/short_attention_bias_fwd.cu``)."""
-    lib = build.load("short_attention_bias_fwd")
+def _short_forward():
+    """The bf16 forwards of K3/K4, K2b and (no bias) K1, K2, K9
+    (``csrc/short_attention_fwd.cu``)."""
+    lib = build.load("short_attention_fwd")
     rel = lib.saicv_short_attention_relpos_fwd
     bias = lib.saicv_short_attention_bias_fwd
+    plain = lib.saicv_short_attention_fwd
     rel.argtypes = ([ctypes.c_void_p] * 6 + _STRIDES * 6 + [ctypes.c_int] * 7
                     + [ctypes.c_float, ctypes.c_void_p])
     bias.argtypes = ([ctypes.c_void_p] * 5 + _STRIDES * 5 + [ctypes.c_int] * 5
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    rel.restype = bias.restype = ctypes.c_int
-    return rel, bias
+    plain.argtypes = ([ctypes.c_void_p] * 4 + _STRIDES * 4 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    rel.restype = bias.restype = plain.restype = ctypes.c_int
+    return rel, bias, plain
+
+
+@functools.lru_cache(maxsize=None)
+def _short_backward():
+    """The bf16 backward of K1, K2 and K9 (``csrc/short_attention_bwd.cu``)."""
+    fn = build.load("short_attention_bwd").saicv_short_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + _STRIDES * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def tma_operand(t):
@@ -414,41 +430,63 @@ def tma_operand(t):
     return out
 
 
-def _launch_biased(fn, q, k, v, out, out_strides, extra, extra_strides,
-                   shape, after_scale=()):
-    """A bf16 biased forward: q, k, v [B, H, N, D] (each read in place where
-    TMA can, else copied), ``extra`` the bias pointers and their strides,
-    ``shape`` (B, H, N, D, n_real[, KH, KW])."""
+def _launch_short(fn, q, k, v, out, out_strides, extra, extra_strides,
+                   shape, after_scale=(), sm_scale=None):
+    """A bf16 forward on wgmma: q, k, v [B, H, N, D] (each read in place
+    where TMA can, else copied), ``extra`` the bias pointers and their
+    strides (none without a bias), ``shape`` (B, H, N, D, n_real[, KH,
+    KW])."""
     q, k, v = (tma_operand(t) for t in (q, k, v))
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *extra, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out_strides, *extra_strides, *shape, _scale(shape[3], None),
-                 *after_scale, stream)
+                 *out_strides, *extra_strides, *shape,
+                 _scale(shape[3], sm_scale), *after_scale, stream)
     if err != 0:
-        raise RuntimeError(f"biased attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
 
 
-def _launch(q_ptr, k_ptr, v_ptr, out, in_strides, out_strides, b, h, n, d,
-            n_real, dtype, sm_scale=None):
-    _call(_library()[0], out.device, (q_ptr, k_ptr, v_ptr, out.data_ptr()),
-          (*in_strides, *out_strides), b, h, n, d, n_real, dtype,
+def _launch(q, k, v, out, out_strides, n_real, sm_scale=None):
+    """The forward without a bias: q, k, v [B, H, N, D] views sharing their
+    strides (head dim contiguous), ``out`` written at ``out_strides``."""
+    b, h, n, d = q.shape
+    if q.dtype == torch.bfloat16:
+        _launch_short(_short_forward()[2], q, k, v, out, out_strides, (), (),
+                       (b, h, n, d, n_real), sm_scale=sm_scale)
+        return
+    _call(_library()[0], out.device,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()),
+          (*q.stride()[:3], *out_strides), b, h, n, d, n_real, q.dtype,
           sm_scale=sm_scale)
 
 
-def _launch_backward(q_ptr, k_ptr, v_ptr, dout, dout_strides, grad_ptrs,
-                     in_strides, grad_strides, b, h, n, d, n_real,
+def _launch_backward(q, k, v, dout, grad_ptrs, grad_strides, n_real,
                      sm_scale=None):
-    """dq, dk, dv (``grad_ptrs``, one stride set) from q, k, v (one stride
-    set) and ``dout``, whose head dim must be contiguous."""
+    """dq, dk, dv (``grad_ptrs``, one stride set) from q, k, v [B, H, N, D]
+    views sharing their strides and ``dout`` [B, H, N, D], each with its
+    head dim contiguous."""
+    b, h, n, d = q.shape
     # scratch of the two launches; freed on return, which is safe because
     # the caching allocator reuses it only for later work on this stream
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
+    if q.dtype == torch.bfloat16:
+        ins = [tma_operand(t) for t in (q, k, v, dout)]
+        with torch.cuda.device(dout.device):
+            stream = torch.cuda.current_stream(dout.device).cuda_stream
+            err = _short_backward()(
+                *(t.data_ptr() for t in ins), *grad_ptrs, stats.data_ptr(),
+                *(s for t in ins for s in t.stride()[:3]), *grad_strides,
+                b, h, n, d, n_real, _scale(d, sm_scale), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"attention backward kernel launch failed: cudaError {err}")
+        return
     _call(_library()[1], dout.device,
-          (q_ptr, k_ptr, v_ptr, dout.data_ptr(), *grad_ptrs, stats.data_ptr()),
-          (*in_strides, *dout_strides, *grad_strides), b, h, n, d, n_real,
-          dout.dtype, sm_scale=sm_scale)
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+           *grad_ptrs, stats.data_ptr()),
+          (*q.stride()[:3], *dout.stride()[:3], *grad_strides), b, h, n, d,
+          n_real, dout.dtype, sm_scale=sm_scale)
 
 
 def _launch_relpos(q_ptr, k_ptr, v_ptr, out, rel_h, rel_w, strides, b, h,
@@ -502,11 +540,8 @@ class FusedAttentionDense(torch.autograd.Function):
         _require_cuda(qkv)
         b, n, c, d, n_real = check_dense_args(qkv, head_nums, n_real)
         out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
-        es = qkv.element_size()
-        base = qkv.data_ptr()
-        _launch(base, base + c * es, base + 2 * c * es, out,
-                _packed_strides(n, head_nums, d), (n * c, d, c), b,
-                head_nums, n, d, n_real, qkv.dtype, sm_scale)
+        _launch(*_unpack(qkv.view(b, n, 3, head_nums, d)), out, (n * c, d, c),
+                n_real, sm_scale)
         fused_attention_dense.launches += 1
         return out
 
@@ -519,15 +554,14 @@ class FusedAttentionDense(torch.autograd.Function):
                 qkv, dout, ctx.head_nums, ctx.n_real, ctx.sm_scale), None,
                 None, None)
         b, n, c, d, n_real = check_dense_args(qkv, ctx.head_nums, ctx.n_real)
-        dout = dout.contiguous()
+        dout = dout.contiguous().view(b, n, ctx.head_nums, d).transpose(1, 2)
         dqkv = torch.empty_like(qkv)
         es = qkv.element_size()
-        base, grad = qkv.data_ptr(), dqkv.data_ptr()
-        packed = _packed_strides(n, ctx.head_nums, d)
-        _launch_backward(base, base + c * es, base + 2 * c * es, dout,
-                         (n * c, d, c),
-                         (grad, grad + c * es, grad + 2 * c * es), packed,
-                         packed, b, ctx.head_nums, n, d, n_real, ctx.sm_scale)
+        grad = dqkv.data_ptr()
+        _launch_backward(*_unpack(qkv.view(b, n, 3, ctx.head_nums, d)), dout,
+                         (grad, grad + c * es, grad + 2 * c * es),
+                         _packed_strides(n, ctx.head_nums, d), n_real,
+                         ctx.sm_scale)
         fused_attention_dense.backward_launches += 1
         return dqkv, None, None, None
 
@@ -550,8 +584,7 @@ class FusedAttention(torch.autograd.Function):
         _require_cuda(q)
         b, h, n, d, n_real = check_args(q, k, v, n_real)
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
-        _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out, q.stride()[:3],
-                (h * n * d, n * d, d), b, h, n, d, n_real, q.dtype)
+        _launch(q, k, v, out, (h * n * d, n * d, d), n_real)
         fused_attention.launches += 1
         return out
 
@@ -566,10 +599,8 @@ class FusedAttention(torch.autograd.Function):
         if dout.stride(3) != 1:
             dout = dout.contiguous()
         grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
-        _launch_backward(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout,
-                         dout.stride()[:3],
-                         [g.data_ptr() for g in grads], q.stride()[:3],
-                         (h * n * d, n * d, d), b, h, n, d, n_real)
+        _launch_backward(q, k, v, dout, [g.data_ptr() for g in grads],
+                         (h * n * d, n * d, d), n_real)
         fused_attention.backward_launches += 1
         return grads[0], grads[1], grads[2], None
 
@@ -606,7 +637,7 @@ class FusedAttentionBias(torch.autograd.Function):
         full = check_bias_args(bias, (b, h, n, n))
         out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
         if q.dtype == torch.bfloat16:
-            _launch_biased(_biased_library()[1], q, k, v, out,
+            _launch_short(_short_forward()[1], q, k, v, out,
                            (h * n * d, n * d, d), (full.data_ptr(),),
                            full.stride()[:3], (b, h, n, d, n_real),
                            (int(bias.dtype == torch.bfloat16),))
@@ -659,7 +690,7 @@ def fused_attention_bias(q, k, v, bias, n_real=None):
 
 
 class FusedAttentionQKV(torch.autograd.Function):
-    """K9 with its backward kernel (K1's launches at the packed strides);
+    """K9 with its backward kernel (K1's kernels at the packed strides);
     saves qkv only."""
 
     @staticmethod
@@ -671,10 +702,7 @@ class FusedAttentionQKV(torch.autograd.Function):
         _require_cuda(qkv)
         b, n, h, d, n_real = check_qkv_args(qkv, n_real)
         out = torch.empty((b, n, h, d), dtype=qkv.dtype, device=qkv.device)
-        base, step = qkv.data_ptr(), h * d * qkv.element_size()
-        _launch(base, base + step, base + 2 * step, out,
-                _packed_strides(n, h, d), (n * h * d, d, h * d), b, h, n, d,
-                n_real, qkv.dtype)
+        _launch(*_unpack(qkv), out, (n * h * d, d, h * d), n_real)
         fused_attention_qkv.launches += 1
         return out
 
@@ -689,13 +717,10 @@ class FusedAttentionQKV(torch.autograd.Function):
         if dout.stride(3) != 1:
             dout = dout.contiguous()
         dqkv = torch.empty_like(qkv)
-        base, grad = qkv.data_ptr(), dqkv.data_ptr()
-        step = h * d * qkv.element_size()
-        packed = _packed_strides(n, h, d)
-        _launch_backward(base, base + step, base + 2 * step, dout,
-                         (dout.stride(0), dout.stride(2), dout.stride(1)),
-                         (grad, grad + step, grad + 2 * step), packed, packed,
-                         b, h, n, d, n_real)
+        grad, step = dqkv.data_ptr(), h * d * qkv.element_size()
+        _launch_backward(*_unpack(qkv), dout.transpose(1, 2),
+                         (grad, grad + step, grad + 2 * step),
+                         _packed_strides(n, h, d), n_real)
         fused_attention_qkv.backward_launches += 1
         return dqkv, None
 
@@ -725,7 +750,7 @@ class FusedAttentionRelwinDense(torch.autograd.Function):
         rel_strides = (*_dense_rel_strides(rel_h), *_dense_rel_strides(rel_w))
         if qkv.dtype == torch.bfloat16:
             q, k, v = _unpack(qkv.view(b, n, 3, head_nums, d))
-            _launch_biased(_biased_library()[0], q, k, v, out, (n * c, d, c),
+            _launch_short(_short_forward()[0], q, k, v, out, (n * c, d, c),
                            (rel_h.data_ptr(), rel_w.data_ptr()), rel_strides,
                            (b, head_nums, n, d, n, kh, kw))
         else:
@@ -785,7 +810,7 @@ class FusedAttentionRelwin(torch.autograd.Function):
         out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
         rel_strides = (*rel_h.stride()[:3], *rel_w.stride()[:3])
         if q.dtype == torch.bfloat16:
-            _launch_biased(_biased_library()[0], q, k, v, out,
+            _launch_short(_short_forward()[0], q, k, v, out,
                            (n * h * d, d, h * d),
                            (rel_h.data_ptr(), rel_w.data_ptr()), rel_strides,
                            (b, h, n, d, n_real, kh, kw))

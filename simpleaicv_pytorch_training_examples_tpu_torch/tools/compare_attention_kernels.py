@@ -1,4 +1,4 @@
-"""Time the short-sequence attention forwards of two checkouts of this
+"""Time the short-sequence attention kernels of two checkouts of this
 repository in turns on one card, and hold their K6 bf16 backwards to the
 same bits.
 
@@ -12,16 +12,24 @@ own that imports the port's package from one checkout, whose kernels
 build into that checkout's ``build/kernels``, and times every case at its
 main-path shape: K2b's forward at SAM-B's windows with an fp32 and a bf16
 bias, at SAM-H's and at N = 1024; K4's at SAM-H's windows on views of a
-packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and K9's at ViT's
-(device ms a launch between CUDA events, the card spun first so that the
-host queues ahead; SDPA on the same inputs beside each, with the bias as a
-mask in the input dtype). Each
+packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and K9's at ViT's,
+forward and backward (the backward through autograd on a kept graph, as a
+train step runs it), and K8's (the fused ViT-B/16 block at its train
+micro-batch of 64) forward and backward (device ms a launch between CUDA
+events, the card spun first so that the host queues ahead; SDPA on the
+same inputs beside each, with the bias as a mask in the input dtype, and
+SDPA's backward beside each backward; K8 has no one-call yardstick). Each
 turn also runs K6's bf16 backward twice on seeded inputs (SAM2's memory
 self-attention with masked slots, Hiera's global blocks) and hashes its
-gradients. The script prints one JSON line a turn, then one a case with
-both checkouts' times (the mean of their turns) and their ratio, and
-whether the K6 gradients are equal bit for bit between the checkouts and
-between two runs. Needs a CUDA device.
+gradients, and holds K1's bf16 forward and backward at Hiera's four
+window shapes (SAM2-B+, heads padded from 56 to 64 with the 56-wide
+scale) against a float64 computation of the same inputs: the relative L2
+error of the output and of dq, dk, dv, and of the plain bf16 version's.
+The script prints one JSON line a turn, then one a case with both
+checkouts' times (the mean of their turns) and their ratio, and whether
+the K6 gradients are equal bit for bit between the checkouts and between
+two runs, and one line of each checkout's K1 errors. Needs a CUDA
+device.
 """
 
 import argparse
@@ -121,6 +129,67 @@ def forward_cases(torch, fa):
     yield "K9 fwd vit_b16", plain_case(256, 197, 12, 64, "K9")
 
 
+def backward_cases(torch, fa, ab):
+    """(name, kernel, SDPA's backward or None, bound ms) of K1's, K2's and
+    K9's backward at ViT's shapes and of K8's forward and backward; inputs
+    made from a seed on the card."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    grad = torch.autograd.grad
+
+    def plain_case(b, n, h, d, kind):
+        qkv = randn(b, n, 3, h, d).to(bf16)
+        dout = randn(b, n, h, d).to(bf16)       # [B, N, H, D]
+        heads = dout.transpose(1, 2)            # [B, H, N, D]
+        if kind == "K2":
+            leaves = [t.requires_grad_() for t in
+                      qkv.permute(2, 0, 3, 1, 4).unbind(0)]
+            out = fa.fused_attention(*leaves)
+            kernel = lambda: grad(out, leaves, heads, retain_graph=True)
+        else:
+            x = (qkv.view(b, n, 3 * h * d) if kind == "K1" else
+                 qkv).requires_grad_()
+            out = (fa.fused_attention_dense(x, h) if kind == "K1" else
+                   fa.fused_attention_qkv(x))
+            g = dout.view(b, n, h * d) if kind == "K1" else dout
+            kernel = lambda: grad(out, x, g, retain_graph=True)
+        ref = [t.detach().requires_grad_() for t in
+               qkv.permute(2, 0, 3, 1, 4).unbind(0)]
+        ref_out = F.scaled_dot_product_attention(*ref)
+        library = lambda: grad(ref_out, ref, heads, retain_graph=True)
+        # qkv and dout read, dqkv written; the five products
+        return (kernel, library, bound_ms(7 * b * n * h * d * 2,
+                                          10.0 * b * h * n * n * d))
+
+    def block_case(b, n, h, d, backward):
+        c = h * d
+        x = randn(b, n, c).to(bf16)
+        weights = [(randn(3 * c, c) * c ** -0.5).to(bf16),
+                   (0.02 * randn(3 * c)).to(bf16),
+                   (randn(c, c) * c ** -0.5).to(bf16),
+                   (0.02 * randn(c)).to(bf16), 1.0 + 0.1 * randn(c),
+                   0.1 * randn(c)]
+        if not backward:
+            return (lambda: ab.attn_block(x, *weights, h), None,
+                    bound_ms(2 * (2 * b * n * c + 4 * c * c + 4 * c),
+                             b * (8.0 * n * c * c + 4.0 * n * n * c)))
+        leaves = [t.requires_grad_() for t in [x] + weights]
+        out = ab.attn_block(*leaves, h)
+        dy = randn(b, n, c).to(bf16)
+        # the recompute counted: 22NC^2 + 12N^2C a sample
+        return (lambda: grad(out, leaves, dy, retain_graph=True), None,
+                bound_ms(2 * (3 * b * n * c + 2 * (4 * c * c + 4 * c)),
+                         b * (22.0 * n * c * c + 12.0 * n * n * c)))
+
+    yield "K1 bwd vit_b16", plain_case(256, 197, 12, 64, "K1")
+    yield "K2 bwd vit_h14", plain_case(256, 257, 16, 80, "K2")
+    yield "K9 bwd vit_b16", plain_case(256, 197, 12, 64, "K9")
+    yield "K8 fwd vit_b16_train", block_case(64, 197, 12, 64, False)
+    yield "K8 bwd vit_b16_train", block_case(64, 197, 12, 64, True)
+
+
 def key_bias_backward_cases(torch, fl):
     """(name, run) of K6's bf16 backward on seeded inputs; run() returns
     dq, dk, dv."""
@@ -146,6 +215,43 @@ def key_bias_backward_cases(torch, fl):
     yield "K6 bwd hiera global", case(4, 8, 4096, 4096, 64, 0, 56 ** -0.5)
 
 
+def hiera_accuracy(torch, fa):
+    """{window: {out, dq, dk, dv and their "_plain" twins: relative L2
+    error against float64}} of K1 at Hiera's window shapes: q, k, v and
+    dout of unit scale in bf16, the padded columns 56-63 zero as the
+    model's padded heads give them."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    scale, d = 56 ** -0.5, 64
+    out = {}
+    for b, n, h in ((256, 64, 2), (256, 16, 4), (25, 196, 8), (25, 49, 16)):
+        x = torch.randn(b, n, 3, h, d, device="cuda", generator=gen)
+        dout = torch.randn(b, n, h, d, device="cuda", generator=gen)
+        x[..., 56:] = 0
+        dout[..., 56:] = 0
+        x = x.reshape(b, n, 3 * h * d).to(torch.bfloat16)
+        dout = dout.reshape(b, n, h * d).to(torch.bfloat16)
+        leaf = x.clone().requires_grad_()
+        y = fa.fused_attention_dense(leaf, h, None, scale)
+        (dx,) = torch.autograd.grad(y, leaf, dout)
+        x64 = x.double().requires_grad_()
+        q, k, v = x64.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        p = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) * scale, -1)
+        y64 = torch.einsum("bhqk,bhkd->bhqd", p, v).transpose(1, 2).reshape(
+            b, n, h * d)
+        (dx64,) = torch.autograd.grad(y64, x64, dout.double())
+        y_plain = fa.fused_attention_dense_reference(x, h, None, scale)
+        dx_plain = fa.fused_attention_dense_backward_reference(
+            x, dout, h, None, scale)
+        rel = lambda a, r: ((a.double() - r).norm() / r.norm()).item()
+        thirds = lambda t: t.view(b, n, 3, h * d).unbind(2)
+        record = {"out": rel(y, y64), "out_plain": rel(y_plain, y64)}
+        for name, a, a_plain, r in zip(("dq", "dk", "dv"), thirds(dx),
+                                       thirds(dx_plain), thirds(dx64)):
+            record[name], record[name + "_plain"] = rel(a, r), rel(a_plain, r)
+        out[f"hiera_n{n}"] = record
+    return out
+
+
 def digest(torch, tensors):
     """The first 16 hex digits of the sha256 of bf16 tensors' bits."""
     h = hashlib.sha256()
@@ -160,7 +266,7 @@ def worker(root, build_only):
     sys.path.insert(0, str(root))
     import torch
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-        build, flash_attention as fl, fused_attention as fa)
+        attn_block as ab, build, flash_attention as fl, fused_attention as fa)
     build.build()
     if build_only:
         return
@@ -172,12 +278,19 @@ def worker(root, build_only):
                                      "library_ms": time_ms(torch, library),
                                      "bound_ms": bound}
         torch.cuda.empty_cache()
+    for name, (kernel, library, bound) in backward_cases(torch, fa, ab):
+        record["cases"][name] = {
+            "ms": time_ms(torch, kernel),
+            "library_ms": None if library is None else time_ms(torch, library),
+            "bound_ms": bound}
+        torch.cuda.empty_cache()
     for name, run in key_bias_backward_cases(torch, fl):
         first, second = digest(torch, run()), digest(torch, run())
         record["cases"][name] = {"ms": time_ms(torch, run, iters=5),
                                  "digest": first,
                                  "reproducible": first == second}
         torch.cuda.empty_cache()
+    record["k1_vs_float64"] = hiera_accuracy(torch, fa)
     print(json.dumps(record), flush=True)
 
 
@@ -216,11 +329,13 @@ def main(argv=None):
     if any(p.wait() != 0 for p in builds):
         raise SystemExit("a kernel build failed")
     turns = {"this": [], "other": []}
+    accuracy = {}
     for which in ORDER:
         record = json.loads(run_turn(roots[which]).strip().splitlines()[-1])
         record["turn"] = which
         print(json.dumps(record), flush=True)
         turns[which].append(record["cases"])
+        accuracy[which] = record["k1_vs_float64"]
     for name in turns["this"][0]:
         mean = lambda key, side: sum(t[name][key] for t in turns[side]) / len(
             turns[side])
@@ -232,11 +347,15 @@ def main(argv=None):
             line["same_bits_in_both"] = len(digests) == 1
             line["reproducible"] = all(t[name]["reproducible"]
                                        for s in turns.values() for t in s)
+        elif turns["this"][0][name]["library_ms"] is None:
+            line["bound_ms"] = turns["this"][0][name]["bound_ms"]
         else:
             line["library_ms"] = mean("library_ms", "this")
             line["bound_ms"] = turns["this"][0][name]["bound_ms"]
             line["this_over_library"] = mean("ms", "this") / line["library_ms"]
         print(json.dumps(line), flush=True)
+    for which, errors in accuracy.items():
+        print(json.dumps({"k1_vs_float64": which, **errors}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """K2b (a full score bias) and K3/K4 (SAM's decomposed rel-pos bias) at the
-row lengths where the bf16 forward kernel (``csrc/short_attention_bias_fwd.cu``)
+row lengths where the bf16 forward kernel (``csrc/short_attention_fwd.cu``)
 changes its plan, against the JAX package.
 
-The kernel holds a whole score row in its accumulators up to 256 keys and
+The kernel holds a whole score row in its accumulators up to 264 keys and
 walks groups of 256 keys past that; it splits D = 80 into column boxes of
 64 and 16; it stages a bf16 bias whose rows are not a multiple of 16 bytes
 in 8-byte copies. On the CPU the wrappers take their plain PyTorch versions;

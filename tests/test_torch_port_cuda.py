@@ -25,10 +25,13 @@ tensors, bit for bit K1 at d = 64 and 128; K2b (the full score bias) with
 fp32 and bf16 biases broadcast from [1, H, N, N], [H, N, N] and [B, 1, 1,
 N], N up to 1024, dbias in the bias's shape and dtype (skipped when the
 bias needs no gradient), and the shapes, dtypes and layouts both refuse;
-the bf16 forward of K2b, K3 and K4 (``short_attention_bias_fwd.cu``) where
-its plan changes: N from 50 to 1024 (one pass up to 256 keys, groups of
+the bf16 forward of K2b, K3 and K4 (``short_attention_fwd.cu``) where
+its plan changes: N from 50 to 1024 (one pass up to 264 keys, groups of
 256 past it), D = 35, 64, 80 and 128, masked key tails, every bias layout
-and K3's and K4's layouts, two runs equal bit for bit.
+and K3's and K4's layouts, two runs equal bit for bit; K1's, K2's and
+K9's bf16 forward and backward (``short_attention_fwd.cu``,
+``short_attention_bwd.cu``) at N = 256, 257, 264 and 265, the edges of the
+one-pass row, two backward runs equal bit for bit.
 Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
@@ -81,6 +84,10 @@ def _close(got, want, dtype, what):
     (2, 17, 2, 64, 1), (2, 63, 1, 128, None), (2, 64, 1, 128, 33),
     (2, 65, 3, 64, 64), (1, 129, 2, 128, 128), (2, 200, 4, 64, 199),
     (1, 577, 2, 64, None), (1, 1024, 2, 64, 700), (1, 1000, 1, 128, None),
+    # the one-pass row's edges: 256 keys, 257..264 (256 + an 8-key chunk),
+    # 265 (groups of 256)
+    (1, 256, 2, 64, None), (1, 257, 2, 64, 200), (1, 264, 2, 128, 257),
+    (1, 265, 2, 64, None),
 ])
 def test_dense_forward_and_backward(cuda, b, n, h, d, n_real, dtype):
     dtype = DTYPES[dtype]
@@ -99,6 +106,9 @@ def test_dense_forward_and_backward(cuda, b, n, h, d, n_real, dtype):
            dtype, "out")
     _close(qkv.grad, fa.fused_attention_dense_backward_reference(
         qkv.detach(), dout, h, n_real), dtype, "dqkv")
+    (again,) = torch.autograd.grad(fa.fused_attention_dense(qkv, h, n_real),
+                                   qkv, dout)
+    assert torch.equal(qkv.grad, again), "dqkv differs between two runs"
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])
@@ -109,6 +119,9 @@ def test_dense_forward_and_backward(cuda, b, n, h, d, n_real, dtype):
     (1, 2, 257, 80, 256, True), (1, 2, 300, 120, None, False),
     (1, 2, 640, 128, 639, True), (1, 1, 1024, 80, None, True),
     (2, 2, 40, 17, None, False), (1, 2, 129, 48, 2, True),
+    # the one-pass row's edges (ViT-H/14's 257 tokens at d = 80)
+    (1, 2, 256, 56, None, True), (1, 2, 257, 80, None, False),
+    (1, 2, 264, 80, 260, True), (1, 2, 265, 80, 264, True),
 ])
 def test_forward_and_backward(cuda, b, h, n, d, n_real, packed, dtype):
     dtype = DTYPES[dtype]
@@ -1088,7 +1101,7 @@ def test_qkv_and_bias_refuse_what_they_cannot_take(cuda):
 
 # N -> (KH, KW) of a key grid with KH * KW = N
 KEY_GRIDS = {50: (5, 10), 63: (7, 9), 160: (10, 16), 196: (14, 14),
-             256: (16, 16), 257: (1, 257), 1024: (32, 32)}
+             256: (16, 16), 257: (1, 257), 264: (8, 33), 1024: (32, 32)}
 
 
 def _twice(wrapper, run):
@@ -1104,9 +1117,10 @@ def _twice(wrapper, run):
 @pytest.mark.parametrize("n", sorted(KEY_GRIDS))
 @pytest.mark.parametrize("d", [35, 64, 80, 128])
 def test_biased_forward_row_lengths_and_head_dims(cuda, n, d):
-    """K2b's and K4's bf16 forward (``short_attention_bias_fwd.cu``) where
-    the kernel's plan changes: one pass up to 256 keys (the last 64-key
-    chunk 8 to 64 keys wide), groups of 256 keys past it; columns in one
+    """K2b's and K4's bf16 forward (``short_attention_fwd.cu``) where
+    the kernel's plan changes: one pass up to 264 keys (the last 64-key
+    chunk 8 to 64 keys wide, past 256 an 8-key chunk), groups of 256 keys
+    past it; columns in one
     box (D = 35, zero-padded to 48, and 64), 64 + 16 (80) and 64 + 64 (128).
     Against the plain versions, two runs equal bit for bit."""
     kh, kw = KEY_GRIDS[n]

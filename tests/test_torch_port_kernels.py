@@ -70,26 +70,51 @@ def _to_np(x):
                       else jnp.asarray(x, jnp.float32))
 
 
+HIERA_SCALE = 56 ** -0.5   # Hiera's heads padded from 56 to 64 keep it
+
+
+def _dense_cases(pairs):
+    """(head_dim, n_real, (b, n, h), sm_scale) cases: `pairs` at (2, 20, 2)
+    with the default scale, then K1 at Hiera's windows of SAM2 (N = 16, 49,
+    64, 196 at D = 64, two heads, Hiera's sm_scale)."""
+    return ([pytest.param(d, n_real, (2, 20, 2), None, id=f"{d}-{n_real}")
+             for d, n_real in pairs]
+            + [pytest.param(64, None, (1, n, 2), HIERA_SCALE,
+                            id=f"hiera-n{n}") for n in (16, 49, 64, 196)])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim,n_real", [(64, None), (64, 13),
-                                             (128, None), (128, 19)])
-def test_dense_plain_version_matches_jax_kernel(head_dim, n_real, dtype):
-    b, n, h = 2, 20, 2
+@pytest.mark.parametrize("head_dim,n_real,shape,sm_scale", _dense_cases(
+    [(64, None), (64, 13), (128, None), (128, 19)]))
+def test_dense_plain_version_matches_jax_kernel(head_dim, n_real, shape,
+                                                sm_scale, dtype):
+    b, n, h = shape
     rs = np.random.RandomState(head_dim + (n_real or 0))
     x = rs.standard_normal((b, n, 3 * h * head_dim)).astype(np.float32)
     jx, tx = _pair(x, dtype)
-    want = jax_fa.fused_attention_dense(jx, h, n_real=n_real, interpret=True)
-    got = port_fa.fused_attention_dense(tx, h, n_real=n_real)
+    want = jax_fa.fused_attention_dense(jx, h, n_real=n_real, interpret=True,
+                                        sm_scale=sm_scale)
+    got = port_fa.fused_attention_dense(tx, h, n_real=n_real,
+                                        sm_scale=sm_scale)
     assert got.dtype == tx.dtype and got.shape == (b, n, h * head_dim)
     np.testing.assert_allclose(_to_np(got), _to_np(want), rtol=0,
                                atol=TOL[dtype])
 
 
+def _k2_cases(pairs):
+    """(head_dim, n_real, (b, h, n)) cases: `pairs` at (2, 3, 21), then K2
+    at ViT-H/14's N = 257, D = 80 (one head), with and without n_real."""
+    return ([pytest.param(d, n_real, (2, 3, 21), id=f"{d}-{n_real}")
+             for d, n_real in pairs]
+            + [pytest.param(80, n_real, (1, 1, 257), id=f"vit_h14-{n_real}")
+               for n_real in (None, 200)])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim,n_real", [(64, None), (80, None), (80, 11),
-                                             (128, 17)])
-def test_plain_version_matches_jax_kernel(head_dim, n_real, dtype):
-    b, h, n = 2, 3, 21
+@pytest.mark.parametrize("head_dim,n_real,shape", _k2_cases(
+    [(64, None), (80, None), (80, 11), (128, 17)]))
+def test_plain_version_matches_jax_kernel(head_dim, n_real, shape, dtype):
+    b, h, n = shape
     rs = np.random.RandomState(head_dim + (n_real or 0) + 1)
     qkv = rs.standard_normal((3, b, h, n, head_dim)).astype(np.float32)
     jq, jk, jv = (_pair(a, dtype)[0] for a in qkv)
@@ -182,21 +207,23 @@ def test_build_targets_hopper_from_repo_sources():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim,n_real", [(64, None), (64, 13),
-                                             (128, 19)])
-def test_dense_backward_matches_jax_kernel_vjp(head_dim, n_real, dtype):
-    b, n, h = 2, 20, 2
+@pytest.mark.parametrize("head_dim,n_real,shape,sm_scale", _dense_cases(
+    [(64, None), (64, 13), (128, 19)]))
+def test_dense_backward_matches_jax_kernel_vjp(head_dim, n_real, shape,
+                                               sm_scale, dtype):
+    b, n, h = shape
     rs = np.random.RandomState(100 + head_dim + (n_real or 0))
     x = rs.standard_normal((b, n, 3 * h * head_dim)).astype(np.float32)
     g = rs.standard_normal((b, n, h * head_dim)).astype(np.float32)
     jx, tx = _pair(x, dtype)
     jg, tg = _pair(g, dtype)
     out, vjp = jax.vjp(lambda t: jax_fa.fused_attention_dense(
-        t, h, n_real=n_real, interpret=True), jx)
+        t, h, n_real=n_real, interpret=True, sm_scale=sm_scale), jx)
     (want,) = vjp(jg)
     tx.requires_grad_()
     before = port_fa.fused_attention_dense.backward_launches
-    port_fa.fused_attention_dense(tx, h, n_real=n_real).backward(tg)
+    port_fa.fused_attention_dense(tx, h, n_real=n_real,
+                                  sm_scale=sm_scale).backward(tg)
     assert tx.grad.dtype == tx.dtype and tx.grad.shape == tx.shape
     np.testing.assert_allclose(_to_np(tx.grad), _to_np(want), rtol=0,
                                atol=TOL[dtype])
@@ -205,10 +232,10 @@ def test_dense_backward_matches_jax_kernel_vjp(head_dim, n_real, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("head_dim,n_real", [(64, None), (80, 11),
-                                             (128, 17)])
-def test_backward_matches_jax_kernel_vjp(head_dim, n_real, dtype):
-    b, h, n = 2, 3, 21
+@pytest.mark.parametrize("head_dim,n_real,shape", _k2_cases(
+    [(64, None), (80, 11), (128, 17)]))
+def test_backward_matches_jax_kernel_vjp(head_dim, n_real, shape, dtype):
+    b, h, n = shape
     rs = np.random.RandomState(200 + head_dim + (n_real or 0))
     qkv = rs.standard_normal((3, b, h, n, head_dim)).astype(np.float32)
     g = rs.standard_normal((b, h, n, head_dim)).astype(np.float32)

@@ -54,7 +54,8 @@ def _to_np(x):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,n,h,d,n_real", [
     (2, 37, 4, 32, None), (2, 37, 4, 32, 30), (1, 16, 6, 16, None),
-    (2, 33, 2, 80, None), (2, 33, 2, 80, 30)])
+    (2, 33, 2, 80, None), (2, 33, 2, 80, 30),
+    (1, 197, 2, 64, None)])     # ViT-B/16's tokens and head dim
 def test_qkv_plain_version_and_vjp_match_jax_kernel(b, n, h, d, n_real,
                                                     dtype):
     rs = np.random.RandomState(n * d + (n_real or 0))
