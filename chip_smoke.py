@@ -79,8 +79,9 @@ output in another order); fp32 atol 1e-4; every backward (K1, K2, K9) run
 twice gives the same bits. The bf16 kernels of K1, K2 and K9 (and K8's
 attention core) must show HGMMA (``wgmma``) in the SASS of the built
 libraries, both backward kernels and the forward's no-bias mode at every
-chunk shape and head dim instantiated, and ``fused_attention.cu``'s
-library no ``mma.sync`` backward without a bias. LayerNorm kernel vs plain version:
+chunk shape and head dim instantiated, and so must both backward kernels
+of K2b, K3 and K4 (the biased modes); ``fused_attention.cu``'s library
+must hold no bf16 (``mma.sync``) backward at all. LayerNorm kernel vs plain version:
 bf16 y and dx atol 6.25e-2 (two ulps at |y| <= 8), fp32 1e-4; dgamma and
 dbeta, fp32 sums over all rows in another order, 1e-3 of the largest sum.
 Model logits, bf16, kernels vs plain ops on the same weights: max |diff| <=
@@ -1136,9 +1137,12 @@ def key_bias_backward_bound(b, h, nq, n_keys, n_valid, d, dtype_name,
 
 # the forward's kNoBias kernels end their mangled names with MODE 0 and
 # the params type; 18 of them (six chunk shapes, three head-dim tails), and
-# the backward's 20 (17 dQ kernels, no 5-chunk one at D > 80, and 3 dK/dV)
+# the backward's 20 (17 dQ kernels, no 5-chunk one at D > 80, and 3 dK/dV);
+# the backward's biased modes (MODE 1, kRelBias: K3/K4; 2, kFullBias: K2b)
+# 20 each
 NO_BIAS_FWD = "ELi0EEEvNS1_9FwdParamsE"
 SHORT_NO_BIAS_KERNELS = 18 + 20
+SHORT_BIASED_BWD_KERNELS = 2 * 20
 K6_BWD_KERNELS = ("flash_keybias_bwd_delta", "flash_keybias_bwd_dq",
                   "flash_keybias_bwd_dkv", "flash_keybias_bwd_reduce")
 
@@ -3266,22 +3270,31 @@ def main():
     if len(hgmma) != 9 or not all(hgmma.values()):
         raise AssertionError(f"K6 backward kernels without HGMMA: {hgmma}")
     # K1/K2/K9 on wgmma: HGMMA in both backward kernels and in the forward's
-    # kNoBias mode at every chunk shape and head dim they instantiate; no
-    # kNoBias (MODE 0) bf16 backward left in fused_attention.cu
-    hgmma = {name: n for name, n in hgmma_counts(
+    # kNoBias mode at every chunk shape and head dim they instantiate; K2b,
+    # K3 and K4 likewise in both backward kernels of the biased modes (the
+    # last template value, MODE, 1 or 2); no bf16 backward of any mode
+    # left in fused_attention.cu
+    mode_of = lambda name: int(re.search(r"Li(\d)EEEv", name).group(1))
+    short_bwd = {name: n for name, n in hgmma_counts(
         build.library_path("short_attention_bwd")).items()
         if "short_attention_bwd_d" in name}
+    hgmma = {name: n for name, n in short_bwd.items() if mode_of(name) == 0}
     hgmma.update({name: n for name, n in hgmma_counts(
         build.library_path("short_attention_fwd")).items()
         if "short_attention_fwd" in name and name.endswith(NO_BIAS_FWD)})
     log("sass short_attention no bias", hgmma=hgmma)
     if len(hgmma) != SHORT_NO_BIAS_KERNELS or not all(hgmma.values()):
         raise AssertionError(f"K1/K2/K9 kernels without HGMMA: {hgmma}")
-    old_no_bias = [name for name in hgmma_counts(
+    hgmma = {name: n for name, n in short_bwd.items() if mode_of(name) != 0}
+    log("sass short_attention_bwd biased", hgmma=hgmma)
+    if len(hgmma) != SHORT_BIASED_BWD_KERNELS or not all(hgmma.values()):
+        raise AssertionError(f"K2b/K3/K4 backward kernels without HGMMA: "
+                             f"{hgmma}")
+    old_bwd = [name for name in hgmma_counts(
         build.library_path("fused_attention")) if re.search(
-            r"attention_bwd_(dq|dkv)_bf16ILi\d+ELi0E", name)]
-    if old_no_bias:
-        raise AssertionError(f"mma.sync no-bias backward left: {old_no_bias}")
+            r"attention_bwd_(dq|dkv)_bf16", name)]
+    if old_bwd:
+        raise AssertionError(f"mma.sync bf16 backward left: {old_bwd}")
 
     # 3. each kernel against its plain version at the main paths' shapes
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -4151,9 +4164,10 @@ def main():
         entry("K5", "K5 flash_attention_relpos fwd", "flash_attention.cu",
               "flash_attention.py:505", sam_counts["K5"]),
         entry("K3 bwd", "K3 fused_attention_relwin_dense bwd",
-              "fused_attention.cu", "fused_attention.py:1163",
+              "short_attention_bwd.cu", "fused_attention.py:1163",
               sam_train_counts["K3 bwd"]),
-        entry("K4 bwd", "K4 fused_attention_relwin bwd", "fused_attention.cu",
+        entry("K4 bwd", "K4 fused_attention_relwin bwd",
+              "short_attention_bwd.cu",
               "fused_attention.py:924", sam_h_train_counts["K4 bwd"]),
         entry("K5 bwd", "K5 flash_attention_relpos bwd",
               "flash_attention.cu", "flash_attention.py:541",
@@ -4175,7 +4189,7 @@ def main():
               "short_attention_fwd.cu", "fused_attention.py:321",
               entry_counts["K2b"], **no_model),
         entry("K2b bwd", "K2b fused_attention bias bwd",
-              "fused_attention.cu", "fused_attention.py:338",
+              "short_attention_bwd.cu", "fused_attention.py:338",
               entry_counts["K2b bwd"], **no_model),
     ]
     if len(kernels) != 20:

@@ -1,7 +1,6 @@
 // Short-sequence fused self-attention, forward and backward, for Hopper
-// (sm_90a): every fp32 kernel, and the bf16 backward of the biased variants
-// (K2b, K3, K4). Every bf16 forward is short_attention_fwd.cu's, the bf16
-// backward without a bias (K1, K2, K9) short_attention_bwd.cu's.
+// (sm_90a): every fp32 kernel. Every bf16 forward is short_attention_fwd.cu's
+// and every bf16 backward short_attention_bwd.cu's.
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/fused_attention.py:
@@ -43,8 +42,7 @@
 // fp32 design (not on the main path): one block per 32 query rows keeps
 // the whole fp32 score row in shared memory and uses plain FMA loops, so
 // fp32 inputs keep full fp32 precision. The C entry points refuse bf16
-// forwards (short_attention_fwd.cu's) and the bf16 backward without a bias
-// (short_attention_bwd.cu's).
+// (the short_attention_*.cu kernels').
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,21 +71,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ------------------------------------------------------------ bf16 path
-
-constexpr int kMaxWarps = 8;   // one warp per 16 rows, up to 8 a block
-constexpr int kKeyTile = 64;   // rows of the other operand a step
-// The other operand's rows of a whole head stay in shared memory when they
-// fit in this budget beside the block's own (SAM's windows do); larger
-// heads are walked in chunks of whole 64-row tiles.
-constexpr int kResidentBytes = 160000;
-
-// What the scores gain: SAM's decomposed rel-pos bias (K3, K4) or a full
-// bias (K2b); each score becomes the log2-domain logit s*scale*log2(e) +
-// bias*log2(e) as soon as it leaves the tensor cores. kNoBias (K1, K2, K9)
-// is short_attention_bwd.cu's and not instantiated here.
-enum BiasMode { kNoBias, kRelBias, kFullBias };
-
 // A full additive score bias (K2b): bias[b, h, i, j] of query i and key j,
 // fp32 or bf16, read through its (batch, head, row) strides, 0 on an axis
 // it is broadcast over; the key axis is contiguous. When `grad` is set, the
@@ -107,38 +90,6 @@ struct FullBias {
                    : __ldg(static_cast<const float*>(p) + off);
   }
 };
-
-// Raw scores q.k of one key tile (FR fragments of 8 keys from key0) ->
-// log2-domain logits s*sc + bias*log2(e), the bias read at `rows`, the
-// offsets of the lane's fragment rows g and g + 8; keys at or past N get
-// -inf, keys at or past n_real `masked`.
-template <int FR>
-__device__ __forceinline__ void full_logits(float (&s)[FR][4], const FullBias& fb,
-                                            const long long (&rows)[2], int key0, int t,
-                                            int N, int n_real, float sc, float masked) {
-#pragma unroll
-  for (int j = 0; j < FR; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int col = key0 + 8 * j + 2 * t + half;
-      if (col >= N) {
-        s[j][half] = s[j][2 + half] = -INFINITY;
-      } else if (col >= n_real) {
-        s[j][half] = s[j][2 + half] = masked;
-      } else {
-        s[j][half] = fmaf(s[j][half], sc, fb.at(rows[0] + col) * kLog2e);
-        s[j][2 + half] = fmaf(s[j][2 + half], sc, fb.at(rows[1] + col) * kLog2e);
-      }
-    }
-}
-
-// The full-bias row offsets of a lane's fragment rows `row` and row + 8;
-// rows past N read row N - 1 (their scores are never stored).
-__device__ __forceinline__ void full_bias_rows(long long (&rows)[2], const FullBias& fb, int b,
-                                               int hd, int row, int N) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) rows[i] = fb.row(b, hd, min(row + 8 * i, N - 1));
-}
 
 // ------------------------------------------------------------- fp32 path
 
@@ -270,54 +221,12 @@ attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -------------------------------------------------------- bf16 backward
+// ---------------------------------------------------------- the backward
 //
-// Of the biased modes (K2b, K3, K4); the backward without a bias (K1, K2,
-// K9) is short_attention_bwd.cu's (wgmma). Two kernels on mma.sync (one
-// warp owns 16 rows whose fragments stay in registers; the other operand's
-// rows sit in shared memory), so that every output row has exactly one
-// owner and no atomics are needed: the result is reproducible bit for bit.
-//   attention_bwd_dq_bf16: a warp owns 16 query rows and walks the keys
-//     twice: first the row max and sum (online, as the forward) and, in the
-//     same walk, row = sum_k dP*P with the fp32 P (its numerator rescaled
-//     with the sum when the max moves); then dS = P*(dP - row)*scale in bf16
-//     and dQ += dS.K. It leaves each row's max + log2(sum) and `row` in a
-//     small fp32 scratch.
-//   attention_bwd_dkv_bf16: a warp owns 16 key rows and walks the queries
-//     once: S^T = K.Q^T, P^T from the scratch, dP^T = V.dO^T, then
-//     dV += bf16(P^T).dO and dK += bf16(dS^T).Q.
-// Q.K^T and dO.V^T are thus computed three times each, nine products where
-// five would be the least, and nothing but the inputs has to be saved by
-// the forward. A head whose rows do not fit in shared memory is walked in
-// chunks of whole 64-row tiles, loaded one after another.
-//
-// With the rel-pos bias (K3, K4; a template parameter of both kernels) the
-// scores become the forward's log2-domain logits, and the dq kernel, which
-// owns the query rows, also sums the fp32 dS0 = P * (dP - row) (unscaled)
-// into drel_h[i, kh] and drel_w[i, kw]: each warp writes its 16 x 64 dS0
-// tile to shared memory, then lane r adds row r's terms by key-grid row and
-// lane r + 16 by key-grid column into the warp's own [16, KH + KW] sums, in
-// key order (no atomics), written out at the end. The dK/dV kernel reads
-// each query's rel_h and rel_w terms of its own keys through L1, two loads
-// a score. At SAM-B's windows (B' = 200, N = 196, H = 12, D = 64, bf16) a
-// backward moves qkv, dout, dqkv (7*B'*N*C*2 B = 422 MB) and the fp32 rel
-// terms and their gradients (2*B'*N*H*28*4 B = 105 MB): 0.16 ms, bound by
-// bytes (the five products are 59 GFLOP = 0.06 ms).
-//
-// With the full bias (K2b) the scores become logits the same way, and the
-// dq kernel, which owns the query rows, writes each fp32 dS0 straight from
-// its fragments to dbias [B, H, N, N]: one owner an element, no atomics;
-// the wrapper sums it over the axes the bias was broadcast over. The dK/dV
-// kernel reads bias[qi, key] through L1, one load a score. At SAM-B's
-// windows with an fp32 bias a backward moves 422 MB of q, k, v, dout and
-// their gradients, and reads 369 MB of bias and writes 369 MB of dbias:
-// 0.346 ms, bound by bytes.
-//
-// Measured without a bias at the ViT-B/16 shape (B=256, N=197, H=12, D=64,
-// bf16), before that mode moved to short_attention_bwd.cu: 1.39 ms, 8.6
-// times the 162 us bound. The kernels hold 166 (dq) and 236 (dk/dv)
-// registers a thread at D = 64, so one block of 7 warps runs on an SM at a
-// time: registers, not bytes, set their pace.
+// Two kernels (below): the first owns query rows and writes dQ, the row
+// statistics and (K3, K4) drel or (K2b) dbias; the second owns key rows and
+// writes dK and dV from those statistics. Every output row has one owner:
+// no atomics.
 
 struct BwdArgs {
   const void *q, *k, *v, *dout;
@@ -326,354 +235,11 @@ struct BwdArgs {
   long long in_sb, in_sh, in_sn, do_sb, do_sh, do_sn, out_sb, out_sh, out_sn;
   int B, H, N, D, n_real;
   float scale;
-  int vec, do_vec, out_vec;
   cudaStream_t stream;
   RelPos rel;    // rel.h == nullptr: no rel-pos bias (K1, K2)
   RelGrad drel;  // K3, K4: written by the dq kernel
   FullBias bias;  // bias.p == nullptr: no full bias; K2b's dbias in bias.grad
 };
-
-// The dq kernel's rel-pos scratch (K3, K4), per warp: the fp32 dS0 of one
-// 16 x 64 tile (row stride kDsLD) and the 16 rows' drel_h | drel_w sums
-// (row stride rel_ld).
-constexpr int kDsLD = kKeyTile + 1;
-__host__ __device__ inline int rel_ld(int KH, int KW) { return (KH + KW) | 1; }
-
-template <int DP, int MODE>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-attention_bwd_dq_bf16(BwdArgs a, int chunk_rows) {
-  static_assert(MODE != kNoBias, "the backward without a bias is short_attention_bwd.cu's");
-  constexpr bool REL = MODE == kRelBias;
-  constexpr bool FULL = MODE == kFullBias;
-  constexpr int LD = DP + 8;
-  constexpr int kFrags = kKeyTile / 8;
-  const int N = a.N, D = a.D, n_real = a.n_real;
-  const float sc = a.scale * kLog2e;
-  // the scores are log2-domain logits
-  constexpr float c = 1.f;
-  const float masked_raw = kNegInf * kLog2e;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warps = blockDim.x / 32;
-  const int rows = 16 * warps;
-  const int NP = (N + 15) & ~15;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [rows][LD]
-  bf16* dOs = Qs + rows * LD;                // [rows][LD]
-  bf16* Ks = dOs + rows * LD;                // [chunk_rows][LD]
-  bf16* Vs = Ks + chunk_rows * LD;           // [chunk_rows][LD]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int q0 = blockIdx.x * rows;
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
-  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
-  const bf16* vh = static_cast<const bf16*>(a.v) + in_off;
-  const bf16* doh =
-      static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
-  bf16* dqh = static_cast<bf16*>(a.dq) + blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * N;
-
-  const bool single = chunk_rows >= N;  // the whole head stays in shared memory
-  const int row0 = q0 + 16 * warp;
-  const bool active = row0 < N;
-
-  // REL: this warp's dS0 tile and drel sums (see kDsLD)
-  const int KH = a.rel.KH, KW = a.rel.KW, RL = rel_ld(KH, KW);
-  float* ds_w = reinterpret_cast<float*>(Vs + chunk_rows * LD) + warp * 16 * kDsLD;
-  float* drel_s = reinterpret_cast<float*>(Vs + chunk_rows * LD) + warps * 16 * kDsLD +
-                  warp * 16 * RL;
-  RelRows rr{};
-  if (REL) {
-    rr = a.rel.rows(blockIdx.z, blockIdx.y, row0 + g, N);
-    for (int i = lane; i < 16 * RL; i += 32) drel_s[i] = 0.f;
-  }
-  long long brows[2] = {0, 0};
-  if (FULL) full_bias_rows(brows, a.bias, blockIdx.z, blockIdx.y, row0 + g, N);
-  // FULL: dS0 of this head's rows in dbias, or nullptr
-  float* dbias = FULL && a.bias.grad ? a.bias.grad + stat_off * N : nullptr;
-
-  load_tile_bf16<DP, LD>(Qs, qh + q0 * a.in_sn, a.in_sn, rows, N - q0, D, a.vec);
-  load_tile_bf16<DP, LD>(dOs, doh + q0 * a.do_sn, a.do_sn, rows, N - q0, D, a.do_vec);
-
-  uint32_t qf[DP / 16][4], dof[DP / 16][4];
-  float m[2] = {-INFINITY, -INFINITY};  // row max of s*c, then max + log2(sum)
-  float l[2] = {0.f, 0.f};              // sum_k exp(s - max)
-  float rowsum[2] = {0.f, 0.f};         // sum_k exp(s - max) * dP, then / l
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int c0 = 0; c0 < N; c0 += chunk_rows) {
-      if (pass == 0 || !single) {
-        __syncthreads();  // the chunk before this one has been read
-        const int crows = min(chunk_rows, NP - c0);
-        load_tile_bf16<DP, LD>(Ks, kh + c0 * a.in_sn, a.in_sn, crows, N - c0, D, a.vec);
-        load_tile_bf16<DP, LD>(Vs, vh + c0 * a.in_sn, a.in_sn, crows, N - c0, D, a.vec);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (pass == 0 && c0 == 0 && active) {
-          load_a_frags<DP, LD>(qf, Qs + 16 * warp * LD, g, t);
-          load_a_frags<DP, LD>(dof, dOs + 16 * warp * LD, g, t);
-        }
-      }
-      if (!active) continue;
-      const int c1 = min(c0 + chunk_rows, N);
-      for (int key0 = c0; key0 < c1; key0 += kKeyTile) {
-        const bf16* Kb = Ks + (key0 - c0) * LD;
-        float s[kFrags][4], dp[kFrags][4];
-        own_times_other_t<DP, LD, kFrags>(s, qf, Kb, key0, N, lane);
-        own_times_other_t<DP, LD, kFrags>(dp, dof, Vs + (key0 - c0) * LD, key0, N, lane);
-        if (REL)
-          rel_logits(s, rr, key0, t, N, n_real, sc, masked_raw, KW, a.rel.inv_kw);
-        else
-          full_logits(s, a.bias, brows, key0, t, N, n_real, sc, masked_raw);
-        if (pass == 0) {
-          // online over the key tiles: row max, sum_k e and sum_k e * dP with
-          // e = exp(s - max), both rescaled when the max moves
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float tmax = -INFINITY;
-#pragma unroll
-            for (int j = 0; j < kFrags; ++j)
-              tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-            const float mnew = fmaxf(m[r], tmax * c);
-            float sum = 0.f, weighted = 0.f;
-#pragma unroll
-            for (int j = 0; j < kFrags; ++j)
-              if (key0 + 8 * j < N) {
-                const float e0 = exp2_approx(fmaf(s[j][2 * r], c, -mnew));
-                const float e1 = exp2_approx(fmaf(s[j][2 * r + 1], c, -mnew));
-                sum += e0 + e1;
-                weighted += e0 * dp[j][2 * r] + e1 * dp[j][2 * r + 1];
-              }
-            const float rescale = exp2_approx(m[r] - mnew);
-            l[r] = l[r] * rescale + sum;
-            rowsum[r] = rowsum[r] * rescale + weighted;
-            m[r] = mnew;
-          }
-          continue;
-        }
-        // pass 1: dS0 = P * (dP - row) (REL: kept in fp32 for drel; FULL:
-        // written to dbias), dS = dS0 * scale in bf16, dQ += dS.K
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ds0 =
-                exp2_approx(fmaf(s[j][e], c, -m[e >> 1])) * (dp[j][e] - rowsum[e >> 1]);
-            if (REL) ds_w[(g + 8 * (e >> 1)) * kDsLD + 8 * j + 2 * t + (e & 1)] = ds0;
-            if (FULL && dbias) {
-              const int row = row0 + g + 8 * (e >> 1);
-              const int col = key0 + 8 * j + 2 * t + (e & 1);
-              if (row < N && col < N) dbias[static_cast<long long>(row) * N + col] = ds0;
-            }
-            s[j][e] = ds0 * a.scale;
-          }
-        if (REL) {
-          // drel_h[i, kh] += sum of dS0[i, j] over the tile's keys with jh(j) =
-          // kh, and drel_w likewise: lane r sums row r's rel_h terms, lane r +
-          // 16 its rel_w terms, walking the keys in order (no atomics)
-          __syncwarp();
-          const int r = lane & 15;
-          const float* dsr = ds_w + r * kDsLD;
-          float* sums = drel_s + r * RL + (lane < 16 ? 0 : KH);
-          const int cols = min(kKeyTile, N - key0);
-          for (int jj = 0; jj < cols; ++jj) {
-            int jh, jw;
-            col_split(key0 + jj, a.rel.inv_kw, KW, jh, jw);
-            sums[lane < 16 ? jh : jw] += dsr[jj];
-          }
-          __syncwarp();
-        }
-#pragma unroll
-        for (int kk = 0; kk < kKeyTile / 16; ++kk) {
-          if (key0 + 16 * kk >= N) break;
-          const float* s0 = s[2 * kk];
-          const float* s1 = s[2 * kk + 1];
-          uint32_t af[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                            pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-          accumulate_ax<DP, LD>(acc, af, Kb + 16 * kk * LD, lane);
-        }
-      }
-    }
-    if (pass == 0) {  // sums over the quad; row = sum e*dP / sum e; fold log2(sum) into m
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-        rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 1);
-        rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 2);
-        rowsum[r] /= l[r];
-        m[r] += __log2f(l[r]);
-      }
-    }
-  }
-
-  if (!active) return;
-  if (t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row < N) {
-        a.lse[stat_off + row] = m[r];
-        a.delta[stat_off + row] = rowsum[r];
-      }
-    }
-  }
-  store_rows_bf16<DP>(dqh, a.out_sn, acc, row0, N, D, g, t, a.out_vec);
-  if (REL) {
-    for (int i = lane; i < 16 * (KH + KW); i += 32) {
-      const int r = i / (KH + KW);
-      const int k = i % (KH + KW);
-      const int row = row0 + r;
-      if (row >= N) continue;
-      if (k < KH)
-        a.drel.h_row(blockIdx.z, blockIdx.y, row)[k] = drel_s[r * RL + k];
-      else
-        a.drel.w_row(blockIdx.z, blockIdx.y, row)[k - KH] = drel_s[r * RL + k];
-    }
-  }
-}
-
-template <int DP, int MODE>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-attention_bwd_dkv_bf16(BwdArgs a, int chunk_rows) {
-  static_assert(MODE != kNoBias, "the backward without a bias is short_attention_bwd.cu's");
-  constexpr bool REL = MODE == kRelBias;
-  constexpr bool FULL = MODE == kFullBias;
-  constexpr int LD = DP + 8;
-  constexpr int kQTileB = DP <= 64 ? 64 : 32;  // queries per step (registers)
-  constexpr int kFrags = kQTileB / 8;
-  const int N = a.N, D = a.D, n_real = a.n_real;
-  const float sc = a.scale * kLog2e;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int rows = 16 * (blockDim.x / 32);
-  const int NP = (N + 15) & ~15;
-  bf16* Ko = reinterpret_cast<bf16*>(smem);  // own keys [rows][LD]
-  bf16* Vo = Ko + rows * LD;                 // own values [rows][LD]
-  bf16* Qs = Vo + rows * LD;                 // [chunk_rows][LD]
-  bf16* dOs = Qs + chunk_rows * LD;          // [chunk_rows][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + chunk_rows * LD);  // [chunk_rows]
-  float* delta_s = lse_s + chunk_rows;                             // [chunk_rows]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int k0 = blockIdx.x * rows;
-  const long long in_off = blockIdx.z * a.in_sb + blockIdx.y * a.in_sh;
-  const bf16* qh = static_cast<const bf16*>(a.q) + in_off;
-  const bf16* kh = static_cast<const bf16*>(a.k) + in_off;
-  const bf16* vh = static_cast<const bf16*>(a.v) + in_off;
-  const bf16* doh =
-      static_cast<const bf16*>(a.dout) + blockIdx.z * a.do_sb + blockIdx.y * a.do_sh;
-  const long long out_off = blockIdx.z * a.out_sb + blockIdx.y * a.out_sh;
-  const long long stat_off = (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) * N;
-
-  const int row0 = k0 + 16 * warp;  // this warp's first key row
-  const bool active = row0 < N;
-  // REL: the rel_h and rel_w columns of this lane's two key rows, read at
-  // each query's row of the two terms
-  int key_jh[2] = {0, 0}, key_jw[2] = {0, 0};
-  const float* relh = nullptr;
-  const float* relw = nullptr;
-  if (REL) {
-    relh = a.rel.h + blockIdx.z * a.rel.h_sb + blockIdx.y * a.rel.h_sh;
-    relw = a.rel.w + blockIdx.z * a.rel.w_sb + blockIdx.y * a.rel.w_sh;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      col_split(min(row0 + g + 8 * r, N - 1), a.rel.inv_kw, a.rel.KW, key_jh[r], key_jw[r]);
-  }
-  // FULL: bias[qi, key] at bias_head + qi * bias.sn + key
-  const long long bias_head = FULL ? a.bias.row(blockIdx.z, blockIdx.y, 0) : 0;
-
-  load_tile_bf16<DP, LD>(Ko, kh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
-  load_tile_bf16<DP, LD>(Vo, vh + k0 * a.in_sn, a.in_sn, rows, N - k0, D, a.vec);
-
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < N; c0 += chunk_rows) {
-    __syncthreads();  // the chunk before this one has been read
-    const int crows = min(chunk_rows, NP - c0);
-    load_tile_bf16<DP, LD>(Qs, qh + c0 * a.in_sn, a.in_sn, crows, N - c0, D, a.vec);
-    load_tile_bf16<DP, LD>(dOs, doh + c0 * a.do_sn, a.do_sn, crows, N - c0, D, a.do_vec);
-    for (int i = threadIdx.x; i < crows; i += blockDim.x) {
-      const bool valid = c0 + i < N;
-      lse_s[i] = valid ? a.lse[stat_off + c0 + i] : 0.f;
-      delta_s[i] = valid ? a.delta[stat_off + c0 + i] : 0.f;
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-    if (c0 == 0 && active) {
-      load_a_frags<DP, LD>(kf, Ko + 16 * warp * LD, g, t);
-      load_a_frags<DP, LD>(vf, Vo + 16 * warp * LD, g, t);
-    }
-    if (!active) continue;
-    const int c1 = min(c0 + chunk_rows, N);
-    for (int qt = c0; qt < c1; qt += kQTileB) {
-      const bf16* Qb = Qs + (qt - c0) * LD;
-      const bf16* dOb = dOs + (qt - c0) * LD;
-      float st[kFrags][4], dpt[kFrags][4];  // S^T, dP^T: rows keys, columns queries
-      own_times_other_t<DP, LD, kFrags>(st, kf, Qb, qt, N, lane);
-      own_times_other_t<DP, LD, kFrags>(dpt, vf, dOb, qt, N, lane);
-#pragma unroll
-      for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qt + 8 * j + 2 * t + (e & 1);
-          const int key = row0 + g + 8 * (e >> 1);
-          // masked keys carry exp(-1e9 - max) = 0 in fp32, as on the TPU
-          const bool valid = qi < N && key < n_real;
-          const int ql = valid ? qi - c0 : 0;
-          // the bias of (query qi, key) times log2(e): REL rel_h + rel_w, FULL
-          // bias[qi, key]
-          float bias = 0.f;
-          if (REL && valid)
-            bias = (__ldg(relh + qi * a.rel.h_sn + key_jh[e >> 1]) +
-                    __ldg(relw + qi * a.rel.w_sn + key_jw[e >> 1])) * kLog2e;
-          if (FULL && valid) bias = a.bias.at(bias_head + qi * a.bias.sn + key) * kLog2e;
-          const float p = valid ? exp2_approx(fmaf(st[j][e], sc, bias - lse_s[ql])) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - delta_s[ql]) * a.scale;
-        }
-#pragma unroll
-      for (int kk = 0; kk < kQTileB / 16; ++kk) {
-        if (qt + 16 * kk >= N) break;
-        const float* p0 = st[2 * kk];
-        const float* p1 = st[2 * kk + 1];
-        uint32_t pf[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                          pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-        accumulate_ax<DP, LD>(dv, pf, dOb + 16 * kk * LD, lane);
-        const float* d0 = dpt[2 * kk];
-        const float* d1 = dpt[2 * kk + 1];
-        uint32_t df[4] = {pack_bf16(d0[0], d0[1]), pack_bf16(d0[2], d0[3]),
-                          pack_bf16(d1[0], d1[1]), pack_bf16(d1[2], d1[3])};
-        accumulate_ax<DP, LD>(dk, df, Qb + 16 * kk * LD, lane);
-      }
-    }
-  }
-
-  if (!active) return;
-  store_rows_bf16<DP>(static_cast<bf16*>(a.dk) + out_off, a.out_sn, dk, row0, N, D, g, t,
-                      a.out_vec);
-  store_rows_bf16<DP>(static_cast<bf16*>(a.dv) + out_off, a.out_sn, dv, row0, N, D, g, t,
-                      a.out_vec);
-}
 
 // -------------------------------------------------------- fp32 backward
 //
@@ -937,55 +503,10 @@ int launch_dtype(const Args& a, int is_bf16) {
   return is_bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_f32<DP>(a);
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-template <int DP>
-int launch_bwd_bf16(const BwdArgs& a) {
-  constexpr int LD = DP + 8;
-  const bool rel = a.rel.h != nullptr;
-  // without a bias (K1, K2, K9) the bf16 backward is short_attention_bwd.cu's
-  if (!rel && !a.bias.p) return static_cast<int>(cudaErrorInvalidValue);
-  // per warp: its own 16 rows of two operands and (K3, K4) the dq kernel's
-  // rel-pos scratch; per row of the other operand (dK/dV kernel): two
-  // operands and two fp32 statistics
-  const size_t warp_bytes =
-      sizeof(bf16) * 2 * 16 * LD +
-      (rel ? sizeof(float) * 16 * (kDsLD + rel_ld(a.rel.KH, a.rel.KW)) : 0);
-  const size_t row_bytes = sizeof(bf16) * 2 * LD + 2 * sizeof(float);
-  // the head's 16-row tiles split evenly over the fewest blocks of <= 8
-  // warps, fewer when the rel-pos scratch leaves no room for one key tile
-  int max_warps = kMaxWarps;
-  while (max_warps > 1 && max_warps * warp_bytes + kKeyTile * row_bytes > kResidentBytes)
-    --max_warps;
-  const int row_tiles = (a.N + 15) / 16;
-  const int blocks = (row_tiles + max_warps - 1) / max_warps;
-  const int warps = (row_tiles + blocks - 1) / blocks;
-  const int NP = 16 * row_tiles;
-  const size_t own_bytes = warps * warp_bytes;
-  // the other operand's rows: the whole head if it fits, else whole 64-row tiles
-  int chunk_rows = NP;
-  if (own_bytes + NP * row_bytes > kResidentBytes)
-    chunk_rows = static_cast<int>((kResidentBytes - own_bytes) / row_bytes) / kKeyTile * kKeyTile;
-  const size_t smem = own_bytes + chunk_rows * row_bytes;
-  const dim3 grid(blocks, a.H, a.B);
-  auto dq_kernel = rel ? attention_bwd_dq_bf16<DP, kRelBias> : attention_bwd_dq_bf16<DP, kFullBias>;
-  auto dkv_kernel =
-      rel ? attention_bwd_dkv_bf16<DP, kRelBias> : attention_bwd_dkv_bf16<DP, kFullBias>;
-  cudaError_t err = allow_smem(dq_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(dkv_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dq_kernel<<<grid, 32 * warps, smem, a.stream>>>(a, chunk_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkv_kernel<<<grid, 32 * warps, smem, a.stream>>>(a, chunk_rows);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
@@ -1008,9 +529,10 @@ int launch_bwd_f32(const BwdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 only: every bf16 backward is short_attention_bwd.cu's
 template <int DP>
 int launch_bwd_dtype(const BwdArgs& a, int is_bf16) {
-  return is_bf16 ? launch_bwd_bf16<DP>(a) : launch_bwd_f32<DP>(a);
+  return is_bf16 ? static_cast<int>(cudaErrorInvalidValue) : launch_bwd_f32<DP>(a);
 }
 
 Args forward_args(const void* q, const void* k, const void* v, void* o, long long in_sb,
@@ -1032,20 +554,11 @@ BwdArgs backward_args(const void* q, const void* k, const void* v, const void* d
                       long long in_sn, long long do_sb, long long do_sh, long long do_sn,
                       long long out_sb, long long out_sh, long long out_sn, int B, int H, int N,
                       int D, int n_real, float scale, int is_bf16, void* stream) {
-  const long long es = is_bf16 ? 2 : 4;
-  const int vec = aligned16(q) && aligned16(k) && aligned16(v) && (D * es) % 16 == 0 &&
-                  (in_sb * es) % 16 == 0 && (in_sh * es) % 16 == 0 &&
-                  (in_sn * es) % 16 == 0;
-  const int do_vec = aligned16(dout) && (D * es) % 16 == 0 && (do_sb * es) % 16 == 0 &&
-                     (do_sh * es) % 16 == 0 && (do_sn * es) % 16 == 0;
-  const auto even4 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 3u) == 0; };
-  const int out_vec = even4(dq) && even4(dk) && even4(dv) && D % 2 == 0 && out_sb % 2 == 0 &&
-                      out_sh % 2 == 0 && out_sn % 2 == 0;
   float* lse = static_cast<float*>(stats);
   return BwdArgs{q,     k,     v,     dout,  dq,     dk,     dv,     lse,
                  lse + static_cast<long long>(B) * H * N,
                  in_sb, in_sh, in_sn, do_sb, do_sh,  do_sn,  out_sb, out_sh, out_sn,
-                 B,     H,     N,     D,     n_real, scale,  vec,    do_vec, out_vec,
+                 B,     H,     N,     D,     n_real, scale,
                  static_cast<cudaStream_t>(stream), RelPos{}, RelGrad{}, FullBias{}};
 }
 

@@ -34,10 +34,12 @@ constexpr float kNegInf = -1e9f;  // _NEG_INF of the TPU kernels
 // (K3, K4) or a full bias (K2b).
 enum BiasMode { kNoBias, kRelBias, kFullBias };
 
+// The block's dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle's alignment), as an offset into the shared array, so
+// that the compiler keeps loads through it in the shared space.
 __device__ __forceinline__ unsigned char* aligned_smem() {
   extern __shared__ unsigned char smem_raw[];
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  return smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
 }
 
 // Accumulator registers of chunk c: 32 (64 keys), or kLast / 2 for the last
@@ -181,16 +183,19 @@ __device__ __forceinline__ void chunk_scores(float (&d)[32], uint32_t a, uint32_
 }
 
 // The bf16 A fragments of the 16-column k-steps of a 64 x 64 fp32
-// accumulator chunk of which the first kRegs registers are set (the
-// accumulator layout is the A operand's; the rest are zeros), settled for
-// the products that read them.
+// accumulator chunk (times `scale`) of which the first kRegs registers are
+// set (the accumulator layout is the A operand's; the rest are zeros),
+// settled for the products that read them.
 template <int kRegs>
-__device__ __forceinline__ void a_fragments(uint32_t (&a)[4][4], const float (&s)[32]) {
+__device__ __forceinline__ void a_fragments(uint32_t (&a)[4][4], const float (&s)[32],
+                                            float scale = 1.f) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[j][r] = 8 * j + 2 * r < kRegs ? pack_bf16(s[8 * j + 2 * r], s[8 * j + 2 * r + 1]) : 0u;
+      a[j][r] = 8 * j + 2 * r < kRegs
+                    ? pack_bf16(s[8 * j + 2 * r] * scale, s[8 * j + 2 * r + 1] * scale)
+                    : 0u;
     settle(a[j]);
   }
 }
@@ -280,9 +285,118 @@ __device__ __forceinline__ void row_lse2(const float (&s)[KC][32], float (&lse2)
   for (int h = 0; h < 2; ++h) lse2[h] = mx[h] + __log2f(quad_sum(sum[h]));
 }
 
+// The log2-domain logit of raw score x of key col with its bias term:
+// x*sc + bias*log2(e); keys at or past n_real `masked`, at or past N -inf.
+__device__ __forceinline__ float biased_logit(float x, float bias, int col, int n_real, int N,
+                                              float sc, float masked) {
+  return col < n_real ? fmaf(x, sc, bias * kLog2e) : col < N ? masked : -INFINITY;
+}
+
+// An async copy of `bytes` (<= unit) of one unit (16, 8 or 4 bytes, both
+// addresses aligned to it); the rest of the unit is zero-filled.
+__device__ __forceinline__ void cp_async_part(void* dst, const void* src, int unit, int bytes) {
+  if (unit == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else if (unit == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) that completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// K3/K4: the table of (j / KW) | (j % KW) << 16 of every key column j < N.
+__device__ __forceinline__ void key_table(int* tab, int N, int KW) {
+  for (int j = threadIdx.x; j < N; j += kThreads) {
+    const int jh = j / KW;
+    tab[j] = jh | (j - jh * KW) << 16;
+  }
+}
+
+// K3/K4, for a launch's parameters P (the rel terms' fields, N): the
+// block's rel_h rows [64][KH] and rel_w rows [64][KW] of query rows q0..:
+// where a term's rows lie back to back (rel_bulk: K4's [B, H, N, K]) one
+// bulk copy a term by thread 0 on `bar` (rows at or past N unset: their
+// scores are never stored), else cp.async copies of rel_unit bytes (rows
+// at or past N zeros); and the table of (j / KW) | (j % KW) << 16 of every
+// key column j < N.
+template <typename P>
+__device__ __forceinline__ void stage_rel(const P& p, float* rh, float* rw, int* tab,
+                                          uint64_t* bar, int b, int hd, int q0) {
+  const float* h0 = p.rel_h + b * p.h_sb + hd * p.h_sh;
+  const float* w0 = p.rel_w + b * p.w_sb + hd * p.w_sh;
+  if (!p.rel_bulk) {
+    const int unit = p.rel_unit, fu = unit / 4;  // floats a copy
+    const int per_h = p.KH / fu, per_w = p.KW / fu;
+    for (int i = threadIdx.x; i < kRows * per_h; i += kThreads) {
+      const int r = i / per_h, c = i % per_h * fu;
+      const bool in = q0 + r < p.N;
+      cp_async_part(rh + r * p.KH + c, in ? h0 + (q0 + r) * p.h_sn + c : h0, unit,
+                    in ? unit : 0);
+    }
+    for (int i = threadIdx.x; i < kRows * per_w; i += kThreads) {
+      const int r = i / per_w, c = i % per_w * fu;
+      const bool in = q0 + r < p.N;
+      cp_async_part(rw + r * p.KW + c, in ? w0 + (q0 + r) * p.w_sn + c : w0, unit,
+                    in ? unit : 0);
+    }
+  } else if (threadIdx.x == 0) {
+    const int rows = min(kRows, p.N - q0);
+    mbar_expect_tx(bar, rows * (p.KH + p.KW) * 4);
+    bulk_copy(rh, h0 + q0 * p.h_sn, rows * p.KH * 4, bar);
+    bulk_copy(rw, w0 + q0 * p.w_sn, rows * p.KW * 4, bar);
+  }
+  key_table(tab, p.N, p.KW);
+}
+
+// rel_h[j / KW] + rel_w[j % KW] of key columns j = col and col + 1 (at most
+// N - 1) of one query row's terms rh and rw, by the key-column table.
+__device__ __forceinline__ void rel_pair(const float* rh, const float* rw, const int* tab, int N,
+                                         int col, float& b0, float& b1) {
+  const int e0 = tab[min(col, N - 1)], e1 = tab[min(col + 1, N - 1)];
+  b0 = rh[e0 & 0xffff] + rw[e0 >> 16];
+  b1 = rh[e1 & 0xffff] + rw[e1 >> 16];
+}
+
 // ------------------------------------------------------------- host side
 
 inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0; }
+
+// How stage_rel copies the rel terms of a launch's parameters P (rel_h,
+// rel_w and their strides in floats, KH, KW set): rel_bulk where each
+// term's rows lie back to back (K4's layout) and a tile's rows are one
+// block whose ends lie on 16 bytes, else rel_unit, the widest copy that
+// every row start and both row lengths allow (K3's [B, N, H, 14]: rows of
+// 56 bytes at 8-byte boundaries, 8 bytes).
+template <typename P>
+inline void plan_rel_copies(P& p, int N) {
+  const auto a16 = [](const void* ptr, long long x, long long y) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (x * 4) % 16 == 0 && (y * 4) % 16 == 0;
+  };
+  const long long tail_rows = N % kRows == 0 ? kRows : N % kRows;
+  p.rel_bulk = p.h_sn == p.KH && p.w_sn == p.KW && a16(p.rel_h, p.h_sb, p.h_sh) &&
+               a16(p.rel_w, p.w_sb, p.w_sh) && (tail_rows * p.KH * 4) % 16 == 0 &&
+               (tail_rows * p.KW * 4) % 16 == 0;
+  const auto divides = [&](long long unit) {
+    const long long f = unit / 4;
+    return reinterpret_cast<uintptr_t>(p.rel_h) % unit == 0 &&
+           reinterpret_cast<uintptr_t>(p.rel_w) % unit == 0 && p.h_sb % f == 0 &&
+           p.h_sh % f == 0 && p.h_sn % f == 0 && p.w_sb % f == 0 && p.w_sh % f == 0 &&
+           p.w_sn % f == 0 && p.KH % f == 0 && p.KW % f == 0;
+  };
+  p.rel_unit = divides(16) ? 16 : divides(8) ? 8 : 4;
+}
 
 // TMA reads an operand in place: a 16-byte aligned base and (batch, head,
 // row) strides that are multiples of 8 elements on every axis longer than 1.

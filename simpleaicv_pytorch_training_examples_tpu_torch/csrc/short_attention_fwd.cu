@@ -23,9 +23,9 @@
 // The bias is a template value of the one kernel (kNoBias for K1, K2 and
 // K9). q, k and v are read in place through 4-D tensor maps {D, N, H, B},
 // each with its own strides; the output is written through its own. fp32
-// inputs keep fused_attention.cu's FMA forward. The backward reads neither
-// this kernel's output nor any statistics of it: short_attention_bwd.cu's
-// (no bias) and fused_attention.cu's (the biased modes) recompute P.
+// inputs keep fused_attention.cu's FMA forward. The backward
+// (short_attention_bwd.cu, every mode) reads neither this kernel's output
+// nor any statistics of it: it recomputes P.
 // K8's attention core (attn_block.cu) is this kernel's kNoBias mode too.
 //
 // Math, as the TPU kernels: s = q.k^T * scale in fp32, plus the bias in
@@ -146,30 +146,6 @@ struct FwdParams {
   Smem sm;
 };
 
-// An async copy of `bytes` (<= unit) of one unit (16, 8 or 4 bytes, both
-// addresses aligned to it); the rest of the unit is zero-filled.
-__device__ __forceinline__ void cp_async_part(void* dst, const void* src, int unit, int bytes) {
-  if (unit == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else if (unit == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(bytes));
-}
-
-// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) that completes on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // The first byte of the bias at (b, hd, row, key0).
 __device__ __forceinline__ const char* bias_at(const FwdParams& p, int b, int hd, int row,
                                                int key0) {
@@ -210,43 +186,6 @@ __device__ __forceinline__ void stage_bias(const FwdParams& p, unsigned char* ds
         reinterpret_cast<bf16*>(out)[c] =
             in ? reinterpret_cast<const bf16*>(src)[c] : __float2bfloat16_rn(0.f);
     }
-  }
-}
-
-// K3/K4: the block's rel_h rows [64][KH] and rel_w rows [64][KW]: where a
-// term's rows lie back to back (rel_bulk: K4's [B, H, N, K]) one bulk copy
-// a term by thread 0 on `bar` (rows at or past N unset: their scores are
-// never stored), else cp.async copies of rel_unit bytes (rows at or past N
-// zeros); and
-// the table of (j / KW) | (j % KW) << 16 of every key column j < N.
-__device__ __forceinline__ void stage_rel(const FwdParams& p, float* rh, float* rw, int* tab,
-                                          uint64_t* bar, int b, int hd, int q0) {
-  const float* h0 = p.rel_h + b * p.h_sb + hd * p.h_sh;
-  const float* w0 = p.rel_w + b * p.w_sb + hd * p.w_sh;
-  if (!p.rel_bulk) {
-    const int unit = p.rel_unit, fu = unit / 4;  // floats a copy
-    const int per_h = p.KH / fu, per_w = p.KW / fu;
-    for (int i = threadIdx.x; i < kRows * per_h; i += kThreads) {
-      const int r = i / per_h, c = i % per_h * fu;
-      const bool in = q0 + r < p.N;
-      cp_async_part(rh + r * p.KH + c, in ? h0 + (q0 + r) * p.h_sn + c : h0, unit,
-                    in ? unit : 0);
-    }
-    for (int i = threadIdx.x; i < kRows * per_w; i += kThreads) {
-      const int r = i / per_w, c = i % per_w * fu;
-      const bool in = q0 + r < p.N;
-      cp_async_part(rw + r * p.KW + c, in ? w0 + (q0 + r) * p.w_sn + c : w0, unit,
-                    in ? unit : 0);
-    }
-  } else if (threadIdx.x == 0) {
-    const int rows = min(kRows, p.N - q0);
-    mbar_expect_tx(bar, rows * (p.KH + p.KW) * 4);
-    bulk_copy(rh, h0 + q0 * p.h_sn, rows * p.KH * 4, bar);
-    bulk_copy(rw, w0 + q0 * p.w_sn, rows * p.KW * 4, bar);
-  }
-  for (int j = threadIdx.x; j < p.N; j += kThreads) {
-    const int jh = j / p.KW;
-    tab[j] = jh | (j - jh * p.KW) << 16;
   }
 }
 
@@ -333,18 +272,13 @@ __device__ __forceinline__ void logits(float (&s)[KC][32], const FwdParams& p,
             b1 = x.y;
           }
         } else {
-          const float* rh = reinterpret_cast<const float*>(sm + p.sm.terms) + rl * p.KH;
-          const float* rw = reinterpret_cast<const float*>(sm + p.sm.terms) + kRows * p.KH +
-                            rl * p.KW;
-          const int* tab = reinterpret_cast<const int*>(sm + p.sm.tab);
-          const int e0 = tab[min(col, p.N - 1)], e1 = tab[min(col + 1, p.N - 1)];
-          b0 = rh[e0 & 0xffff] + rw[e0 >> 16];
-          b1 = rh[e1 & 0xffff] + rw[e1 >> 16];
+          const float* terms = reinterpret_cast<const float*>(sm + p.sm.terms);
+          rel_pair(terms + rl * p.KH, terms + kRows * p.KH + rl * p.KW,
+                   reinterpret_cast<const int*>(sm + p.sm.tab), p.N, col, b0, b1);
         }
         float* e = &s[c][4 * j + 2 * h];
-        e[0] = col < p.n_real ? fmaf(e[0], sc, b0 * kLog2e) : col < p.N ? masked : -INFINITY;
-        e[1] = col + 1 < p.n_real ? fmaf(e[1], sc, b1 * kLog2e)
-                                  : col + 1 < p.N ? masked : -INFINITY;
+        e[0] = biased_logit(e[0], b0, col, p.n_real, p.N, sc, masked);
+        e[1] = biased_logit(e[1], b1, col + 1, p.n_real, p.N, sc, masked);
       }
 }
 
@@ -668,24 +602,7 @@ extern "C" int saicv_short_attention_relpos_fwd(
   p.w_sn = w_sn;
   p.KH = KH;
   p.KW = KW;
-  // rows back to back (K4's layout), a tile's rows one block whose ends
-  // lie on 16 bytes: one bulk copy a term
-  const auto a16 = [](const void* ptr, long long x, long long y) {
-    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (x * 4) % 16 == 0 && (y * 4) % 16 == 0;
-  };
-  const long long tail_rows = N % kRows == 0 ? kRows : N % kRows;
-  p.rel_bulk = h_sn == KH && w_sn == KW && a16(rel_h, h_sb, h_sh) && a16(rel_w, w_sb, w_sh) &&
-               (tail_rows * KH * 4) % 16 == 0 && (tail_rows * KW * 4) % 16 == 0;
-  // else the widest copy that every row start and both row lengths allow
-  // (K3's [B, N, H, 14]: rows of 56 bytes at 8-byte boundaries, 8 bytes)
-  const auto divides = [&](long long unit) {
-    const long long f = unit / 4;
-    return reinterpret_cast<uintptr_t>(rel_h) % unit == 0 &&
-           reinterpret_cast<uintptr_t>(rel_w) % unit == 0 && h_sb % f == 0 && h_sh % f == 0 &&
-           h_sn % f == 0 && w_sb % f == 0 && w_sh % f == 0 && w_sn % f == 0 && KH % f == 0 &&
-           KW % f == 0;
-  };
-  p.rel_unit = divides(16) ? 16 : divides(8) ? 8 : 4;
+  plan_rel_copies(p, N);
   return launch_mode<kRelBias>(p, B, H, static_cast<cudaStream_t>(stream));
 }
 

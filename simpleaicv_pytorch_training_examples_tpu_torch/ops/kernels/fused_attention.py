@@ -30,11 +30,12 @@ Counterpart of the JAX package's ``ops/pallas/fused_attention.py``:
 The kernels never write the scores or the probabilities to device memory;
 N <= 1024. Every bf16 forward is ``csrc/short_attention_fwd.cu``'s
 (``wgmma`` on TMA-fed tiles, any bias staged once, one pass over the keys
-where a row of up to 264 keys fits), the bf16 backward of K1, K2 and K9
+where a row of up to 264 keys fits), every bf16 backward
 ``csrc/short_attention_bwd.cu``'s (``wgmma``, the whole score row of 64
-queries in the accumulators); both read q, k, v and dout in place where
-TMA can (``tma_operand``). Every fp32 kernel and the bf16 backward of K2b,
-K3 and K4 are ``csrc/fused_attention.cu``'s. The math is the TPU kernels':
+queries in the accumulators, the bias read once by each of its two
+kernels); both read q, k, v and dout in place where TMA can
+(``tma_operand``). Every fp32 kernel is ``csrc/fused_attention.cu``'s. The
+math is the TPU kernels':
 fp32 scores scaled by D^-0.5, plus the fp32 rel-pos bias or the full bias
 (read as fp32), keys at or past ``n_real`` set to -1e9, fp32 softmax,
 probabilities normalised and then cast to the input dtype, P.V with fp32
@@ -49,8 +50,9 @@ sum_k dP * P), dS = dS0 * scale cast to the input dtype, dQ = dS.K and dK =
 dS^T.Q, all accumulated in fp32; K3 and K4 also give drel_h[i, kh] and
 drel_w[i, kw], the fp32 sums of dS0[i, j] over the keys j in key-grid row
 kh or column kw (the TPU kernels' unscaled dS0); K2b also gives dbias =
-dS0. Every output row has one owner, so the
-gradients are reproducible bit for bit. K1's, K3's and K9's backward write
+dS0 (written by the bf16 kernel in the bias's dtype where the bias has
+the full [B, H, N, N] shape: ``dbias_buffer_dtype``). Every output row has
+one owner, so the gradients are reproducible bit for bit. K1's, K3's and K9's backward write
 dq, dk and dv into one packed ``[B, N, 3C]`` (K9: ``[B, N, 3, H, D]``)
 tensor, which feeds the qkv Linear's backward as it is.
 
@@ -408,12 +410,22 @@ def _short_forward():
 
 @functools.lru_cache(maxsize=None)
 def _short_backward():
-    """The bf16 backward of K1, K2 and K9 (``csrc/short_attention_bwd.cu``)."""
-    fn = build.load("short_attention_bwd").saicv_short_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + _STRIDES * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    """The bf16 backwards (``csrc/short_attention_bwd.cu``): without a bias
+    (K1, K2, K9), with a full bias (K2b) and with the rel-pos bias (K3,
+    K4)."""
+    lib = build.load("short_attention_bwd")
+    plain = lib.saicv_short_attention_bwd
+    bias = lib.saicv_short_attention_bias_bwd
+    rel = lib.saicv_short_attention_relpos_bwd
+    plain.argtypes = ([ctypes.c_void_p] * 8 + _STRIDES * 5 + [ctypes.c_int] * 5
+                      + [ctypes.c_float, ctypes.c_void_p])
+    bias.argtypes = ([ctypes.c_void_p] * 10 + _STRIDES * 6 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p])
+    rel.argtypes = ([ctypes.c_void_p] * 12 + _STRIDES * 9 + [ctypes.c_int] * 7
+                    + [ctypes.c_float, ctypes.c_void_p])
+    plain.restype = bias.restype = rel.restype = ctypes.c_int
+    return plain, bias, rel
 
 
 def tma_operand(t):
@@ -461,27 +473,42 @@ def _launch(q, k, v, out, out_strides, n_real, sm_scale=None):
           sm_scale=sm_scale)
 
 
+def _launch_short_backward(fn, q, k, v, dout, grad_ptrs, grad_strides,
+                           extra=(), extra_strides=(), shape=(),
+                           after_scale=(), sm_scale=None):
+    """A bf16 backward on wgmma: dq, dk, dv (``grad_ptrs``, one stride set)
+    from q, k, v and dout [B, H, N, D] (each read in place where TMA can,
+    else copied), ``extra`` the bias's pointers (and its gradient's) and
+    their strides (none without a bias), ``shape`` (B, H, N, D, n_real[,
+    KH, KW])."""
+    b, h, n, _ = q.shape
+    # scratch of the two launches; freed on return, which is safe because
+    # the caching allocator reuses it only for later work on this stream
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
+    ins = [tma_operand(t) for t in (q, k, v, dout)]
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream(dout.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ins), *grad_ptrs, stats.data_ptr(),
+                 *extra, *(s for t in ins for s in t.stride()[:3]),
+                 *grad_strides, *extra_strides, *shape,
+                 _scale(shape[3], sm_scale), *after_scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"attention backward kernel launch failed: cudaError {err}")
+
+
 def _launch_backward(q, k, v, dout, grad_ptrs, grad_strides, n_real,
                      sm_scale=None):
     """dq, dk, dv (``grad_ptrs``, one stride set) from q, k, v [B, H, N, D]
     views sharing their strides and ``dout`` [B, H, N, D], each with its
     head dim contiguous."""
     b, h, n, d = q.shape
-    # scratch of the two launches; freed on return, which is safe because
-    # the caching allocator reuses it only for later work on this stream
-    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
     if q.dtype == torch.bfloat16:
-        ins = [tma_operand(t) for t in (q, k, v, dout)]
-        with torch.cuda.device(dout.device):
-            stream = torch.cuda.current_stream(dout.device).cuda_stream
-            err = _short_backward()(
-                *(t.data_ptr() for t in ins), *grad_ptrs, stats.data_ptr(),
-                *(s for t in ins for s in t.stride()[:3]), *grad_strides,
-                b, h, n, d, n_real, _scale(d, sm_scale), stream)
-        if err != 0:
-            raise RuntimeError(
-                f"attention backward kernel launch failed: cudaError {err}")
+        _launch_short_backward(_short_backward()[0], q, k, v, dout, grad_ptrs,
+                               grad_strides, shape=(b, h, n, d, n_real),
+                               sm_scale=sm_scale)
         return
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
     _call(_library()[1], dout.device,
           (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
            *grad_ptrs, stats.data_ptr()),
@@ -501,15 +528,41 @@ def _launch_relpos(q_ptr, k_ptr, v_ptr, out, rel_h, rel_w, strides, b, h,
 def _launch_relpos_backward(q_ptr, k_ptr, v_ptr, dout, grad_ptrs, rel_h,
                             rel_w, drel_h, drel_w, strides, b, h, n, d,
                             n_real, kh, kw):
-    """K3/K4 backward: dq, dk, dv (``grad_ptrs``) and drel_h, drel_w;
-    ``strides``: the (batch, head, row) strides of the inputs, dout, the
-    gradients, rel_h, rel_w, drel_h and drel_w."""
+    """K3/K4 backward in fp32: dq, dk, dv (``grad_ptrs``) and drel_h,
+    drel_w; ``strides``: the (batch, head, row) strides of the inputs, dout,
+    the gradients, rel_h, rel_w, drel_h and drel_w."""
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=dout.device)
     _call(_library()[3], dout.device,
           (q_ptr, k_ptr, v_ptr, dout.data_ptr(), *grad_ptrs, stats.data_ptr(),
            rel_h.data_ptr(), rel_w.data_ptr(), drel_h.data_ptr(),
            drel_w.data_ptr()), strides, b, h, n, d, n_real, dout.dtype,
           (kh, kw))
+
+
+def _launch_relpos_backward_short(q, k, v, dout, grad_ptrs, grad_strides,
+                                  rel_h, rel_w, drel_h, drel_w, rel_strides,
+                                  n_real):
+    """K3/K4 backward in bf16: dq, dk, dv (``grad_ptrs``, ``grad_strides``)
+    and drel_h, drel_w from q, k, v and dout [B, H, N, D] views;
+    ``rel_strides`` the (batch, head, row) strides of rel_h, rel_w, drel_h
+    and drel_w."""
+    b, h, n, d = q.shape
+    _launch_short_backward(
+        _short_backward()[2], q, k, v, dout, grad_ptrs, grad_strides,
+        (rel_h.data_ptr(), rel_w.data_ptr(), drel_h.data_ptr(),
+         drel_w.data_ptr()), rel_strides,
+        (b, h, n, d, n_real, rel_h.shape[-1], rel_w.shape[-1]))
+
+
+def dbias_buffer_dtype(bias, full_shape, dtype):
+    """The dtype of the [B, H, N, N] buffer that K2b's backward kernel
+    writes dS0 into, for inputs of ``dtype``: the bias's own where the bf16
+    kernel writes dbias whole (a bias of the full shape, rounded once from
+    the fp32 dS0), else fp32 (the fp32 kernel, or a broadcast bias whose
+    gradient the wrapper then sums over the broadcast axes and casts)."""
+    if dtype == torch.bfloat16 and tuple(bias.shape) == tuple(full_shape):
+        return bias.dtype
+    return torch.float32
 
 
 def _packed_strides(n, h, d):
@@ -664,17 +717,29 @@ class FusedAttentionBias(torch.autograd.Function):
         if dout.stride(3) != 1:
             dout = dout.contiguous()
         grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
-        # the fp32 dS0 [B, H, N, N], written unless the bias needs no gradient
-        dbias = (torch.empty((b, h, n, n), dtype=torch.float32,
-                             device=q.device) if wants_dbias else None)
-        stats = torch.empty((2, b, h, n), dtype=torch.float32, device=q.device)
-        _call(_library()[5], q.device,
-              (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-               *[g.data_ptr() for g in grads], stats.data_ptr(),
-               full.data_ptr(), None if dbias is None else dbias.data_ptr()),
-              (*q.stride()[:3], *dout.stride()[:3], h * n * d, n * d, d,
-               *full.stride()[:3]), b, h, n, d, n_real, q.dtype,
-              bias_dtype=bias.dtype)
+        grad_ptrs = [g.data_ptr() for g in grads]
+        # dS0 [B, H, N, N], written unless the bias needs no gradient
+        dbias = (torch.empty((b, h, n, n), device=q.device,
+                             dtype=dbias_buffer_dtype(bias, (b, h, n, n),
+                                                      q.dtype))
+                 if wants_dbias else None)
+        dbias_ptr = None if dbias is None else dbias.data_ptr()
+        if q.dtype == torch.bfloat16:
+            _launch_short_backward(
+                _short_backward()[1], q, k, v, dout, grad_ptrs,
+                (h * n * d, n * d, d), (full.data_ptr(), dbias_ptr),
+                full.stride()[:3], (b, h, n, d, n_real),
+                (int(bias.dtype == torch.bfloat16),
+                 int(dbias is not None and dbias.dtype == torch.bfloat16)))
+        else:
+            stats = torch.empty((2, b, h, n), dtype=torch.float32,
+                                device=q.device)
+            _call(_library()[5], q.device,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                   *grad_ptrs, stats.data_ptr(), full.data_ptr(), dbias_ptr),
+                  (*q.stride()[:3], *dout.stride()[:3], h * n * d, n * d, d,
+                   *full.stride()[:3]), b, h, n, d, n_real, q.dtype,
+                  bias_dtype=bias.dtype)
         fused_attention_bias.backward_launches += 1
         if dbias is not None:   # the VJP of the broadcast, in the bias dtype
             dbias = dbias.sum_to_size(bias.shape).to(bias.dtype)
@@ -780,14 +845,22 @@ class FusedAttentionRelwinDense(torch.autograd.Function):
                              device=qkv.device)
         es = qkv.element_size()
         base, grad = qkv.data_ptr(), dqkv.data_ptr()
+        grad_ptrs = (grad, grad + c * es, grad + 2 * c * es)
         packed = _packed_strides(n, ctx.head_nums, d)
-        _launch_relpos_backward(
-            base, base + c * es, base + 2 * c * es, dout,
-            (grad, grad + c * es, grad + 2 * c * es), rel_h, rel_w, drel_h,
-            drel_w, (*packed, n * c, d, c, *packed,
-                     *(s for t in (rel_h, rel_w, drel_h, drel_w)
-                       for s in _dense_rel_strides(t))),
-            b, ctx.head_nums, n, d, n, kh, kw)
+        rel_strides = tuple(s for t in (rel_h, rel_w, drel_h, drel_w)
+                            for s in _dense_rel_strides(t))
+        if qkv.dtype == torch.bfloat16:
+            q, k, v = _unpack(qkv.view(b, n, 3, ctx.head_nums, d))
+            _launch_relpos_backward_short(
+                q, k, v, dout.view(b, n, ctx.head_nums, d).transpose(1, 2),
+                grad_ptrs, packed, rel_h, rel_w, drel_h, drel_w, rel_strides,
+                n)
+        else:
+            _launch_relpos_backward(
+                base, base + c * es, base + 2 * c * es, dout, grad_ptrs,
+                rel_h, rel_w, drel_h, drel_w,
+                (*packed, n * c, d, c, *packed, *rel_strides),
+                b, ctx.head_nums, n, d, n, kh, kw)
         fused_attention_relwin_dense.backward_launches += 1
         return dqkv, drel_h, drel_w, None
 
@@ -838,13 +911,19 @@ class FusedAttentionRelwin(torch.autograd.Function):
                              device=q.device)
         drel_w = torch.empty((b, h, n, kw), dtype=torch.float32,
                              device=q.device)
-        _launch_relpos_backward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout,
-            [g.data_ptr() for g in grads], rel_h, rel_w, drel_h, drel_w,
-            (*q.stride()[:3], *dout.stride()[:3], h * n * d, n * d, d,
-             *(s for t in (rel_h, rel_w, drel_h, drel_w)
-               for s in t.stride()[:3])),
-            b, h, n, d, n_real, kh, kw)
+        grad_ptrs = [g.data_ptr() for g in grads]
+        rel_strides = tuple(s for t in (rel_h, rel_w, drel_h, drel_w)
+                            for s in t.stride()[:3])
+        if q.dtype == torch.bfloat16:
+            _launch_relpos_backward_short(
+                q, k, v, dout, grad_ptrs, (h * n * d, n * d, d), rel_h, rel_w,
+                drel_h, drel_w, rel_strides, n_real)
+        else:
+            _launch_relpos_backward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout, grad_ptrs,
+                rel_h, rel_w, drel_h, drel_w,
+                (*q.stride()[:3], *dout.stride()[:3], h * n * d, n * d, d,
+                 *rel_strides), b, h, n, d, n_real, kh, kw)
         fused_attention_relwin.backward_launches += 1
         return grads[0], grads[1], grads[2], drel_h, drel_w, None
 

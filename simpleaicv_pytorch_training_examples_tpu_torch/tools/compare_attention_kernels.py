@@ -10,15 +10,16 @@ unpacked with ``git archive``); "this" is the checkout that holds this
 script. The turns run other, this, this, other, each in a process of its
 own that imports the port's package from one checkout, whose kernels
 build into that checkout's ``build/kernels``, and times every case at its
-main-path shape: K2b's forward at SAM-B's windows with an fp32 and a bf16
-bias, at SAM-H's and at N = 1024; K4's at SAM-H's windows on views of a
-packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and K9's at ViT's,
-forward and backward (the backward through autograd on a kept graph, as a
-train step runs it), and K8's (the fused ViT-B/16 block at its train
+main-path shape: K2b's forward and backward at SAM-B's windows with an fp32
+and a bf16 bias, at SAM-H's and at N = 1024; K4's at SAM-H's windows on
+views of a packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and
+K9's at ViT's, forward and backward (a backward through autograd on a kept
+graph, as a train step runs it), and K8's (the fused ViT-B/16 block at its train
 micro-batch of 64) forward and backward (device ms a launch between CUDA
 events, the card spun first so that the host queues ahead; SDPA on the
 same inputs beside each, with the bias as a mask in the input dtype, and
-SDPA's backward beside each backward; K8 has no one-call yardstick). Each
+SDPA's backward beside each backward, a bias as a mask that requires
+grad; K8 has no one-call yardstick). Each
 turn also runs K6's bf16 backward twice on seeded inputs (SAM2's memory
 self-attention with masked slots, Hiera's global blocks) and hashes its
 gradients, and holds K1's bf16 forward and backward at Hiera's four
@@ -131,8 +132,10 @@ def forward_cases(torch, fa):
 
 def backward_cases(torch, fa, ab):
     """(name, kernel, SDPA's backward or None, bound ms) of K1's, K2's and
-    K9's backward at ViT's shapes and of K8's forward and backward; inputs
-    made from a seed on the card."""
+    K9's backward at ViT's shapes, of K2b's, K3's and K4's at SAM's windows
+    (SDPA's backward with the bias as a mask in the input dtype that
+    requires grad), and of K8's forward and backward; inputs made from a
+    seed on the card."""
     F = torch.nn.functional
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(30)
@@ -163,6 +166,50 @@ def backward_cases(torch, fa, ab):
         return (kernel, library, bound_ms(7 * b * n * h * d * 2,
                                           10.0 * b * h * n * n * d))
 
+    def bias_case(b, h, n, d, bias_dtype, spread):
+        q, k, v = (randn(b, h, n, d).to(bf16) for _ in range(3))
+        bias = (spread * randn(b, h, n, n)).to(bias_dtype)
+        dout = randn(b, n, h, d).to(bf16).transpose(1, 2)
+        leaves = [t.requires_grad_() for t in (q, k, v, bias)]
+        out = fa.fused_attention(*leaves[:3], bias=leaves[3])
+        ref = [t.detach().to(bf16).requires_grad_() for t in leaves]
+        ref_out = F.scaled_dot_product_attention(*ref[:3], attn_mask=ref[3])
+        # q, k, v, dout read and dq, dk, dv written; the bias read and its
+        # gradient written
+        nbytes = 7 * b * h * n * d * 2 + 2 * bias.numel() * bias.element_size()
+        return (lambda: grad(out, leaves, dout, retain_graph=True),
+                lambda: grad(ref_out, ref, dout, retain_graph=True),
+                bound_ms(nbytes, 10.0 * b * h * n * n * d))
+
+    def rel_case(b, h, kh, kw, d, dense):
+        n = kh * kw
+        qkv = randn(b, n, 3 * h * d).to(bf16)
+        lead = (b, n, h) if dense else (b, h, n)
+        rel_h, rel_w = randn(*lead, kh), randn(*lead, kw)
+        dout = randn(b, n, h * d).to(bf16)
+        heads = lambda t: t.transpose(1, 2) if dense else t
+        if dense:
+            leaves = [t.requires_grad_() for t in (qkv, rel_h, rel_w)]
+            out = fa.fused_attention_relwin_dense(*leaves, h)
+            g = dout
+        else:   # K4 on views of the packed qkv, as SAM's attention calls it
+            views = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+            leaves = [t.detach().requires_grad_()
+                      for t in (*views, rel_h, rel_w)]
+            out = fa.fused_attention_relwin(*leaves)
+            g = dout.view(b, n, h, d).transpose(1, 2)
+        ref = [t.detach().requires_grad_() for t in
+               qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)]
+        mask = fa.rel_bias(heads(rel_h), heads(rel_w)).to(bf16).requires_grad_()
+        ref_out = F.scaled_dot_product_attention(*ref, attn_mask=mask)
+        ref_g = dout.view(b, n, h, d).transpose(1, 2)
+        # qkv, dout read and dqkv written; the rel terms read and their
+        # gradients written
+        nbytes = 7 * b * h * n * d * 2 + 2 * 4 * b * h * n * (kh + kw)
+        return (lambda: grad(out, leaves, g, retain_graph=True),
+                lambda: grad(ref_out, (*ref, mask), ref_g, retain_graph=True),
+                bound_ms(nbytes, 10.0 * b * h * n * n * d))
+
     def block_case(b, n, h, d, backward):
         c = h * d
         x = randn(b, n, c).to(bf16)
@@ -186,6 +233,17 @@ def backward_cases(torch, fa, ab):
     yield "K1 bwd vit_b16", plain_case(256, 197, 12, 64, "K1")
     yield "K2 bwd vit_h14", plain_case(256, 257, 16, 80, "K2")
     yield "K9 bwd vit_b16", plain_case(256, 197, 12, 64, "K9")
+    yield "K2b bwd sam_b", bias_case(SAM_WINDOWS, 12, 196, 64, torch.float32,
+                                     0.3)
+    yield "K2b bwd bf16_bias", bias_case(SAM_WINDOWS, 12, 196, 64, bf16, 3.0)
+    yield "K2b bwd sam_h", bias_case(SAM_WINDOWS, 16, 196, 80, torch.float32,
+                                     3.0)
+    yield "K2b bwd streamed_n1024", bias_case(8, 2, 1024, 128, torch.float32,
+                                              3.0)
+    yield "K3 bwd sam_b", rel_case(SAM_WINDOWS, 12, 14, 14, 64, dense=True)
+    yield "K4 bwd sam_h", rel_case(SAM_WINDOWS, 16, 14, 14, 80, dense=False)
+    # K3's shape through K4's entry, the rel terms [B, H, N, K] contiguous
+    yield "K4 bwd sam_b", rel_case(SAM_WINDOWS, 12, 14, 14, 64, dense=False)
     yield "K8 fwd vit_b16_train", block_case(64, 197, 12, 64, False)
     yield "K8 bwd vit_b16_train", block_case(64, 197, 12, 64, True)
 

@@ -379,6 +379,12 @@ def _grads(fn, leaves, dout):
     (3, 14, 14, 12, 64), (2, 14, 14, 2, 128), (2, 3, 4, 2, 64),
     (1, 12, 16, 2, 64), (2, 32, 32, 1, 64), (1, 1, 7, 2, 128),
     (2, 5, 40, 2, 64),
+    # the bf16 kernels' plan changes: one pass up to 256 keys, 257..264
+    # (an 8-key chunk), groups of 256 past that, an 8-key last chunk at
+    # 64k + 1..8, rel_w rows longer than 64 keys
+    (1, 16, 16, 2, 64), (1, 1, 257, 2, 64), (1, 12, 22, 2, 128),
+    (1, 5, 53, 2, 64), (2, 3, 43, 2, 64), (1, 8, 25, 3, 128),
+    (2, 8, 9, 2, 64),
 ])
 def test_relwin_dense_backward(cuda, b, kh, kw, h, d, dtype):
     dtype = DTYPES[dtype]
@@ -404,6 +410,13 @@ def test_relwin_dense_backward(cuda, b, kh, kw, h, d, dtype):
 @pytest.mark.parametrize("b,h,kh,kw,d,n_real", [
     (2, 16, 14, 14, 80, None), (2, 3, 14, 14, 80, 150), (1, 2, 8, 20, 80, 1),
     (2, 2, 7, 9, 35, None), (1, 2, 32, 32, 128, 1000), (2, 1, 3, 4, 16, 12),
+    (2, 2, 14, 14, 128, None), (1, 2, 16, 16, 80, 200),
+    (1, 2, 1, 257, 80, None), (1, 2, 12, 22, 80, 260), (1, 2, 5, 53, 128, None),
+    (1, 2, 5, 53, 80, 100), (2, 2, 3, 43, 80, None), (1, 2, 8, 25, 128, 199),
+    (1, 2, 2, 36, 64, None), (1, 1, 2, 100, 16, 150),
+    # rel rows too wide for the dQ kernel's shared memory: read in place,
+    # drel summed in drel itself
+    (1, 1, 1, 257, 128, None),
 ])
 def test_relwin_backward(cuda, b, h, kh, kw, d, n_real, dtype):
     dtype = DTYPES[dtype]
@@ -423,6 +436,9 @@ def test_relwin_backward(cuda, b, h, kh, kw, d, n_real, dtype):
     _close_drel(got[3:], want[3:], dtype)
     if n_real is not None:   # masked keys get no gradient
         assert torch.count_nonzero(got[1][:, :, n_real:]) == 0
+    again = _grads(lambda *a: fa.fused_attention_relwin(*a, n_real),
+                   (q, k, v, rel_h, rel_w), dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # reproducible
 
 
 def test_relwin_backward_through_views_of_the_packed_qkv(cuda):
@@ -985,6 +1001,25 @@ def _bias_shape(kind, b, h, n):
     (1, 2, 1024, 128, 1000, "full", "fp32", False),
     (2, 2, 64, 64, None, "keys", "fp32", False),
     (1, 1, 1, 8, None, "full", "fp32", False),
+    # the bf16 kernels' plan changes (one pass up to 264 keys, an 8-key last
+    # chunk at 64k + 1..8, groups of 256 past 264), D = 80 and 128, every
+    # bias kind and dtype
+    (2, 3, 196, 64, None, "full", "bf16", False),
+    (2, 2, 196, 80, None, "full", "fp32", True),
+    (1, 2, 196, 128, 150, "full", "bf16", False),
+    (2, 2, 196, 64, None, "shared", "bf16", False),
+    (2, 2, 196, 64, 190, "keys", "bf16", False),
+    (1, 2, 256, 128, None, "full", "fp32", False),
+    (1, 2, 256, 64, 255, "heads", "fp32", False),
+    (1, 2, 257, 64, 200, "full", "fp32", False),
+    (1, 2, 264, 80, None, "shared", "fp32", False),
+    (1, 2, 264, 128, 263, "full", "bf16", False),
+    (1, 2, 265, 80, None, "full", "bf16", False),
+    (1, 2, 265, 64, 260, "keys", "fp32", False),
+    (2, 2, 129, 64, None, "full", "bf16", False),
+    (1, 2, 136, 80, 100, "heads", "bf16", False),
+    (1, 2, 72, 128, None, "full", "fp32", False),
+    (1, 2, 520, 64, 515, "full", "bf16", False),
 ])
 def test_bias_forward_and_backward(cuda, b, h, n, d, n_real, kind, bias_dtype,
                                    packed, dtype):
