@@ -143,7 +143,17 @@ at most the plain version's plus one bf16 ulp of the largest output; fp32,
 max |kernel - plain| at most 1e-4 of the output's RMS (and, in either
 dtype, within the flat atol of the other kernels); the log-sum-exp
 within 1e-3 of its scale. A control masks the first 64 valid keys too and
-fails the run unless that breaks the same check. K1 with Hiera's scale and K2 at
+fails the run unless that breaks the same check. In bf16 a second run of
+the forward gives the same bits, out and lse (the key splits of SAM2's
+memory attention merge in a fixed order), and where keys are masked a run
+with the masked keys' k and v replaced by noise does too (the empty slots'
+key tiles are skipped, the other masked keys weigh exactly 0). The bf16
+forward kernels of K5 and K6 (``flash_attention_fwd.cu``) must show HGMMA
+(``wgmma``) in the SASS of the built library, every walk kernel at every
+head-dim shape, no kernel of it may spill or have its ``wgmma``
+pipeline serialized by ptxas (C7511, C7515, C7519 in its ``-v`` output,
+where the run compiled it), and ``flash_attention.cu``'s library must hold
+no bf16 forward at all. K1 with Hiera's scale and K2 at
 d = 56 at Hiera's four window shapes: as K1 and K2 above. SAM2 tracking,
 kernels vs plain attention on the same sharpened weights (Hiera's qkv and
 the memory attention's q and k projections LeCun-normal, the memory
@@ -1053,10 +1063,15 @@ def check_key_bias_kernel(torch, F, case, results):
     """Hold K6 against its plain version at one shape: the output by
     ``key_bias_reading``, the log-sum-exp within 1e-3 of its scale; a
     control runs the kernel with the first K6_CONTROL_KEYS valid keys
-    masked too, which must fail the same reading. Time the kernel, the
-    plain version and SDPA with the bias as a broadcast [B, 1, 1, Nk] mask
-    in the input dtype (a yardstick, never used by the port); append the
-    record to results["K6"]."""
+    masked too, which must fail the same reading. In bf16 a second run must
+    give the same bits, out and lse (the key splits merge in a fixed order),
+    and where keys are masked, a run with the masked keys' k and v replaced
+    by noise must too (empty tiles skipped, masked keys at P = 0); the
+    record takes the forward's kernels' device ms (``kernel_split_ms``:
+    the walk and the splits' merge). Time the kernel, the plain version and
+    SDPA with the bias as a broadcast [B, 1, 1, Nk] mask in the input dtype
+    (a yardstick, never used by the port); append the record to
+    results["K6"]."""
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         flash_attention as fl)
     dtype = case["dtype"]
@@ -1093,8 +1108,29 @@ def check_key_bias_kernel(torch, F, case, results):
                   "lse_scale": ref_lse.abs().max().item(),
                   "finite": bool(torch.isfinite(out).all()
                                  and torch.isfinite(lse).all())}
-        del out, lse, ref, ref_lse, exact, control
         fast = dtype == torch.bfloat16
+        if fast:
+            again = kernel()
+            record["reproducible"] = (torch.equal(out, again[0])
+                                      and torch.equal(lse, again[1]))
+            if record["masked_keys"]:
+                masked = bias[0] < -1e8
+                noise_gen = torch.Generator(device="cuda").manual_seed(
+                    case["seed"] + 1)
+                noise = lambda t: t.masked_fill(
+                    masked[None, None, :, None], 0) + 100 * torch.randn(
+                        t.shape, device="cuda", generator=noise_gen).to(
+                            dtype) * masked[None, None, :, None]
+                noisy = fl.flash_attention(q, noise(k), noise(v), bias, scale,
+                                           return_lse=True)
+                record["masked_noise_same_bits"] = (
+                    torch.equal(out, noisy[0]) and torch.equal(lse, noisy[1]))
+                del noisy
+            record["split_ms"] = {
+                name.replace("flash_", ""): value for name, value in
+                kernel_split_ms(torch, kernel, K6_FWD_KERNELS).items()}
+            del again
+        del out, lse, ref, ref_lse, exact, control
         record["ms"] = time_ms(torch, kernel, iters=20 if fast else 2,
                                warmup=3 if fast else 1)
         record["plain_ms"] = time_ms(torch, plain, iters=5 if fast else 2,
@@ -1112,6 +1148,11 @@ def check_key_bias_kernel(torch, F, case, results):
         raise AssertionError(f"K6 {case['label']}: output off its plain "
                              f"version's floor ({reading}), non-finite "
                              "output or LSE off")
+    if not (record.get("reproducible", True)
+            and record.get("masked_noise_same_bits", True)):
+        raise AssertionError(f"K6 {case['label']}: a second run, or one with "
+                             "the masked keys' k and v replaced by noise, "
+                             "changed the output's or the lse's bits")
     if control_ok:
         raise AssertionError(f"K6 {case['label']}: masking {K6_CONTROL_KEYS} "
                              f"more keys passes the check ({control_reading})"
@@ -1145,6 +1186,11 @@ SHORT_NO_BIAS_KERNELS = 18 + 20
 SHORT_BIASED_BWD_KERNELS = 2 * 20
 K6_BWD_KERNELS = ("flash_keybias_bwd_delta", "flash_keybias_bwd_dq",
                   "flash_keybias_bwd_dkv", "flash_keybias_bwd_reduce")
+# the bf16 forward (flash_attention_fwd.cu): K6's walk at 5 head-dim shapes,
+# with and without P's residual; K5's at 3 with rel_w in registers (D <=
+# 128) and at 5 with both rel terms read each score; and the splits' merge
+K6_FWD_KERNELS = ("flash_keybias_fwd", "flash_fwd_merge")
+FLASH_FWD_KERNELS = {"flash_keybias_fwd": 10, "flash_relpos_fwd": 8}
 
 
 def hgmma_counts(library):
@@ -3269,6 +3315,37 @@ def main():
     log("sass flash_keybias_bwd", hgmma=hgmma)
     if len(hgmma) != 9 or not all(hgmma.values()):
         raise AssertionError(f"K6 backward kernels without HGMMA: {hgmma}")
+    # K5's and K6's bf16 forward on wgmma: HGMMA in every walk kernel of
+    # flash_attention_fwd.cu, and no bf16 (mma.sync) forward left in
+    # flash_attention.cu's library
+    hgmma = {name: n for name, n in hgmma_counts(
+        build.library_path("flash_attention_fwd")).items()
+        if any(k in name for k in FLASH_FWD_KERNELS)}
+    log("sass flash_attention_fwd", hgmma=hgmma)
+    walks = {k: sum(k in name for name in hgmma) for k in FLASH_FWD_KERNELS}
+    if walks != FLASH_FWD_KERNELS or not all(hgmma.values()):
+        raise AssertionError(f"K5/K6 forward kernels without HGMMA: {hgmma}")
+    old_fwd = [name for name in hgmma_counts(
+        build.library_path("flash_attention")) if re.search(
+            r"flash_\w+_fwd_bf16", name)]
+    if old_fwd:
+        raise AssertionError(f"mma.sync bf16 forward left: {old_fwd}")
+    # ptxas -v of the new forward where this run compiled it: no kernel
+    # spills, and none has its wgmma pipeline serialized (C7511, C7515,
+    # C7519)
+    fwd_log = build_logs.get("flash_attention_fwd")
+    if fwd_log is not None:
+        lines = fwd_log.splitlines()
+        spills = [line.strip() for line in lines if "spill" in line and
+                  " 0 bytes spill stores, 0 bytes spill loads" not in line]
+        serialized = [line.strip() for line in lines
+                      if re.search(r"C75(11|15|19)", line)]
+        log("ptxas flash_attention_fwd", kernels=sum(
+            "Compiling entry" in line for line in lines), spills=spills,
+            serialized=serialized)
+        if spills or serialized:
+            raise AssertionError(f"flash_attention_fwd.cu: spills {spills}, "
+                                 f"serialized wgmma {serialized}")
     # K1/K2/K9 on wgmma: HGMMA in both backward kernels and in the forward's
     # kNoBias mode at every chunk shape and head dim they instantiate; K2b,
     # K3 and K4 likewise in both backward kernels of the biased modes (the
@@ -4161,7 +4238,7 @@ def main():
         entry("K4", "K4 fused_attention_relwin fwd",
               "short_attention_fwd.cu", "fused_attention.py:901",
               sam_h_counts["K4"]),
-        entry("K5", "K5 flash_attention_relpos fwd", "flash_attention.cu",
+        entry("K5", "K5 flash_attention_relpos fwd", "flash_attention_fwd.cu",
               "flash_attention.py:505", sam_counts["K5"]),
         entry("K3 bwd", "K3 fused_attention_relwin_dense bwd",
               "short_attention_bwd.cu", "fused_attention.py:1163",
@@ -4172,7 +4249,7 @@ def main():
         entry("K5 bwd", "K5 flash_attention_relpos bwd",
               "flash_attention.cu", "flash_attention.py:541",
               sam_train_counts["K5 bwd"]),
-        entry("K6", "K6 flash_attention fwd", "flash_attention.cu",
+        entry("K6", "K6 flash_attention fwd", "flash_attention_fwd.cu",
               "flash_attention.py:113", sam2_counts["K6"]),
         entry("K6 bwd", "K6 flash_attention bwd", "flash_keybias_bwd.cu",
               "flash_attention.py:206", sam2_train_counts["K6 bwd"]),

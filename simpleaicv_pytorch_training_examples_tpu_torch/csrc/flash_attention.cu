@@ -1,77 +1,31 @@
-// Streaming (flash) attention with SAM's decomposed relative-position bias,
-// forward and backward, for Hopper (sm_90a): kernel K5; with a per-key bias
-// instead, forward and backward: kernel K6.
+// Streaming (flash) attention with SAM's decomposed relative-position bias
+// (kernel K5) and with a per-key bias (kernel K6): the fp32 forward of both,
+// K5's bf16 backward and the fp32 backward of both. The bf16 forward of both
+// is flash_attention_fwd.cu, K6's bf16 backward flash_keybias_bwd.cu.
 //
 // Replaces the TPU (Pallas) kernels of the JAX package's
 // ops/pallas/flash_attention.py: _fwd_rel_kernel (via _flash_rel_forward,
-// entry flash_attention_relpos) and _bwd_rel_fused_kernel (via
-// _flash_rel_backward; its notes are further down). q, k, v [B, H, N, D] (any strides with the
-// head dim contiguous, shared by the three), rel_h [B, H, N, KH] and rel_w
-// [B, H, N, KW] fp32 with N = KH * KW -> out (its own strides) and the
-// fp32 log-sum-exp of every query row, [B * H, N]. The score of query i and
-// key j = jh * KW + jw is q_i.k_j * scale + rel_h[i, jh] + rel_w[i, jw]; the
-// [N, N] score matrix never leaves the chip.
+// entry flash_attention_relpos) for fp32 inputs and _bwd_rel_fused_kernel
+// (via _flash_rel_backward; its notes are further down); _fwd_kernel (via
+// _flash_forward, entry flash_attention) and _bwd_fused_kernel for fp32
+// inputs. q, k, v [B, H, N, D] (K5: one set of strides with the head dim
+// contiguous; K6: each its own, Nq queries and Nk keys), rel_h [B, H, N,
+// KH] and rel_w [B, H, N, KW] fp32 with N = KH * KW (K5) or an fp32 key
+// bias [B, Nk] read through its batch stride and shared by the heads and
+// the queries (K6) -> out (its own strides) and the fp32 log-sum-exp of
+// every query row, [B * H, Nq]. The score of query i and key j = jh * KW +
+// jw is q_i.k_j * scale + rel_h[i, jh] + rel_w[i, jw] (K5), or q_i.k_j *
+// sm_scale + bias[j] (K6; keys past Nk get -inf, the bias stays finite, so
+// a row whose keys are all masked averages V, as on the TPU); the score
+// matrix never leaves the chip.
 //
-// Math, as the TPU kernel: fp32 scores, one walk over the keys with an
-// online row max and sum in fp32, P = exp(s - max) cast to the input dtype
-// before P.V (fp32 accumulation), the output divided by the fp32 sum at
-// the end. No key mask (SAM's global blocks attend to every token). D <=
-// 256.
-//
-// Bound on one H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense): at SAM-B's
-// global blocks (B=8, H=12, N=4096, D=64, bf16) one launch does 4*B*H*N^2*D
-// = 412 GFLOP = 0.42 ms of tensor-core time and moves q, k, v, out (201 MB)
-// and rel_h, rel_w (201 MB) = 0.12 ms: bound by operations. Its 1.6e9
-// exponentials take about as long again on the special-function units
-// (16 a clock an SM).
-//
-// bf16 design: a block of 4 warps owns 64 query rows of one (batch, head);
-// each warp keeps its 16 rows' Q fragments, scores (mma.sync m16n8k16, 64
-// keys at a time) and output accumulators in registers. K and V tiles of 64
-// keys stream through a two-stage cp.async pipeline in shared memory. Each
-// score becomes a log2-domain logit with one FFMA: s*scale*log2(e) +
-// (rel_h + rel_w)*log2(e). When KW is a multiple of 64 (SAM: KW = 64) a key
-// tile lies in one row of the key grid: its rel_h term is one value a query
-// row, and a lane's 16 rel_w values are kept in registers until the tile's
-// column offset changes (for KW = 64, never): two loads a tile instead of
-// 64. Other KW read both terms for each score through the L1 cache. A head
-// dim above 128 is split into output chunks of 128 columns, one block each,
-// and every chunk recomputes the scores over the whole head dim (slower,
-// off SAM's path).
+// Math, as the TPU kernels: fp32 scores, one walk over the keys with an
+// online row max and sum, the output divided by the sum at the end.
 //
 // fp32 design (not on the main path): a block of 4 warps owns 16 query rows;
 // a lane scores one key of a 32-key tile in plain FMA loops and owns D / 32
-// output columns, so fp32 inputs keep fp32 precision.
-//
-// The same forward bodies, with the template flag kRel off, are kernel K6:
-// streaming attention with a per-key bias, replacing the TPU kernel
-// _fwd_kernel of ops/pallas/flash_attention.py (via _flash_forward, entry
-// flash_attention). q [B, H, Nq, D], k and v [B, H, Nk, D] (each with its
-// own strides, head dim contiguous) and an optional fp32 key bias [B, Nk]
-// read through its batch stride and shared by the heads and the queries
-// (the TPU wrapper repeats it per head; here it is never copied). The
-// score is q.k * sm_scale + bias[key]; keys past Nk (the ragged last tile)
-// get -inf. The bias stays finite (-1e9 on the empty memory slots of SAM2's
-// tracker): a query row whose keys are all masked averages V, as the TPU
-// kernel's does, and is never NaN. A lane's 16 bias values of a key tile
-// are read once a tile. D = 56 (Hiera) runs as 64 with the pad columns
-// zero-filled in shared memory, exact as the TPU wrapper's zero pad; D =
-// 256 (SAM2's memory attention) takes the 128-column chunks above. Writes
-// the fp32 log-sum-exp for the backward (bf16: flash_keybias_bwd.cu; fp32:
-// K5's fp32 backward bodies with the same flag off, further down).
-// With a gradient to come (p_residual), P.V also multiplies P's bf16
-// residual (P - bf16(P)), one more product a key tile, so that the output
-// carries P at fp32 precision: with P rounded to bf16, the TPU kernel's
-// choice, SAM2's gradient check in chip_smoke.py put 90 parameters (Hiera's
-// blocks and the memory attention's q and k projections among them) off
-// the plain path's floor, with the residual none.
-//
-// Bound on one H100 SXM: SAM2's memory cross-attention (B = H = 1, Nq =
-// 4096, Nk = 28,736, D = 256, bf16) is 4*Nq*Nk*D = 120.5 GFLOP = 0.122 ms
-// of tensor-core time against 33.7 MB = 0.010 ms of bytes: bound by
-// operations. The chunked route computes Q.K^T once per chunk (1.5x the
-// products), and with B = H = 1 the 64 query tiles x 2 chunks fill 128 of
-// the 132 SMs with one 4-warp block each.
+// output columns, so fp32 inputs keep fp32 precision. The same bodies with
+// the template flag kRel off are K6.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,7 +37,6 @@ namespace {
 
 using namespace saicv;
 
-constexpr float kNegInf = -1e9f;
 constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // query rows a block (bf16)
 constexpr int kTile = 64;           // keys a pipeline stage (bf16)
@@ -104,197 +57,7 @@ struct FlashArgs {
   long long kbias_sb;
   int B, H, Nq, Nk, D;
   float scale;
-  int q_vec, k_vec, v_vec, out_vec;
-  int q_tiles;     // query-row tiles a head
-  int p_residual;  // bf16 K6: P.V also takes P's bf16 residual
 };
-
-template <int DQ, int DV, bool kRel>
-__device__ __forceinline__ void flash_fwd_bf16(const FlashArgs& a) {
-  constexpr int LDQ = DQ + 8;  // 16-byte pad: conflict-free fragment loads
-  constexpr int LDV = DV + 8;
-  constexpr int kFrags = kTile / 8;
-  const int Nq = a.Nq, Nk = a.Nk;
-  const float sc = a.scale * kLog2e;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kRows][LDQ]
-  bf16* Ks = Qs + kRows * LDQ;               // [2][kTile][LDQ]
-  bf16* Vs = Ks + 2 * kTile * LDQ;           // [2][kTile][LDV]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int chunk = blockIdx.x / a.q_tiles;
-  const int q0 = (blockIdx.x % a.q_tiles) * kRows;
-  const int dv0 = chunk * kChunk;                // first output column
-  const int dv = min(DV, a.D - dv0);              // output columns of this block
-  const int bz = blockIdx.z, hy = blockIdx.y;
-  const bf16* qh = static_cast<const bf16*>(a.q) + bz * a.qs.b + hy * a.qs.h;
-  const bf16* kh = static_cast<const bf16*>(a.k) + bz * a.ks.b + hy * a.ks.h;
-  const bf16* vh = static_cast<const bf16*>(a.v) + bz * a.vs.b + hy * a.vs.h + dv0;
-
-  const int tiles = (Nk + kTile - 1) / kTile;
-  auto issue = [&](int tile) {
-    const int buf = tile & 1;
-    const long long key0 = static_cast<long long>(tile) * kTile;
-    load_tile_bf16<DQ, LDQ>(Ks + buf * kTile * LDQ, kh + key0 * a.ks.n, a.ks.n, kTile,
-                            Nk - tile * kTile, a.D, a.k_vec);
-    load_tile_bf16<DV, LDV>(Vs + buf * kTile * LDV, vh + key0 * a.vs.n, a.vs.n, kTile,
-                            Nk - tile * kTile, dv, a.v_vec);
-  };
-  load_tile_bf16<DQ, LDQ>(Qs, qh + q0 * a.qs.n, a.qs.n, kRows, Nq - q0, a.D, a.q_vec);
-  issue(0);
-  cp_async_commit();
-
-  const int row0 = q0 + 16 * warp;
-  const bool active = row0 < Nq;
-  RelRows rr{};
-  const int KW = a.rel.KW;
-  const bool grid_rows = kRel && KW % kTile == 0;  // each key tile in one key-grid row
-  float rwc[2][kFrags][2];                          // rel_w * log2(e) of the lane's keys
-  int cached_cw0 = -1;
-  if constexpr (kRel) rr = a.rel.rows(bz, hy, row0 + g, Nq);
-  const float* kbias = a.kbias ? a.kbias + bz * a.kbias_sb : nullptr;
-
-  uint32_t qf[DQ / 16][4];
-  float m[2] = {-INFINITY, -INFINITY};  // running max of the log2-domain logits
-  float l[2] = {0.f, 0.f};              // running sum, per lane
-  float acc[DV / 8][4];
-#pragma unroll
-  for (int j = 0; j < DV / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  for (int tile = 0; tile < tiles; ++tile) {
-    if (tile + 1 < tiles) issue(tile + 1);
-    cp_async_commit();  // one group per tile, possibly empty
-    cp_async_wait_one();
-    __syncthreads();
-    if (tile == 0 && active) load_a_frags<DQ, LDQ>(qf, Qs + 16 * warp * LDQ, g, t);
-
-    if (active) {
-      const int key0 = tile * kTile;
-      const bf16* Kb = Ks + (tile & 1) * kTile * LDQ;
-      const bf16* Vb = Vs + (tile & 1) * kTile * LDV;
-      float s[kFrags][4];
-      own_times_other_t<DQ, LDQ, kFrags>(s, qf, Kb, key0, Nk, lane);
-      if constexpr (!kRel) {
-        // K6: the key's bias, read once a tile for the lane's 16 keys; keys
-        // past Nk (the ragged last tile) get -inf
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int col = key0 + 8 * j + 2 * t + h2;
-            const float b = col >= Nk ? -INFINITY
-                            : kbias   ? __ldg(kbias + col) * kLog2e
-                                      : 0.f;
-            s[j][h2] = fmaf(s[j][h2], sc, b);
-            s[j][2 + h2] = fmaf(s[j][2 + h2], sc, b);
-          }
-      } else if (grid_rows) {  // N is a multiple of 64 here: no key past N
-        const int jh = key0 / KW;
-        const int cw0 = key0 - jh * KW;
-        if (cw0 != cached_cw0) {
-          cached_cw0 = cw0;
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-#pragma unroll
-            for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-              for (int h2 = 0; h2 < 2; ++h2)
-                rwc[r][j][h2] = __ldg(rr.w[r] + cw0 + 8 * j + 2 * t + h2) * kLog2e;
-        }
-        const float bh[2] = {__ldg(rr.h[0] + jh) * kLog2e, __ldg(rr.h[1] + jh) * kLog2e};
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[j][e] = fmaf(s[j][e], sc, bh[e >> 1] + rwc[e >> 1][j][e & 1]);
-      } else {
-        rel_logits(s, rr, key0, t, Nk, Nk, sc, kNegInf * kLog2e, KW, a.rel.inv_kw);
-      }
-
-      // online softmax over this tile: P = 2^(logit - max), rescale the rest
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float tmax = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j) tmax = fmaxf(tmax, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        const float mnew = fmaxf(m[r], tmax);
-        const float alpha = exp2_approx(m[r] - mnew);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < kFrags; ++j)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const float p = exp2_approx(s[j][2 * r + h2] - mnew);
-            s[j][2 * r + h2] = p;
-            sum += p;
-          }
-        l[r] = l[r] * alpha + sum;
-        m[r] = mnew;
-#pragma unroll
-        for (int j = 0; j < DV / 8; ++j) {
-          acc[j][2 * r] *= alpha;
-          acc[j][2 * r + 1] *= alpha;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        if (key0 + 16 * kk >= Nk) break;
-        const float* s0 = s[2 * kk];
-        const float* s1 = s[2 * kk + 1];
-        const uint32_t p[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s0[2], s0[3]),
-                               pack_bf16(s1[0], s1[1]), pack_bf16(s1[2], s1[3])};
-        accumulate_ax<DV, LDV>(acc, p, Vb + 16 * kk * LDV, lane);
-        if (!kRel && a.p_residual) {  // P.V at fp32 precision of P
-          const uint32_t r[4] = {
-              pack_bf16_residual(s0[0], s0[1]), pack_bf16_residual(s0[2], s0[3]),
-              pack_bf16_residual(s1[0], s1[1]), pack_bf16_residual(s1[2], s1[3])};
-          accumulate_ax<DV, LDV>(acc, r, Vb + 16 * kk * LDV, lane);
-        }
-      }
-    }
-    __syncthreads();  // this tile's buffers are free for tile + 2
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.f / l[r];
-#pragma unroll
-    for (int j = 0; j < DV / 8; ++j) {
-      acc[j][2 * r] *= inv;
-      acc[j][2 * r + 1] *= inv;
-    }
-  }
-  bf16* oh = static_cast<bf16*>(a.o) + bz * a.os.b + hy * a.os.h + dv0;
-  store_rows_bf16<DV>(oh, a.os.n, acc, row0, Nq, dv, g, t, a.out_vec);
-  if (chunk == 0 && t == 0) {
-    const long long base = (static_cast<long long>(bz) * a.H + hy) * Nq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row < Nq) a.lse[base + row] = (m[r] + __log2f(l[r])) * kLn2;
-    }
-  }
-}
-
-// The forward kernels, named by mode so that a profile tells K5 from K6.
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps) flash_relpos_fwd_bf16(FlashArgs a) {
-  flash_fwd_bf16<DQ, DV, true>(a);
-}
-
-template <int DQ, int DV>
-__global__ void __launch_bounds__(32 * kWarps) flash_keybias_fwd_bf16(FlashArgs a) {
-  flash_fwd_bf16<DQ, DV, false>(a);
-}
 
 // ------------------------------------------------------- bf16 backward
 //
@@ -1118,16 +881,6 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const FlashArgs& a, cudaStream
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DQ, int DV, bool kRel>
-int launch_bf16(FlashArgs a, cudaStream_t stream) {
-  a.q_tiles = (a.Nq + kRows - 1) / kRows;
-  const int chunks = (a.D + kChunk - 1) / kChunk;
-  const size_t smem = sizeof(bf16) * ((kRows + 2 * kTile) * (DQ + 8) + 2 * kTile * (DV + 8));
-  const dim3 grid(a.q_tiles * chunks, a.H, a.B);
-  if constexpr (kRel) return launch(flash_relpos_fwd_bf16<DQ, DV>, grid, smem, a, stream);
-  return launch(flash_keybias_fwd_bf16<DQ, DV>, grid, smem, a, stream);
-}
-
 template <int DC, bool kRel>
 int launch_f32(const FlashArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kRowsF + 2 * kTileF) * (32 * DC + 1);
@@ -1136,32 +889,20 @@ int launch_f32(const FlashArgs& a, cudaStream_t stream) {
   return launch(flash_keybias_fwd_f32<DC>, grid, smem, a, stream);
 }
 
-// The forward of either entry point, by dtype and head dim (bf16: D rounded
-// up to 16, zero-filled; D > 128 in chunks of 128 output columns).
+// The forward of either entry point in fp32, by head dim (bf16 is
+// flash_attention_fwd.cu: cudaErrorInvalidValue here).
 template <bool kRel>
 int launch_fwd(const FlashArgs& a, int is_bf16, cudaStream_t s) {
-  if (!is_bf16) {
-    switch ((a.D + 31) / 32) {
-      case 1: return launch_f32<1, kRel>(a, s);
-      case 2: return launch_f32<2, kRel>(a, s);
-      case 3: return launch_f32<3, kRel>(a, s);
-      case 4: return launch_f32<4, kRel>(a, s);
-      case 5: return launch_f32<5, kRel>(a, s);
-      case 6: return launch_f32<6, kRel>(a, s);
-      case 7: return launch_f32<7, kRel>(a, s);
-      default: return launch_f32<8, kRel>(a, s);
-    }
-  }
-  switch ((a.D + 15) / 16 * 16) {
-    case 16: return launch_bf16<16, 16, kRel>(a, s);
-    case 32: return launch_bf16<32, 32, kRel>(a, s);
-    case 48: return launch_bf16<48, 48, kRel>(a, s);
-    case 64: return launch_bf16<64, 64, kRel>(a, s);
-    case 80: return launch_bf16<80, 80, kRel>(a, s);
-    case 96: return launch_bf16<96, 96, kRel>(a, s);
-    case 112: return launch_bf16<112, 112, kRel>(a, s);
-    case 128: return launch_bf16<128, 128, kRel>(a, s);
-    default: return launch_bf16<256, kChunk, kRel>(a, s);  // chunked output columns
+  if (is_bf16) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((a.D + 31) / 32) {
+    case 1: return launch_f32<1, kRel>(a, s);
+    case 2: return launch_f32<2, kRel>(a, s);
+    case 3: return launch_f32<3, kRel>(a, s);
+    case 4: return launch_f32<4, kRel>(a, s);
+    case 5: return launch_f32<5, kRel>(a, s);
+    case 6: return launch_f32<6, kRel>(a, s);
+    case 7: return launch_f32<7, kRel>(a, s);
+    default: return launch_f32<8, kRel>(a, s);
   }
 }
 
@@ -1260,9 +1001,10 @@ bool out_vec(const void* o, const Strides& st, int D) {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. q, k, v and o are device pointers
-// of the input dtype (is_bf16 = 1: bfloat16, 0: float32); lse, rel_h and
-// rel_w are fp32. Strides are in elements, (batch, head, row); the last
-// axis of every tensor is contiguous. Returns a cudaError_t (0 = launched).
+// of the input dtype (is_bf16 = 0: float32; bf16 is flash_attention_fwd.cu
+// and returns cudaErrorInvalidValue here); lse, rel_h and rel_w are fp32.
+// Strides are in elements, (batch, head, row); the last axis of every
+// tensor is contiguous. Returns a cudaError_t (0 = launched).
 extern "C" int saicv_flash_attention_relpos_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, const float* rel_h,
     const float* rel_w, long long in_sb, long long in_sh, long long in_sn, long long out_sb,
@@ -1273,7 +1015,6 @@ extern "C" int saicv_flash_attention_relpos_fwd(
       D > 256 || KH < 1 || KW < 1 || static_cast<long long>(KH) * KW != N || !rel_h ||
       !rel_w || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long es = is_bf16 ? 2 : 4;
   const Strides in{in_sb, in_sh, in_sn};
   FlashArgs a{};
   a.q = q;
@@ -1289,29 +1030,24 @@ extern "C" int saicv_flash_attention_relpos_fwd(
   a.Nq = a.Nk = N;
   a.D = D;
   a.scale = scale;
-  a.q_vec = a.k_vec = a.v_vec =
-      aligned16(q) && aligned16(k) && aligned16(v) && rows_vec(in, D, es);
-  a.out_vec = out_vec(o, a.os, D);
   return launch_fwd<true>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel K6: q [B, H, Nq, D], k and v [B, H, Nk, D] and o [B, H, Nq, D],
 // each with its own (batch, head, row) strides in elements and the head dim
-// contiguous, of the input dtype (is_bf16 = 1: bfloat16, 0: float32);
-// bias: the fp32 key bias [B, Nk] with batch stride bias_sb and the keys
-// contiguous, or null; lse: fp32 [B * H, Nq]; p_residual: 1 when a
-// gradient will follow (bf16: P.V at fp32 precision of P). Returns a
-// cudaError_t (0 = launched).
+// contiguous, fp32 (is_bf16 = 0; bf16 is flash_attention_fwd.cu and
+// returns cudaErrorInvalidValue here); bias: the fp32 key bias [B, Nk] with
+// batch stride bias_sb and the keys contiguous, or null; lse: fp32 [B * H,
+// Nq]. Returns a cudaError_t (0 = launched).
 extern "C" int saicv_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, const float* bias,
     long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long out_sb,
     long long out_sh, long long out_sn, long long bias_sb, int B, int H, int Nq, int Nk, int D,
-    float scale, int p_residual, int is_bf16, void* stream) {
+    float scale, int is_bf16, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || Nq < 1 || Nq > (1 << 24) || Nk < 1 ||
       Nk > (1 << 24) || D < 1 || D > 256 || !lse)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long es = is_bf16 ? 2 : 4;
   FlashArgs a{};
   a.q = q;
   a.k = k;
@@ -1330,11 +1066,6 @@ extern "C" int saicv_flash_attention_fwd(
   a.Nk = Nk;
   a.D = D;
   a.scale = scale;
-  a.p_residual = is_bf16 && p_residual;
-  a.q_vec = aligned16(q) && rows_vec(a.qs, D, es);
-  a.k_vec = aligned16(k) && rows_vec(a.ks, D, es);
-  a.v_vec = aligned16(v) && rows_vec(a.vs, D, es);
-  a.out_vec = out_vec(o, a.os, D);
   return launch_fwd<false>(a, is_bf16, static_cast<cudaStream_t>(stream));
 }
 

@@ -66,14 +66,6 @@ __host__ __device__ constexpr int ksteps_of() {
   return 4 + kTail / 16;
 }
 
-// Keep the compiler from moving the definitions of registers that a wgmma
-// reads past its fence (ptxas then serializes the wgmma pipeline).
-template <int N>
-__device__ __forceinline__ void settle(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 // Bytes of one staged row of the columns past 64 (the tail box): 32 (16
 // columns, 32-byte swizzle) or 128.
 template <int kTail>

@@ -6,10 +6,11 @@ flash_attention_relpos``: q, k, v ``[B, H, N, D]`` (D <= 256; views of the
 packed qkv are read in place through their strides), ``rel_h [B, H, N, KH]``
 and ``rel_w [B, H, N, KW]`` fp32 with N = KH * KW. The score of query i and
 key j = jh * KW + jw is ``q_i.k_j * D^-0.5 + rel_h[i, jh] + rel_w[i, jw]``.
-The forward kernel (``csrc/flash_attention.cu``) walks the keys once with an
-online softmax and never builds the ``[N, N]`` score matrix; it also returns
-the fp32 log-sum-exp of every query row. ``FlashAttentionRelpos`` (a
-``torch.autograd.Function``) saves the inputs, the output and the
+The forward kernel (bf16: ``csrc/flash_attention_fwd.cu``, wgmma products
+on tiles that TMA loads; fp32: ``csrc/flash_attention.cu``) walks the keys
+once with an online softmax and never builds the ``[N, N]`` score matrix;
+it also returns the fp32 log-sum-exp of every query row.
+``FlashAttentionRelpos`` (a ``torch.autograd.Function``) saves the inputs, the output and the
 log-sum-exp; its backward computes delta = rowsum(dO * O) with one torch op
 (the JAX package computes it outside its kernel as well) and launches two
 kernels of the same source, which recompute P from the log-sum-exp and give
@@ -30,7 +31,8 @@ D]`` (D <= 256, each read through its own strides), an optional fp32 key
 bias ``[B, Nk]`` shared by the heads and the queries, and ``sm_scale``
 (default D^-0.5). The score of query i and key j is ``q_i.k_j * sm_scale +
 bias[j]``; the bias stays finite (-1e9 masks a key), so a row whose keys
-are all masked averages V, as on the TPU. The kernel (the forward body of
+are all masked averages V, as on the TPU. The kernel (bf16: the key-bias
+mode of ``csrc/flash_attention_fwd.cu``; fp32: the FMA forward of
 ``csrc/flash_attention.cu`` with the rel-pos flag off) walks the keys once
 with an online softmax and also returns the fp32 log-sum-exp. A CPU tensor
 takes ``flash_attention_reference``, differentiable through plain ops; a
@@ -42,6 +44,20 @@ residual is a second product): with P rounded, SAM2's gradient check put
 90 parameters, Hiera's among them, off the plain path's floor, with it
 none. The bias gets no gradient, as on the TPU (it marks which memory
 slots are filled).
+
+The bf16 forward of both (``csrc/flash_attention_fwd.cu``) splits the keys
+where the 128-row query blocks of all heads are fewer than the SMs
+(``forward_splits``: SAM2's memory attention, B = H = 1): split s walks the
+64-key tiles j with j mod S = s and writes its unnormalised fp32 output,
+row max and row sum, and a merge kernel combines the splits in the order s
+= 0 .. S-1 (no atomics: the same bits every run). K6 skips a key tile whose
+every key is masked (bias <= -5e8, or past Nk) where the batch row has a
+key above -5e8 (``key_tiles_kept``): such a tile's P is exactly 0, so the
+output and lse are the same bit for bit, and the empty slots of SAM2's
+memory cost nothing. ``flash_attention_split_reference`` is the plain
+version of that walk and merge (the tests hold it against the plain
+version and the TPU kernel). A forward counts one launch, its merge
+included.
 
 K6's bf16 backward is ``csrc/flash_keybias_bwd.cu``: wgmma products on
 tiles that TMA loads, in three walks (delta = rowsum(P * dP) / rowsum(P)
@@ -73,6 +89,7 @@ kernels it takes).
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -82,6 +99,8 @@ from .fused_attention import (check_rel_args, fused_attention_relwin_reference,
 
 MAX_HEAD_DIM = 256
 _DTYPES = (torch.bfloat16, torch.float32)
+MASKED_BIAS = -5e8   # a key with a bias at or below: masked (the skip rule)
+LOG2E, LN2 = math.log2(math.e), math.log(2.0)
 
 
 def _scores(q, k, rel_h, rel_w):
@@ -177,6 +196,63 @@ def _launch(fn, device, *args):
                            f"cudaError {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_forward():
+    """The C entries of ``csrc/flash_attention_fwd.cu``: (K5, K6)."""
+    lib = build.load("flash_attention_fwd")
+    relpos, keybias = (lib.saicv_flash_relpos_fwd_bf16,
+                       lib.saicv_flash_keybias_fwd_bf16)
+    relpos.argtypes = [_PTR] * 9 + [_LL] * 18 + [_INT] * 7 + [ctypes.c_float,
+                                                              _PTR]
+    keybias.argtypes = ([_PTR] * 8 + [_LL] * 13 + [_INT] * 6
+                        + [ctypes.c_float, _INT, _PTR])
+    relpos.restype = keybias.restype = _INT
+    return relpos, keybias
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def forward_splits(b, h, nq, nk, sms):
+    """Key splits of the bf16 forward (K5 and K6): the SMs over the
+    128-row query blocks of all heads, rounded down, at least 1 and at most
+    the 64-key tiles walked."""
+    blocks = -(-nq // 128) * b * h
+    return max(1, min(-(-nk // 64), sms // blocks))
+
+
+def forward_head_dim(d):
+    """The columns of the bf16 forward's fp32 partials for head dim d: 64,
+    80, 128, 192 or 256."""
+    return 64 if d <= 64 else 80 if d <= 80 else -(-d // 64) * 64
+
+
+def _forward_bf16(fn, q, k, v, out, lse, extra, nk, extra_strides, shape,
+                  scale=None, *after):
+    """One bf16 forward on ``csrc/flash_attention_fwd.cu`` (its merge
+    included): q, k, v read in place where TMA can (else copied), out [B,
+    Nq, H, D] and lse [B, H, Nq] filled; ``extra`` the bias pointers and
+    ``extra_strides`` their strides, ``nk`` the keys (None: Nq), ``shape``
+    the entry's (B, H, Nq[, Nk], D[, KH, KW])."""
+    b, h, nq, d = q.shape
+    nk = nq if nk is None else nk
+    splits = forward_splits(b, h, nq, nk, _sm_count(q.device.index or 0))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part = stats = None
+    if splits > 1:
+        part = torch.empty((splits, b * h, nq, forward_head_dim(d)), **f32)
+        stats = torch.empty((2, splits, b * h, nq), **f32)
+    q, k, v = (tma_operand(t) for t in (q, k, v))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    _launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *extra, ptr(part), ptr(stats),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], nq * h * d, d,
+            h * d, *extra_strides, *shape, splits,
+            d ** -0.5 if scale is None else scale, *after)
+
+
 class FlashAttentionRelpos(torch.autograd.Function):
     """K5 with its backward kernels; returns (out, lse), the log-sum-exp
     without a gradient."""
@@ -192,12 +268,17 @@ class FlashAttentionRelpos(torch.autograd.Function):
             b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
             out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
             lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-            _launch(_library()[0], q.device, q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    rel_h.data_ptr(), rel_w.data_ptr(), *q.stride()[:3],
-                    n * h * d, d, h * d, *rel_h.stride()[:3],
-                    *rel_w.stride()[:3], b, h, n, d, kh, kw, d ** -0.5,
-                    int(q.dtype == torch.bfloat16))
+            rel = (*rel_h.stride()[:3], *rel_w.stride()[:3])
+            if q.dtype == torch.bfloat16:
+                _forward_bf16(_bf16_forward()[0], q, k, v, out, lse,
+                              (rel_h.data_ptr(), rel_w.data_ptr()), None, rel,
+                              (b, h, n, d, kh, kw))
+            else:
+                _launch(_library()[0], q.device, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                        rel_h.data_ptr(), rel_w.data_ptr(), *q.stride()[:3],
+                        n * h * d, d, h * d, *rel, b, h, n, d, kh, kw,
+                        d ** -0.5, 0)
             flash_attention_relpos.launches += 1
             out = out.transpose(1, 2)
         ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
@@ -266,6 +347,76 @@ def flash_attention_reference(q, k, v, bias=None, sm_scale=None,
     return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
+def key_tiles_kept(bias, nk, tile=64):
+    """The empty-slot rule of K6's bf16 kernels: [B, tiles] bool, a key tile
+    of ``tile`` keys kept unless every key of it has bias <= -5e8 (or lies
+    past Nk) while its batch row has a key above -5e8; a row with no such key
+    keeps every tile. ``bias``: the fp32 key bias [B, Nk]."""
+    tiles = -(-nk // tile)
+    real = bias > MASKED_BIAS
+    padded = torch.zeros(bias.shape[0], tiles * tile, dtype=torch.bool,
+                         device=bias.device)
+    padded[:, :nk] = real
+    return padded.view(-1, tiles, tile).any(-1) | ~real.any(-1, keepdim=True)
+
+
+def flash_attention_split_reference(q, k, v, bias=None, sm_scale=None,
+                                    splits=1, residual=False, skip=True,
+                                    return_lse=False):
+    """Plain version of the bf16 forward's walk (K6): the keys in tiles of
+    64, split s taking tiles j = s, s + S, ... (``skip``: those
+    ``key_tiles_kept`` keeps), each split an online softmax over its tiles
+    in fp32 in the log2 domain (P = 2^(logit - running max), rounded to the
+    input dtype for P.V, plus its rounded residual with ``residual``, the
+    sum in fp32), then the splits merged in the order s = 0 .. S-1: weights
+    2^(m_s - max m), output = sum of weighted outputs / sum of weighted row
+    sums, lse = (max m + log2 of that sum) * ln 2. -> out [B, H, Nq, D] in
+    the input dtype (and the fp32 lse [B, H, Nq])."""
+    dtype = q.dtype
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    sc = (d ** -0.5 if sm_scale is None else float(sm_scale)) * LOG2E
+    tiles = -(-nk // 64)
+    kept = (key_tiles_kept(bias, nk) if bias is not None and skip
+            else torch.ones(b, tiles, dtype=torch.bool)).tolist()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs, lses = [], []
+    for bi in range(b):
+        parts = []
+        for s in range(splits):
+            m = torch.full((h, nq), -float("inf"), **f32)
+            l = torch.zeros(h, nq, **f32)
+            acc = torch.zeros(h, nq, d, **f32)
+            for j in range(s, tiles, splits):
+                if not kept[bi][j]:
+                    continue
+                keys = slice(64 * j, min(64 * j + 64, nk))
+                x = qf[bi] @ kf[bi, :, keys].transpose(-1, -2) * sc
+                if bias is not None:
+                    x = x + bias[bi, keys].float() * LOG2E
+                mnew = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp2(m - mnew)
+                p = torch.exp2(x - mnew[..., None])
+                l = l * alpha + p.sum(-1)
+                pv = p.to(dtype).float()
+                if residual:
+                    pv = pv + (p - pv).to(dtype).float()
+                acc = acc * alpha[..., None] + pv @ vf[bi, :, keys]
+                m = mnew
+            parts.append((m, l, acc))
+        mt = torch.stack([m for m, _, _ in parts]).amax(0)
+        lt, ot = torch.zeros(h, nq, **f32), torch.zeros(h, nq, d, **f32)
+        for m, l, acc in parts:
+            w = torch.where(l > 0, torch.exp2(m - mt), torch.zeros_like(l))
+            lt = lt + w * l
+            ot = ot + w[..., None] * acc
+        outs.append((ot / lt[..., None]).to(dtype))
+        lses.append((mt + torch.log2(lt)) * LN2)
+    out, lse = torch.stack(outs), torch.stack(lses)
+    return (out, lse) if return_lse else out
+
+
 def flash_attention_backward_reference(q, k, v, bias, dout, sm_scale=None):
     """Plain version of K6's backward (the JAX ``_bwd_fused_kernel`` with
     delta and dS0 at fp32 precision): P = exp(s - lse) from the fp32 scores
@@ -332,8 +483,7 @@ def _key_bias_library():
     lib = build.load("flash_attention")
     fwd, bwd = lib.saicv_flash_attention_fwd, lib.saicv_flash_attention_bwd
     tail = [ctypes.c_float, _INT, _PTR]
-    fwd.argtypes = ([_PTR] * 6 + [_LL] * 13 + [_INT] * 5
-                    + [ctypes.c_float, _INT, _INT, _PTR])
+    fwd.argtypes = [_PTR] * 6 + [_LL] * 13 + [_INT] * 5 + tail
     bwd.argtypes = [_PTR] * 10 + [_LL] * 19 + [_INT] * 5 + tail
     fwd.restype = bwd.restype = _INT
     return fwd, bwd
@@ -346,11 +496,6 @@ def _key_bias_bf16_backward():
                                                             _PTR]
     fn.restype = _INT
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def padded_head_dim(d):
@@ -408,15 +553,20 @@ class FlashAttention(torch.autograd.Function):
             raise ValueError(f"unsupported device {q.device}")
         b, h, nq, nk, d = check_key_bias_args(q, k, v, bias)
         scale = d ** -0.5 if sm_scale is None else float(sm_scale)
-        bf16 = q.dtype == torch.bfloat16
         out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
         lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
-        _launch(_key_bias_library()[0], q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                0 if bias is None else bias.data_ptr(), *q.stride()[:3],
-                *k.stride()[:3], *v.stride()[:3], nq * h * d, d, h * d,
-                0 if bias is None else bias.stride(0), b, h, nq, nk, d, scale,
-                int(any(ctx.needs_input_grad[:3])), int(bf16))
+        bias_ptr = 0 if bias is None else bias.data_ptr()
+        bias_sb = 0 if bias is None else bias.stride(0)
+        if q.dtype == torch.bfloat16:
+            _forward_bf16(_bf16_forward()[1], q, k, v, out, lse, (bias_ptr,),
+                          nk, (bias_sb,), (b, h, nq, nk, d), scale,
+                          int(any(ctx.needs_input_grad[:3])))
+        else:
+            _launch(_key_bias_library()[0], q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), bias_ptr, *q.stride()[:3],
+                    *k.stride()[:3], *v.stride()[:3], nq * h * d, d, h * d,
+                    bias_sb, b, h, nq, nk, d, scale, 0)
         flash_attention.launches += 1
         out = out.transpose(1, 2)
         ctx.scale = scale

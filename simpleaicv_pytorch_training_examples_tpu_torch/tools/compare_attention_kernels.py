@@ -1,6 +1,5 @@
-"""Time the short-sequence attention kernels of two checkouts of this
-repository in turns on one card, and hold their K6 bf16 backwards to the
-same bits.
+"""Time the attention kernels of two checkouts of this repository in turns
+on one card, and hold their K6 bf16 backwards to the same bits.
 
     python3 simpleaicv_pytorch_training_examples_tpu_torch/tools/compare_attention_kernels.py \
         --other DIR
@@ -15,21 +14,27 @@ and a bf16 bias, at SAM-H's and at N = 1024; K4's at SAM-H's windows on
 views of a packed qkv and at SAM-B's; K3's at SAM-B's; K1's, K2's and
 K9's at ViT's, forward and backward (a backward through autograd on a kept
 graph, as a train step runs it), and K8's (the fused ViT-B/16 block at its train
-micro-batch of 64) forward and backward (device ms a launch between CUDA
-events, the card spun first so that the host queues ahead; SDPA on the
-same inputs beside each, with the bias as a mask in the input dtype, and
-SDPA's backward beside each backward, a bias as a mask that requires
-grad; K8 has no one-call yardstick). Each
-turn also runs K6's bf16 backward twice on seeded inputs (SAM2's memory
-self-attention with masked slots, Hiera's global blocks) and hashes its
-gradients, and holds K1's bf16 forward and backward at Hiera's four
+micro-batch of 64) forward and backward, and the streaming forward of K5
+at SAM-B's and SAM-H's global blocks (and at D = 160, N = 1050 and KW =
+80, off the main path) and of K6 at SAM2's memory
+cross-attention (frame 7's and frame 1's key bias, with and without a
+gradient to follow), its memory self-attention and Hiera's global blocks
+at d = 64 and 56 (device ms a launch between CUDA events, the card spun
+first so that the host queues ahead; SDPA on the same inputs beside each,
+with the bias as a mask in the input dtype, and SDPA's backward beside
+each backward, a bias as a mask that requires grad; K8 has no one-call
+yardstick). Each turn also hashes K6's bf16 forward output at the memory
+cross-attention (frame 7) from two runs, runs K6's bf16 backward twice on
+seeded inputs (SAM2's memory self-attention with masked slots, Hiera's
+global blocks) and hashes its gradients, and holds K1's bf16 forward and backward at Hiera's four
 window shapes (SAM2-B+, heads padded from 56 to 64 with the 56-wide
 scale) against a float64 computation of the same inputs: the relative L2
 error of the output and of dq, dk, dv, and of the plain bf16 version's.
 The script prints one JSON line a turn, then one a case with both
 checkouts' times (the mean of their turns) and their ratio, and whether
-the K6 gradients are equal bit for bit between the checkouts and between
-two runs, and one line of each checkout's K1 errors. Needs a CUDA
+the K6 forward outputs and gradients are equal bit for bit between the
+checkouts and between two runs, and one line of each checkout's K1
+errors. Needs a CUDA
 device.
 """
 
@@ -248,6 +253,96 @@ def backward_cases(torch, fa, ab):
     yield "K8 bwd vit_b16_train", block_case(64, 197, 12, 64, True)
 
 
+def slot_bias(torch, slots, pointers):
+    """SAM2's memory key bias [1, 7 x 4096 + 16 x 4]: 0 on the first
+    ``slots`` memory slots and ``pointers`` object pointers, -1e9 on the
+    rest (frame 7: 7 and 8; frame 1: 1 and 1)."""
+    bias = torch.full((1, 7 * 4096 + 64), -1e9, device="cuda")
+    bias[:, :slots * 4096] = 0.0
+    bias[:, 7 * 4096:7 * 4096 + 4 * pointers] = 0.0
+    return bias
+
+
+def flash_forward_cases(torch, fl):
+    """(name, kernel, SDPA, bound ms) of K5's and K6's forward at their
+    main-path shapes: K5 at SAM-B's and SAM-H's global blocks on views of
+    a packed qkv, and at chip_smoke.py's off-path shapes (SDPA with the rel
+    bias as a bf16 [B, H, N, N] mask); K6
+    at SAM2's memory cross-attention with frame 7's and frame 1's bias,
+    with and without a gradient to follow (P's residual), its memory
+    self-attention and Hiera's global blocks at d = 64 (heads padded from
+    56, the 56-wide scale) and 56, each in its caller's layout (SDPA with
+    the key bias as a bf16 [B, 1, 1, Nk] mask). The bound counts q, k, v,
+    the output and the fp32 terms once, and the products of the keys that
+    are not masked."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+
+    def rel_case(b, h, kh, kw, d):
+        n = kh * kw
+        qkv = randn(b, n, 3 * h * d).to(bf16)
+        q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        rel_h, rel_w = randn(b, h, n, kh), randn(b, h, n, kw)
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
+            b, h, n, n).to(bf16)
+        nbytes = 2 * b * h * n * d * 4 + 4 * b * h * n * (kh + kw + 1)
+        return (lambda: fl.flash_attention_relpos(q, k, v, rel_h, rel_w),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=mask),
+                bound_ms(nbytes, 4.0 * b * h * n * n * d))
+
+    def key_case(b, h, nq, nk, d, bias, scale, layout, grad):
+        if layout == "packed":      # Hiera's global blocks: views of a qkv
+            qkv = randn(b, nq, 3 * h * d).to(bf16)
+            q, k, v = qkv.view(b, nq, 3, h, d).permute(2, 0, 3, 1,
+                                                       4).unbind(0)
+        else:                       # SAM2's RoPEAttention
+            q = randn(b, nq, h, d).to(bf16).transpose(1, 2)
+            k = randn(b, h, nk, d).to(bf16)
+            v = randn(b, nk, h, d).to(bf16).transpose(1, 2)
+        leaves = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+        mask = None if bias is None else bias[:, None, None, :].to(bf16)
+        valid = nk if bias is None else int((bias[0] > -5e8).sum())
+        nbytes = 2 * b * h * d * (2 * nq + 2 * nk) + 4 * b * nk + 4 * b * h * nq
+        return (lambda: fl.flash_attention(*leaves, bias, scale),
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                       scale=scale),
+                bound_ms(nbytes, 4.0 * b * h * nq * valid * d))
+
+    cross = (1, 1, 4096, 7 * 4096 + 64, 256)
+    hiera = 56 ** -0.5
+    yield "K5 fwd sam_b", rel_case(8, 12, 64, 64, 64)
+    yield "K5 fwd sam_h_d80", rel_case(2, 16, 64, 64, 80)
+    # chip_smoke.py's off-path K5 shapes: D = 160, N = 1050, KW = 80
+    yield "K5 fwd head_dim_160", rel_case(1, 2, 32, 32, 160)
+    yield "K5 fwd n1050_kh30_kw35", rel_case(1, 4, 30, 35, 64)
+    yield "K5 fwd kh48_kw80", rel_case(2, 4, 48, 80, 64)
+    for frame, slots, pointers in ((7, 7, 8), (1, 1, 1)):
+        for grad in (False, True):
+            yield (f"K6 fwd memory_cross_frame{frame}"
+                   + (" grad" if grad else ""),
+                   key_case(*cross, slot_bias(torch, slots, pointers), None,
+                            "memory", grad))
+    yield "K6 fwd memory_self", key_case(1, 1, 4096, 4096, 256, None, None,
+                                         "memory", False)
+    yield "K6 fwd hiera_global", key_case(1, 8, 4096, 4096, 64, None, hiera,
+                                          "packed", False)
+    yield "K6 fwd hiera_global_d56", key_case(1, 8, 4096, 4096, 56, None,
+                                              None, "packed", False)
+
+
+def key_bias_forward_digest(torch, fl):
+    """run() of K6's bf16 forward at SAM2's memory cross-attention with
+    frame 7's bias (split keys), returning out and lse."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn(1, 1, n, 256, device="cuda", generator=gen).to(
+        torch.bfloat16) for n in (4096, 7 * 4096 + 64, 7 * 4096 + 64))
+    bias = slot_bias(torch, 7, 8)
+    return lambda: fl.flash_attention(q, k, v, bias, return_lse=True)
+
+
 def key_bias_backward_cases(torch, fl):
     """(name, run) of K6's bf16 backward on seeded inputs; run() returns
     dq, dk, dv."""
@@ -336,6 +431,17 @@ def worker(root, build_only):
                                      "library_ms": time_ms(torch, library),
                                      "bound_ms": bound}
         torch.cuda.empty_cache()
+    for name, (kernel, library, bound) in flash_forward_cases(torch, fl):
+        record["cases"][name] = {"ms": time_ms(torch, kernel, iters=20),
+                                 "library_ms": time_ms(torch, library,
+                                                       iters=20),
+                                 "bound_ms": bound}
+        torch.cuda.empty_cache()
+    run = key_bias_forward_digest(torch, fl)
+    first, second = digest(torch, run()[:1]), digest(torch, run()[:1])
+    record["cases"]["K6 fwd digest memory_cross_frame7"] = {
+        "ms": time_ms(torch, run, iters=5), "digest": first,
+        "reproducible": first == second}
     for name, (kernel, library, bound) in backward_cases(torch, fa, ab):
         record["cases"][name] = {
             "ms": time_ms(torch, kernel),

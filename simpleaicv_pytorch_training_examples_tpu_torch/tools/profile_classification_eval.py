@@ -31,7 +31,10 @@ CATEGORIES = (
     ("rel-pos flash attention kernel (K5)", ("flash_relpos",)),
     ("key-bias flash attention backward kernel (K6)",
      ("flash_keybias_bwd",)),
-    ("key-bias flash attention kernel (K6)", ("flash_keybias",)),
+    # the forward's split merge: K6's at SAM2's memory attention (K5 splits
+    # at no main-path shape)
+    ("key-bias flash attention kernel (K6)", ("flash_keybias",
+                                              "flash_fwd_merge")),
     ("attention kernel", ("attention_fwd", "attention_bias_fwd")),
     ("layer norm kernel", ("layer_norm_fwd_", "layer_norm_bwd_",
                            "reduce_partials")),

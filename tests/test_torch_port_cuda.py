@@ -31,7 +31,12 @@ its plan changes: N from 50 to 1024 (one pass up to 264 keys, groups of
 and K3's and K4's layouts, two runs equal bit for bit; K1's, K2's and
 K9's bf16 forward and backward (``short_attention_fwd.cu``,
 ``short_attention_bwd.cu``) at N = 256, 257, 264 and 265, the edges of the
-one-pass row, two backward runs equal bit for bit.
+one-pass row, two backward runs equal bit for bit; K5's and K6's bf16
+forward (``flash_attention_fwd.cu``) at every head-dim shape (D = 56, 64,
+80, 160, 256) with and without P's residual at a shape where the keys
+split, against the plain version and the plain split walk, two runs equal
+bit for bit at split shapes, the masked keys' k and v replaced by noise
+without a changed bit, and K5 at N = 1050, KW = 80 and 128.
 Tolerances:
 attention and its gradients bf16 atol 2e-2 per unit of the reference's
 scale, fp32 1e-4; the rel-pos gradients drel_h, drel_w (fp32 sums of small
@@ -576,6 +581,120 @@ def test_key_bias_flash_takes_unaligned_tensors_and_refuses_the_rest(cuda):
     want = fl.flash_attention_backward_reference(q, k, v, bias, dout)
     for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
         _close(leaf.grad, w, torch.bfloat16, name)
+
+
+# ------------------------------------ K5 and K6 bf16 forward on wgmma
+
+
+def _slots(b, nk, valid, slot=128):
+    """[B, Nk] key bias: 0 on the 128-key slots in ``valid`` and on the last
+    4 keys (a pointer in the ragged last tile), -1e9 elsewhere."""
+    bias = torch.full((b, nk), -1e9, device="cuda")
+    for i in valid:
+        bias[:, i * slot:(i + 1) * slot] = 0.0
+    bias[:, nk - 4:] = 0.0
+    return bias
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("d", [56, 64, 80, 160, 256])
+def test_flash_forward_head_dims_at_a_split_shape(cuda, d, residual):
+    """K6's bf16 forward at each of the kernel's head-dim shapes (56 read
+    as 64, 64, 80 with a 16-column tail, 160 as 192, 256), with and without
+    P's residual (a gradient to come), at B = H = 1 where the keys split
+    (300 queries, 3 blocks: 11 splits of one tile each), empty slots before
+    and after the valid ones: against the plain version and the plain split
+    walk with the kernel's splits, bf16 2e-2."""
+    gen = torch.Generator(device="cuda").manual_seed(d + residual)
+    b, h, nq, nk = 1, 1, 300, 5 * 128 + 60
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, "memory", torch.bfloat16)
+    bias = _slots(b, nk, (1, 3))
+    leaves = [t.detach().requires_grad_(residual) for t in (q, k, v)]
+    out, lse = fl.flash_attention(*leaves, bias, return_lse=True)
+    torch.cuda.synchronize()
+    splits = fl.forward_splits(b, h, nq, nk, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    assert splits > 1
+    want, want_lse = fl.flash_attention_reference(q, k, v, bias,
+                                                  return_lse=True)
+    walk = fl.flash_attention_split_reference(q, k, v, bias, splits=splits,
+                                              residual=residual)
+    _close(out.detach(), want, torch.bfloat16, "out")
+    _close(out.detach(), walk, torch.bfloat16, "out against the walk")
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-3 * max(1.0, want_lse.abs().max().item()), err
+
+
+@pytest.mark.parametrize("nq,nk,d,valid", [
+    (512, 7 * 128 + 64, 256, (0, 2, 6)),   # SAM2's memory cross-attention, cut
+    (512, 512, 256, None),                 # its self-attention
+    (256, 3 * 128 + 64, 64, (1,)),
+])
+def test_flash_forward_is_reproducible_at_split_shapes(cuda, nq, nk, d, valid):
+    """Two runs of the bf16 forward at split shapes give the same bits, out
+    and lse (the splits merge in a fixed order, no atomics)."""
+    gen = torch.Generator(device="cuda").manual_seed(nq + nk + d)
+    q, k, v = _key_bias_inputs(gen, 1, 1, nq, nk, d, "memory", torch.bfloat16)
+    bias = None if valid is None else _slots(1, nk, valid)
+    first = fl.flash_attention(q, k, v, bias, return_lse=True)
+    again = fl.flash_attention(q, k, v, bias, return_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    _close(first[0], fl.flash_attention_reference(q, k, v, bias),
+           torch.bfloat16, "out")
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_forward_ignores_masked_keys_bit_for_bit(cuda, d):
+    """The masked keys' k and v replaced by large noise leave out and lse
+    the same bit for bit (empty tiles skipped, masked keys of kept tiles at
+    P = 0), with empty slots before the first valid one; batch row 1 has no
+    valid key and averages V."""
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    b, h, nq, nk = 2, 2, 200, 6 * 128 + 60
+    q, k, v = _key_bias_inputs(gen, b, h, nq, nk, d, "contiguous",
+                               torch.bfloat16)
+    bias = _slots(b, nk, (2, 4))
+    bias[1] = -1e9
+    first = fl.flash_attention(q, k, v, bias, return_lse=True)
+    masked = bias[0] < -1e8
+    k2, v2 = k.clone(), v.clone()
+    k2[0, :, masked] = 100 * _randn(gen, h, int(masked.sum()), d,
+                                    dtype=torch.bfloat16)
+    v2[0, :, masked] = 100 * _randn(gen, h, int(masked.sum()), d,
+                                    dtype=torch.bfloat16)
+    again = fl.flash_attention(q, k2, v2, bias, return_lse=True)
+    assert torch.equal(first[0][0], again[0][0])
+    assert torch.equal(first[1][0], again[1][0])
+    _close(first[0], fl.flash_attention_reference(q, k, v, bias),
+           torch.bfloat16, "out")
+
+
+@pytest.mark.parametrize("b,h,kh,kw,d", [
+    (1, 2, 30, 35, 64),      # N = 1050: a ragged last key tile
+    (2, 2, 48, 80, 64),      # KW = 80: tiles across key-grid rows
+    (1, 2, 32, 128, 80),     # KW = 128: rel_w reloaded every tile
+    (1, 1, 32, 32, 160),
+    (1, 4, 16, 64, 128),
+])
+def test_flash_relpos_bf16_forward_shapes(cuda, b, h, kh, kw, d):
+    """K5's bf16 forward where its plan changes: KW a multiple of 64 (rel_w
+    in registers, rel_h staged) or not, N off the 64-key tiles, D = 80's
+    tail and D = 128, 160; against the plain version, and two runs equal
+    bit for bit."""
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n + d)
+    qkv = _randn(gen, b, n, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    out, lse = fl.flash_attention_relpos(q, k, v, rel_h, rel_w,
+                                         return_lse=True)
+    want, want_lse = fl.flash_attention_relpos_reference(
+        q, k, v, rel_h, rel_w, return_lse=True)
+    _close(out, want, torch.bfloat16, "out")
+    err = (lse - want_lse).abs().max().item()
+    assert err <= 1e-3 * max(1.0, want_lse.abs().max().item()), err
+    again = fl.flash_attention_relpos(q, k, v, rel_h, rel_w, return_lse=True)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
 
 
 def _key_bias_inputs(gen, b, h, nq, nk, d, layout, dtype):

@@ -17,7 +17,11 @@ composition's VJP. K6's plain version is held against the TPU kernel
 and atol 2e-5 (the JAX package's own tolerance for it), with the JAX
 wrapper's padding (head dim to 64, keys and queries to the block, -1e9 on
 the padded keys) done here; its plain backward against ``_flash_backward``
-in interpret mode, padded the same way.
+in interpret mode, padded the same way. The plain version of the bf16
+forward's walk, the keys split into interleaved 64-key tiles with the empty
+ones skipped and the splits merged in order
+(``flash_attention_split_reference``), is held against both at 2e-5; the
+split rule and the skip rule are pure functions tested here.
 
 Tolerances: fp32 atol 1e-5 (same math, another summation order; the
 rel-pos kernels atol 2e-5, rtol 1e-5, as the JAX package's own tests hold
@@ -849,6 +853,117 @@ def test_key_bias_backward_splits(b, h, nq, nk, d, want):
     assert port_fl.key_bias_backward_splits(b, h, nq, nk, d, 132) == want
     assert port_fl.padded_head_dim(d) == (64 if d <= 64 else
                                           128 if d <= 128 else 256)
+
+
+def _split_case_bias(kind, b, nk, rs):
+    """[B, Nk] fp32 key biases of the split-walk cases: "masked_first",
+    empty 64-key tiles before the first real key and a pointer tail in the
+    ragged last tile; "no_real_key", batch row 1 all masked (it averages V)
+    beside a row with slots; "random", a bias of unit scale."""
+    if kind == "random":
+        return rs.standard_normal((b, nk)).astype(np.float32)
+    bias = np.full((b, nk), -1e9, np.float32)
+    bias[0, 2 * 64 + 10:4 * 64] = 0.0       # tiles 0-1 empty, tile 2 partly
+    bias[0, nk - 3:] = 0.0                  # a valid pointer in the last tile
+    if kind == "masked_first":
+        bias[1:] = bias[0]
+    return bias
+
+
+@pytest.mark.parametrize("kind", ["masked_first", "no_real_key", "random"])
+def test_flash_split_walk_matches_plain_version_and_jax_kernel(kind):
+    """The plain version of the bf16 forward's split walk and merge
+    (``flash_attention_split_reference``) at S = 1, 2 and 3 against the
+    plain version and the TPU kernel ``_flash_forward`` in interpret mode,
+    fp32 rtol and atol 2e-5 (the JAX package's own tolerance for the TPU
+    kernel), out and log-sum-exp: key tiles masked before the first real key,
+    a batch row with no real key, a ragged last tile (Nk = 333). The TPU
+    wrapper pads the keys to its block with -1e9, which a row with no real
+    key averages in, so that row is held to the plain version alone.
+    Skipping the empty tiles leaves out and lse the same bit for bit."""
+    b, h, nq, nk, d = 2, 2, 70, 333, 32
+    rs = np.random.RandomState(333 + len(kind))
+    q = rs.standard_normal((b, h, nq, d)).astype(np.float32)
+    k, v = rs.standard_normal((2, b, h, nk, d)).astype(np.float32)
+    bias = _split_case_bias(kind, b, nk, rs)
+    want, want_lse = _jax_flash_forward(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(bias), None)
+    tq, tk, tv, tb = (torch.from_numpy(a) for a in (q, k, v, bias))
+    plain, plain_lse = port_fl.flash_attention_reference(tq, tk, tv, tb,
+                                                         return_lse=True)
+    rows = 1 if kind == "no_real_key" else b     # batch rows the TPU holds
+    for splits in (1, 2, 3):
+        got, lse = port_fl.flash_attention_split_reference(
+            tq, tk, tv, tb, splits=splits, return_lse=True)
+        assert got.shape == (b, h, nq, d) and lse.shape == (b, h, nq)
+        for w, w_lse, n in ((want, want_lse, rows), (plain, plain_lse, b)):
+            np.testing.assert_allclose(_to_np(got)[:n], _to_np(w)[:n],
+                                       rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(_to_np(lse)[:n], _to_np(w_lse)[:n],
+                                       rtol=2e-5, atol=2e-5)
+        every, every_lse = port_fl.flash_attention_split_reference(
+            tq, tk, tv, tb, splits=splits, skip=False, return_lse=True)
+        assert torch.equal(got, every) and torch.equal(lse, every_lse)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_flash_split_walk_in_bf16(residual):
+    """In bf16 the split walk rounds P (and, with a gradient to come, adds
+    its rounded residual) as the kernel does: within 2e-2 of the plain
+    version at S = 1 and 4; with the residual closer to the fp32
+    computation of the same inputs than with P rounded alone."""
+    b, h, nq, nk, d = 1, 2, 64, 300, 64
+    rs = np.random.RandomState(64 + residual)
+    q, k, v = (torch.from_numpy(rs.standard_normal((b, h, n, d)).astype(
+        np.float32)).to(torch.bfloat16) for n in (nq, nk, nk))
+    bias = torch.from_numpy(_split_case_bias("masked_first", b, nk, rs))
+    plain = port_fl.flash_attention_reference(q, k, v, bias)
+    exact = port_fl.flash_attention_reference(q.float(), k.float(), v.float(),
+                                              bias)
+    err = lambda t: (t.float() - exact).abs().max().item()
+    rounded = err(port_fl.flash_attention_split_reference(q, k, v, bias))
+    for splits in (1, 4):
+        got = port_fl.flash_attention_split_reference(
+            q, k, v, bias, splits=splits, residual=residual)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_to_np(got), _to_np(plain), rtol=0,
+                                   atol=2e-2)
+        if residual:
+            assert err(got) < rounded
+
+
+@pytest.mark.parametrize("b,h,nq,nk,want", [
+    (1, 1, 4096, 7 * 4096 + 64, 4),   # SAM2's memory cross-attention
+    (1, 1, 4096, 4096, 4),            # its self-attention
+    (1, 8, 4096, 4096, 1),            # Hiera's global blocks
+    (8, 12, 4096, 4096, 1),           # SAM-B's (K5)
+    (1, 2, 1024, 1024, 8),            # K5 at 32 x 32
+    (1, 1, 100, 70, 2),               # capped by the key tiles walked
+    (1, 1, 64, 1, 1),
+])
+def test_flash_forward_splits(b, h, nq, nk, want):
+    """The bf16 forward's split rule on an H100's 132 SMs: the SMs over the
+    128-row query blocks of all heads, rounded down, at least 1, at most the
+    64-key tiles walked; the partials' columns by head dim."""
+    assert port_fl.forward_splits(b, h, nq, nk, 132) == want
+    assert [port_fl.forward_head_dim(d) for d in (8, 56, 64, 80, 96, 128,
+                                                  160, 200, 256)] == [
+        64, 64, 64, 80, 128, 128, 192, 256, 256]
+
+
+def test_key_tiles_kept_skips_only_where_a_row_has_a_real_key():
+    """The skip rule: a tile whose every key is masked (<= -5e8) or past Nk
+    goes where its batch row has a real key; a row with no real key keeps
+    every tile; a partly valid tile stays."""
+    nk = 300
+    bias = torch.full((3, nk), -1e9)
+    bias[0, 130:140] = 0.0          # tile 2 only
+    bias[0, 299] = -4e8             # above the threshold: real
+    bias[2, :] = -5e8               # at the threshold: masked, and no real key
+    kept = port_fl.key_tiles_kept(bias, nk)
+    assert kept.shape == (3, 5)
+    assert kept[0].tolist() == [False, False, True, False, True]
+    assert kept[1].all() and kept[2].all()
 
 
 def test_tma_operand_reads_aligned_views_in_place_and_copies_the_rest():
