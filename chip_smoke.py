@@ -116,9 +116,24 @@ path's, binarised masks apart from fp32's on at most the larger of 1% and
 and the plain path's difference from fp32.
 
 Rel-pos attention backward kernels (K3, K4, K5) vs their plain versions:
-dq, dk, dv (K3: the packed dqkv) bf16 atol 2e-2, fp32 1e-4; drel_h and
-drel_w (fp32 sums of dS0) within the same fractions of the larger of their
-largest plain values; both runs of the backward bit for bit equal. SAM
+drel_h and drel_w (fp32 sums of dS0) within the attention tolerance's
+fraction (bf16 2e-2, fp32 1e-4) of the larger of their largest plain
+values; both runs of the backward bit for bit equal. K3's and K4's dq, dk,
+dv (K3: the packed dqkv) bf16 atol 2e-2, fp32 1e-4. K5's dq, dk, dv are
+held to the plain version's floor, since a flat 2e-2 is about a third of a
+typical gradient element at SAM-B's global blocks (scores of std ~1.7 over
+4,096 keys): by ``key_bias_reading`` (bf16: RMS distance from the plain
+version's fp32 computation of the same inputs at most 1.25x the plain bf16
+version's, max distance at most the plain version's plus one bf16 ulp of
+the largest value; fp32: 1e-4 of the plain RMS); a control that runs K5's
+backward kernels with rel_w zeroed on one 64-row query tile (the
+forward's output and log-sum-exp kept) fails the run unless it fails that
+reading; in bf16 each of the two walks' device ms (``split_ms``, from
+torch.profiler). K5's bf16 backward (``flash_relpos_bwd.cu``) must show
+HGMMA (``wgmma``) in the SASS of both walks' kernels at every head-dim
+shape and KW mode, no kernel of it may spill or have its ``wgmma``
+pipeline serialized by ptxas, and ``flash_attention.cu``'s library must
+hold no bf16 kernel. SAM
 training: the train CLI's loss finite on every step and its last epoch's
 mean below its first's; K3 16 forward and 8 backward launches and K5 8
 and 4 a step (checkpointing runs each block's forward twice). SAM
@@ -152,8 +167,7 @@ forward kernels of K5 and K6 (``flash_attention_fwd.cu``) must show HGMMA
 (``wgmma``) in the SASS of the built library, every walk kernel at every
 head-dim shape, no kernel of it may spill or have its ``wgmma``
 pipeline serialized by ptxas (C7511, C7515, C7519 in its ``-v`` output,
-where the run compiled it), and ``flash_attention.cu``'s library must hold
-no bf16 forward at all. K1 with Hiera's scale and K2 at
+where the run compiled it). K1 with Hiera's scale and K2 at
 d = 56 at Hiera's four window shapes: as K1 and K2 above. SAM2 tracking,
 kernels vs plain attention on the same sharpened weights (Hiera's qkv and
 the memory attention's q and k projections LeCun-normal, the memory
@@ -882,13 +896,19 @@ def rel_attention_backward_bound(b, h, n, n_keys, d, kh, kw, dtype_name,
 
 def check_rel_backward_kernel(torch, F, name, case, results):
     """Hold the backward of K3, K4 or K5 against its plain version at one
-    shape with a seeded dout: dq, dk, dv (K3: the packed dqkv) within the
-    attention tolerance, drel_h and drel_w within the same fraction of
-    their largest plain value; time the backward kernels alone (the graph
-    is kept), the plain backward and SDPA's backward with the bias expanded
-    to [B, H, N, N] and requiring grad (a yardstick, never used by the
-    port; the bias gradient is not reduced to drel); append the record to
-    results[name + " bwd"]."""
+    shape with a seeded dout: drel_h and drel_w within the attention
+    tolerance's fraction of their largest plain value; K3's and K4's dq,
+    dk, dv (K3: the packed dqkv) within the attention tolerance; K5's dq,
+    dk, dv at the plain version's floor (``key_bias_reading``: bf16 against
+    the plain version's fp32 computation of the same inputs), and a control
+    that runs K5's backward kernels with rel_w zeroed on one 64-row query
+    tile (the forward's output and lse kept) must fail that reading; two
+    backward runs bit for bit equal. Time the backward kernels alone (the
+    graph is kept; K5 in bf16 also each of its two kernels' device ms,
+    ``kernel_split_ms``), the plain backward and SDPA's backward with the
+    bias expanded to [B, H, N, N] and requiring grad (a yardstick, never
+    used by the port; the bias gradient is not reduced to drel); append the
+    record to results[name + " bwd"]."""
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         flash_attention as fl, fused_attention as fa)
     dtype = case["dtype"]
@@ -924,7 +944,7 @@ def check_rel_backward_kernel(torch, F, name, case, results):
                 q, k, v, rel_h, rel_w, dout, n_real)
             wrapper = fa.fused_attention_relwin
         else:
-            out = fl.flash_attention_relpos(*leaves)
+            out, lse = fl.flash_attention_relpos(*leaves, return_lse=True)
             plain = lambda: fl.flash_attention_relpos_backward_reference(
                 q, k, v, rel_h, rel_w, dout)
             wrapper = fl.flash_attention_relpos
@@ -934,6 +954,18 @@ def check_rel_backward_kernel(torch, F, name, case, results):
     got = kernel_bwd()
     torch.cuda.synchronize()
     launched = wrapper.backward_launches - before
+    again = kernel_bwd()
+    reproducible = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    floor = name == "K5"    # K5's dq, dk, dv at the plain version's floor
+    bf16 = dtype == torch.bfloat16
+    if floor:   # rel_w zeroed on one query tile, in both walks' logits
+        rows = slice(64 * (n // 128), 64 * (n // 128) + 64)
+        dropped = rel_w.clone()
+        dropped[:, :, rows] = 0.0
+        control = fl.flash_attention_relpos_backward(
+            q, k, v, rel_h, dropped, dout, out.detach(), lse)
+        del dropped
     want = plain()
     if name == "K3":   # the packed dqkv against the plain one
         names, got_att, want_att = ("dqkv",), got[:1], want[:1]
@@ -945,10 +977,21 @@ def check_rel_backward_kernel(torch, F, name, case, results):
     drel_errs = {nm: err(g, r) for nm, g, r in zip(
         ("drel_h", "drel_w"), got[-2:], want[-2:])}
     finite = all(bool(torch.isfinite(g).all()) for g in got)
-    again = kernel_bwd()
-    reproducible = all(torch.equal(x, y) for x, y in zip(got, again))
-    del got, want, again
-    tol = BF16_ATOL if dtype == torch.bfloat16 else FP32_ATOL
+    readings, control_readings, floor_ok, control_ok = {}, {}, True, True
+    if floor:
+        with torch.no_grad():
+            exact = (fl.flash_attention_relpos_backward_reference(
+                q.float(), k.float(), v.float(), rel_h, rel_w, dout.float())
+                     if bf16 else (None,) * 3)
+            for nm, g, r, e, c in zip(names, got_att, want_att, exact,
+                                      control):
+                ok, readings[nm] = key_bias_reading(torch, g, r, e)
+                c_ok, control_readings[nm] = key_bias_reading(torch, c, r, e)
+                floor_ok &= ok
+                control_ok &= c_ok
+        del exact, control
+    del got, want
+    tol = BF16_ATOL if bf16 else FP32_ATOL
     dtype_name = str(dtype).split(".")[-1]
     big = n > 1024
     record = {"case": case["label"], "shape": list(case["shape"]),
@@ -960,6 +1003,13 @@ def check_rel_backward_kernel(torch, F, name, case, results):
               "ms": time_ms(torch, kernel_bwd, iters=10 if big else 20),
               "plain_ms": time_ms(torch, plain, iters=2 if big else 5,
                                   warmup=1)}
+    if floor:
+        record.update(readings=readings, control=control_readings)
+        if bf16:    # the dQ walk and the dK/dV walk, device ms a call
+            record["split_ms"] = {
+                kernel.replace("flash_relpos_bwd_", ""): value
+                for kernel, value in kernel_split_ms(
+                    torch, kernel_bwd, K5_BWD_KERNELS).items()}
     lib_q, lib_k, lib_v = (t.detach().requires_grad_() for t in (q, k, v))
     bias = (heads(rel_h)[..., :, None] + heads(rel_w)[..., None, :]).reshape(
         b, h, n, n)
@@ -981,12 +1031,17 @@ def check_rel_backward_kernel(torch, F, name, case, results):
         raise AssertionError(f"{name} bwd {case['label']}: the autograd "
                              f"backward launched its kernels {launched} "
                              "times, expected 1")
-    if not (finite and reproducible and record["max_abs_err"] <= tol
+    attention_ok = floor_ok if floor else record["max_abs_err"] <= tol
+    if not (finite and reproducible and attention_ok
             and max(drel_errs.values()) <= tol * drel_scale):
         raise AssertionError(f"{name} bwd {case['label']}: max |kernel - "
-                             f"plain| {errs}, drel {drel_errs} (scale "
-                             f"{drel_scale}), tol {tol}, finite {finite}, "
-                             f"reproducible {reproducible}")
+                             f"plain| {errs}, readings {readings}, drel "
+                             f"{drel_errs} (scale {drel_scale}), tol {tol}, "
+                             f"finite {finite}, reproducible {reproducible}")
+    if floor and control_ok:
+        raise AssertionError(f"{name} bwd {case['label']}: rel_w zeroed on "
+                             f"one query tile passes the check "
+                             f"({control_readings})")
     results.setdefault(name + " bwd", []).append(record)
 
 
@@ -1186,6 +1241,11 @@ SHORT_NO_BIAS_KERNELS = 18 + 20
 SHORT_BIASED_BWD_KERNELS = 2 * 20
 K6_BWD_KERNELS = ("flash_keybias_bwd_delta", "flash_keybias_bwd_dq",
                   "flash_keybias_bwd_dkv", "flash_keybias_bwd_reduce")
+# K5's bf16 backward (flash_relpos_bwd.cu): the dQ and the dK/dV walk, each
+# at 7 shapes (D <= 64 and D = 80 with and without the key-grid mode, D =
+# 128, 192, 256)
+K5_BWD_KERNELS = ("flash_relpos_bwd_dq", "flash_relpos_bwd_dkv")
+K5_BWD_SHAPES = 7
 # the bf16 forward (flash_attention_fwd.cu): K6's walk at 5 head-dim shapes,
 # with and without P's residual; K5's at 3 with rel_w in registers (D <=
 # 128) and at 5 with both rel terms read each score; and the splits' merge
@@ -3325,11 +3385,6 @@ def main():
     walks = {k: sum(k in name for name in hgmma) for k in FLASH_FWD_KERNELS}
     if walks != FLASH_FWD_KERNELS or not all(hgmma.values()):
         raise AssertionError(f"K5/K6 forward kernels without HGMMA: {hgmma}")
-    old_fwd = [name for name in hgmma_counts(
-        build.library_path("flash_attention")) if re.search(
-            r"flash_\w+_fwd_bf16", name)]
-    if old_fwd:
-        raise AssertionError(f"mma.sync bf16 forward left: {old_fwd}")
     # ptxas -v of the new forward where this run compiled it: no kernel
     # spills, and none has its wgmma pipeline serialized (C7511, C7515,
     # C7519)
@@ -3346,6 +3401,39 @@ def main():
         if spills or serialized:
             raise AssertionError(f"flash_attention_fwd.cu: spills {spills}, "
                                  f"serialized wgmma {serialized}")
+    # K5's bf16 backward on wgmma: HGMMA in both walks' kernels at every
+    # shape; where this run compiled them, ptxas -v shows no spill and no
+    # serialized wgmma pipeline; flash_attention.cu's library holds no bf16
+    # kernel at all
+    hgmma = {name: n for name, n in hgmma_counts(
+        build.library_path("flash_relpos_bwd")).items()
+        if any(k in name for k in K5_BWD_KERNELS)}
+    log("sass flash_relpos_bwd", hgmma=hgmma)
+    walks = {k: sum(k + "I" in name for name in hgmma)
+             for k in K5_BWD_KERNELS}
+    if (set(walks.values()) != {K5_BWD_SHAPES}
+            or not all(hgmma.values())):
+        raise AssertionError(f"K5 backward kernels without HGMMA: {hgmma}")
+    bwd_log = build_logs.get("flash_relpos_bwd")
+    if bwd_log is not None:
+        lines = bwd_log.splitlines()
+        registers = sorted({int(m.group(1)) for m in (
+            re.search(r"Used (\d+) registers", line) for line in lines)
+            if m})
+        spills = [line.strip() for line in lines if "spill" in line and
+                  " 0 bytes spill stores, 0 bytes spill loads" not in line]
+        serialized = [line.strip() for line in lines
+                      if re.search(r"C75(11|15|19)", line)]
+        log("ptxas flash_relpos_bwd", kernels=sum(
+            "Compiling entry" in line for line in lines),
+            registers=registers, spills=spills, serialized=serialized)
+        if spills or serialized:
+            raise AssertionError(f"flash_relpos_bwd.cu: spills {spills}, "
+                                 f"serialized wgmma {serialized}")
+    old_bf16 = [name for name in hgmma_counts(
+        build.library_path("flash_attention")) if "_bf16" in name]
+    if old_bf16:
+        raise AssertionError(f"mma.sync bf16 kernels left: {old_bf16}")
     # K1/K2/K9 on wgmma: HGMMA in both backward kernels and in the forward's
     # kNoBias mode at every chunk shape and head dim they instantiate; K2b,
     # K3 and K4 likewise in both backward kernels of the biased modes (the
@@ -4247,7 +4335,7 @@ def main():
               "short_attention_bwd.cu",
               "fused_attention.py:924", sam_h_train_counts["K4 bwd"]),
         entry("K5 bwd", "K5 flash_attention_relpos bwd",
-              "flash_attention.cu", "flash_attention.py:541",
+              "flash_relpos_bwd.cu", "flash_attention.py:541",
               sam_train_counts["K5 bwd"]),
         entry("K6", "K6 flash_attention fwd", "flash_attention_fwd.cu",
               "flash_attention.py:113", sam2_counts["K6"]),

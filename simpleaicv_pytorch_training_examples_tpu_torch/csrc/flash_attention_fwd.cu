@@ -18,7 +18,7 @@
 // q [B, H, Nq, D], k and v [B, H, Nk, D], each read in place through a 4-D
 // tensor map {D, N, H, B} with its own strides; the output is written
 // through its own. Writes the fp32 log-sum-exp of every query row in the
-// natural log, which K5's backward (flash_attention.cu) and K6's
+// natural log, which K5's backward (flash_relpos_bwd.cu) and K6's
 // (flash_keybias_bwd.cu) read. fp32 inputs keep flash_attention.cu's FMA
 // forward.
 //

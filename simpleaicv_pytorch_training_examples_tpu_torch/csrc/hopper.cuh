@@ -1,10 +1,10 @@
 // Hopper (sm_90a) helpers shared by the kernels that run wgmma products on
 // TMA-fed tiles (flash_attention_fwd.cu, flash_keybias_bwd.cu,
-// short_attention_fwd.cu, short_attention_bwd.cu): named barriers,
-// setmaxnreg, mbarriers, TMA box loads, the wgmma fences, shared memory
-// matrix descriptors, the wgmma shapes the kernels use, the store of a
-// warpgroup's accumulators, and the host's tensor-map encoding through
-// libcuda's cuTensorMapEncodeTiled, fetched through the runtime
+// flash_relpos_bwd.cu, short_attention_fwd.cu, short_attention_bwd.cu):
+// named barriers, setmaxnreg, mbarriers, TMA box loads, the wgmma fences,
+// shared memory matrix descriptors, the wgmma shapes the kernels use, the
+// store of a warpgroup's accumulators, and the host's tensor-map encoding
+// through libcuda's cuTensorMapEncodeTiled, fetched through the runtime
 // (cudaGetDriverEntryPoint, by version from CUDA 12.5), so that nothing
 // links against libcuda.
 //
@@ -229,6 +229,23 @@ __device__ __forceinline__ void wgmma_ss<32, 0>(float (&d)[16], uint64_t a, uint
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d (64 x 64, fp32) = A (64 x 16) . B (16 x 64), both K-major in shared
+// memory: the first k-step of a product, d an output only (its old values
+// are not read, so they need not stay live before the product).
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
 // d (64 x 64, fp32) = (acc ? d : 0) + A (64 x 16, bf16 registers) . B (16 x
 // 64), B K-major.
 __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
@@ -406,13 +423,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map {D, N, H, B} of one bf16 operand (strides in elements, each a
-// multiple of 8, the base 16-byte aligned): boxes of box_cols x box_rows,
-// the given swizzle, zeros past every edge. A stride of an axis of size 1
-// is never used and is set to a packed one.
+// A 4-D map {D, N, H, B} of one bf16 operand (or one of the given dtype,
+// bf16 or fp32; strides in elements, each a multiple of 16 bytes, the base
+// 16-byte aligned): boxes of box_cols x box_rows, the given swizzle, zeros
+// past every edge. A stride of an axis of size 1 is never used and is set
+// to a packed one.
 inline bool make_map(CUtensorMap* map, const void* base, long long sb, long long sh, long long sn,
                      int B, int H, int N, int D, int box_cols = 64, int box_rows = 64,
-                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                     CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const long long elem = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   // the CUDA driver's encode fails on a thread with no current context, as
@@ -423,15 +443,15 @@ inline bool make_map(CUtensorMap* map, const void* base, long long sb, long long
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const long long given[3] = {sn, sh, sb};
   cuuint64_t strides[3];
-  long long packed = (static_cast<long long>(D) * 2 + 15) / 16 * 16;  // bytes
+  long long packed = (static_cast<long long>(D) * elem + 15) / 16 * 16;  // bytes
   for (int i = 0; i < 3; ++i) {
-    strides[i] = static_cast<cuuint64_t>(dims[i + 1] == 1 ? packed : given[i] * 2);
+    strides[i] = static_cast<cuuint64_t>(dims[i + 1] == 1 ? packed : given[i] * elem);
     packed = static_cast<long long>(strides[i]) * static_cast<long long>(dims[i + 1]);
   }
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
                              1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+  return encode(map, dtype, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

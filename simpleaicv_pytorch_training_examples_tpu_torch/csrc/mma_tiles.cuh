@@ -1,7 +1,7 @@
-// Tile helpers shared by the attention kernels (fused_attention.cu,
-// flash_attention.cu): cp.async copies into shared memory, mma.sync
-// m16n8k16 bf16 products with fp32 accumulation, ldmatrix fragment loads,
-// and the rows of a warp's 16 x D accumulators.
+// Tile helpers shared by the attention kernels: cp.async copies into
+// shared memory, mma.sync m16n8k16 bf16 products with fp32 accumulation and
+// ldmatrix fragment loads (K8's GEMMs), the bf16 packing and the
+// decomposed rel-pos bias's indexing.
 //
 // Fragment layout of mma.sync m16n8k16: g = lane / 4 is a fragment's row
 // (and g + 8), t = lane % 4 its column pair.
@@ -75,114 +75,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi) {
   const float2 r = __bfloat1622float2(__floats2bfloat162_rn(lo, hi));
   return pack_bf16(lo - r.x, hi - r.y);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Start copying `rows` rows of one head (row stride `sn`, D contiguous
-// elements) into shared memory [rows][LD]; rows at or past `nvalid` and
-// columns at or past D become zero. With vec (16-byte aligned rows, D % 8
-// == 0) the copy is asynchronous; otherwise it is done here element-wise.
-template <int DP, int LD>
-__device__ void load_tile_bf16(bf16* dst, const bf16* src, long long sn, int rows,
-                               int nvalid, int D, bool vec) {
-  if (vec) {
-    constexpr int kVecPerRow = DP / 8;
-    for (int i = threadIdx.x; i < rows * kVecPerRow; i += blockDim.x) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const bool valid = r < nvalid && c < D;
-      cp_async16(dst + r * LD + c, valid ? src + r * sn + c : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * DP; i += blockDim.x) {
-      const int r = i / DP;
-      const int c = i % DP;
-      dst[r * LD + c] = (r < nvalid && c < D) ? src[r * sn + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// The A fragments of a warp's 16 rows (row-major in shared memory).
-template <int DP, int LD>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[DP / 16][4], const bf16* rows16,
-                                             int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < DP / 16; ++ks) {
-    f[ks][0] = ld_u32(rows16 + g * LD + 16 * ks + 2 * t);
-    f[ks][1] = ld_u32(rows16 + (g + 8) * LD + 16 * ks + 2 * t);
-    f[ks][2] = ld_u32(rows16 + g * LD + 16 * ks + 8 + 2 * t);
-    f[ks][3] = ld_u32(rows16 + (g + 8) * LD + 16 * ks + 8 + 2 * t);
-  }
-}
-
-// s[j] = own(16 x DP) . other(rows 8j..8j+7)^T for the FR fragments of one
-// tile whose first row is `first` (a multiple of 16); 16-row groups at or
-// past `limit` stay zero. One ldmatrix.x4 brings the B fragments of two
-// adjacent 8-row groups for one k-step: lane -> row (lane % 8) of the group
-// lane / 16, columns +0 or +8 by (lane / 8) % 2.
-template <int DP, int LD, int FR>
-__device__ __forceinline__ void own_times_other_t(float (&s)[FR][4],
-                                                  const uint32_t (&af)[DP / 16][4],
-                                                  const bf16* other, int first, int limit,
-                                                  int lane) {
-  const bf16* base = other + (lane % 8 + 8 * (lane / 16)) * LD + 8 * ((lane / 8) % 2);
-#pragma unroll
-  for (int j = 0; j < FR; j += 2) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    s[j + 1][0] = s[j + 1][1] = s[j + 1][2] = s[j + 1][3] = 0.f;
-    if (first + 8 * j < limit) {
-#pragma unroll
-      for (int ks = 0; ks < DP / 16; ++ks) {
-        uint32_t b[4];
-        ldmatrix_x4(b, base + 8 * j * LD + 16 * ks);
-        mma_16816(s[j], af[ks], b[0], b[1]);
-        mma_16816(s[j + 1], af[ks], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc(16 x DP) += a(16 x 16) . x(16 rows x DP), x row-major in shared memory.
-template <int DP, int LD>
-__device__ __forceinline__ void accumulate_ax(float (&acc)[DP / 8][4], const uint32_t (&a)[4],
-                                              const bf16* x16, int lane) {
-  // lane -> row of one of four 8x8 matrices: rows +0/+8, columns +0/+8
-  const int mi = lane / 8;
-  const bf16* xr = x16 + ((mi & 1) * 8 + lane % 8) * LD + (mi >> 1) * 8;
-#pragma unroll
-  for (int e2 = 0; e2 < DP / 16; ++e2) {
-    uint32_t b[4];
-    ldmatrix_x4_trans(b, xr + 16 * e2);
-    mma_16816(acc[2 * e2], a, b[0], b[1]);
-    mma_16816(acc[2 * e2 + 1], a, b[2], b[3]);
-  }
-}
-
-// Write a warp's 16 x DP accumulators as bf16 rows row0.. of one head.
-template <int DP>
-__device__ __forceinline__ void store_rows_bf16(bf16* head, long long sn,
-                                                const float (&acc)[DP / 8][4], int row0, int N,
-                                                int D, int g, int t, int out_vec) {
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row >= N) continue;
-      bf16* dst = head + row * sn + c;
-      if (out_vec) {
-        if (c < D)
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
-      } else {
-        if (c < D) dst[0] = __float2bfloat16_rn(acc[j][2 * r]);
-        if (c + 1 < D) dst[1] = __float2bfloat16_rn(acc[j][2 * r + 1]);
-      }
-    }
-  }
 }
 
 // Decomposed relative-position bias of SAM's attention: the score of query

@@ -21,7 +21,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = ("fused_attention", "short_attention_fwd", "short_attention_bwd",
            "flash_attention", "flash_attention_fwd", "flash_keybias_bwd",
-           "layer_norm", "attn_block")
+           "flash_relpos_bwd", "layer_norm", "attn_block")
 # K8 compiles K1's device code into its own library
 INCLUDES = {"attn_block": ("fused_attention", "short_attention_fwd",
                            "short_attention_bwd")}

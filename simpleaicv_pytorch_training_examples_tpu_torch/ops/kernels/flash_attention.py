@@ -11,12 +11,22 @@ on tiles that TMA loads; fp32: ``csrc/flash_attention.cu``) walks the keys
 once with an online softmax and never builds the ``[N, N]`` score matrix;
 it also returns the fp32 log-sum-exp of every query row.
 ``FlashAttentionRelpos`` (a ``torch.autograd.Function``) saves the inputs, the output and the
-log-sum-exp; its backward computes delta = rowsum(dO * O) with one torch op
-(the JAX package computes it outside its kernel as well) and launches two
-kernels of the same source, which recompute P from the log-sum-exp and give
-dq, dk, dv and the fp32 drel_h, drel_w (the TPU kernel's math: dS0 = P *
-(dP - delta) unscaled for drel, rounded to the input dtype for dQ and dK,
-which are scaled after their products).
+log-sum-exp; its backward (``flash_attention_relpos_backward``) computes
+delta = rowsum(dO * O) with one torch op (the JAX package computes it
+outside its kernel as well) and launches two kernels, which recompute P
+from the log-sum-exp and give dq, dk, dv and the fp32 drel_h, drel_w (the
+TPU kernel's math: dS0 = P * (dP - delta) unscaled for drel, rounded to the
+input dtype for dQ and dK, which are scaled after their products). In bf16
+they are ``csrc/flash_relpos_bwd.cu``: wgmma products on tiles that TMA
+loads, a dQ walk over the key tiles and a dK/dV walk over the query tiles,
+no atomics (the same bits every run); where KW = 64 (SAM's global blocks,
+``relpos_backward_grid_mode``) a 64-key tile is one key-grid row, rel_w
+stays in the dQ walk's registers and drel_w accumulates there in key
+order, and the dK/dV walk takes each query tile's rel_w rows by TMA (the
+wrapper copies rel_w first where TMA cannot read it, and q, k, v, dO
+likewise through ``tma_operand``). ``flash_attention_relpos_walk_reference``
+is the plain version of that order. In fp32 they are the FMA kernels of
+``csrc/flash_attention.cu``.
 
 A CPU tensor takes the plain PyTorch versions
 (``flash_attention_relpos_reference``, the JAX package's off-TPU
@@ -148,6 +158,58 @@ def flash_attention_relpos_backward_reference(q, k, v, rel_h, rel_w, dout,
             grid.sum(-2))
 
 
+def flash_attention_relpos_walk_reference(q, k, v, rel_h, rel_w, dout,
+                                          out=None, lse=None):
+    """Plain version of the bf16 backward's order of sums
+    (``csrc/flash_relpos_bwd.cu``): the keys in tiles of 64, in order; a
+    tile's log2-domain logits s * scale * log2(e) + rel_h * log2(e) + rel_w
+    * log2(e) in the key-grid mode (``relpos_backward_grid_mode``), else +
+    (rel_h + rel_w) * log2(e); P = 2^(logit - lse * log2(e)) with the
+    forward's ``lse`` (recomputed when None), dS0 = P * (dP - delta) in fp32,
+    delta = rowsum(dO * O) from the forward's output (recomputed when None);
+    drel_h and drel_w summed tile by tile in key order (in the key-grid mode
+    drel_h[i, jh] is tile jh's row sum and drel_w accumulates over the
+    tiles), dQ accumulated tile by tile from bf16(dS0) in fp32, each tile's
+    keys' dK and dV over all queries; the scale after the products. Returns
+    dq, dk, dv (the input dtype), drel_h, drel_w (fp32)."""
+    dtype = q.dtype
+    b, h, n, d = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    scale = d ** -0.5
+    if out is None or lse is None:
+        out, lse = flash_attention_relpos_reference(q, k, v, rel_h, rel_w,
+                                                    return_lse=True)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = dout.to(dtype).float()
+    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    lse2 = lse.float()[..., None] * LOG2E
+    grid = relpos_backward_grid_mode(d, kh, kw)
+    rh, rw = rel_h.float(), rel_w.float()
+    if grid:
+        rh, rw = rh * LOG2E, rw * LOG2E
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.zeros(b, h, n, d, **f32)
+    dk, dv = torch.zeros(b, h, n, d, **f32), torch.zeros(b, h, n, d, **f32)
+    drel_h, drel_w = torch.zeros(b, h, n, kh, **f32), torch.zeros(
+        b, h, n, kw, **f32)
+    for key0 in range(0, n, 64):
+        keys = torch.arange(key0, min(key0 + 64, n), device=q.device)
+        jh, jw = keys // kw, keys % kw
+        s = qf @ kf[:, :, keys].transpose(-1, -2)
+        bias2 = (rh[..., jh] + rw[..., jw] if grid
+                 else (rh[..., jh] + rw[..., jw]) * LOG2E)
+        p = torch.exp2(s * (scale * LOG2E) + bias2 - lse2)
+        ds0 = p * (dof @ vf[:, :, keys].transpose(-1, -2) - delta)
+        drel_h.index_add_(3, jh, ds0)
+        drel_w.index_add_(3, jw, ds0)
+        ds = ds0.to(dtype).float()
+        dq += ds @ kf[:, :, keys]
+        dk[:, :, keys] = ds.transpose(-1, -2) @ qf
+        dv[:, :, keys] = p.to(dtype).float().transpose(-1, -2) @ dof
+    return ((dq * scale).to(dtype), (dk * scale).to(dtype), dv.to(dtype),
+            drel_h, drel_w)
+
+
 def check_args(q, k, v, rel_h, rel_w):
     """Shape rule of K5; returns (b, h, n, d, kh, kw) or raises. q, k and v
     share one shape and one set of strides, with the head dim contiguous."""
@@ -208,6 +270,85 @@ def _bf16_forward():
                         + [ctypes.c_float, _INT, _PTR])
     relpos.restype = keybias.restype = _INT
     return relpos, keybias
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_backward():
+    """The C entry of ``csrc/flash_relpos_bwd.cu`` (K5's bf16 backward)."""
+    fn = build.load("flash_relpos_bwd").saicv_flash_relpos_bwd_bf16
+    fn.argtypes = [_PTR] * 13 + [_LL] * 27 + [_INT] * 7 + [ctypes.c_float,
+                                                            _PTR]
+    fn.restype = _INT
+    return fn
+
+
+def relpos_backward_grid_mode(d, kh, kw):
+    """Whether K5's bf16 backward takes its key-grid mode: KW = 64 (a
+    64-key tile is one key-grid row), D <= 80 (the mode's kernels are built
+    for one output chunk: SAM-B's and SAM-H's head dims) and KH <= 128 (the
+    dQ walk's block of rel_h rows in shared memory)."""
+    return kw == 64 and d <= 80 and kh <= 128
+
+
+def _relpos_backward_bf16(q, k, v, rel_h, rel_w, dout, lse, delta):
+    """The bf16 backward's two launches (``csrc/flash_relpos_bwd.cu``):
+    returns dq, dk, dv [B, H, N, D] and drel_h, drel_w (fp32, every element
+    written)."""
+    b, h, n, d = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    grid = relpos_backward_grid_mode(d, kh, kw)
+    q, k, v, dout = (tma_operand(t) for t in (q, k, v, dout))
+    if grid:
+        rel_w = tma_operand(rel_w)
+    grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    drel_h, drel_w = torch.empty((b, h, n, kh), **f32), torch.empty(
+        (b, h, n, kw), **f32)
+    _launch(_bf16_backward(), q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), *(g.data_ptr() for g in grads),
+            lse.data_ptr(), delta.data_ptr(), rel_h.data_ptr(),
+            rel_w.data_ptr(), drel_h.data_ptr(), drel_w.data_ptr(),
+            *(s for t in (q, k, v, dout, grads[0], rel_h, rel_w, drel_h,
+                          drel_w) for s in t.stride()[:3]),
+            b, h, n, d, kh, kw, int(grid), d ** -0.5)
+    return grads[0], grads[1], grads[2], drel_h, drel_w
+
+
+def flash_attention_relpos_backward(q, k, v, rel_h, rel_w, dout, out, lse):
+    """K5's backward from the forward's output and log-sum-exp: dq, dk, dv
+    (the input dtype) and drel_h, drel_w (fp32). A CPU tensor takes the
+    plain version; a CUDA tensor the kernels (bf16: ``flash_relpos_bwd.cu``,
+    fp32: ``flash_attention.cu``), or the call raises."""
+    dout = dout.to(q.dtype)
+    if q.device.type == "cpu":
+        return flash_attention_relpos_backward_reference(
+            q, k, v, rel_h, rel_w, dout, out)
+    b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(dim=-1)       # [B, H, N]
+    if q.dtype == torch.bfloat16:
+        grads = _relpos_backward_bf16(q, k, v, rel_h, rel_w, dout, lse, delta)
+    else:
+        dq, dk, dv = torch.empty((3, b, h, n, d), dtype=q.dtype,
+                                 device=q.device)
+        # the fp32 kernels add their terms into drel
+        drel_h = torch.zeros((b, h, n, kh), dtype=torch.float32,
+                             device=q.device)
+        drel_w = torch.zeros((b, h, n, kw), dtype=torch.float32,
+                             device=q.device)
+        _launch(_library()[1], q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                rel_h.data_ptr(), rel_w.data_ptr(), drel_h.data_ptr(),
+                drel_w.data_ptr(), *q.stride()[:3], *dout.stride()[:3],
+                *dq.stride()[:3],
+                *(s for t in (rel_h, rel_w, drel_h, drel_w)
+                  for s in t.stride()[:3]),
+                b, h, n, d, kh, kw, d ** -0.5, 0)
+        grads = dq, dk, dv, drel_h, drel_w
+    flash_attention_relpos.backward_launches += 1
+    return grads
 
 
 @functools.lru_cache(maxsize=None)
@@ -288,32 +429,8 @@ class FlashAttentionRelpos(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _):
         q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
-        dout = dout.to(q.dtype)
-        if q.device.type == "cpu":
-            return flash_attention_relpos_backward_reference(
-                q, k, v, rel_h, rel_w, dout, out)
-        b, h, n, d, kh, kw = check_args(q, k, v, rel_h, rel_w)
-        if dout.stride(3) != 1:
-            dout = dout.contiguous()
-        delta = (dout.float() * out.float()).sum(dim=-1)       # [B, H, N]
-        grads = torch.empty((3, b, h, n, d), dtype=q.dtype, device=q.device)
-        # KW = 64 in bf16: every drel element is written; else accumulated
-        alloc = torch.empty if kw == 64 and q.dtype == torch.bfloat16 \
-            else torch.zeros
-        drel_h = alloc((b, h, n, kh), dtype=torch.float32, device=q.device)
-        drel_w = alloc((b, h, n, kw), dtype=torch.float32, device=q.device)
-        _launch(_library()[1], q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), dout.data_ptr(),
-                *(g.data_ptr() for g in grads), lse.data_ptr(),
-                delta.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
-                drel_h.data_ptr(), drel_w.data_ptr(), *q.stride()[:3],
-                *dout.stride()[:3], h * n * d, n * d, d,
-                *(s for t in (rel_h, rel_w, drel_h, drel_w)
-                  for s in t.stride()[:3]),
-                b, h, n, d, kh, kw, d ** -0.5,
-                int(q.dtype == torch.bfloat16))
-        flash_attention_relpos.backward_launches += 1
-        return grads[0], grads[1], grads[2], drel_h, drel_w
+        return flash_attention_relpos_backward(q, k, v, rel_h, rel_w, dout,
+                                               out, lse)
 
 
 def flash_attention_relpos(q, k, v, rel_h, rel_w, return_lse=False):

@@ -430,14 +430,16 @@ def _short_backward():
 
 def tma_operand(t):
     """t itself where a TMA tensor map reads it in place (a 16-byte aligned
-    base and (batch, head, row) strides that are multiples of 8 elements on
-    every axis longer than 1), else a copy with the head dim padded to a
-    multiple of 8 (the maps read its first D columns)."""
+    base and (batch, head, row) strides that are multiples of 16 bytes on
+    every axis longer than 1), else a copy with the last axis padded to a
+    multiple of 16 bytes (the maps read its first D columns)."""
+    step = 16 // t.element_size()   # elements in 16 bytes
     if t.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 or n == 1 for s, n in zip(t.stride()[:3], t.shape[:3])):
+            s % step == 0 or n == 1
+            for s, n in zip(t.stride()[:3], t.shape[:3])):
         return t
     d = t.shape[-1]
-    out = t.new_zeros(*t.shape[:3], -(-d // 8) * 8)
+    out = t.new_zeros(*t.shape[:3], -(-d // step) * step)
     out[..., :d] = t
     return out
 

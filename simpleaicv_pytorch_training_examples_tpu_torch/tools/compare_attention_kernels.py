@@ -23,9 +23,12 @@ at d = 64 and 56 (device ms a launch between CUDA events, the card spun
 first so that the host queues ahead; SDPA on the same inputs beside each,
 with the bias as a mask in the input dtype, and SDPA's backward beside
 each backward, a bias as a mask that requires grad; K8 has no one-call
-yardstick). Each turn also hashes K6's bf16 forward output at the memory
-cross-attention (frame 7) from two runs, runs K6's bf16 backward twice on
-seeded inputs (SAM2's memory self-attention with masked slots, Hiera's
+yardstick), and K5's backward at SAM-B's and SAM-H's global blocks and at
+the same off-path shapes beside SDPA's backward with the rel bias as a
+bf16 mask that requires grad. Each turn also hashes K6's bf16 forward
+output at the memory cross-attention (frame 7) from two runs, runs K6's
+bf16 backward twice on seeded inputs (SAM2's memory self-attention with
+masked slots, Hiera's
 global blocks) and hashes its gradients, and holds K1's bf16 forward and backward at Hiera's four
 window shapes (SAM2-B+, heads padded from 56 to 64 with the 56-wide
 scale) against a float64 computation of the same inputs: the relative L2
@@ -333,6 +336,47 @@ def flash_forward_cases(torch, fl):
                                               None, "packed", False)
 
 
+def flash_backward_cases(torch, fl):
+    """(name, kernel, SDPA's backward, bound ms) of K5's backward at SAM-B's
+    and SAM-H's global blocks on views of a packed qkv, and at
+    chip_smoke.py's off-path shapes (D = 160, N = 1050, KW = 80): the
+    backward through autograd on a kept graph, beside SDPA's backward with
+    the rel bias as a bf16 [B, H, N, N] mask that requires grad (its
+    gradient is not reduced to drel). The bound counts q, k, v, dout, the
+    output and the gradients once, the fp32 rel terms, their gradients and
+    the log-sum-exp once, against the five products."""
+    F = torch.nn.functional
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(60)
+    randn = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    grad = torch.autograd.grad
+
+    def rel_case(b, h, kh, kw, d):
+        n = kh * kw
+        qkv = randn(b, n, 3 * h * d).to(bf16)
+        views = qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+        rel_h, rel_w = randn(b, h, n, kh), randn(b, h, n, kw)
+        dout = randn(b, n, h, d).to(bf16).transpose(1, 2)
+        leaves = [t.detach().requires_grad_()
+                  for t in (*views, rel_h, rel_w)]
+        out = fl.flash_attention_relpos(*leaves)
+        ref = [t.detach().requires_grad_() for t in views]
+        mask = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(
+            b, h, n, n).to(bf16).requires_grad_()
+        ref_out = F.scaled_dot_product_attention(*ref, attn_mask=mask)
+        nbytes = (2 * b * h * n * d * 8
+                  + 4 * b * h * n * (2 * (kh + kw) + 1))
+        return (lambda: grad(out, leaves, dout, retain_graph=True),
+                lambda: grad(ref_out, (*ref, mask), dout, retain_graph=True),
+                bound_ms(nbytes, 10.0 * b * h * n * n * d))
+
+    yield "K5 bwd sam_b", rel_case(8, 12, 64, 64, 64)
+    yield "K5 bwd sam_h_d80", rel_case(2, 16, 64, 64, 80)
+    yield "K5 bwd head_dim_160", rel_case(1, 2, 32, 32, 160)
+    yield "K5 bwd n1050_kh30_kw35", rel_case(1, 4, 30, 35, 64)
+    yield "K5 bwd kh48_kw80", rel_case(2, 4, 48, 80, 64)
+
+
 def key_bias_forward_digest(torch, fl):
     """run() of K6's bf16 forward at SAM2's memory cross-attention with
     frame 7's bias (split keys), returning out and lse."""
@@ -442,6 +486,12 @@ def worker(root, build_only):
     record["cases"]["K6 fwd digest memory_cross_frame7"] = {
         "ms": time_ms(torch, run, iters=5), "digest": first,
         "reproducible": first == second}
+    for name, (kernel, library, bound) in flash_backward_cases(torch, fl):
+        record["cases"][name] = {"ms": time_ms(torch, kernel, iters=10),
+                                 "library_ms": time_ms(torch, library,
+                                                       iters=10),
+                                 "bound_ms": bound}
+        torch.cuda.empty_cache()
     for name, (kernel, library, bound) in backward_cases(torch, fa, ab):
         record["cases"][name] = {
             "ms": time_ms(torch, kernel),

@@ -3,14 +3,17 @@
     python3 simpleaicv_pytorch_training_examples_tpu_torch/tools/profile_attention_backward.py
 
 Runs the backward cases of ``compare_attention_kernels`` (K1, K2 and K9 at
-ViT's shapes, K2b, K3 and K4 at SAM's windows, K8) through autograd on a
-kept graph under ``torch.profiler`` and prints, for each case, the device
-ms a call of every kernel it launches (the dQ and dK/dV kernels apart),
-then each ``short_attention_bwd`` kernel's registers and spills as ptxas
-reported them when the library was built. Needs a CUDA device.
+ViT's shapes, K2b, K3 and K4 at SAM's windows, K8, and K5 at SAM's global
+blocks and its off-path shapes) through autograd on a kept graph under
+``torch.profiler`` and prints, for each case, the device ms a call of every
+kernel it launches (the dQ and dK/dV kernels apart), then each
+``short_attention_bwd`` and ``flash_relpos_bwd`` kernel's registers and
+spills as ptxas reported them when the library was built. Needs a CUDA
+device.
 """
 
 import collections
+import itertools
 import json
 import re
 import subprocess
@@ -37,10 +40,10 @@ def kernel_ms(torch, fn):
     return dict(out)
 
 
-def ptxas_lines(build):
-    """Registers and spills of each short_attention_bwd kernel, from the
-    ptxas log its build left (empty where the library was built before)."""
-    log = build.BUILD_DIR / "short_attention_bwd.log"
+def ptxas_lines(build, source):
+    """Registers and spills of each kernel of a source, from the ptxas log
+    its build left (empty where the library was built before)."""
+    log = build.BUILD_DIR / f"{source}.log"
     if not log.exists():
         return {}
     out, name = {}, None
@@ -59,21 +62,25 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_attention_backward needs a CUDA device")
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-        attn_block as ab, build, fused_attention as fa)
+        attn_block as ab, build, flash_attention as fl, fused_attention as fa)
     from simpleaicv_pytorch_training_examples_tpu_torch.tools.compare_attention_kernels import (
-        backward_cases)
+        backward_cases, flash_backward_cases)
     build.build()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    for name, (kernel, _, _) in backward_cases(torch, fa, ab):
+    cases = itertools.chain(backward_cases(torch, fa, ab),
+                            flash_backward_cases(torch, fl))
+    for name, (kernel, _, _) in cases:
         ms = kernel_ms(torch, kernel)
         print(json.dumps({"case": name, "total_ms": sum(ms.values()),
                           "kernels_ms": ms}), flush=True)
         torch.cuda.empty_cache()
-    for name, lines in ptxas_lines(build).items():
-        if "short_attention_bwd_d" in name:
-            print(json.dumps({"kernel": name, "ptxas": lines}))
+    for source, prefix in (("short_attention_bwd", "short_attention_bwd_d"),
+                           ("flash_relpos_bwd", "flash_relpos_bwd_d")):
+        for name, lines in ptxas_lines(build, source).items():
+            if prefix in name:
+                print(json.dumps({"kernel": name, "ptxas": lines}))
 
 
 if __name__ == "__main__":

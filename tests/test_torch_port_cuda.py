@@ -11,7 +11,12 @@ It sweeps the shapes the smoke run does not: token counts around the
 ``n_real`` at the edges, both layouts, unaligned tensors, LayerNorm widths
 on and off the vector path; for the rel-pos kernels K3, K4 and K5 also
 key grids with KH != KW, KW a multiple of 64 or not, N off the 64-key
-tiles and (K5) head dims above 128, forward and backward; for K6 (the
+tiles and (K5) head dims above 128, forward and backward (K5's bf16
+backward, ``flash_relpos_bwd.cu``, also at D = 80 and N = 192 in its
+key-grid mode, run twice for the same bits, with rel_h and rel_w as
+non-contiguous views, and with KW = 96, 32, 13, where a dK/dV block's
+warpgroups fall on different key-grid rows; ``flash_attention.cu``'s entry
+refuses bf16); for K6 (the
 per-key bias) Nq != Nk with a ragged key tail, SAM2's slot bias with
 masked memory slots and pointers, a row whose keys are all masked, D = 56
 (zero-padded in the kernel), 256 (two output chunks) and odd widths, each
@@ -472,6 +477,10 @@ def test_relwin_backward_through_views_of_the_packed_qkv(cuda):
     (1, 1, 32, 32, 160, False), (1, 2, 30, 35, 64, False),
     (1, 1, 16, 128, 64, True), (2, 1, 3, 5, 8, False),
     (1, 2, 2, 64, 256, False), (1, 3, 10, 13, 128, True),
+    # the key-grid mode at D = 80 on views of a packed qkv, and N a
+    # multiple of 64 and not of 128 (a block's second warpgroup past N)
+    (2, 2, 8, 64, 80, True), (1, 2, 3, 64, 80, True),
+    (2, 1, 5, 64, 64, False),
 ])
 def test_flash_relpos_backward(cuda, b, h, kh, kw, d, packed, dtype):
     dtype = DTYPES[dtype]
@@ -498,6 +507,84 @@ def test_flash_relpos_backward(cuda, b, h, kh, kw, d, packed, dtype):
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         _close(x, y, dtype, name)
     _close_drel(got[3:], want[3:], dtype)
+
+
+@pytest.mark.parametrize("b,h,kh,kw,d", [
+    (2, 2, 16, 64, 64),     # the key-grid mode
+    (1, 2, 16, 64, 80),
+    (1, 2, 30, 35, 64),     # any KW
+    (1, 1, 32, 32, 160),
+])
+def test_flash_relpos_bf16_backward_is_reproducible(cuda, b, h, kh, kw, d):
+    """K5's bf16 backward sums in a fixed order (no atomics): two runs give
+    the same bits, every gradient and drel."""
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(n + d + 7)
+    q, k, v, dout = (_randn(gen, b, h, n, d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    first = _grads(fl.flash_attention_relpos, (q, k, v, rel_h, rel_w), dout)
+    again = _grads(fl.flash_attention_relpos, (q, k, v, rel_h, rel_w), dout)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("kw", [64, 35])
+def test_flash_relpos_bf16_backward_with_strided_rel_terms(cuda, kw):
+    """rel_h and rel_w as non-contiguous views (rel_h sliced from wider
+    rows, rel_w a transposed [B, N, H, KW] tensor, as the attention module
+    can hand them), in both KW modes: the same gradients as from contiguous
+    copies, bit for bit, and within the tolerance of the plain version."""
+    b, h, kh, d = 2, 2, 16, 64
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(kw + 11)
+    q, k, v, dout = (_randn(gen, b, h, n, d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    rel_h = _randn(gen, b, h, n, kh + 5, dtype=torch.float32)[..., 3:3 + kh]
+    rel_w = _randn(gen, b, n, h, kw, dtype=torch.float32).transpose(1, 2)
+    assert not rel_h.is_contiguous() and not rel_w.is_contiguous()
+    got = _grads(fl.flash_attention_relpos, (q, k, v, rel_h, rel_w), dout)
+    dense = _grads(fl.flash_attention_relpos,
+                   (q, k, v, rel_h.contiguous(), rel_w.contiguous()), dout)
+    assert all(torch.equal(x, y) for x, y in zip(got, dense))
+    want = fl.flash_attention_relpos_backward_reference(q, k, v, rel_h,
+                                                        rel_w, dout)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        _close(x, y, torch.bfloat16, name)
+    _close_drel(got[3:], want[3:], torch.bfloat16)
+
+
+@pytest.mark.parametrize("kh,kw", [(4, 96), (6, 32), (9, 13)])
+def test_flash_relpos_bf16_backward_across_grid_rows(cuda, kh, kw):
+    """KW != 64: a dK/dV block's two warpgroups (64 keys each) fall on
+    different key-grid rows, and one warpgroup's keys span two rows (KW =
+    96), several (KW = 32, 13); the dQ walk's tiles cross rows likewise."""
+    b, h, d = 1, 2, 64
+    n = kh * kw
+    gen = torch.Generator(device="cuda").manual_seed(kh * kw + 5)
+    q, k, v, dout = (_randn(gen, b, h, n, d, dtype=torch.bfloat16)
+                     for _ in range(4))
+    rel_h, rel_w = _rel(gen, (b, h, n), kh, kw)
+    got = _grads(fl.flash_attention_relpos, (q, k, v, rel_h, rel_w), dout)
+    want = fl.flash_attention_relpos_backward_reference(q, k, v, rel_h,
+                                                        rel_w, dout)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        _close(x, y, torch.bfloat16, name)
+    _close_drel(got[3:], want[3:], torch.bfloat16)
+
+
+def test_flash_relpos_fp32_backward_entry_refuses_bf16(cuda):
+    """flash_attention.cu holds only fp32 kernels: its rel-pos backward
+    entry refuses bf16 (cudaErrorInvalidValue) and launches nothing."""
+    b, h, n, d, kh, kw = 1, 1, 64, 64, 8, 8
+    q = torch.zeros(b, h, n, d, dtype=torch.bfloat16, device="cuda")
+    stats = torch.zeros(b * h, n, device="cuda")
+    rel = torch.zeros(b, h, n, kh, device="cuda")
+    err = fl._library()[1](
+        *(q.data_ptr(),) * 7, stats.data_ptr(), stats.data_ptr(),
+        *(rel.data_ptr(),) * 4, *q.stride()[:3], *q.stride()[:3],
+        *q.stride()[:3], *(rel.stride()[:3] * 4), b, h, n, d, kh, kw,
+        d ** -0.5, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 1
 
 
 # ------------------------------------------------ K6, K1 sm_scale, K2 d=56
