@@ -201,7 +201,20 @@ micro-batch (K8 12 an eval batch), and its last epoch's mean loss below
 its first's; the gradients of one micro-batch at drop-path 0 (K8 12 and
 K7 12 forward and backward) by the rule above, and with
 use_gradient_checkpoint (K8 24 forward, 12 backward) by the same rule
-against the unchecked kernels' gradients.
+against the unchecked kernels' gradients. K8's GEMM alone
+(``attn_block.gemm``), each of its six products (qkv, proj, dattn, dxn,
+dWproj, dWqkv, each at its operand layout and epilogue) at ViT-B/16's train
+micro-batch (M = 12,608, C = 768) and at a ragged shape (C = 192, M = 591),
+against its plain version (``gemm_reference``: an fp32 product of the same
+bf16 operands, the epilogue in fp32, rounded once): fp32 outputs max
+|kernel - plain| at most 1e-4 of the plain result's RMS (sum-order noise is
+~1e-6 of it); bf16 outputs, where an fp32 sum-order difference can move the
+rounding by one bf16 ulp, |kernel - plain| at most 2^-7 of the larger of the
+two plus 1e-4 of the plain result's RMS at every element. Every
+``attn_block_gemm_bf16`` kernel must show HGMMA (``wgmma``) in the SASS of
+``attn_block``'s library, no kernel of that library HMMA (``mma.sync``),
+and, where the run compiled it, ptxas must report no spill and no
+serialized ``wgmma`` pipeline in the GEMM's kernels.
 
 K9 (attention over a packed [B, N, 3, H, D] qkv) vs its plain version,
 forward and packed dqkv, at ViT-B/16's and ViT-H/14's shapes, n_real 150,
@@ -299,6 +312,8 @@ ZERO_GRADIENT_RATIO = 1e-4  # a bias's gradient norm over its weight's
 K6_FLOOR_RATIO, K6_FP32_RTOL, K6_CONTROL_KEYS = 1.25, 1e-4, 64
 K2B_DBIAS_RTOL, K2B_CONTROL_UNITS = 1e-4, 4.0
 K8_FLOOR_RATIO, K8_FP32_RTOL, K8_GRAD_REL = 1.25, 1e-4, 1e-2
+K8_GEMM_RTOL, K8_GEMM_BF16_ULP = 1e-4, 2.0 ** -7
+K8_GEMM_KERNELS = 5   # attn_block_gemm_bf16's layout and epilogue templates
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
 SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
 SAM_GRAD_BATCH = 2          # images of the SAM gradient checks
@@ -1253,9 +1268,10 @@ K6_FWD_KERNELS = ("flash_keybias_fwd", "flash_fwd_merge")
 FLASH_FWD_KERNELS = {"flash_keybias_fwd": 10, "flash_relpos_fwd": 8}
 
 
-def hgmma_counts(library):
-    """{kernel: HGMMA instructions} in the SASS of a built library, by
-    ``cuobjdump -sass`` from the CUDA toolkit that built it."""
+def hgmma_counts(library, op="HGMMA"):
+    """{kernel: HGMMA instructions} (or instructions of another opcode
+    ``op``) in the SASS of a built library, by ``cuobjdump -sass`` from the
+    CUDA toolkit that built it."""
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         build)
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
@@ -1268,7 +1284,7 @@ def hgmma_counts(library):
         if found:
             name = found.group(1)
             counts[name] = 0
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and re.search(rf"\b{op}\b", line):
             counts[name] += 1
     return counts
 
@@ -1500,6 +1516,110 @@ def attn_block_reading(torch, got, plain, exact, relative=False):
                "plain_rms_err": rms(plain.float() - exact)}
     return (reading["rms_err"] <= K8_FLOOR_RATIO * reading["plain_rms_err"],
             reading)
+
+
+def ptxas_findings(text, scope):
+    """One library's ``ptxas -v`` output, for the kernels whose names hold
+    ``scope``: (their count, their registers, their spills as {kernel:
+    line}, the lines that report their ``wgmma`` pipeline serialized (C7511,
+    C7515, C7519)), and for the library's other kernels the count of those
+    that spill and of such serialization lines."""
+    lines = text.splitlines()
+    entries = [m.group(1) for m in (re.search(
+        r"Compiling entry function '(\S+)'", line) for line in lines) if m]
+    registers, spills, kernel = set(), {}, None
+    for line in lines:
+        found = re.search(r"Function properties for (\S+)", line)
+        if found:
+            kernel = found.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel and scope in kernel:
+            registers.add(int(used.group(1)))
+        if ("spill" in line and kernel and
+                " 0 bytes spill stores, 0 bytes spill loads" not in line):
+            spills[kernel] = line.strip()
+    warned = [line.strip() for line in lines
+              if re.search(r"C75(11|15|19)", line)]
+    return ({"kernels": sum(scope in e for e in entries),
+             "registers": sorted(registers),
+             "spills": {k: v for k, v in spills.items() if scope in k},
+             "serialized": [w for w in warned if scope in w]},
+            {"kernels": sum(scope not in e for e in entries),
+             "spilling": sum(scope not in k for k in spills),
+             "serialization_lines": sum(scope not in w for w in warned)})
+
+
+def attn_block_gemm_operands(torch, m, c, seed):
+    """Operands of K8's six products at M rows and width C, from a seed:
+    xn, attn, dy, x and dqkv [M, 3C] of unit scale, Wqkv [3C, C] and Wproj
+    [C, C] at C^-0.5 (as a Linear's), biases at 0.02; all bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s, scale=1.0: (scale * torch.randn(
+        *s, device="cuda", generator=gen)).to(torch.bfloat16)
+    xn, attn, dy, x = (randn(m, c) for _ in range(4))
+    dqkv = randn(m, 3 * c)
+    wqkv, wproj = randn(3 * c, c, scale=c ** -0.5), randn(c, c,
+                                                          scale=c ** -0.5)
+    bqkv, bproj = randn(3 * c, scale=0.02), randn(c, scale=0.02)
+    return {"qkv": ((xn, wqkv), dict(bias=bqkv)),
+            "proj": ((attn, wproj), dict(bias=bproj, resid=x)),
+            "dattn": ((dy, wproj), {}),
+            "dxn": ((dqkv, wqkv), {}),
+            "dwproj": ((dy, attn), {}),
+            "dwqkv": ((dqkv, xn), {})}
+
+
+def check_attn_block_gemms(torch, results):
+    """Hold each of K8's six bf16 products, run alone through
+    ``attn_block.gemm`` at its operand layout and epilogue, against its
+    plain version at ViT-B/16's train micro-batch and a ragged shape (C =
+    192, M = 591); time each (device ms, TFLOP/s); append the records to
+    results["K8 gemm"]."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        attn_block as ab)
+    shapes = (("vit_b16_train", BATCH // MICRO_BATCHES * 197, 768, 90),
+              ("ragged_c192", 3 * 197, 192, 91))
+    for label, m, c, seed in shapes:
+        for name, ((a, b), extra) in attn_block_gemm_operands(
+                torch, m, c, seed).items():
+            a_k, b_k, epilogue = ab.GEMM_PRODUCTS[name]
+            run = lambda: ab.gemm(a, b, a_k, b_k, epilogue, **extra)
+            before = ab.gemm.launches
+            got = run()
+            torch.cuda.synchronize()
+            launched = ab.gemm.launches - before
+            plain = ab.gemm_reference(a, b, a_k, b_k, epilogue, **extra)
+            rms = plain.float().pow(2).mean().sqrt().item()
+            diff = (got.float() - plain.float()).abs()
+            if got.dtype == torch.float32:
+                bound = K8_GEMM_RTOL * rms
+                ok = diff.max().item() <= bound
+            else:
+                bound = (K8_GEMM_BF16_ULP * torch.maximum(
+                    got.float().abs(), plain.float().abs())
+                    + K8_GEMM_RTOL * rms)
+                ok = bool((diff <= bound).all())
+                bound = (bound - diff).min().item()   # the smallest margin
+            dims = ab.gemm_shape(a, b, a_k, b_k, epilogue,
+                                 extra.get("bias"), extra.get("resid"))
+            ms = time_ms(torch, run)
+            record = {"product": name, "case": label, "mnk": list(dims),
+                      "a_kmajor": a_k, "b_kmajor": b_k, "epilogue": epilogue,
+                      "dtype": str(got.dtype).split(".")[-1],
+                      "max_abs_err": diff.max().item(), "plain_rms": rms,
+                      ("bound" if got.dtype == torch.float32 else
+                       "least_margin"): bound,
+                      "differing": int((diff > 0).sum().item()),
+                      "finite": bool(torch.isfinite(got).all()),
+                      "ms": ms, "tflops": 2.0 * math.prod(dims) / ms / 1e9,
+                      "launched": launched}
+            log(f"K8 gemm {name} {label}", **record)
+            if not (ok and record["finite"] and record["launched"] == 1):
+                raise AssertionError(f"K8 gemm {name} {label}: off its "
+                                     f"plain version ({record})")
+            results.setdefault("K8 gemm", []).append(record)
+            del got, plain, diff
+        torch.cuda.empty_cache()
 
 
 def check_attn_block(torch, F, fa, ln, case, results):
@@ -3460,6 +3580,30 @@ def main():
             r"attention_bwd_(dq|dkv)_bf16", name)]
     if old_bwd:
         raise AssertionError(f"mma.sync bf16 backward left: {old_bwd}")
+    # K8's GEMM on wgmma: HGMMA in every attn_block_gemm_bf16 template, no
+    # HMMA (mma.sync) in any kernel of attn_block's library; where this run
+    # compiled it, ptxas -v shows no spill and no serialized wgmma pipeline
+    # in the GEMM (the line also counts those of the library's other
+    # kernels: K1's device code and the fp32 attention, as in their own
+    # libraries)
+    library = build.library_path("attn_block")
+    hgmma = {name: n for name, n in hgmma_counts(library).items()
+             if "attn_block_gemm_bf16" in name}
+    hmma = {name: n for name, n in hgmma_counts(library, "HMMA").items()
+            if n}
+    log("sass attn_block", hgmma=hgmma, hmma=hmma)
+    if len(hgmma) != K8_GEMM_KERNELS or not all(hgmma.values()) or hmma:
+        raise AssertionError(f"K8 GEMM kernels without HGMMA ({hgmma}) or "
+                             f"mma.sync left in attn_block ({hmma})")
+    k8_log = build_logs.get("attn_block")
+    if k8_log is not None:
+        gemm, others = ptxas_findings(k8_log, "attn_block_gemm_bf16")
+        log("ptxas attn_block", gemm=gemm,
+            included_attention_and_fp32_kernels=others)
+        if gemm["spills"] or gemm["serialized"]:
+            raise AssertionError(f"attn_block.cu's GEMM: spills "
+                                 f"{gemm['spills']}, serialized wgmma "
+                                 f"{gemm['serialized']}")
 
     # 3. each kernel against its plain version at the main paths' shapes
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -3814,6 +3958,7 @@ def main():
                  ("head_dim_128", (BATCH // MICRO_BATCHES, 197, 6, 128)),
                  ("n50", (BATCH // MICRO_BATCHES, 50, 12, 64)),
                  ("n1024", (4, 1024, 12, 64)))
+    check_attn_block_gemms(torch, results)
     for dtype, prefix in ((bf16, ""), (fp32, "fp32_")):
         for i, (label, shape) in enumerate(k8_shapes):
             check_attn_block(torch, F, fa, ln, dict(

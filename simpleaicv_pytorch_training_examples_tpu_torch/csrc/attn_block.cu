@@ -46,15 +46,23 @@
 //             fused_attention.cu's), dWproj = dy^T.attn and dWqkv =
 //             dqkv^T.xn, dxn = dqkv.Wqkv (fp32), the column sums dbproj,
 //             dbqkv, dgamma, dbeta, and dx.
-// The GEMM (attn_block_gemm_bf16) is one mma.sync m16n8k16 template with fp32
-// accumulation, 128 x 128 x 32 tiles, 8 warps of 64 x 32, a ring of four
-// tiles in flight by cp.async, two blocks an SM; each operand is read in
-// place from either layout (ldmatrix or ldmatrix.trans), so the weights need
-// no transposed copy. fp32 inputs take an FMA GEMM (attn_block_gemm_f32) of
-// 64 x 64 tiles and keep fp32 precision. Sums over the B*N rows (the weight
-// gradients split over K, and the column sums) are written as fp32 slices
-// and added by reduce_slices in a fixed order: no atomics, so two runs give
-// the same bits.
+// Every bf16 product (qkv, proj; in the backward also dattn, dWproj, dWqkv,
+// dxn) runs on one Hopper GEMM, attn_block_gemm_bf16, with fp32
+// accumulation: block tiles of 128 x 192 x 64, a producer warp that keeps a
+// ring of four stages in flight by TMA (mbarriers), and two consumer
+// warpgroups of 64 rows each that run m64n192k16 wgmma from shared-memory
+// descriptors; a persistent block walks its output tiles (at ViT-B/16 the
+// qkv product's 1,188 tiles are nine waves of 132, the C-wide products'
+// 396 three). Each operand is read in place in either layout (wgmma's
+// transpose flags take an MN-major A or B), so the weights and the
+// activations of the weight gradients need no transposed copy; TMA fills
+// zeros past every edge. The epilogue stages each warpgroup's outputs in
+// shared memory and writes them by TMA stores, which skip what lies past an
+// edge and drain while the next tile's products run. fp32 inputs
+// take an FMA GEMM (attn_block_gemm_f32) of 64 x 64 tiles and keep fp32
+// precision. Sums over the B*N rows (the weight gradients split over K, and
+// the column sums) are written as fp32 slices and added by reduce_slices in
+// a fixed order: no atomics, so two runs give the same bits.
 
 #define SAICV_ATTENTION_DEVICE_ONLY
 #include "fused_attention.cu"
@@ -95,9 +103,6 @@ __device__ __forceinline__ void store4(bf16* p, const float (&o)[4]) {
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = saicv::pack_bf16(a, b);
-}
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -113,13 +118,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // ---------------------------------------------------------------- GEMM
 //
-// C[m, n] = sum_k A(m, k) B(k, n) for k in this block's slice of K. Each
-// operand is read in place: element (outer, inner) at p[outer * ld + inner],
-// inner contiguous. A "K-major" operand has k as its inner index (A(m, k) =
+// C[m, n] = sum_k A(m, k) B(k, n) for k in one slice of K. Each operand is
+// read in place: element (outer, inner) at p[outer * ld + inner], inner
+// contiguous. A "K-major" operand has k as its inner index (A(m, k) =
 // a[m * lda + k]; B(k, n) = b[n * ldb + k], i.e. torch's Linear weight in a
-// forward product); otherwise k is its outer index. Inner extents are
-// multiples of 8 (the wrapper takes C % 64 == 0), so a 16-byte vector is
-// either wholly inside or wholly outside the matrix.
+// forward product); otherwise ("MN-major") k is its outer index. Inner
+// extents are multiples of 8 elements (the wrapper takes C % 64 == 0), as
+// TMA's 16-byte strides and the epilogue's pairs need.
 
 struct Operand {
   const void* p;
@@ -136,180 +141,276 @@ enum Epilogue {
 struct GemmArgs {
   Operand a, b;
   int M, N, K;
-  int k_chunk;  // K rows of one blockIdx.z slice, a multiple of the tile depth
+  int k_chunk;  // K rows of one slice z, a multiple of the tile depth
   void* out;
   long long ldc, out_split;
   const void* bias;   // [N], the element type
   const void* resid;  // [M, ldc], the element type
 };
 
-template <typename T, int EPI>
+// Two consecutive outputs (row, col), (row, col + 1) of the fp32 GEMM.
+template <int EPI>
 __device__ __forceinline__ void epilogue2(const GemmArgs& g, int row, int col, float v0,
                                           float v1) {
   if (row >= g.M || col >= g.N) return;
   const long long off = static_cast<long long>(row) * g.ldc + col;
-  if (EPI == kStoreF32) {
-    store2(static_cast<float*>(g.out) + blockIdx.z * g.out_split + off, v0, v1);
-    return;
-  }
+  float* out = static_cast<float*>(g.out) + off;
+  if (EPI == kStoreF32) out += blockIdx.z * g.out_split;
   if (EPI == kBias || EPI == kBiasResidual) {
-    const float2 b = load2(static_cast<const T*>(g.bias) + col);
+    const float2 b = load2(static_cast<const float*>(g.bias) + col);
     v0 += b.x;
     v1 += b.y;
   }
   if (EPI == kBiasResidual) {
-    const float2 r = load2(static_cast<const T*>(g.resid) + off);
+    const float2 r = load2(static_cast<const float*>(g.resid) + off);
     v0 += r.x;
     v1 += r.y;
   }
-  store2(static_cast<T*>(g.out) + off, v0, v1);
+  store2(out, v0, v1);
 }
 
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kStages = 4;         // tiles in flight: a ring of cp.async copies
-constexpr int kGemmThreads = 256;  // 8 warps: 2 along m x 4 along n, 64 x 32 each
+// bf16: block tiles of 128 x 192, 64 deep (128 bytes of bf16: the
+// 128-byte swizzle). A producer warp keeps a ring of kStages tiles in flight
+// by TMA (each stage's A and B tile, completion on the stage's `full`
+// mbarrier); two consumer warpgroups each take 64 rows of the tile
+// and run m64n192k16 wgmma from shared-memory descriptors into 96 fp32
+// registers a thread, one k-tile's group in flight, and free a stage
+// (`empty`) once its products are done. The epilogue puts each warpgroup's
+// 64 x 192 outputs into its own staging buffer in shared memory (bf16, or
+// fp32 in two halves), 128-byte swizzled, and TMA stores it (past an edge
+// nothing is written): the next unit's products run while the store drains.
+// proj's residual tile comes into the same buffer by TMA first. The block is
+// persistent: it walks units u = blockIdx.x, + gridDim.x, ... with u = (z *
+// m_tiles + m) * n_tiles + n, so the next unit's loads run during this one's
+// epilogue.
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows of the block tile each
+constexpr int kBM = 64 * kConsumers, kBN = 192, kBK = 64;
+constexpr int kGemmThreads = 128 * (1 + kConsumers);  // and a producer warpgroup
+constexpr int kBox = 64 * 64 * 2;  // bytes of a 64 x 64 bf16 box (a warpgroup's A tile)
+constexpr int kATile = kBM * kBK * 2, kBTile = kBN * kBK * 2;
+constexpr int kStageBytes = kATile + kBTile;
+constexpr int kStaging = 3 * kBox;  // a warpgroup's 64 x 192 bf16 (or 64 x 96 fp32) outputs
+// as many 40 KB stages as fit beside the staging, the barriers and the
+// alignment in 227 KB: four
+constexpr int kStages = (232448 - 1024 - 256 - kConsumers * kStaging) / kStageBytes;
+constexpr int kGemmSmem = kStages * kStageBytes + kConsumers * kStaging + 256 + 1024;
 
-// One operand's tile of 128 rows (its m or n) by kBK (k) in shared memory:
-// K-major as [128][kBK + 8], else as [kBK][128 + 8]; the padding puts the
-// eight rows of an ldmatrix on distinct banks.
+// A tile in shared memory, 128-byte swizzled (TMA writes it so): K-major as
+// rows of 64 k (128 bytes; a warpgroup's 64 rows one kBox), MN-major as
+// kBox boxes of 64 k rows by 64 m or n. The descriptor of k-step kk (16
+// deep): K-major 32 bytes along the row; MN-major 16 rows (2048 bytes) down,
+// its 64-wide boxes kBox apart.
 template <bool KMAJOR>
-struct Tile {
-  static constexpr int kElems = KMAJOR ? 128 * (kBK + 8) : kBK * (128 + 8);
+__device__ __forceinline__ uint64_t operand_desc(uint32_t tile, int kk) {
+  return KMAJOR ? saicv::sw128_desc(tile + 32 * kk, 16) : saicv::sw128_desc(tile + 2048 * kk, kBox);
+}
 
-  // Start copying the tile whose first m or n is mn0 and first k is k0; zeros
-  // past mn_lim and k_end. Two 16-byte vectors a thread.
-  static __device__ __forceinline__ void copy(bf16* s, const Operand& op, int mn0, int mn_lim,
-                                               int k0, int k_end) {
-    const bf16* base = static_cast<const bf16*>(op.p);
-#pragma unroll
-    for (int i = 0; i < 128 * kBK / 8 / kGemmThreads; ++i) {
-      const int v = threadIdx.x + i * kGemmThreads;
-      int outer, inner, off;
-      bool valid;
-      if (KMAJOR) {
-        const int row = v / (kBK / 8), kv = (v % (kBK / 8)) * 8;
-        outer = mn0 + row;
-        inner = k0 + kv;
-        valid = outer < mn_lim && inner < k_end;
-        off = row * (kBK + 8) + kv;
-      } else {
-        const int kr = v / 16, mv = (v % 16) * 8;
-        outer = k0 + kr;
-        inner = mn0 + mv;
-        valid = outer < k_end && inner < mn_lim;
-        off = kr * (128 + 8) + mv;
-      }
-      saicv::cp_async16(s + off, valid ? base + outer * op.ld + inner : base, valid);
-    }
+// Where the output pair of accumulator registers 4j + 2h, 4j + 2h + 1 lies
+// in a warpgroup's staging buffer: row r = 16 warp + lane / 4 + 8h of its 64,
+// in three 128-byte-swizzled boxes of 64 rows x 128 bytes (bf16: 64 columns
+// a box, all 192 in one pass; fp32: 32 columns a box, columns 96q.. 96q + 95
+// in pass q = j / 12).
+template <bool F32>
+__device__ __forceinline__ uint32_t staged_at(uint32_t buf, int j, int r, int t) {
+  if (F32) {
+    const int jj = j % 12;
+    const int chunk = 2 * (jj & 3) + (t >> 1);
+    return buf + (jj >> 2) * kBox + r * 128 + ((chunk ^ (r & 7)) << 4) + 8 * (t & 1);
   }
-};
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  return buf + (j >> 3) * kBox + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * t;
 }
 
-// A fragments (m16 x k16) of the tile rows m..m+15, k-step ks.
-template <bool KMAJOR>
-__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const bf16* s, int m, int ks,
-                                       int lane) {
-  if (KMAJOR)
-    saicv::ldmatrix_x4(f, s + (m + lane % 8 + 8 * ((lane / 8) % 2)) * (kBK + 8) + 16 * ks +
-                              8 * (lane / 16));
-  else
-    saicv::ldmatrix_x4_trans(f, s + (16 * ks + lane % 8 + 8 * (lane / 16)) * (kBM + 8) + m +
-                                    8 * ((lane / 8) % 2));
-}
-
-// B fragments of two n8 groups (n..n+15), k-step ks: {f[0], f[1]} for
-// columns n..n+7, {f[2], f[3]} for n+8..n+15.
-template <bool KMAJOR>
-__device__ __forceinline__ void b_frags(uint32_t (&f)[4], const bf16* s, int n, int ks,
-                                        int lane) {
-  if (KMAJOR)
-    saicv::ldmatrix_x4(f, s + (n + lane % 8 + 8 * (lane / 16)) * (kBK + 8) + 16 * ks +
-                              8 * ((lane / 8) % 2));
-  else
-    saicv::ldmatrix_x4_trans(f, s + (16 * ks + ((lane / 8) & 1) * 8 + lane % 8) * (kBN + 8) +
-                                    n + ((lane / 8) >> 1) * 8);
-}
-
-template <bool A_K, bool B_K>
-constexpr size_t gemm_bf16_smem() {
-  return sizeof(bf16) * kStages * (Tile<A_K>::kElems + Tile<B_K>::kElems);
-}
-
-// Two blocks an SM (at most 128 registers a thread, 2 x 80 KB of shared
-// memory): while one block waits at its barrier the other's products run.
 template <bool A_K, bool B_K, int EPI>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-attn_block_gemm_bf16(GemmArgs g) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);           // [kStages][Tile<A_K>::kElems]
-  bf16* Bs = As + kStages * Tile<A_K>::kElems;        // [kStages][Tile<B_K>::kElems]
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  const int gq = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int k_begin = blockIdx.z * g.k_chunk;
-  const int k_end = min(g.K, k_begin + g.k_chunk);
-  const int tiles = (k_end - k_begin + kBK - 1) / kBK;
-
-  float acc[4][4][4];
+__global__ void __launch_bounds__(kGemmThreads, 1)
+attn_block_gemm_bf16(const __grid_constant__ CUtensorMap amap,
+                     const __grid_constant__ CUtensorMap bmap,
+                     const __grid_constant__ CUtensorMap cmap,
+                     const __grid_constant__ CUtensorMap rmap, const GemmArgs g) {
+  using namespace saicv;
+  constexpr bool kF32 = EPI == kStoreF32;
+  unsigned char* sm = short_attn::aligned_smem();
+  unsigned char* staging = sm + kStages * kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + kConsumers * kStaging);
+  uint64_t* empty = full + kStages;
+  uint64_t* resid_bar = empty + kStages;  // one a consumer warpgroup
+  const int tid = threadIdx.x;
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);                // the producer's arrive, with the bytes
+      mbar_init(&empty[s], 4 * kConsumers);  // each consumer warp
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  auto copy_tile = [&](int tile) {
-    const int stage = tile % kStages, k0 = k_begin + tile * kBK;
-    Tile<A_K>::copy(As + stage * Tile<A_K>::kElems, g.a, m0, g.M, k0, k_end);
-    Tile<B_K>::copy(Bs + stage * Tile<B_K>::kElems, g.b, n0, g.N, k0, k_end);
+    for (int w = 0; w < kConsumers; ++w) mbar_init(&resid_bar[w], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int m_tiles = (g.M + kBM - 1) / kBM, n_tiles = (g.N + kBN - 1) / kBN;
+  const int units = m_tiles * n_tiles * ((g.K + g.k_chunk - 1) / g.k_chunk);
+  // unit u: its slice z, first row m0 and column n0, and its k-tiles
+  auto unit = [&](int u, int& z, int& m0, int& n0, int& k_tiles) {
+    n0 = (u % n_tiles) * kBN;
+    m0 = (u / n_tiles % m_tiles) * kBM;
+    z = u / (n_tiles * m_tiles);
+    const int k_begin = z * g.k_chunk;
+    k_tiles = (min(g.K - k_begin, g.k_chunk) + kBK - 1) / kBK;
   };
+
+  if (tid < 128) {  // the producer warpgroup; one thread issues the loads
+    regs_down<40>();
+    if (tid != 0) return;
+    int st = 0, parity = 1;  // the ring starts empty
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int z, m0, n0, k_tiles;
+      unit(u, z, m0, n0, k_tiles);
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int k0 = z * g.k_chunk + kt * kBK;
+        mbar_wait(&empty[st], parity);
+        unsigned char* a = sm + st * kStageBytes;
+        unsigned char* b = a + kATile;
+        mbar_expect_tx(&full[st], kStageBytes);  // zeros past an edge count too
+        if (A_K) {
+          tma_box(a, &amap, &full[st], k0, m0, 0, 0);
+        } else {
 #pragma unroll
-  for (int tile = 0; tile < kStages - 1; ++tile) {
-    if (tile < tiles) copy_tile(tile);
-    saicv::cp_async_commit();  // one group a tile, possibly empty
+          for (int w = 0; w < kBM / 64; ++w) tma_box(a + w * kBox, &amap, &full[st], m0 + 64 * w, k0, 0, 0);
+        }
+        if (B_K) {
+          tma_box(b, &bmap, &full[st], k0, n0, 0, 0);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j) tma_box(b + j * kBox, &bmap, &full[st], n0 + 64 * j, k0, 0, 0);
+        }
+        if (++st == kStages) {
+          st = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
   }
 
-  for (int kt = 0; kt < tiles; ++kt) {
-    cp_async_wait<kStages - 2>();  // tile kt has landed (this thread's copies)
-    __syncthreads();               // everyone's copies; tile kt - 1 read by all
-    if (kt + kStages - 1 < tiles) copy_tile(kt + kStages - 1);
-    saicv::cp_async_commit();
-    const bf16* a = As + (kt % kStages) * Tile<A_K>::kElems;
-    const bf16* b = Bs + (kt % kStages) * Tile<B_K>::kElems;
+  regs_up<232>();
+  const int wg = tid / 128 - 1, tw = tid % 128, warp = tw / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const uint32_t ring = smem_addr(sm);
+  unsigned char* buf = staging + wg * kStaging;
+  const uint32_t buf_at = smem_addr(buf);
+  const int r = 16 * warp + lane / 4;  // this thread's rows r, r + 8 of the warpgroup's 64
+  float acc[kBN / 2];
+  int st = 0, parity = 0, resid_parity = 0;
+  // the k-tile in stage `stage`: this warpgroup's 64 rows of A times B
+  auto products = [&](int stage, bool first) {
+    const uint32_t a = ring + stage * kStageBytes + wg * kBox, b = ring + stage * kStageBytes + kATile;
+    if (first)
+      wgmma_ss192_first<!A_K, !B_K>(acc, operand_desc<A_K>(a, 0), operand_desc<B_K>(b, 0));
+    else
+      wgmma_ss192<!A_K, !B_K>(acc, operand_desc<A_K>(a, 0), operand_desc<B_K>(b, 0), 1);
 #pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t af[4][4], bfr[2][4];
+    for (int kk = 1; kk < kBK / 16; ++kk)
+      wgmma_ss192<!A_K, !B_K>(acc, operand_desc<A_K>(a, kk), operand_desc<B_K>(b, kk), 1);
+    wg_commit();
+  };
+  auto advance = [&]() {
+    if (++st == kStages) {
+      st = 0;
+      parity ^= 1;
+    }
+  };
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int z, m0, n0, k_tiles;
+    unit(u, z, m0, n0, k_tiles);
+    mbar_wait(&full[st], parity);
+    wg_fence();
+    products(st, true);
+    int prev = st;
+    advance();
+    for (int kt = 1; kt < k_tiles; ++kt) {
+      mbar_wait(&full[st], parity);
+      wg_fence();
+      products(st, false);
+      wg_wait_one();  // the previous k-tile's products are done: free its stage
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      prev = st;
+      advance();
+    }
+    wg_wait_all();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // The epilogue. Register i of a thread is row r + 8 ((i >> 1) & 1),
+    // column 8 (i >> 2) + 2t + (i & 1) of the warpgroup's 64 x 192.
+    const int row0 = m0 + 64 * wg;
+    if (tw == 0) {
+      bulk_wait_read();  // the last unit's store has read the buffer
+      if (EPI == kBiasResidual) {
+        mbar_expect_tx(&resid_bar[wg], kStaging);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a_frag<A_K>(af[i], a, wm + 16 * i, ks, lane);
+        for (int b = 0; b < 3; ++b) tma_box(buf + b * kBox, &rmap, &resid_bar[wg], n0 + 64 * b, row0, 0, 0);
+      }
+    }
+    if (EPI == kBias || EPI == kBiasResidual)
 #pragma unroll
-      for (int p = 0; p < 2; ++p) b_frags<B_K>(bfr[p], b, wn + 16 * p, ks, lane);
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        if (col < g.N) {
+          const float2 bias = load2(static_cast<const bf16*>(g.bias) + col);
+          acc[4 * j] += bias.x;
+          acc[4 * j + 1] += bias.y;
+          acc[4 * j + 2] += bias.x;
+          acc[4 * j + 3] += bias.y;
+        }
+      }
+    if (EPI == kBiasResidual) {
+      mbar_wait(&resid_bar[wg], resid_parity);
+      resid_parity ^= 1;
+    } else {
+      named_sync(1 + wg, 128);  // the buffer is free
+    }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < (kF32 ? 2 : 1); ++q) {
+      if (q > 0) {  // fp32: the first half's store has read the buffer
+        if (tw == 0) bulk_wait_read();
+        named_sync(1 + wg, 128);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          saicv::mma_16816(acc[i][j], af[i], bfr[j / 2][2 * (j % 2)],
-                           bfr[j / 2][2 * (j % 2) + 1]);
+      for (int j = 12 * q; j < (kF32 ? 12 * q + 12 : kBN / 8); ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t at = staged_at<kF32>(buf_at, j, r + 8 * h, t);
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (kF32) {
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at), "f"(v0), "f"(v1) : "memory");
+          } else {
+            if (EPI == kBiasResidual) {
+              uint32_t packed;
+              asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(packed) : "r"(at) : "memory");
+              const float2 res = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&packed));
+              v0 += res.x;
+              v1 += res.y;
+            }
+            asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at), "r"(pack_bf16(v0, v1)) : "memory");
+          }
+        }
+      fence_proxy_async();
+      named_sync(1 + wg, 128);
+      if (tw == 0) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b)
+          tma_store_box(&cmap, buf + b * kBox, kF32 ? n0 + 96 * q + 32 * b : n0 + 64 * b, row0, z, 0);
+        bulk_commit();
+      }
     }
   }
-  saicv::cp_async_wait_all();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        epilogue2<bf16, EPI>(g, m0 + wm + 16 * i + gq + 8 * h, n0 + wn + 8 * j + 2 * t,
-                             acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  if (tw == 0) bulk_wait();  // the stores have completed before the block ends
 }
 
 // fp32 inputs: the same products in FMA, 64 x 64 x 16 tiles, 4 x 4 outputs a
 // thread, both operands staged as [k][m or n] (a K-major operand transposed
-// on the way in).
+// on the way in), slice z = blockIdx.z.
 constexpr int kFM = 64, kFN = 64, kFK = 16;
+constexpr int kF32Threads = 256;
 
 template <bool KMAJOR, int R>
 __device__ __forceinline__ void fetch_f32(float (&r)[4], const Operand& op, int mn0,
@@ -348,7 +449,7 @@ __device__ __forceinline__ void store_f32(float* s, const float (&r)[4]) {
 }
 
 template <bool A_K, bool B_K, int EPI>
-__global__ void __launch_bounds__(kGemmThreads)
+__global__ void __launch_bounds__(kF32Threads)
 attn_block_gemm_f32(GemmArgs g) {
   __shared__ __align__(16) float As[2][kFK * (kFM + 4)];
   __shared__ __align__(16) float Bs[2][kFK * (kFN + 4)];
@@ -396,7 +497,7 @@ attn_block_gemm_f32(GemmArgs g) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; j += 2)
-      epilogue2<float, EPI>(g, m0 + 4 * tm + i, n0 + 4 * tn + j, acc[i][j], acc[i][j + 1]);
+      epilogue2<EPI>(g, m0 + 4 * tm + i, n0 + 4 * tn + j, acc[i][j], acc[i][j + 1]);
 }
 
 // ------------------------------------------------------- row kernels
@@ -574,40 +675,105 @@ struct Shape {
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
+// A GEMM's 128-byte-swizzled tensor map of D x N elements (rows sn apart;
+// H slices sh apart, B = 1 of make_map's 4-D maps: an axis of size 1 is
+// never read), bf16 or fp32, boxes of box_cols x box_rows.
+bool gemm_map(CUtensorMap* map, const void* base, long long sh, long long sn, int H, int N, int D,
+              int box_cols, int box_rows, bool f32) {
+  return saicv::make_map(map, base, 0, sh, sn, 1, H, N, D, box_cols, box_rows,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// The 2-D tensor map of a bf16 GEMM operand: K-major boxes of 64 k by
+// `rows` (the block tile's m or n), MN-major boxes of 64 (m or n) by 64 k.
+bool operand_map(CUtensorMap* map, const Operand& op, bool kmajor, int mn, int K, int rows) {
+  return kmajor ? gemm_map(map, op.p, 0, op.ld, 1, mn, K, 64, rows, false)
+                : gemm_map(map, op.p, 0, op.ld, 1, K, mn, 64, 64, false);
+}
+
+int sm_count() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 132;
+  return sms;
+}
+
+// One product over slices of g.k_chunk rows of K (one slice when k_chunk
+// >= K); the slices' count is ceil(K / k_chunk).
 template <bool A_K, bool B_K, int EPI>
-int gemm(const Shape& s, GemmArgs g, int splits = 1) {
+int gemm(const Shape& s, GemmArgs g) {
+  const int splits = (g.K + g.k_chunk - 1) / g.k_chunk;
   if (s.bf16) {
-    constexpr size_t smem = gemm_bf16_smem<A_K, B_K>();
-    const cudaError_t err = allow_smem(attn_block_gemm_bf16<A_K, B_K, EPI>, smem);
+    // the output's map: bf16 boxes of 64 x 64, or fp32 boxes of 32 columns
+    // x 64 rows with the slices z as a third axis; the residual's (read by
+    // kBiasResidual alone) as a bf16 output's
+    CUtensorMap amap, bmap, cmap, rmap;
+    const bool f32 = EPI == kStoreF32;
+    if (!operand_map(&amap, g.a, A_K, g.M, g.K, kBM) || !operand_map(&bmap, g.b, B_K, g.N, g.K, kBN) ||
+        !gemm_map(&cmap, g.out, g.out_split, g.ldc, splits, g.M, g.N, f32 ? 32 : 64, 64, f32) ||
+        (EPI == kBiasResidual && !gemm_map(&rmap, g.resid, 0, g.ldc, 1, g.M, g.N, 64, 64, false)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (EPI != kBiasResidual) rmap = cmap;
+    const cudaError_t err = allow_smem(attn_block_gemm_bf16<A_K, B_K, EPI>, kGemmSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, splits);
-    attn_block_gemm_bf16<A_K, B_K, EPI><<<grid, kGemmThreads, smem, s.stream>>>(g);
+    const long long units = static_cast<long long>((g.M + kBM - 1) / kBM) *
+                            ((g.N + kBN - 1) / kBN) * splits;
+    const int sms = sm_count();
+    const unsigned grid = static_cast<unsigned>(units < sms ? units : sms);
+    attn_block_gemm_bf16<A_K, B_K, EPI>
+        <<<grid, kGemmThreads, kGemmSmem, s.stream>>>(amap, bmap, cmap, rmap, g);
   } else {
     const dim3 grid((g.N + kFN - 1) / kFN, (g.M + kFM - 1) / kFM, splits);
-    attn_block_gemm_f32<A_K, B_K, EPI><<<grid, kGemmThreads, 0, s.stream>>>(g);
+    attn_block_gemm_f32<A_K, B_K, EPI><<<grid, kF32Threads, 0, s.stream>>>(g);
   }
   return last_error();
 }
 
-// The split of a weight gradient's K = M rows over blockIdx.z: enough output
-// tiles for two waves on 132 SMs, and no slice summing more than kSplitRows
-// rows in one accumulator chain (an fp32 chain over all 50,432 rows of a
-// ViT-B/16 batch of 256 drifts ~1e-5 of the sum; the slices are added in a
-// second pass), each slice whole tiles deep. Depends on the shape alone, so
-// the sums' order is fixed.
+// The split of a weight gradient's sum over K = B*N rows into fp32 slices,
+// each whole tiles deep and no deeper than kSplitRows rows (an fp32 chain
+// over all 50,432 rows of a ViT-B/16 batch of 256 drifts ~1e-5 of the sum;
+// the slices are added in a second pass, in order). fp32: enough output
+// tiles for two waves on 132 SMs. bf16: the count that should finish
+// soonest on 132 SMs at the card's peak rates (989 TFLOP/s, 3.35 TB/s): the
+// rounds of units times a unit's k-tiles, plus each slice's write and read
+// in device memory (rows_out x cols_out x 8 bytes) counted in the time of
+// one block's k-tile. Depends on the shape alone, so the sums' order is
+// fixed.
 constexpr int kSplitRows = 4096;
 
-void weight_split(const Shape& s, int rows_out, int cols_out, int& splits, int& k_chunk) {
-  const int bm = s.bf16 ? kBM : kFM, bn = s.bf16 ? kBN : kFN, bk = s.bf16 ? kBK : kFK;
+void weight_split(long long K, int rows_out, int cols_out, bool bf16, int& splits,
+                  int& k_chunk) {
+  const int bm = bf16 ? kBM : kFM, bn = bf16 ? kBN : kFN, bk = bf16 ? kBK : kFK;
   const long long tiles = static_cast<long long>((rows_out + bm - 1) / bm) * ((cols_out + bn - 1) / bn);
-  long long want = (2 * 132 + tiles - 1) / tiles;
-  const long long by_rows = (s.M + kSplitRows - 1) / kSplitRows;
-  if (by_rows > want) want = by_rows;
-  const long long k_tiles = (s.M + bk - 1) / bk;
-  if (want > k_tiles) want = k_tiles;
-  if (want < 1) want = 1;
-  k_chunk = static_cast<int>((k_tiles + want - 1) / want) * bk;
-  splits = static_cast<int>((s.M + k_chunk - 1) / k_chunk);
+  const long long k_tiles = (K + bk - 1) / bk;
+  const long long by_rows = (K + kSplitRows - 1) / kSplitRows;
+  long long depth;  // k-tiles a slice
+  if (!bf16) {
+    long long want = (2 * 132 + tiles - 1) / tiles;
+    if (by_rows > want) want = by_rows;
+    if (want > k_tiles) want = k_tiles;
+    if (want < 1) want = 1;
+    depth = (k_tiles + want - 1) / want;
+  } else {
+    const double tile_bytes = 2.0 * kBM * kBN * kBK * 132 / 989e12 * 3.35e12;
+    const double slice_cost = static_cast<double>(rows_out) * cols_out * 8.0 / tile_bytes;
+    double best = -1.0;
+    depth = k_tiles;
+    for (long long want = by_rows > 1 ? by_rows : 1; want <= k_tiles; ++want) {
+      const long long d = (k_tiles + want - 1) / want;
+      if (d * bk > kSplitRows) continue;
+      const long long slices = (k_tiles + d - 1) / d;
+      const double cost = static_cast<double>((tiles * slices + 131) / 132 * d) + slices * slice_cost;
+      if (best < 0.0 || cost < best) {
+        best = cost;
+        depth = d;
+      }
+    }
+  }
+  k_chunk = static_cast<int>(depth * bk);
+  splits = static_cast<int>((K + k_chunk - 1) / k_chunk);
 }
 
 int parts_of(long long M) { return static_cast<int>((M + kPartRows - 1) / kPartRows); }
@@ -644,9 +810,9 @@ long long align256(long long n) { return (n + 255) / 256 * 256; }
 long long partial_floats(const Shape& s) {
   int splits, k_chunk;
   long long most = 0;
-  weight_split(s, 3 * s.C, s.C, splits, k_chunk);
+  weight_split(s.M, 3 * s.C, s.C, s.bf16, splits, k_chunk);
   most = static_cast<long long>(splits) * 3 * s.C * s.C;
-  weight_split(s, s.C, s.C, splits, k_chunk);
+  weight_split(s.M, s.C, s.C, s.bf16, splits, k_chunk);
   const long long proj = static_cast<long long>(splits) * s.C * s.C;
   const long long cols = static_cast<long long>(parts_of(s.M)) * 3 * s.C;
   if (proj > most) most = proj;
@@ -775,24 +941,24 @@ struct Grads {
   float *dwqkv, *dbqkv, *dwproj, *dbproj, *dgamma, *dbeta;
 };
 
-// dW[o, i] = sum_m G[m, o] X[m, i] over all M rows, split over blockIdx.z
-// and added in order: G is [M, rows_out] (K-outer A), X [M, cols_out]
-// (K-outer B).
-int weight_gradient(const Shape& s, const void* gsrc, Operand xop, int rows_out, int cols_out,
-                    float* partial, float* out) {
+// dW[o, i] = sum_m G[m, o] X[m, i] over K rows m, in fp32 slices
+// (weight_split) added in order: G is [K, rows_out] (MN-major A), X [K,
+// cols_out] (MN-major B).
+int weight_gradient(const Shape& s, long long K, const void* gsrc, Operand xop, int rows_out,
+                    int cols_out, float* partial, float* out) {
   int splits, k_chunk;
-  weight_split(s, rows_out, cols_out, splits, k_chunk);
+  weight_split(K, rows_out, cols_out, s.bf16, splits, k_chunk);
   GemmArgs g{};
   g.a = Operand{gsrc, rows_out};
   g.b = xop;
   g.M = rows_out;
   g.N = cols_out;
-  g.K = static_cast<int>(s.M);
+  g.K = static_cast<int>(K);
   g.k_chunk = k_chunk;
   g.out = partial;
   g.ldc = cols_out;
   g.out_split = static_cast<long long>(rows_out) * cols_out;
-  int err = gemm<false, false, kStoreF32>(s, g, splits);
+  int err = gemm<false, false, kStoreF32>(s, g);
   return err ? err : reduce(s, partial, out, splits, g.out_split);
 }
 
@@ -817,10 +983,11 @@ int backward(const Shape& s, const Weights& p, const void* dy, const Grads& d,
   if ((err = s.D == 64 ? attention_backward<64>(s, w) : attention_backward<128>(s, w)))
     return err;
   // dWproj = dy^T . attn, dbproj = sum dy
-  if ((err = weight_gradient(s, dy, Operand{w.attn, C}, C, C, w.partial, d.dwproj))) return err;
+  if ((err = weight_gradient(s, s.M, dy, Operand{w.attn, C}, C, C, w.partial, d.dwproj)))
+    return err;
   if ((err = column_sums<T>(s, dy, C, w.partial, d.dbproj))) return err;
   // dWqkv = dqkv^T . xn, dbqkv = sum dqkv
-  if ((err = weight_gradient(s, w.dqkv, Operand{w.xn, C}, 3 * C, C, w.partial, d.dwqkv)))
+  if ((err = weight_gradient(s, s.M, w.dqkv, Operand{w.xn, C}, 3 * C, C, w.partial, d.dwqkv)))
     return err;
   if ((err = column_sums<T>(s, w.dqkv, 3 * C, w.partial, d.dbqkv))) return err;
   // dxn = dqkv . Wqkv (fp32)
@@ -910,4 +1077,52 @@ extern "C" int saicv_attn_block_bwd(const void* x, const void* wqkv, const void*
                     static_cast<float*>(dbeta)};
   return is_bf16 ? k8::backward<saicv::bf16>(s, p, dy, d, w)
                  : k8::backward<float>(s, p, dy, d, w);
+}
+
+// One bf16 product of K8's GEMM alone, for its tests: a is [M, K] (a_kmajor
+// = 1) or [K, M], b [N, K] (b_kmajor = 1) or [K, N], out [M, N], all
+// contiguous, at the layouts and epilogues K8 runs: qkv (1, 1, kBias), proj
+// (1, 1, kBiasResidual), dattn (1, 0, kStore), dxn (1, 0, kStoreF32), and
+// the weight gradients (0, 0, epilogue 4: fp32 slices over K added in order
+// into out, with saicv_attn_block_gemm_workspace_bytes of workspace). bias
+// is [N], resid [M, N]; every inner extent a multiple of 8. Returns a
+// cudaError_t (cudaErrorInvalidValue for another layout or shape).
+
+extern "C" long long saicv_attn_block_gemm_workspace_bytes(int M, int N, int K) {
+  if (M < 1 || N < 1 || K < 1) return -1;
+  int splits, k_chunk;
+  k8::weight_split(K, M, N, true, splits, k_chunk);
+  return 4LL * splits * M * N;
+}
+
+extern "C" int saicv_attn_block_gemm(const void* a, int a_kmajor, const void* b, int b_kmajor,
+                                     int M, int N, int K, int epilogue, const void* bias,
+                                     const void* resid, void* out, void* workspace, void* stream) {
+  using namespace k8;
+  const long long inner_a = a_kmajor ? K : M, inner_b = b_kmajor ? K : N;
+  if (M < 1 || N < 1 || K < 1 || inner_a % 8 || inner_b % 8 || N % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Shape s{};
+  s.bf16 = 1;
+  s.stream = static_cast<cudaStream_t>(stream);
+  if (!a_kmajor && !b_kmajor && epilogue == 4)
+    return weight_gradient(s, K, a, Operand{b, N}, M, N, static_cast<float*>(workspace),
+                           static_cast<float*>(out));
+  GemmArgs g{};
+  g.a = Operand{a, inner_a};
+  g.b = Operand{b, inner_b};
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  g.k_chunk = K;
+  g.out = out;
+  g.ldc = N;
+  g.bias = bias;
+  g.resid = resid;
+  if (a_kmajor && b_kmajor && epilogue == kBias) return gemm<true, true, kBias>(s, g);
+  if (a_kmajor && b_kmajor && epilogue == kBiasResidual)
+    return gemm<true, true, kBiasResidual>(s, g);
+  if (a_kmajor && !b_kmajor && epilogue == kStore) return gemm<true, false, kStore>(s, g);
+  if (a_kmajor && !b_kmajor && epilogue == kStoreF32) return gemm<true, false, kStoreF32>(s, g);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

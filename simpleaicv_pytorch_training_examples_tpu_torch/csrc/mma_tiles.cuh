@@ -1,10 +1,10 @@
 // Tile helpers shared by the attention kernels: cp.async copies into
-// shared memory, mma.sync m16n8k16 bf16 products with fp32 accumulation and
-// ldmatrix fragment loads (K8's GEMMs), the bf16 packing and the
-// decomposed rel-pos bias's indexing.
+// shared memory, the bf16 packing, exp2 on the special-function unit and
+// the decomposed rel-pos bias's indexing. The port's bf16 products all run
+// on wgmma (hopper.cuh); no kernel issues mma.sync.
 //
-// Fragment layout of mma.sync m16n8k16: g = lane / 4 is a fragment's row
-// (and g + 8), t = lane % 4 its column pair.
+// Fragment rows and columns below follow wgmma's accumulator layout: g =
+// lane / 4 is a fragment's row (and g + 8), t = lane % 4 its column pair.
 
 #pragma once
 
@@ -36,26 +36,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
 
 // 2^x on the special-function unit (~2 ulp; 0 for -inf and below -126).
 __device__ __forceinline__ float exp2_approx(float x) {

@@ -27,6 +27,11 @@ of it); a CUDA tensor takes the kernel, or the call raises: a shape, dtype
 or layout the kernel cannot take is refused, never sent to the plain
 version. ``attn_block.launches`` and ``attn_block.backward_launches`` count
 the kernel's forward and backward calls.
+
+``gemm`` runs one bf16 product of K8's GEMM alone, at an operand layout and
+epilogue of ``GEMM_PRODUCTS`` (its tests hold each product K8 runs against
+``gemm_reference``, an fp32 product of the bf16 operands with the epilogue,
+rounded once); ``gemm.launches`` counts its launches.
 """
 
 import ctypes
@@ -39,6 +44,20 @@ from . import build
 HEAD_DIMS = (64, 128)
 MAX_TOKENS = 1024
 _DTYPES = (torch.bfloat16, torch.float32)
+# the GEMM's epilogues, as attn_block.cu numbers them ("weight_gradient":
+# fp32 slices over K added in order)
+GEMM_EPILOGUES = {"store": 0, "bias": 1, "bias_residual": 2, "store_f32": 3,
+                  "weight_gradient": 4}
+# (A K-major, B K-major, epilogue) of each bf16 product K8 runs; A is [M, K]
+# when K-major, else [K, M]; B is [N, K] when K-major, else [K, N]
+GEMM_PRODUCTS = {
+    "qkv": (True, True, "bias"),               # xn . Wqkv^T + bqkv
+    "proj": (True, True, "bias_residual"),     # attn . Wproj^T + bproj + x
+    "dattn": (True, False, "store"),           # dy . Wproj
+    "dxn": (True, False, "store_f32"),         # dqkv . Wqkv
+    "dwproj": (False, False, "weight_gradient"),   # dy^T . attn
+    "dwqkv": (False, False, "weight_gradient"),    # dqkv^T . xn
+}
 
 
 def attn_block_reference(x, wqkv, bqkv, wproj, bproj, gamma, beta, head_nums,
@@ -75,6 +94,88 @@ def attn_block_backward_reference(x, wqkv, bqkv, wproj, bproj, gamma, beta,
                   for t in (x, wqkv, bqkv, wproj, bproj, gamma, beta)]
         y = attn_block_reference(*leaves, head_nums, eps)
         return torch.autograd.grad(y, leaves, dy.to(y.dtype))
+
+
+def gemm_reference(a, b, a_kmajor=True, b_kmajor=True, epilogue="store",
+                   bias=None, resid=None):
+    """Plain version of K8's GEMM: C = A.B of the operands in fp32, then the
+    epilogue in fp32 (+ bias[n], + resid[m, n]), rounded once to a's dtype;
+    "store_f32" and "weight_gradient" stay fp32."""
+    am = a.float() if a_kmajor else a.float().t()
+    bm = b.float().t() if b_kmajor else b.float()
+    out = am @ bm
+    if epilogue in ("bias", "bias_residual"):
+        out = out + bias.float()
+    if epilogue == "bias_residual":
+        out = out + resid.float()
+    if epilogue in ("store_f32", "weight_gradient"):
+        return out
+    return out.to(a.dtype)
+
+
+def gemm_shape(a, b, a_kmajor, b_kmajor, epilogue, bias, resid):
+    """(M, N, K) of one product, or raises."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"operands must be 2-D, got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    m, k = a.shape if a_kmajor else (a.shape[1], a.shape[0])
+    n, kb = b.shape if b_kmajor else (b.shape[1], b.shape[0])
+    if k != kb:
+        raise ValueError(f"K differs: A gives {k}, B {kb}")
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if epilogue in ("bias", "bias_residual") and (
+            bias is None or tuple(bias.shape) != (n,)):
+        raise ValueError(f"epilogue {epilogue!r} needs a bias [{n}]")
+    if epilogue == "bias_residual" and (
+            resid is None or tuple(resid.shape) != (m, n)):
+        raise ValueError(f"epilogue 'bias_residual' needs resid [{m}, {n}]")
+    return m, n, k
+
+
+def gemm(a, b, a_kmajor=True, b_kmajor=True, epilogue="store", bias=None,
+         resid=None):
+    """One product of K8's GEMM (see ``gemm_reference``). A CPU tensor takes
+    the plain version; a CUDA tensor takes the kernel (bf16, a layout and
+    epilogue of ``GEMM_PRODUCTS``, every inner extent a multiple of 8) or
+    the call raises."""
+    m, n, k = gemm_shape(a, b, a_kmajor, b_kmajor, epilogue, bias, resid)
+    if a.device.type == "cpu":
+        return gemm_reference(a, b, a_kmajor, b_kmajor, epilogue, bias, resid)
+    if a.device.type != "cuda":
+        raise ValueError(f"unsupported device {a.device}")
+    if (a_kmajor, b_kmajor, epilogue) not in GEMM_PRODUCTS.values():
+        raise ValueError(f"K8's GEMM does not run A K-major={a_kmajor}, B "
+                         f"K-major={b_kmajor} with epilogue {epilogue!r}")
+    extras = [t for t in (bias, resid) if t is not None]
+    if any(t.dtype != torch.bfloat16 or t.device != a.device
+           for t in [a, b] + extras):
+        raise TypeError("K8's GEMM takes bfloat16 tensors on one device")
+    inner = (k if a_kmajor else m, k if b_kmajor else n, n)
+    if any(e % 8 for e in inner):
+        raise ValueError(f"inner extents {inner} are not multiples of 8")
+    a, b = _ready(a), _ready(b)
+    bias = None if bias is None else _ready(bias)
+    resid = None if resid is None else _ready(resid)
+    f32 = epilogue in ("store_f32", "weight_gradient")
+    out = torch.empty(m, n, device=a.device,
+                      dtype=torch.float32 if f32 else torch.bfloat16)
+    with torch.cuda.device(a.device):
+        lib = _library()
+        work = None
+        if epilogue == "weight_gradient":
+            work = torch.empty(lib.saicv_attn_block_gemm_workspace_bytes(
+                m, n, k), dtype=torch.uint8, device=a.device)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        _check(lib.saicv_attn_block_gemm(
+            a.data_ptr(), int(a_kmajor), b.data_ptr(), int(b_kmajor), m, n, k,
+            GEMM_EPILOGUES[epilogue], ptr(bias), ptr(resid), out.data_ptr(),
+            ptr(work), _stream(a.device)))
+    gemm.launches += 1
+    return out
+
+
+gemm.launches = 0
 
 
 def supported(n, c, head_nums):
@@ -128,6 +229,11 @@ def _library():
                                          + [ctypes.c_float, i32, ptr])
     lib.saicv_attn_block_fwd.restype = i32
     lib.saicv_attn_block_bwd.restype = i32
+    lib.saicv_attn_block_gemm_workspace_bytes.argtypes = [i32] * 3
+    lib.saicv_attn_block_gemm_workspace_bytes.restype = ctypes.c_longlong
+    lib.saicv_attn_block_gemm.argtypes = ([ptr, i32, ptr, i32] + [i32] * 4
+                                          + [ptr] * 5)
+    lib.saicv_attn_block_gemm.restype = i32
     return lib
 
 

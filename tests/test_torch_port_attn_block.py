@@ -11,6 +11,13 @@ atol 2e-5 (the JAX test holds the kernel to 2e-4), the gradients atol and
 rtol 2e-4 (the JAX test: 2e-3); bf16: within one bf16 ulp of the output's
 largest value of ``_reference_block`` run in bf16.
 
+K8's GEMM: ``gemm_reference``, the plain version of one bf16 product at
+each operand layout and epilogue K8 runs (``GEMM_PRODUCTS``), against numpy
+float64 on operands of small integers, so that every fp32 sum is exact:
+fp32 outputs equal the float64 product, bf16 outputs its one rounding (and
+differ from rounding the product before the bias add); the wrapper takes it
+on the CPU and refuses shapes that do not fit.
+
 Model level: a tiny ViT with ``use_fused_block`` against the JAX ViT with
 the flag (which runs ``_reference_block`` off the TPU) through
 ``vit_state_dict_from_jax``, logits and every parameter gradient (the JAX
@@ -141,6 +148,78 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu():
     for name, g, w in zip(NAMES, grads, ab.attn_block_backward_reference(
             *args, dy, h)):
         torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+# ---------------------------------------------------------------- the GEMM
+
+def gemm_operands(product, m, c, seed):
+    """numpy float64 A, B (in the layouts of ``GEMM_PRODUCTS``), bias and
+    resid of one product at M rows and width C: integers in [-8, 8] (bias)
+    and [-64, 64] (resid), so that bf16 holds them and fp32 sums them
+    exactly; M, N, K as K8 runs the product."""
+    mnk = {"qkv": (m, 3 * c, c), "proj": (m, c, c), "dattn": (m, c, c),
+           "dxn": (m, c, 3 * c), "dwproj": (c, c, m), "dwqkv": (3 * c, c, m)}
+    mm, n, k = mnk[product]
+    a_k, b_k, _ = ab.GEMM_PRODUCTS[product]
+    rs = np.random.RandomState(seed)
+    ints = lambda lim, *shape: rs.randint(-lim, lim + 1, shape).astype(
+        np.float64)
+    return (ints(8, *((mm, k) if a_k else (k, mm))),
+            ints(8, *((n, k) if b_k else (k, n))), ints(8, n), ints(64, mm, n))
+
+
+@pytest.mark.parametrize("product", sorted(ab.GEMM_PRODUCTS))
+@pytest.mark.parametrize("m,c", [(21, 64), (300, 192)])
+def test_gemm_reference_against_float64(product, m, c):
+    a_k, b_k, epilogue = ab.GEMM_PRODUCTS[product]
+    a, b, bias, resid = gemm_operands(product, m, c, seed=m + c)
+    bf = lambda t: torch.from_numpy(t).to(torch.bfloat16)
+    extra = {"bias": bf(bias)} if "bias" in epilogue else {}
+    if epilogue == "bias_residual":
+        extra["resid"] = bf(resid)
+    got = ab.gemm_reference(bf(a), bf(b), a_k, b_k, epilogue, **extra)
+    acc = (a if a_k else a.T) @ (b.T if b_k else b)
+    want = acc + (bias if "bias" in epilogue else 0.0) + (
+        resid if epilogue == "bias_residual" else 0.0)
+    if epilogue in ("store_f32", "weight_gradient"):
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    assert got.dtype == torch.bfloat16
+    once = torch.from_numpy(want).to(torch.bfloat16)
+    torch.testing.assert_close(got, once, rtol=0, atol=0)
+    if epilogue != "store":   # rounded once, not before the bias add
+        twice = (torch.from_numpy(acc).to(torch.bfloat16).double()
+                 + torch.from_numpy(want - acc)).to(torch.bfloat16)
+        assert not torch.equal(twice, once)
+
+
+def test_gemm_takes_the_plain_version_on_the_cpu():
+    a, b, bias, resid = (torch.from_numpy(t).to(torch.bfloat16) for t in
+                         gemm_operands("proj", 40, 64, seed=1))
+    before = ab.gemm.launches
+    got = ab.gemm(a, b, True, True, "bias_residual", bias=bias, resid=resid)
+    assert ab.gemm.launches == before
+    torch.testing.assert_close(got, ab.gemm_reference(
+        a, b, True, True, "bias_residual", bias=bias, resid=resid),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["k_differs", "no_bias", "resid_shape",
+                                  "epilogue"])
+def test_gemm_refuses_shapes_that_do_not_fit(case):
+    a, b = torch.zeros(16, 64), torch.zeros(32, 64)
+    kwargs = {"bias_residual": dict(bias=torch.zeros(32),
+                                    resid=torch.zeros(16, 31))}
+    with pytest.raises(ValueError):
+        if case == "k_differs":
+            ab.gemm(a, torch.zeros(32, 48))
+        elif case == "no_bias":
+            ab.gemm(a, b, epilogue="bias")
+        elif case == "resid_shape":
+            ab.gemm(a, b, epilogue="bias_residual", **kwargs["bias_residual"])
+        else:
+            ab.gemm(a, b, epilogue="transpose")
 
 
 # ---------------------------------------------------------------- the model

@@ -24,7 +24,11 @@ of q, k, v with its own strides, forward and backward (masked keys get
 exactly zero dk and dv; the backward is the same bit for bit when run
 again); K1 with Hiera's ``sm_scale`` and K2 at Hiera's d = 56; K8 (the
 fused attention block) at d = 64 and 128, ragged N and N = 1024, forward and
-all seven gradients, reproducible bit for bit; K9 (the packed [B, N, 3, H,
+all seven gradients, reproducible bit for bit, and K8's GEMM alone
+(``attn_block.gemm``), each product of ``GEMM_PRODUCTS`` at ViT-B/16's
+micro-batch, ragged M and C = 64 to 1024, against ``gemm_reference``,
+equal bit for bit on integer operands (every fp32 sum exact), the same bits
+when run again; K9 (the packed [B, N, 3, H,
 D] qkv) at odd and even head dims, with a strided dout and unaligned
 tensors, bit for bit K1 at d = 64 and 128; K2b (the full score bias) with
 fp32 and bf16 biases broadcast from [1, H, N, N], [H, N, N] and [B, 1, 1,
@@ -54,6 +58,10 @@ in fp32, y's and dx's RMS difference at most 1.25x the plain bf16
 version's and every weight, bias, gamma and beta gradient's relative L2
 difference at most the larger of 1e-2 and 1.25x the plain version's; in
 fp32, max |kernel - plain| at most 1e-4 of the plain result's RMS.
+K8's GEMM on operands of unit scale: fp32 outputs max |kernel - plain| at
+most 1e-4 of the plain result's RMS, bf16 outputs within 2^-7 of the larger
+of the two plus that at every element (an fp32 sum-order difference can
+move a rounding by one bf16 ulp).
 """
 
 import pytest
@@ -1096,6 +1104,94 @@ def test_attn_block_refuses_what_it_cannot_take(cuda):
         gen, 1, 8, 1, 64, torch.bfloat16)
     with pytest.raises(ValueError):   # gamma rounded to bf16
         ab.attn_block(x, wqkv, bqkv, wproj, bproj, gamma.bfloat16(), beta, 1)
+
+
+GEMM_SHAPES = [(12608, 768), (591, 192), (130, 64), (394, 1024)]
+
+
+def _gemm_operands(gen, product, m, c, integers):
+    """A, B (in ``GEMM_PRODUCTS``'s layouts), bias and resid of one of K8's
+    products at M rows and width C, bf16: unit scale (Linear weights at
+    C^-0.5), or small integers that fp32 sums exactly in any order."""
+    mnk = {"qkv": (m, 3 * c, c), "proj": (m, c, c), "dattn": (m, c, c),
+           "dxn": (m, c, 3 * c), "dwproj": (c, c, m), "dwqkv": (3 * c, c, m)}
+    mm, n, k = mnk[product]
+    a_k, b_k, _ = ab.GEMM_PRODUCTS[product]
+
+    def draw(*shape, scale=1.0, lim=8):
+        if integers:
+            return torch.randint(-lim, lim + 1, shape, device="cuda",
+                                 generator=gen).to(torch.bfloat16)
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)).to(
+            torch.bfloat16)
+    weight = c ** -0.5 if product in ("qkv", "proj", "dattn", "dxn") else 1.0
+    return (draw(*((mm, k) if a_k else (k, mm))),
+            draw(*((n, k) if b_k else (k, n)), scale=weight),
+            draw(n, scale=0.02), draw(mm, n, lim=64))
+
+
+def _gemm_extra(epilogue, bias, resid):
+    extra = {"bias": bias} if "bias" in epilogue else {}
+    if epilogue == "bias_residual":
+        extra["resid"] = resid
+    return extra
+
+
+@pytest.mark.parametrize("m,c", GEMM_SHAPES)
+@pytest.mark.parametrize("product", sorted(ab.GEMM_PRODUCTS))
+def test_attn_block_gemm_products(cuda, product, m, c):
+    a_k, b_k, epilogue = ab.GEMM_PRODUCTS[product]
+    gen = torch.Generator(device="cuda").manual_seed(m + c)
+    a, b, bias, resid = _gemm_operands(gen, product, m, c, integers=False)
+    extra = _gemm_extra(epilogue, bias, resid)
+    before = ab.gemm.launches
+    got = ab.gemm(a, b, a_k, b_k, epilogue, **extra)
+    again = ab.gemm(a, b, a_k, b_k, epilogue, **extra)
+    torch.cuda.synchronize()
+    assert ab.gemm.launches == before + 2
+    assert torch.equal(got, again), "two runs differ"
+    want = ab.gemm_reference(a, b, a_k, b_k, epilogue, **extra)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        assert diff.max().item() <= 1e-4 * _rms(want), (diff.max().item(),
+                                                         _rms(want))
+    else:
+        bound = (2.0 ** -7 * torch.maximum(got.float().abs(),
+                                           want.float().abs())
+                 + 1e-4 * _rms(want))
+        assert bool((diff <= bound).all()), (diff - bound).max().item()
+
+
+@pytest.mark.parametrize("m,c", GEMM_SHAPES[1:])
+@pytest.mark.parametrize("product", sorted(ab.GEMM_PRODUCTS))
+def test_attn_block_gemm_exact_on_integers(cuda, product, m, c):
+    """Small integer operands: every fp32 sum is exact in any order, so the
+    kernel equals its plain version bit for bit (a wrong tile, layout or
+    slice shows at once)."""
+    a_k, b_k, epilogue = ab.GEMM_PRODUCTS[product]
+    gen = torch.Generator(device="cuda").manual_seed(7 * m + c)
+    a, b, bias, resid = _gemm_operands(gen, product, m, c, integers=True)
+    extra = _gemm_extra(epilogue, bias, resid)
+    got = ab.gemm(a, b, a_k, b_k, epilogue, **extra)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ab.gemm_reference(
+        a, b, a_k, b_k, epilogue, **extra), rtol=0, atol=0)
+
+
+def test_attn_block_gemm_refuses_what_it_cannot_take(cuda):
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    a, b = torch.zeros(64, 128, **bf), torch.zeros(64, 128, **bf)
+    with pytest.raises(ValueError):   # A MN-major, B K-major: no K8 product
+        ab.gemm(a, b, False, True, "store")
+    with pytest.raises(ValueError):   # dxn's layout with a bias
+        ab.gemm(a, b, True, False, "bias", bias=torch.zeros(128, **bf))
+    with pytest.raises(TypeError):
+        ab.gemm(a.float(), b.float(), True, True, "bias",
+                bias=torch.zeros(64, device="cuda"))
+    with pytest.raises(ValueError):   # K = 60: rows not 16-byte multiples
+        ab.gemm(torch.zeros(64, 60, **bf), torch.zeros(64, 60, **bf), True,
+                True, "bias", bias=torch.zeros(64, **bf))
 
 
 def test_vit_blocks_under_gradient_checkpoint(cuda):
