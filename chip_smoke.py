@@ -66,7 +66,31 @@ kernels' launch counters set to 0 just before it and read just after:
   JAX package's ``bench_sam2_train.py`` recipe (4 frames, frame 0 prompted,
   frames 1-2 refined) with the kernels and with plain attention; the
   gradients of that step, refinement off, with sharpened attention,
-  kernels against plain attention, with a control.
+  kernels against plain attention, with a control;
+- ImageNet classification from JPEG files (phases 10f-10l): the native
+  libjpeg core built from the checkout (``[native jpeg]``: the libjpeg it
+  linked, the committed fixtures ``tests/torch_port_data/jpeg`` decoded,
+  each per-channel mean within JPEG_MEAN_TOL of the recorded one, decode
+  rates on one thread and on every core); the ResNet-50 config's train
+  transforms through the loader alone on 16,384 symlinks to the fixtures
+  (64 batches: 8 a worker at the config's workers, capped at the cores; 3
+  without workers), the rate read after each worker's first batch;
+  full-width, full-depth ResNet-50 through the work-dir train CLI with the
+  port's ``imagenet/resnet50`` config on a folder of 1,024 train and 256
+  val symlinks in 8 classes (bf16, batch 256: two epochs of 4 steps, then
+  resumed for a third; each epoch's loader wait, split into the workers'
+  start, the first batch and the later batches, and step time), its best.pth through the eval CLI over the 256 val images;
+  ViT-B/16 through the eval CLI over the JPEG val folder (K1 12 a batch);
+  a timed ResNet-50 train step at batch 256 with channels_last activations
+  and in NCHW, and a step with a NaN in one of two micro-batches that must
+  skip and leave every parameter, the optimizer state and every BatchNorm
+  buffer bit for bit; ResNet-18 (CIFAR) through the train CLI with its
+  config on a seeded CIFAR-100 pickle (two epochs of 4 steps at 128, then
+  resumed for a third); ResNet-50 through the ImageNet-21K train CLI with
+  its config on a two-level tree (one epoch of 2 steps), the semantic
+  softmax loss finite. The ResNet paths launch no hand-written kernel
+  (their counts read 0). Where libjpeg cannot be built, the JPEG phases'
+  lines say ``unavailable`` with the reason instead.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -118,18 +142,19 @@ and the plain path's difference from fp32.
 Rel-pos attention backward kernels (K3, K4, K5) vs their plain versions:
 drel_h and drel_w (fp32 sums of dS0) within the attention tolerance's
 fraction (bf16 2e-2, fp32 1e-4) of the larger of their largest plain
-values; both runs of the backward bit for bit equal. K3's and K4's dq, dk,
-dv (K3: the packed dqkv) bf16 atol 2e-2, fp32 1e-4. K5's dq, dk, dv are
-held to the plain version's floor, since a flat 2e-2 is about a third of a
-typical gradient element at SAM-B's global blocks (scores of std ~1.7 over
-4,096 keys): by ``key_bias_reading`` (bf16: RMS distance from the plain
-version's fp32 computation of the same inputs at most 1.25x the plain bf16
-version's, max distance at most the plain version's plus one bf16 ulp of
-the largest value; fp32: 1e-4 of the plain RMS); a control that runs K5's
-backward kernels with rel_w zeroed on one 64-row query tile (the
-forward's output and log-sum-exp kept) fails the run unless it fails that
-reading; in bf16 each of the two walks' device ms (``split_ms``, from
-torch.profiler). K5's bf16 backward (``flash_relpos_bwd.cu``) must show
+values; both runs of the backward bit for bit equal. dq, dk, dv (K3: the
+packed dqkv) are held to the plain version's floor, since a flat 2e-2 is
+about a third of a typical gradient element at SAM-B's global blocks
+(scores of std ~1.7 over 4,096 keys): by ``key_bias_reading`` (bf16: RMS
+distance from the plain version's fp32 computation of the same inputs at
+most 1.25x the plain bf16 version's, max distance at most the plain
+version's plus one bf16 ulp of the largest value; fp32: 1e-4 of the plain
+RMS, and for K3 and K4 also max |kernel - plain| <= 1e-4); a control that
+runs the backward kernels with rel_w zeroed on one 64-row query tile (K5
+with the forward's output and log-sum-exp kept; K3 and K4, whose backward
+recomputes the softmax, after a forward of the same inputs) fails the run
+unless it fails that reading; in bf16 each of K5's two walks' device ms
+(``split_ms``, from torch.profiler). K5's bf16 backward (``flash_relpos_bwd.cu``) must show
 HGMMA (``wgmma``) in the SASS of both walks' kernels at every head-dim
 shape and KW mode, no kernel of it may spill or have its ``wgmma``
 pipeline serialized by ptxas, and ``flash_attention.cu``'s library must
@@ -329,6 +354,17 @@ SAM2_TRAIN_FRAMES, SAM2_TRAIN_CLIPS = 8, 3   # the CLI: 3 steps an epoch
 SAM2_STEP_FRAMES = 4        # the timed step: bench_sam2_train.py's recipe
 SAM2_GRAD_SEED = 7
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
+# phases a-g (10f-10l): the JPEG fixtures and the ImageNet slice's sizes
+JPEG_FIXTURES = REPO / "tests" / "torch_port_data" / "jpeg"
+JPEG_MEAN_TOL = 1.0         # libjpeg builds may round the IDCT differently
+JPEG_DECODE_ROUNDS = 8
+JPEG_CLASSES = 8
+RESNET_TRAIN_IMAGES, RESNET_EVAL_IMAGES = 1024, 256   # 4 steps at 256
+LOADER_IMAGES = 16384          # phase b: 64 batches of 256, 8 per worker
+LOADER_BATCHES_NO_WORKERS = 3
+CIFAR_TRAIN_IMAGES, CIFAR_TEST_IMAGES = 512, 256      # 4 steps at 128
+IN21K_TRAIN_IMAGES = 512                              # 2 steps at 256
+IN21K_CLASSES, IN21K_ROOTS = 10450, 100   # the config's classes, two levels
 
 VIT_B_CONFIG = """
 import torch
@@ -912,18 +948,19 @@ def rel_attention_backward_bound(b, h, n, n_keys, d, kh, kw, dtype_name,
 def check_rel_backward_kernel(torch, F, name, case, results):
     """Hold the backward of K3, K4 or K5 against its plain version at one
     shape with a seeded dout: drel_h and drel_w within the attention
-    tolerance's fraction of their largest plain value; K3's and K4's dq,
-    dk, dv (K3: the packed dqkv) within the attention tolerance; K5's dq,
-    dk, dv at the plain version's floor (``key_bias_reading``: bf16 against
-    the plain version's fp32 computation of the same inputs), and a control
-    that runs K5's backward kernels with rel_w zeroed on one 64-row query
-    tile (the forward's output and lse kept) must fail that reading; two
-    backward runs bit for bit equal. Time the backward kernels alone (the
-    graph is kept; K5 in bf16 also each of its two kernels' device ms,
-    ``kernel_split_ms``), the plain backward and SDPA's backward with the
-    bias expanded to [B, H, N, N] and requiring grad (a yardstick, never
-    used by the port; the bias gradient is not reduced to drel); append the
-    record to results[name + " bwd"]."""
+    tolerance's fraction of their largest plain value; dq, dk, dv (K3: the
+    packed dqkv) at the plain version's floor (``key_bias_reading``: bf16
+    against the plain version's fp32 computation of the same inputs; K3's
+    and K4's fp32 also within the flat fp32 tolerance), and a control that
+    runs the backward kernels with rel_w zeroed on one 64-row query tile
+    (K5: the forward's output and lse kept; K3 and K4, whose backward
+    recomputes the softmax, after a forward of the same inputs) must fail
+    that reading; two backward runs bit for bit equal. Time the backward
+    kernels alone (the graph is kept; K5 in bf16 also each of its two
+    kernels' device ms, ``kernel_split_ms``), the plain backward and SDPA's
+    backward with the bias expanded to [B, H, N, N] and requiring grad (a
+    yardstick, never used by the port; the bias gradient is not reduced to
+    drel); append the record to results[name + " bwd"]."""
     from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
         flash_attention as fl, fused_attention as fa)
     dtype = case["dtype"]
@@ -972,15 +1009,25 @@ def check_rel_backward_kernel(torch, F, name, case, results):
     again = kernel_bwd()
     reproducible = all(torch.equal(x, y) for x, y in zip(got, again))
     del again
-    floor = name == "K5"    # K5's dq, dk, dv at the plain version's floor
     bf16 = dtype == torch.bfloat16
-    if floor:   # rel_w zeroed on one query tile, in both walks' logits
-        rows = slice(64 * (n // 128), 64 * (n // 128) + 64)
-        dropped = rel_w.clone()
+    # the control: rel_w zeroed on one query tile, in both walks' logits
+    rows = slice(64 * (n // 128), 64 * (n // 128) + 64)
+    dropped = rel_w.clone()
+    if name == "K3":    # [B, N, H, KW]
+        dropped[:, rows] = 0.0
+    else:               # [B, H, N, KW]
         dropped[:, :, rows] = 0.0
+    if name == "K5":
         control = fl.flash_attention_relpos_backward(
             q, k, v, rel_h, dropped, dout, out.detach(), lse)
-        del dropped
+    else:
+        inputs = (qkv, rel_h, dropped) if name == "K3" else (
+            q, k, v, rel_h, dropped)
+        c_leaves = [t.detach().requires_grad_() for t in inputs]
+        c_out = wrapper(*c_leaves, h if name == "K3" else n_real)
+        control = torch.autograd.grad(c_out, c_leaves, dout)
+        del c_out, c_leaves
+    del dropped
     want = plain()
     if name == "K3":   # the packed dqkv against the plain one
         names, got_att, want_att = ("dqkv",), got[:1], want[:1]
@@ -993,19 +1040,25 @@ def check_rel_backward_kernel(torch, F, name, case, results):
         ("drel_h", "drel_w"), got[-2:], want[-2:])}
     finite = all(bool(torch.isfinite(g).all()) for g in got)
     readings, control_readings, floor_ok, control_ok = {}, {}, True, True
-    if floor:
-        with torch.no_grad():
-            exact = (fl.flash_attention_relpos_backward_reference(
+    with torch.no_grad():
+        if not bf16:
+            exact = (None,) * 3
+        elif name == "K3":
+            exact = fa.fused_attention_relwin_dense_backward_reference(
+                qkv.float(), rel_h, rel_w, dout.float(), h)
+        elif name == "K4":
+            exact = fa.fused_attention_relwin_backward_reference(
+                q.float(), k.float(), v.float(), rel_h, rel_w, dout.float(),
+                n_real)
+        else:
+            exact = fl.flash_attention_relpos_backward_reference(
                 q.float(), k.float(), v.float(), rel_h, rel_w, dout.float())
-                     if bf16 else (None,) * 3)
-            for nm, g, r, e, c in zip(names, got_att, want_att, exact,
-                                      control):
-                ok, readings[nm] = key_bias_reading(torch, g, r, e)
-                c_ok, control_readings[nm] = key_bias_reading(torch, c, r, e)
-                floor_ok &= ok
-                control_ok &= c_ok
-        del exact, control
-    del got, want
+        for nm, g, r, e, c in zip(names, got_att, want_att, exact, control):
+            ok, readings[nm] = key_bias_reading(torch, g, r, e)
+            c_ok, control_readings[nm] = key_bias_reading(torch, c, r, e)
+            floor_ok &= ok
+            control_ok &= c_ok
+    del exact, control, got, want
     tol = BF16_ATOL if bf16 else FP32_ATOL
     dtype_name = str(dtype).split(".")[-1]
     big = n > 1024
@@ -1017,14 +1070,13 @@ def check_rel_backward_kernel(torch, F, name, case, results):
               "reproducible": reproducible,
               "ms": time_ms(torch, kernel_bwd, iters=10 if big else 20),
               "plain_ms": time_ms(torch, plain, iters=2 if big else 5,
-                                  warmup=1)}
-    if floor:
-        record.update(readings=readings, control=control_readings)
-        if bf16:    # the dQ walk and the dK/dV walk, device ms a call
-            record["split_ms"] = {
-                kernel.replace("flash_relpos_bwd_", ""): value
-                for kernel, value in kernel_split_ms(
-                    torch, kernel_bwd, K5_BWD_KERNELS).items()}
+                                  warmup=1),
+              "readings": readings, "control": control_readings}
+    if name == "K5" and bf16:   # the dQ walk and the dK/dV walk, device ms
+        record["split_ms"] = {
+            kernel.replace("flash_relpos_bwd_", ""): value
+            for kernel, value in kernel_split_ms(
+                torch, kernel_bwd, K5_BWD_KERNELS).items()}
     lib_q, lib_k, lib_v = (t.detach().requires_grad_() for t in (q, k, v))
     bias = (heads(rel_h)[..., :, None] + heads(rel_w)[..., None, :]).reshape(
         b, h, n, n)
@@ -1046,14 +1098,16 @@ def check_rel_backward_kernel(torch, F, name, case, results):
         raise AssertionError(f"{name} bwd {case['label']}: the autograd "
                              f"backward launched its kernels {launched} "
                              "times, expected 1")
-    attention_ok = floor_ok if floor else record["max_abs_err"] <= tol
+    # K3's and K4's fp32 gradients keep the flat fp32 tolerance too
+    attention_ok = floor_ok and (name == "K5" or bf16
+                                 or record["max_abs_err"] <= tol)
     if not (finite and reproducible and attention_ok
             and max(drel_errs.values()) <= tol * drel_scale):
         raise AssertionError(f"{name} bwd {case['label']}: max |kernel - "
                              f"plain| {errs}, readings {readings}, drel "
                              f"{drel_errs} (scale {drel_scale}), tol {tol}, "
                              f"finite {finite}, reproducible {reproducible}")
-    if floor and control_ok:
+    if control_ok:
         raise AssertionError(f"{name} bwd {case['label']}: rel_w zeroed on "
                              f"one query tile passes the check "
                              f"({control_readings})")
@@ -3374,6 +3428,385 @@ def sam2_training_slice(torch, fa, ln, results):
     return sam2_train_counts
 
 
+def config_text(path, **replacements):
+    """A port config's text with each ``old -> new`` line replaced; raises
+    if a line is not there (the config drifted from what a phase expects)."""
+    text = path.read_text()
+    for old, new in replacements.items():
+        if old not in text:
+            raise AssertionError(f"{path}: no line {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def jpeg_folder(root, per_set):
+    """root/{set}/n0000000c/*.JPEG for each set: ``per_set[set]`` images over
+    ``JPEG_CLASSES`` class folders, each a symlink to a fixture in turn."""
+    fixtures = sorted(JPEG_FIXTURES.glob("*.jpg"))
+    for set_name, n in per_set.items():
+        for i in range(n):
+            folder = root / set_name / f"n{i % JPEG_CLASSES:08d}"
+            folder.mkdir(parents=True, exist_ok=True)
+            link = folder / f"{set_name}_{i:05d}.JPEG"
+            if not link.is_symlink():
+                link.symlink_to(fixtures[i % len(fixtures)])
+
+
+def native_jpeg_phase():
+    """Phase a: build the libjpeg core, decode the fixtures (shape, dtype,
+    per-channel means within JPEG_MEAN_TOL of the recorded ones) and time
+    ``decode_jpeg`` on one thread and ``decode_jpeg_batch`` on every core.
+    Returns None, or why libjpeg is unavailable."""
+    import os
+
+    import numpy as np
+
+    from simpleaicv_pytorch_training_examples_tpu_torch import native
+    from simpleaicv_pytorch_training_examples_tpu_torch.data.native_jpeg import (
+        decode_jpeg, decode_jpeg_batch)
+    try:
+        native.lib()
+    except RuntimeError as exc:
+        return " ".join(str(exc).split())[:600]
+    record = json.loads((JPEG_FIXTURES / "means.json").read_text())
+    names = sorted(record["images"])
+    blobs = [(JPEG_FIXTURES / name).read_bytes() for name in names]
+    worst = 0.0
+    for name, blob in zip(names, blobs):
+        pixels = decode_jpeg(blob, name=name)
+        want = record["images"][name]
+        if (pixels is None or pixels.dtype != np.uint8
+                or list(pixels.shape) != want["shape"]):
+            raise AssertionError(f"{name}: decoded to " + (
+                "nothing" if pixels is None else
+                f"{pixels.dtype} {pixels.shape}"))
+        means = pixels.reshape(-1, 3).mean(axis=0)
+        worst = max(worst, float(np.abs(means - want["channel_means"]).max()))
+    t0 = time.perf_counter()
+    for _ in range(JPEG_DECODE_ROUNDS):
+        for blob in blobs:
+            decode_jpeg(blob)
+    one_thread = JPEG_DECODE_ROUNDS * len(blobs) / (time.perf_counter() - t0)
+    threads = os.cpu_count()
+    many = blobs * (4 * JPEG_DECODE_ROUNDS)
+    decode_jpeg_batch(many[:threads], n_threads=threads)
+    t0 = time.perf_counter()
+    decoded = decode_jpeg_batch(many, n_threads=threads)
+    batched = len(many) / (time.perf_counter() - t0)
+    path, version = native.linked_libjpeg()
+    log("native jpeg", libjpeg=path, libjpeg_version=version,
+        images=len(blobs), shape=list(pixels.shape), bytes_per_image=round(
+            sum(map(len, blobs)) / len(blobs)),
+        max_channel_mean_diff=worst, tol=JPEG_MEAN_TOL,
+        recorded_by=record["decoded_by"],
+        decode_jpeg_images_per_s_1_thread=one_thread,
+        decode_jpeg_batch_images_per_s=batched, batch_threads=threads,
+        cpu_count=os.cpu_count())
+    if worst > JPEG_MEAN_TOL or any(d is None for d in decoded):
+        raise AssertionError(f"fixture means off by {worst} (tol "
+                             f"{JPEG_MEAN_TOL}) or a batch decode failed")
+    return None
+
+
+def loader_phase(config, root):
+    """Phase b: the ResNet-50 config's train transforms through the train
+    loader alone over ``LOADER_IMAGES`` files in ``root``, at the config's
+    workers (capped at the cores) and without workers. The rate is read
+    after the first round (the first batch of each worker, which the
+    workers build at once): the images of the later batches over the time
+    from that round's end to the last batch. The round's time, the workers'
+    start and first batch, is given apart."""
+    import os
+
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification.datasets.ilsvrc2012dataset import (
+        ILSVRC2012Dataset)
+    from simpleaicv_pytorch_training_examples_tpu_torch.data import TrainLoader
+    dataset = ILSVRC2012Dataset(root_dir=str(root), set_name="train",
+                                transform=config.train_dataset.transform)
+    fields = {"cpu_count": os.cpu_count(), "train_images": len(dataset),
+              "batch": config.batch_size}
+    for workers in (min(config.num_workers, os.cpu_count()), 0):
+        loader = TrainLoader(dataset, config.batch_size,
+                             config.train_collater, "cuda", seed=config.seed,
+                             num_workers=workers)
+        loader.set_epoch(1)
+        batches = len(loader) if workers else LOADER_BATCHES_NO_WORKERS
+        round_batches = max(workers, 1)
+        images, t0 = 0, time.perf_counter()
+        for i, batch in enumerate(loader):
+            images += batch["label"].shape[0]
+            if i + 1 == round_batches:
+                round_end, round_images = time.perf_counter(), images
+            if i + 1 == batches:
+                break
+        seconds = time.perf_counter() - t0
+        if tuple(batch["image"].shape) != (config.batch_size, 3, 224, 224):
+            raise AssertionError(f"loader batch {tuple(batch['image'].shape)}")
+        fields[f"workers_{workers}"] = {
+            "batches": batches, "images": images, "seconds": seconds,
+            "first_round_batches": round_batches,
+            "first_round_s": round_end - t0,
+            "images_per_s_after_first_round": (images - round_images)
+            / (seconds - (round_end - t0)),
+            "images_per_s_whole": images / seconds}
+        del loader
+    log("loader ilsvrc jpeg", timed="host clock, files in the page cache "
+        "(warm)", **fields)
+
+
+def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
+                  fa, ln):
+    """A port config through a train CLI in ``work_dir``: for each
+    (epochs, first epoch) of ``passes`` the config with ``epochs`` (and
+    ``replacements``), run, resumed after the first; every epoch's loss
+    finite and no step skipped, no hand-written kernel launched. Returns
+    the runs."""
+    shutil.rmtree(work_dir, ignore_errors=True)
+    work_dir.mkdir(parents=True)
+    runs = []
+    for epochs, first_epoch in passes:
+        (work_dir / "train_config.py").write_text(config_text(
+            config_path, **{k: v.format(epochs=epochs)
+                            for k, v in replacements.items()}))
+        reset_counts(fa, ln)
+        t0 = time.perf_counter()
+        run = cli.main(["--work-dir", str(work_dir)])
+        seconds = time.perf_counter() - t0
+        counts = read_counts(fa, ln)
+        for e in run["epochs"]:
+            log(f"{label} epoch {e['epoch']}", resumed_from=run["resumed_from"],
+                loss_avg=e["loss_avg"], skipped=e["skipped"],
+                seconds=e["seconds"], loader_wait_seconds=e[
+                    "loader_wait_seconds"],
+                loader_start_seconds=e["loader_start_seconds"],
+                first_batch_wait_seconds=e["first_batch_wait_seconds"],
+                later_batches_wait_seconds=e["loader_wait_seconds"]
+                - e["loader_start_seconds"] - e["first_batch_wait_seconds"],
+                step_seconds=e["step_seconds"],
+                train_images_per_s=e["train_images_per_s"],
+                top1=e.get("top1"), top5=e.get("top5"),
+                timed="host clock; the loop waits for each step's loss "
+                "(print_interval 1)")
+        log(f"{label} run to epoch {epochs}", seconds=seconds,
+            launches=counts)
+        expect_counts(f"{label} to epoch {epochs}", counts)
+        ran = [e["epoch"] for e in run["epochs"]]
+        if (ran != list(range(first_epoch, epochs + 1))
+                or run["resumed_from"] != (first_epoch - 1 or None)
+                or any(e["skipped"] or not math.isfinite(e["loss_avg"])
+                       for e in run["epochs"])):
+            raise AssertionError(f"{label} to epoch {epochs}: {run}")
+        runs.append(run)
+    return runs
+
+
+def conv_fc_flops(torch, model, image_size):
+    """Multiply-adds x 2 of one image's forward through every convolution
+    and Linear, counted from the shapes (hooks on one eval forward)."""
+    flops = []
+
+    def hook(module, inputs, output):
+        if isinstance(module, torch.nn.Conv2d):
+            kh, kw = module.kernel_size
+            flops.append(2 * output[0].numel() * kh * kw
+                         * module.in_channels // module.groups)
+        else:
+            flops.append(2 * module.in_features * module.out_features)
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, 3, image_size, image_size,
+                                 device="cuda"))
+    for h in hooks:
+        h.remove()
+    return sum(flops)
+
+
+def resnet50_step_phase(torch, config):
+    """Phase e: ResNet-50 train steps at batch 256 as the config runs them
+    (bf16, SGD), timed with the model's channels_last activations and in
+    NCHW, with peak memory and the share of the bf16 peak at 3x the
+    forward's convolution and fc FLOPs; then a step at 2 micro-batches with
+    a NaN in the second's input must skip and leave every parameter, the
+    optimizer state and every BatchNorm buffer bit for bit as they were."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification import losses
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        init_model, make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    batch_size = config.batch_size
+    model = init_model(config.model, config.seed)
+    optimizer, _ = build_optimizer(config, model, 5005)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"image": torch.randn(batch_size, 3, 224, 224, device="cuda",
+                                  generator=gen),
+             "label": torch.randint(0, 1000, (batch_size,), device="cuda",
+                                    generator=gen)}
+    flops = 3 * batch_size * conv_fc_flops(torch, model, 224)
+    fields = {}
+    step = iter(range(10 ** 6))
+    train_step = make_train_step(model, losses.CELoss(), optimizer)
+    # the model's own layout (channels_last activations), then NCHW
+    for layout in (model.memory_format, torch.contiguous_format):
+        model.memory_format = layout
+        first = train_step(batch, next(step))
+        if first["skipped"].item() or not math.isfinite(first["loss"].item()):
+            raise AssertionError(f"ResNet-50 train step: {first}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: train_step(batch, next(step)), iters=10,
+                     warmup=2, device_only=False)
+        fields[str(layout).split(".")[-1]] = {
+            "ms": ms, "images_per_s": batch_size / ms * 1e3,
+            "tflops": flops / ms / 1e9,
+            "share_of_bf16_peak": flops / ms / 1e9 / 989.0,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model.memory_format   # back to the class's
+    log(f"resnet50 train step {batch_size}", batch=batch_size, dtype="bf16",
+        gflop_per_image=flops / 3 / batch_size / 1e9,
+        counted="3x the forward's convolution and fc FLOPs", **fields)
+
+    train_step = make_train_step(model, losses.CELoss(), optimizer,
+                                 accumulation_steps=2)
+    params = [p.detach().clone() for p in model.parameters()]
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    state = optimizer.state_dict()
+    poisoned = dict(batch, image=batch["image"].clone())
+    poisoned["image"][batch_size - 1, 0, 100, 100] = float("nan")
+    metrics = train_step(poisoned, next(step))
+    after = optimizer.state_dict()
+    same = {
+        "parameters": all(torch.equal(p, q)
+                          for p, q in zip(model.parameters(), params)),
+        "buffers": all(torch.equal(b, buffers[n])
+                       for n, b in model.named_buffers()),
+        "optimizer": int(after["step"]) == int(state["step"]) and all(
+            torch.equal(t, state["momentum_buf"][n])
+            for n, t in after["momentum_buf"].items())}
+    log(f"resnet50 train step {batch_size} nan", micro_batches=2,
+        skipped=metrics["skipped"].item(), loss=metrics["loss"].item(),
+        bn_buffers=len(buffers), unchanged=same)
+    if metrics["skipped"].item() != 1.0 or not all(same.values()):
+        raise AssertionError(f"NaN step: skipped {metrics['skipped']}, "
+                             f"unchanged {same}")
+
+
+def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
+    """Phases a-g (``main``'s 10f-10l): ImageNet classification from real
+    JPEG files and the ResNets, on a data root under ``SMOKE_DIR``."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_imagenet21k_classification_model as in21k_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
+        load_config_from_work_dir)
+    data_root = SMOKE_DIR / "data"
+    os.environ["SIMPLEAICV_DATA_ROOT"] = str(data_root)
+    experiments = REPO / PACKAGE / "experiments"
+    resnet50_dir = experiments / "imagenet" / "resnet50"
+
+    # a. the libjpeg core; without libjpeg phases a-d (and g) say why
+    unavailable = native_jpeg_phase()
+    if unavailable is not None:
+        for phase in ("native jpeg", "loader ilsvrc jpeg",
+                      "resnet50 train cli", "vit_b16 eval cli jpeg",
+                      "resnet50 in21k train cli"):
+            log(phase, unavailable=unavailable)
+    else:
+        # b. the loader alone on an ILSVRC folder of the fixtures
+        jpeg_folder(data_root / "ILSVRC2012",
+                    {"train": RESNET_TRAIN_IMAGES, "val": RESNET_EVAL_IMAGES})
+        loader_root = SMOKE_DIR / "loader_data"
+        jpeg_folder(loader_root, {"train": LOADER_IMAGES})
+        loader_phase(load_config_from_work_dir(str(resnet50_dir),
+                                               "train_config"), loader_root)
+        # c. ResNet-50 through the train CLI, two epochs and a resume, then
+        #    best.pth through the eval CLI
+        train_dir = SMOKE_DIR / "resnet50_train"
+        runs = run_train_cli(
+            train_cli, train_dir, resnet50_dir / "train_config.py",
+            "resnet50 train cli", ((2, 1), (3, 3)),
+            {"    epochs = 100\n": "    epochs = {epochs}\n",
+             "    print_interval = 100\n": "    print_interval = 1\n"},
+            fa, ln)
+        best = train_dir / "checkpoints" / "best.pth"
+        (train_dir / "test_config.py").write_text(config_text(
+            resnet50_dir / "test_config.py", **{
+                '    trained_model_path = ""\n':
+                f"    trained_model_path = {str(best)!r}\n"}))
+        values = eval_cli.main(["--work-dir", str(train_dir)])
+        test_log = (train_dir / "log" / "test.log").read_text()
+        log("resnet50 best.pth eval cli", images=values["images"],
+            top1=values["top1"], top5=values["top5"],
+            images_per_s=values["images_per_s"],
+            best_top1=runs[-1]["best_top1"])
+        if (values["images"] != RESNET_EVAL_IMAGES
+                or "pretrained load: 320/320 tensors" not in test_log):
+            raise AssertionError(f"ResNet-50 best.pth eval: {values}")
+        # d. ViT-B/16 through the eval CLI over the JPEG val folder
+        vit_dir = SMOKE_DIR / "vit_base_patch16_jpeg"
+        vit_dir.mkdir(parents=True, exist_ok=True)
+        (vit_dir / "test_config.py").write_text(
+            (experiments / "imagenet" / "vit_base_patch16_for_official_mae_"
+             "pretrain" / "test_config.py").read_text())
+        reset_counts(fa, ln)
+        values = eval_cli.main(["--work-dir", str(vit_dir)])
+        counts = read_counts(fa, ln)
+        batches = -(-RESNET_EVAL_IMAGES // 256)
+        log("vit_b16 eval cli jpeg", images=values["images"],
+            top1=values["top1"], images_per_s=values["images_per_s"],
+            launches=counts)
+        expect_counts("ViT-B/16 eval over JPEG files", counts,
+                      K1=12 * batches)
+        if values["images"] != RESNET_EVAL_IMAGES:
+            raise AssertionError(f"ViT-B/16 JPEG eval: {values}")
+
+    # e. the timed ResNet-50 train step and the NaN step
+    resnet50_step_phase(torch, load_config_from_work_dir(
+        str(resnet50_dir), "train_config"))
+    torch.cuda.empty_cache()
+
+    # f. ResNet-18 (CIFAR) through the train CLI on a seeded CIFAR-100
+    rs = np.random.RandomState(0)
+    cifar = data_root / "CIFAR100" / "cifar-100-python"
+    cifar.mkdir(parents=True, exist_ok=True)
+    for name, n in (("train", CIFAR_TRAIN_IMAGES), ("test", CIFAR_TEST_IMAGES)):
+        with open(cifar / name, "wb") as f:
+            pickle.dump({b"data": rs.randint(0, 256, (n, 3072)).astype(
+                np.uint8), b"fine_labels": rs.randint(0, 100, n).tolist()}, f)
+    run_train_cli(train_cli, SMOKE_DIR / "resnet18cifar_train",
+                  experiments / "cifar100" / "resnet18cifar" /
+                  "train_config.py", "resnet18cifar train cli",
+                  ((2, 1), (3, 3)),
+                  {"    epochs = 200\n": "    epochs = {epochs}\n",
+                   "    print_interval = 50\n": "    print_interval = 1\n"},
+                  fa, ln)
+
+    # g. ResNet-50 on ImageNet-21K's semantic softmax, a two-level tree
+    if unavailable is None:
+        in21k = data_root / "ImageNet21K"
+        jpeg_folder(in21k, {"train": IN21K_TRAIN_IMAGES,
+                            "val": RESNET_EVAL_IMAGES})
+        roots = IN21K_CLASSES - IN21K_ROOTS   # classes past it are roots
+        tree = [[roots + c % IN21K_ROOTS, c] if c < roots else [c]
+                for c in range(IN21K_CLASSES)]
+        torch.save({"class_tree_list": tree},
+                   in21k / "imagenet21k_miil_tree.pth")
+        run = run_train_cli(
+            in21k_cli, SMOKE_DIR / "resnet50_in21k_train",
+            experiments / "imagenet21k" /
+            "resnet50_semantic_softmax_1k_pretrain" / "train_config.py",
+            "resnet50 in21k train cli", ((1, 1),),
+            {"    epochs = 80\n": "    epochs = {epochs}\n",
+             "    print_interval = 100\n": "    print_interval = 1\n"},
+            fa, ln)[0]
+        log("resnet50 in21k train cli", levels=2, classes=IN21K_CLASSES,
+            train_images=IN21K_TRAIN_IMAGES,
+            semantic_softmax_loss=run["epochs"][0]["loss_avg"],
+            top1=run["epochs"][0]["top1"])
+
+
 def qkv_and_bias_slice(torch, F, fa, ln, results):
     """Phases 3a-3b of ``main``: K9 and K2b against their plain versions,
     then their entry points driven and counted; returns the counts."""
@@ -4089,6 +4522,14 @@ def main():
                 counted="3x the forward's GEMM and attention products",
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
             del model, optimizer, train_step
+    torch.cuda.empty_cache()
+
+    # 10f-10l. ImageNet classification from JPEG files and the ResNets
+    #          (phases a-g: native jpeg, the loader, the ResNet-50 train
+    #          and eval CLIs, ViT-B/16 eval over JPEG files, the timed
+    #          ResNet-50 step and its NaN step, ResNet-18 CIFAR, ResNet-50
+    #          ImageNet-21K)
+    imagenet_slice(torch, fa, ln, eval_cli, train_cli)
     torch.cuda.empty_cache()
 
     # 11. SAM-B through the prediction tool: full width and depth, 1024^2,

@@ -1,12 +1,12 @@
 """Classification transforms, collater and checkpoint hook.
 
 Counterpart of the parts of the JAX package's ``classification/common.py``
-that the ViT configs use: the eval transforms, the training transforms
-(random resized crop, horizontal flip, random erasing), ``test_collater``
-and ``load_state_dict``. Transforms are host-side numpy ops over dict
-samples ``{'image': HWC array, 'label': int}`` that draw from the global
-``np.random``; the collater hands out torch tensors: NCHW float32 images
-and int64 labels.
+that the ViT, ResNet and CIFAR ResNet configs use: the eval transforms, the
+training transforms (random resized crop, horizontal flip, random erasing;
+CIFAR's pad and random crop), ``test_collater`` and ``load_state_dict``.
+Transforms are host-side numpy ops over dict samples ``{'image': HWC array,
+'label': int}`` that draw from the global ``np.random``; the collater hands
+out torch tensors: NCHW float32 images and int64 labels.
 """
 
 import math
@@ -14,7 +14,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["Opencv2PIL", "TorchMeanStdNormalize", "TorchResize",
+__all__ = ["Opencv2PIL", "PIL2Opencv", "TorchPad", "TorchRandomCrop",
+           "TorchMeanStdNormalize", "TorchResize",
            "TorchCenterCrop", "TorchRandomResizedCrop",
            "TorchRandomHorizontalFlip", "RandomErasing",
            "ClassificationCollater", "load_state_dict"]
@@ -24,6 +25,49 @@ class Opencv2PIL:
     """No-op adapter (images stay numpy HWC throughout)."""
 
     def __call__(self, sample):
+        return sample
+
+
+class PIL2Opencv:
+    """No-op adapter."""
+
+    def __call__(self, sample):
+        return sample
+
+
+class TorchPad:
+    """Pad H and W by ``padding`` with ``fill`` or by reflection, as
+    torchvision's Pad."""
+
+    def __init__(self, padding=4, fill=0, padding_mode="reflect"):
+        self.padding = padding
+        self.fill = fill
+        self.padding_mode = padding_mode
+
+    def __call__(self, sample):
+        p = self.padding
+        pads = ((p, p), (p, p), (0, 0))
+        if self.padding_mode == "reflect":
+            image = np.pad(sample["image"], pads, mode="reflect")
+        else:
+            image = np.pad(sample["image"], pads, mode="constant",
+                           constant_values=self.fill)
+        sample["image"] = image
+        return sample
+
+
+class TorchRandomCrop:
+    """A ``resize`` x ``resize`` crop at a random offset (y drawn first)."""
+
+    def __init__(self, resize=32):
+        self.resize = resize
+
+    def __call__(self, sample):
+        image = sample["image"]
+        h, w = image.shape[:2]
+        y = np.random.randint(0, h - self.resize + 1)
+        x = np.random.randint(0, w - self.resize + 1)
+        sample["image"] = image[y:y + self.resize, x:x + self.resize]
         return sample
 
 

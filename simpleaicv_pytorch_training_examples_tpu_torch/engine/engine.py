@@ -8,7 +8,9 @@ The train step computes in ``compute_dtype`` over fp32 parameters with no
 GradScaler and no ``torch.autocast``: the layers cast for themselves and the
 gradients arrive in fp32 on the fp32 parameters. A non-finite loss or
 gradient skips the update on the device, through a flag tensor that the
-optimizer takes (``utils/optimizers.py``), so no step waits for the host.
+optimizer takes (``utils/optimizers.py``), so no step waits for the host;
+the BatchNorm running statistics that the step's forward moved go back to
+their values from the step's start, on the device too.
 """
 
 import os
@@ -16,7 +18,8 @@ import os
 import torch
 
 from ..device import resolve_device
-from ..models.common import attach_mask_generator, init_parameters_
+from ..models.common import (attach_mask_generator, batch_stat_buffers,
+                             init_parameters_)
 from ..utils.ema import ema_update
 from ..utils.checkpoint import load_state_dict_filtered, load_torch_state_dict
 
@@ -95,11 +98,18 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
     The finite check comes before clipping and covers the loss and every
     gradient through its L2 norm (a gradient whose squared sum overflows
     fp32 counts as non-finite). On a non-finite step the parameters, the
-    optimizer state and its step count keep their values; the EMA still
-    averages in the (unchanged) parameters.
+    optimizer state and its step count keep their values, and so do the
+    BatchNorm buffers (running statistics and batch count), which the
+    forward moves in training: each micro-batch's forward moves them in
+    turn, as the JAX package's scan does, and a skipped step puts back the
+    copy taken at its start (``torch.where`` on the flag, no host sync).
+    The EMA covers the parameters only, and still averages in the
+    (unchanged) parameters on a skipped step.
     """
     params = list(model.parameters())
     device = params[0].device
+    stats = batch_stat_buffers(model)
+    stats_at_start = [b.clone() for b in stats]
     generator = torch.Generator(device=device)
     attach_mask_generator(model, generator)
     inv = 1.0 / accumulation_steps
@@ -118,6 +128,8 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
             *(v.chunk(accumulation_steps) for v in batch.values()))]
         for p in params:
             p.grad = None
+        if stats:
+            torch._foreach_copy_(stats_at_start, stats)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         metric_sums = {}
         for i, micro in enumerate(micro_batches):
@@ -145,6 +157,10 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
                 torch._foreach_clamp_min_(grads, -clip_grad_value)
                 torch._foreach_clamp_max_(grads, clip_grad_value)
             optimizer.update(grads, finite)
+            if stats:
+                torch._foreach_copy_(stats, [
+                    torch.where(finite, b, b0)
+                    for b, b0 in zip(stats, stats_at_start)])
             if use_ema_model:
                 ema_update(ema_params, params, ema_model_decay)
             out = {name: torch.where(finite, value * inv, 0.0)
@@ -157,9 +173,14 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
 
 
 def make_classification_eval_step(model, topk: int = 5,
-                                  compute_dtype=torch.bfloat16):
-    """Eval step: batch {'image': NCHW, 'label': [B]} -> (top-1 bools [B],
-    top-k bools [B], fp32 logits [B, classes]), on the model's device."""
+                                  compute_dtype=torch.bfloat16,
+                                  output_index=None, params=None):
+    """Eval step: batch {'image': NCHW, 'label': [B] or soft [B, classes]}
+    -> (top-1 bools [B], top-k bools [B], fp32 logits [B, classes]), on the
+    model's device. Soft labels count by their argmax; ``output_index``
+    picks one output of a model that returns a tuple; ``params`` ({name:
+    tensor}, e.g. the EMA's) replace the model's parameters for the call,
+    its buffers (the live BatchNorm statistics) staying as they are."""
     device = next(model.parameters()).device
 
     @torch.inference_mode()
@@ -167,7 +188,15 @@ def make_classification_eval_step(model, topk: int = 5,
         model.eval()
         images = batch["image"].to(device, non_blocking=True).to(compute_dtype)
         labels = batch["label"].to(device, non_blocking=True)
-        logits = model(images).float()
+        if params is None:
+            out = model(images)
+        else:
+            out = torch.func.functional_call(model, params, (images,))
+        if output_index is not None:
+            out = out[output_index]
+        logits = out.float()
+        if labels.ndim == 2:
+            labels = labels.argmax(dim=-1)
         top1 = logits.argmax(dim=-1) == labels
         topk_idx = logits.topk(topk, dim=-1).indices
         topk_hit = (topk_idx == labels[:, None]).any(dim=-1)

@@ -1,4 +1,5 @@
-"""Shared transformer building blocks (NCHW images, [B, N, C] tokens).
+"""Shared building blocks (NCHW images, [B, N, C] tokens): the transformer
+layers, and the convolution, BatchNorm and pooling layers of the ResNets.
 
 Counterpart of the JAX package's ``models/common.py``, with its dtype
 policy: parameters stay fp32 and each layer computes in ``dtype`` (bf16 in
@@ -17,6 +18,7 @@ uninterrupted one would. Without one they draw from torch's default
 generator.
 """
 
+import contextlib
 import math
 
 import torch
@@ -31,7 +33,9 @@ from ..ops.kernels.layer_norm import layer_norm
 __all__ = ["trunc_normal_", "init_parameters_", "attach_mask_generator",
            "Dropout", "DropPath",
            "PatchEmbed", "FusedLayerNorm", "Linear", "Mlp",
-           "MultiHeadSelfAttention"]
+           "MultiHeadSelfAttention", "Conv2d", "BatchNorm2d", "ConvBnAct",
+           "max_pool", "avg_pool_global", "batch_stat_buffers",
+           "frozen_batch_stats"]
 
 # standard deviation of N(0, 1) truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -254,3 +258,139 @@ class MultiHeadSelfAttention(nn.Module):
         attn = self.attn_drop(attn)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v)
         return out.reshape(b, n, c3 // 3)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` over fp32 parameters that computes in ``dtype``;
+    weights start from Flax's ``variance_scaling(2.0, "fan_out",
+    "truncated_normal")`` (the JAX package's ``kaiming_normal_conv``)."""
+
+    def __init__(self, inplanes, planes, kernel_size, stride=1, padding=0,
+                 dilation=1, groups=1, bias=True, dtype=torch.float32):
+        super().__init__(inplanes, planes, kernel_size, stride, padding,
+                         dilation, groups, bias)
+        self.compute_dtype = dtype
+
+    def init_weights_(self, generator):
+        kh, kw = self.kernel_size
+        trunc_normal_(self.weight, math.sqrt(2.0 / (kh * kw * self.out_channels)),
+                      generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dtype = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
+                        self.stride, self.padding, self.dilation, self.groups)
+
+
+class BatchNorm2d(nn.Module):
+    """Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW.
+
+    In training it normalises by the batch's mean and *biased* variance
+    (fp32 statistics, fp32 scale and bias, output in ``dtype``) and moves
+    the running statistics by ``r = momentum * r + (1 - momentum) * batch``
+    with that same biased variance, as Flax does. ``nn.BatchNorm2d`` takes
+    the unbiased variance into ``running_var`` and reads ``momentum`` the
+    other way round (the share of the new value), so it is not used here.
+    In eval it normalises by the running statistics. While
+    ``update_stats`` is False (a checkpointed block's recompute,
+    ``frozen_batch_stats``), training leaves the running statistics alone.
+    The buffers keep torch's names, ``num_batches_tracked`` included, so a
+    torch ResNet checkpoint loads as it is."""
+
+    def __init__(self, planes, momentum=0.9, eps=1e-5, dtype=torch.float32):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.compute_dtype = dtype
+        self.update_stats = True
+        self.weight = nn.Parameter(torch.ones(planes))
+        self.bias = nn.Parameter(torch.zeros(planes))
+        self.register_buffer("running_mean", torch.zeros(planes))
+        self.register_buffer("running_var", torch.ones(planes))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    @torch.no_grad()
+    def init_weights_(self, generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        self.num_batches_tracked.zero_()
+
+    def forward(self, x):
+        x = x.to(self.compute_dtype)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                var = invstd.float().pow(-2) - self.eps
+                keep = self.momentum
+                self.running_mean.mul_(keep).add_(mean.float(),
+                                                  alpha=1.0 - keep)
+                self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_stat_buffers(model):
+    """The buffers that a train forward of ``model`` moves: those of its
+    ``BatchNorm2d`` layers, in ``model.modules()`` order."""
+    return [b for m in model.modules() if isinstance(m, BatchNorm2d)
+            for b in m.buffers()]
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module):
+    """Within the block, ``module``'s BatchNorm layers leave their running
+    statistics alone: the recompute of a checkpointed block, whose first
+    forward already moved them."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    before = [m.update_stats for m in layers]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(layers, before):
+            m.update_stats = flag
+
+
+class ConvBnAct(nn.Module):
+    """Convolution, BatchNorm and activation, the JAX package's
+    ``ConvBnAct`` in the reference torch layout: ``layer.0`` the
+    convolution (with a bias only without BatchNorm), ``layer.1`` the
+    BatchNorm. ``stride`` may be a pair ((2, 1) keeps the width)."""
+
+    def __init__(self, inplanes, planes, kernel_size=3, stride=1, padding=1,
+                 groups=1, has_bn=True, has_act=True, act=F.relu,
+                 dilation=1, dtype=torch.float32):
+        super().__init__()
+        layers = [Conv2d(inplanes, planes, kernel_size,
+                         tuple(stride) if isinstance(stride, (tuple, list))
+                         else stride, padding, dilation, groups,
+                         bias=not has_bn, dtype=dtype)]
+        if has_bn:
+            layers.append(BatchNorm2d(planes, dtype=dtype))
+        self.layer = nn.Sequential(*layers)
+        self.act = act if has_act else None
+
+    def forward(self, x):
+        x = self.layer(x)
+        return x if self.act is None else self.act(x)
+
+
+def max_pool(x, window, stride, padding=0):
+    """Max pool over NCHW with -inf padding, as Flax's ``nn.max_pool``."""
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool_global(x):
+    """Global average pool NCHW -> [B, C]."""
+    return x.mean(dim=(2, 3))

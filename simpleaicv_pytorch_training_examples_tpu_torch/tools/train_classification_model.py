@@ -2,33 +2,23 @@
 
 ``python -m simpleaicv_pytorch_training_examples_tpu_torch.tools.train_classification_model --work-dir D``
 loads ``D/train_config.py`` (a ``config`` class holding live objects: model,
-datasets, collaters, criterion, optimizer and scheduler settings), builds the
-input pipeline and the optimizer, resumes from ``D/checkpoints/latest.pth``
-if it is there, and runs the epoch loop: train, evaluate, write
+datasets, collaters, criterion, optimizer and scheduler settings) and trains
+through ``engine.run_training`` with ``classification_evaluator``: each
+epoch trains, evaluates top-1 / top-5 on the test set, writes
 ``latest.pth`` and, on a new best top-1, ``best.pth`` (the EMA weights when
-EMA is on). Logs to ``D/log/train.log``. One process, one GPU; runs on CUDA
+EMA is on); a run resumes from ``D/checkpoints/latest.pth`` when it is
+there. Logs to ``D/log/train.log``. One process, one GPU; runs on CUDA
 unless ``--device cpu`` (or ``device="cpu"``) asks for the CPU.
 """
 
 import argparse
-import os
-import time
 
-import torch
-
-from ..data import TrainLoader, build_loader
-from ..device import resolve_device
-from ..engine import (apply_pretrained, init_model,
-                      make_classification_eval_step, make_train_step)
-from ..utils import (AccMeter, build_optimizer, get_logger,
-                     load_config_from_work_dir, set_seed)
-from ..utils.checkpoint import CheckpointStore
-from ..utils.ema import ema_init
-from ..utils.schedules import schedule_value
+from ..engine import classification_evaluator, run_training
+from ..utils import load_config_from_work_dir
 
 
-def parse_args(argv=None):
-    parser = argparse.ArgumentParser(description="train classification model")
+def parse_args(argv=None, description="train classification model"):
+    parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--work-dir", type=str, required=True,
                         help="path to experiment dir with train_config.py")
     parser.add_argument("--device", type=str, default=None,
@@ -36,153 +26,27 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _ema_state_dict(model, ema_params):
-    """The model's state dict with each parameter replaced by its EMA."""
-    state = model.state_dict()
-    for (name, _), ema in zip(model.named_parameters(), ema_params):
-        state[name] = ema
-    return state
+def epoch_summaries(run):
+    """The runner's epoch records with the evaluator's top-1 and top-5."""
+    return [{**{k: v for k, v in e.items() if k != "eval"},
+             "top1": e["eval"]["top1"], "top5": e["eval"]["top5"]}
+            for e in run["epochs"]]
 
 
 def main(argv=None, device=None):
     """Train the work dir's model; returns {'best_top1', 'resumed_from'
     (epoch or None), 'epochs': [{'epoch', 'loss_avg', 'skipped', 'top1',
-    'top5', 'train_images_per_s'}, ...]} for the epochs run in this call."""
+    'top5', 'train_images_per_s', 'seconds', 'loader_wait_seconds',
+    'loader_start_seconds', 'first_batch_wait_seconds', 'step_seconds'},
+    ...]} for the epochs run in this call."""
     args = parse_args(argv)
-    device = resolve_device(device if device is not None else args.device)
     config = load_config_from_work_dir(args.work_dir, "train_config")
-    set_seed(config.seed)
-
-    work_dir = os.path.abspath(args.work_dir)
-    logger = get_logger("train", os.path.join(work_dir, "log"))
-    log = logger.info
-    for key, value in sorted(config.__dict__.items()):
-        if not key.startswith("__"):
-            log(f"config: {key} = {value}")
-    log(f"device: {device}")
-
-    batch_size = config.batch_size
-    num_workers = getattr(config, "num_workers", 8)
-    train_loader = TrainLoader(
-        config.train_dataset, batch_size, config.train_collater, device,
-        seed=config.seed, num_workers=num_workers)
-    test_loader = build_loader(config.test_dataset, batch_size,
-                               config.test_collater, device,
-                               num_workers=num_workers)
-    steps_per_epoch = len(train_loader)
-
-    model = init_model(config.model, config.seed, device)
-    model = apply_pretrained(model, logger)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"model params: {n_params / 1e6:.3f} M")
-
-    optimizer, group_report = build_optimizer(config, model, steps_per_epoch)
-    for group in group_report:
-        log(f"param group: lr={group.get('lr')} "
-            f"wd={group.get('weight_decay')} "
-            f"n={len(group['name'])}")
-
-    use_ema = getattr(config, "use_ema_model", False)
-    ema_params = ema_init(model.parameters()) if use_ema else None
-    compute_dtype = torch.bfloat16 if getattr(config, "use_amp", True) \
-        else torch.float32
-    train_step = make_train_step(
-        model, config.train_criterion, optimizer,
-        accumulation_steps=getattr(config, "accumulation_steps", 1),
-        use_ema_model=use_ema,
-        ema_model_decay=getattr(config, "ema_model_decay", 0.9999),
-        ema_params=ema_params,
-        clip_max_norm=getattr(config, "clip_max_norm", 0.0),
-        clip_grad_value=getattr(config, "clip_grad_value", 0.0),
-        compute_dtype=compute_dtype, seed=config.seed)
-    eval_step = make_classification_eval_step(model,
-                                              compute_dtype=compute_dtype)
-
-    store = CheckpointStore(os.path.join(work_dir, "checkpoints"))
-    start_epoch, best_acc, train_hours = 1, 0.0, 0.0
-    resumed_from = None
-    if store.has_latest():
-        restored = store.restore_latest(device)
-        model.load_state_dict(restored["model_state_dict"])
-        optimizer.load_state_dict(restored["optimizer_state_dict"])
-        if use_ema:
-            saved_ema = restored["ema_state_dict"]
-            with torch.no_grad():
-                for (name, _), ema in zip(model.named_parameters(),
-                                          ema_params):
-                    ema.copy_(saved_ema[name])
-        resumed_from = int(restored["epoch"])
-        start_epoch = resumed_from + 1
-        best_acc = float(restored["best_acc"])
-        train_hours = float(restored["train_hours"])
-        log(f"resumed from epoch {resumed_from}, best acc {best_acc:.3f}")
-
-    scheduler_name, scheduler_params = config.scheduler
-    base_lr = config.optimizer[1]["lr"]
-    print_interval = getattr(config, "print_interval", 100)
-    epochs_run = []
-
-    for epoch in range(start_epoch, config.epochs + 1):
-        train_loader.set_epoch(epoch)
-        epoch_start = time.time()
-        # running sums over every iteration stay on the device and are read
-        # once per print interval
-        loss_sum = torch.zeros((), device=device)
-        skip_sum = torch.zeros((), device=device)
-        n_iters, epoch_loss_avg, skips = 0, 0.0, 0
-
-        for it, batch in enumerate(train_loader):
-            metrics = train_step(batch,
-                                 (epoch - 1) * steps_per_epoch + it)
-            loss_sum += metrics["loss"]
-            skip_sum += metrics["skipped"]
-            n_iters += 1
-            at_interval = (it + 1) % print_interval == 0
-            if at_interval or it + 1 == steps_per_epoch:
-                skips = int(skip_sum.item())
-                epoch_loss_avg = loss_sum.item() / max(1, n_iters - skips)
-                if at_interval:
-                    lr_now = schedule_value(
-                        scheduler_name, scheduler_params, config.epochs,
-                        base_lr, (epoch - 1) + it / steps_per_epoch)
-                    log(f"epoch {epoch} iter {it + 1}/{steps_per_epoch} "
-                        f"lr {lr_now:.6f} loss {metrics['loss'].item():.4f} "
-                        f"avg {epoch_loss_avg:.4f} skipped {skips}")
-
-        epoch_seconds = time.time() - epoch_start
-        train_hours += epoch_seconds / 3600.0
-
-        acc_meter = AccMeter()
-        for batch in test_loader:
-            top1, topk, _ = eval_step(batch)
-            acc_meter.update(top1.sum().item(), topk.sum().item(),
-                             top1.shape[0])
-        acc1, acc5 = acc_meter.acc1, acc_meter.acc_topk
-        log(f"epoch {epoch}: top1 {acc1:.3f} top5 {acc5:.3f} "
-            f"train loss avg {epoch_loss_avg:.4f} hours {train_hours:.2f}")
-        epochs_run.append({
-            "epoch": epoch, "loss_avg": epoch_loss_avg, "skipped": skips,
-            "top1": acc1, "top5": acc5,
-            "train_images_per_s": n_iters * batch_size / epoch_seconds})
-
-        # the first evaluated epoch always leaves a best.pth, even at top-1 0
-        if acc1 > best_acc or not store.has_best():
-            best_acc = max(acc1, best_acc)
-            store.save_best(_ema_state_dict(model, ema_params) if use_ema
-                            else model.state_dict())
-        store.save_latest({
-            "model_state_dict": model.state_dict(),
-            "optimizer_state_dict": optimizer.state_dict(),
-            "ema_state_dict": (_ema_state_dict(model, ema_params)
-                               if use_ema else None),
-            "epoch": epoch,
-            "best_acc": best_acc,
-            "train_hours": train_hours,
-        })
-
-    log(f"done: best top1 {best_acc:.3f}")
-    return {"best_top1": best_acc, "resumed_from": resumed_from,
-            "epochs": epochs_run}
+    run = run_training(config, args.work_dir,
+                       build_eval=classification_evaluator,
+                       device=device if device is not None else args.device)
+    return {"best_top1": run["best_metric"],
+            "resumed_from": run["resumed_from"],
+            "epochs": epoch_summaries(run)}
 
 
 if __name__ == "__main__":

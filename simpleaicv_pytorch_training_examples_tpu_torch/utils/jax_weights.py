@@ -12,6 +12,14 @@ too. The optimizer's moments have their parameters' names and layouts, so
 ``optimizer_state_from_jax`` carries an AdamW or SGD state across through
 the same map (the ViT's, the SAM's or the SAM2's).
 
+``resnet_state_dict_from_jax`` maps a ResNet's parameters and batch
+statistics onto the reference torch ResNet's names (the inverse of the JAX
+package's ``convert_resnet_state_dict``): ``stem`` -> ``conv1``,
+``layer{s}_{i}`` -> ``layer{s}.{i}``, ``downsample`` -> ``downsample_conv``,
+``conv.kernel`` -> ``layer.0.weight`` (HWIO -> OIHW), ``bn.scale`` /
+``bn.bias`` -> ``layer.1.weight`` / ``layer.1.bias``, the batch statistics'
+``bn.mean`` / ``bn.var`` -> ``layer.1.running_mean`` / ``running_var``.
+
 ``sam_state_dict_from_jax`` does the same for SAM: it is the inverse of the
 JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
 and also undoes that converter's spatial flip of the ConvTranspose kernels
@@ -67,10 +75,12 @@ def optimizer_state_from_jax(step, model="vit", head_dim_padding=0,
     of the port's ``Optimizer``: ``step`` is the update count and each
     keyword (``mu`` and ``nu`` for AdamW, ``momentum_buf`` for SGD) a
     {Flax dotted name: ndarray} of one moment, mapped onto the port's names
-    and layouts as the weights of ``model`` ("vit", "sam" or "sam2") are;
+    and layouts as the weights of ``model`` ("vit", "resnet", "sam" or
+    "sam2") are;
     for "sam2", ``head_dim_padding`` is the port model's, and moments of
     narrower Hiera heads are zero-padded as their weights are."""
     to_torch = {"vit": vit_state_dict_from_jax,
+                "resnet": lambda flat: resnet_state_dict_from_jax(flat, {}),
                 "sam": lambda flat: sam_state_dict_from_jax(flat, {}),
                 "sam2": lambda flat: sam2_state_dict_from_jax(
                     flat, {}, head_dim_padding)}[model]
@@ -78,6 +88,39 @@ def optimizer_state_from_jax(step, model="vit", head_dim_padding=0,
     for slot, flat in moments.items():
         state[slot] = to_torch(flat)
     return state
+
+
+_RESNET_MODULE = re.compile(r"^layer(\d)_(\d+)\.")
+_RESNET_LEAVES = {"conv.kernel": "layer.0.weight", "conv.bias": "layer.0.bias",
+                  "bn.scale": "layer.1.weight", "bn.bias": "layer.1.bias",
+                  "bn.mean": "layer.1.running_mean",
+                  "bn.var": "layer.1.running_var"}
+
+
+def _resnet_name(name: str) -> str:
+    if name.startswith("fc."):
+        return "fc.weight" if name == "fc.kernel" else name
+    name = _RESNET_MODULE.sub(r"layer\1.\2.", name)
+    name = re.sub(r"^stem\.", "conv1.", name)
+    name = name.replace(".downsample.", ".downsample_conv.")
+    parts = name.split(".")
+    return ".".join(parts[:-2] + [_RESNET_LEAVES[".".join(parts[-2:])]])
+
+
+def resnet_state_dict_from_jax(params_flat: dict,
+                               batch_stats_flat: dict) -> dict:
+    """A JAX ResNet's (or CIFAR ResNet's) parameters and batch statistics
+    ({Flax dotted name: ndarray}) -> the port's ResNet ``state_dict``; every
+    BatchNorm whose statistics are given also gets ``num_batches_tracked``
+    (0: the JAX package does not count batches)."""
+    sd = {}
+    for name, value in {**params_flat, **batch_stats_flat}.items():
+        sd[_resnet_name(name)] = _torch_value(name, value)
+        if name.endswith(".bn.mean"):
+            sd[_resnet_name(name).replace("running_mean",
+                                          "num_batches_tracked")] = \
+                torch.zeros((), dtype=torch.long)
+    return sd
 
 
 # the JAX package's SAM names -> the reference torch layout's

@@ -67,3 +67,37 @@ def drop_work_dir_configs():
     for name in ("train_config", "test_config"):
         sys.modules.pop(name, None)
     sys.path[:] = path
+
+
+def seeded_jpeg(seed, h=240, w=320, quality=90):
+    """JPEG bytes of a smooth seeded image with some grain, written by
+    cv2."""
+    import cv2
+
+    rs = np.random.RandomState(seed)
+    small = rs.uniform(0, 255, (6, 8, 3)).astype(np.float32)
+    image = cv2.resize(small, (w, h), interpolation=cv2.INTER_CUBIC)
+    image += rs.standard_normal(image.shape).astype(np.float32) * 8.0
+    ok, data = cv2.imencode(".jpg", np.clip(image, 0, 255).astype(np.uint8),
+                            [cv2.IMWRITE_JPEG_QUALITY, quality])
+    assert ok
+    return data.tobytes()
+
+
+# an ImageNet-21K semantic tree: classes 0-1 at the root level, 2-5 under
+# them, 6 two levels down
+IN21K_TREE = [[0], [1], [0, 2], [0, 3], [1, 4], [1, 5], [1, 5, 6]]
+
+
+def write_in21k_root(root, tree):
+    """{train,val}/<wnid>/a.JPEG, one image a class (three classes without
+    a tree), and the tree file where ``tree`` is given."""
+    for set_name in ("train", "val"):
+        for c in range(len(tree) if tree else 3):
+            d = root / set_name / f"n1{c:02d}"
+            d.mkdir(parents=True)
+            (d / "a.JPEG").write_bytes(seeded_jpeg(200 + c, 64, 64))
+    if tree:
+        torch.save({"class_tree_list": tree,
+                    "class_list": [f"n1{c:02d}" for c in range(len(tree))]},
+                   root / "imagenet21k_miil_tree.pth")
