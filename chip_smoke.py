@@ -72,8 +72,8 @@ kernels' launch counters set to 0 just before it and read just after:
   linked, the committed fixtures ``tests/torch_port_data/jpeg`` decoded,
   each per-channel mean within JPEG_MEAN_TOL of the recorded one, decode
   rates on one thread and on every core); the ResNet-50 config's train
-  transforms through the loader alone on 16,384 symlinks to the fixtures
-  (64 batches: 8 a worker at the config's workers, capped at the cores; 3
+  transforms through the loader alone on 8,192 symlinks to the fixtures
+  (32 batches: 4 a worker at the config's workers, capped at the cores; 3
   without workers), the rate read after each worker's first batch;
   full-width, full-depth ResNet-50 through the work-dir train CLI with the
   port's ``imagenet/resnet50`` config on a folder of 1,024 train and 256
@@ -90,7 +90,35 @@ kernels' launch counters set to 0 just before it and read just after:
   its config on a two-level tree (one epoch of 2 steps), the semantic
   softmax loss finite. The ResNet paths launch no hand-written kernel
   (their counts read 0). Where libjpeg cannot be built, the JPEG phases'
-  lines say ``unavailable`` with the reason instead.
+  lines say ``unavailable`` with the reason instead;
+- MAE pretraining, distillation, Muon and the configs (phases 26-33,
+  a-h): K1 and K2 at the MAE shapes (K1 over the ViT-B/16 and L/16
+  encoders' 50 tokens, K2 over the decoders' 197 tokens at head dim 32 and
+  ViT-H/14's 65 at 80), forward and backward against their plain
+  versions, timed beside SDPA; full-width, full-depth MAE ViT-B/16 through
+  the MAE train CLI with the port's ``vit_b_16_224_mae_pretrain`` config
+  (batch 1024, bf16) on 4,096 symlinks to the fixtures: two epochs of 4
+  steps, the same command resumed for a third, and an uninterrupted
+  three-epoch run over the same batches (recorded and replayed) that must
+  end bit for bit where the resumed one does (K1 12 and K2 8 a step each
+  way); the MAE step alone at batch 1024 (ms, images/s, peak memory, share
+  of the bf16 peak at 3x ``utils/flops.py``'s forward count), a 20-step
+  run on one batch with the mask held fixed whose loss must fall, and the
+  gradients of one micro-batch with sharpened attention against the bf16
+  floor with a control; MAE ViT-L/16 and ViT-H/14 at 4 encoder blocks
+  and the full decoder, a few steps each (ViT-H/14 checkpointed: K2 24 and
+  12 a step); the self-train ViT-B/16 config from the MAE ``best.pth``
+  through the classification train CLI (one epoch), loading what the CPU
+  test says JAX loads (nothing); ResNet-152 -> ResNet-50 KD and DML (with
+  RandAugment and Mixup/CutMix) through the distillation train CLI at
+  batch 256 (two epochs, then resumed; the frozen teacher bit for bit as
+  its seeded init, both DML networks moved) and the KD step alone; Muon
+  against AdamW on the ViT-B/16 fine-tune config (the Muon losses must
+  fall; its split 49 Muon / 103 AdamW tensors); every ResNet and ViT
+  config of the slice built on the card, one train step at its batch (a
+  batch above 256 images in micro-batches of 256; ViT-L/H at 4 blocks);
+  ResNet-50's test-CLI line of parameters and FLOPs against
+  ``utils/flops.py``'s count.
 
 Prints one line per phase, the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
@@ -300,6 +328,15 @@ versions, run on the same recorded inputs). Every parameter of layer 3's
 self-attention (``HELD_LAYERS``), whose q_proj bias came within its
 whole-model floor's noise when K1 moved to wgmma, is held the same way.
 The control must fail the reading of the other parameters.
+
+K1 and K2 at the MAE shapes: the kernel phase's tolerances (bf16 atol
+2e-2, two backward runs bit for bit equal). MAE ViT-B/16 gradients (one
+bf16 micro-batch of 32 images, the blocks' qkv weights redrawn
+LeCun-normal so that scores have unit std, the masking noise fixed): per
+parameter, relative L2 distance from the same model's fp32 gradients with
+plain attention at most the larger of 5e-2 and 1.25 times the plain bf16
+path's, and the loss likewise (``gradient_reading``); the control drops
+every attention's last 8 keys in the kernels and must fail that reading.
 """
 
 import json
@@ -360,11 +397,34 @@ JPEG_MEAN_TOL = 1.0         # libjpeg builds may round the IDCT differently
 JPEG_DECODE_ROUNDS = 8
 JPEG_CLASSES = 8
 RESNET_TRAIN_IMAGES, RESNET_EVAL_IMAGES = 1024, 256   # 4 steps at 256
-LOADER_IMAGES = 16384          # phase b: 64 batches of 256, 8 per worker
+LOADER_IMAGES = 8192           # phase b: 32 batches of 256, 4 per worker
 LOADER_BATCHES_NO_WORKERS = 3
 CIFAR_TRAIN_IMAGES, CIFAR_TEST_IMAGES = 512, 256      # 4 steps at 128
 IN21K_TRAIN_IMAGES = 512                              # 2 steps at 256
 IN21K_CLASSES, IN21K_ROOTS = 10450, 100   # the config's classes, two levels
+# phases a-h of the MAE and distillation slice (26-33)
+MAE_BATCH = 1024                # the MAE configs' batch
+MAE_IMAGES = 4096               # phase b: 4 steps an epoch
+MAE_ONE_BATCH = 64              # phase c's one-batch run
+MAE_GRAD_BATCH, MAE_GRAD_SEED = 32, 9
+MAE_CONTROL_KEYS = 8            # keys the gradient control drops
+MAE_DEPTH = 4                   # ViT-L/16 and ViT-H/14 encoder blocks kept
+IMAGENET_STEPS = 1251           # ImageNet-1K's train steps at batch 1024
+MUON_PARAMS = {"lr": 4e-3, "weight_decay": 5e-2}
+MUON_STEPS = 8
+CONFIG_MICRO_CAP = 256          # phase h: images of 224^2 a micro-batch
+CONFIGS_OF_THIS_SLICE = (
+    *(f"imagenet/resnet{n}" for n in (18, 34, 101, 152)),
+    *(f"imagenet/resnet{n}_vit_aug_imagenet21k_pretrain"
+      for n in (50, 101, 152)),
+    *(f"cifar100/resnet{n}cifar" for n in (34, 50, 101, 152)),
+    *(f"imagenet21k/resnet{n}_semantic_softmax_1k_pretrain"
+      for n in (101, 152)),
+    *(f"imagenet/{net}_for_official_mae_pretrain"
+      for net in ("vit_large_patch16", "vit_huge_patch14")),
+    *(f"imagenet/{net}_for_self_train_mae_pretrain"
+      for net in ("vit_base_patch16", "vit_large_patch16",
+                  "vit_huge_patch14")))
 
 VIT_B_CONFIG = """
 import torch
@@ -3555,11 +3615,12 @@ def loader_phase(config, root):
 
 
 def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
-                  fa, ln):
+                  fa, ln, expected=None):
     """A port config through a train CLI in ``work_dir``: for each
     (epochs, first epoch) of ``passes`` the config with ``epochs`` (and
     ``replacements``), run, resumed after the first; every epoch's loss
-    finite and no step skipped, no hand-written kernel launched. Returns
+    finite and no step skipped, the kernels' launches ``expected(n_epochs
+    run)`` (no hand-written kernel launched without ``expected``). Returns
     the runs."""
     shutil.rmtree(work_dir, ignore_errors=True)
     work_dir.mkdir(parents=True)
@@ -3589,7 +3650,8 @@ def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
                 "(print_interval 1)")
         log(f"{label} run to epoch {epochs}", seconds=seconds,
             launches=counts)
-        expect_counts(f"{label} to epoch {epochs}", counts)
+        expect_counts(f"{label} to epoch {epochs}", counts, **(
+            expected(epochs - first_epoch + 1) if expected else {}))
         ran = [e["epoch"] for e in run["epochs"]]
         if (ran != list(range(first_epoch, epochs + 1))
                 or run["resumed_from"] != (first_epoch - 1 or None)
@@ -3868,6 +3930,644 @@ def qkv_and_bias_slice(torch, F, fa, ln, results):
                   K2b=2, K2b_bwd=2)
     torch.cuda.empty_cache()
     return entry_counts
+
+
+class recorded_epochs:
+    """Within the block, each train-loader epoch of ``batches`` (epoch ->
+    list of batches) is replayed from it where it is there, and otherwise
+    loaded and recorded into it: a second run over the same epochs then
+    costs no JPEG decoding."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __enter__(self):
+        from simpleaicv_pytorch_training_examples_tpu_torch.data import (
+            loader)
+        self.loader, self.real = loader, loader.TrainLoader.__iter__
+        batches, real = self.batches, self.real
+
+        def epoch_iter(train_loader):
+            epoch = train_loader.epoch
+            if epoch not in batches:
+                batches[epoch] = [{k: v.clone() for k, v in b.items()}
+                                  for b in real(train_loader)]
+            return iter(batches[epoch])
+
+        loader.TrainLoader.__iter__ = epoch_iter
+        return self
+
+    def __exit__(self, *exc):
+        self.loader.TrainLoader.__iter__ = self.real
+
+
+def mae_attention_phase(torch, F, fa, results):
+    """Phase a: K1 and K2 at the MAE pretraining shapes, bf16, forward and
+    backward, each against its plain version (``check_kernel``,
+    ``check_backward_kernel``: the kernel phase's tolerances), timed beside
+    the plain versions and SDPA; one summary line with each shape's
+    launches in a ViT MAE step."""
+    bf16 = torch.bfloat16
+    cases = (
+        ("K1", dict(label="mae_vit_b16_encoder", shape=(MAE_BATCH, 50, 12, 64),
+                    dtype=bf16, seed=100), "ViT-B/16 encoder: 12 a step"),
+        ("K1", dict(label="mae_vit_l16_encoder", shape=(MAE_BATCH, 50, 16, 64),
+                    dtype=bf16, seed=101), "ViT-L/16 encoder: 24 a step"),
+        ("K2", dict(label="mae_decoder_d32", shape=(MAE_BATCH, 16, 197, 32),
+                    dtype=bf16, seed=102, packed=True),
+         "ViT-B/16 and L/16 decoders: 8 a step"),
+        ("K2", dict(label="mae_vit_h14_encoder_d80",
+                    shape=(MAE_BATCH, 16, 65, 80), dtype=bf16, seed=103,
+                    packed=True), "ViT-H/14 encoder: 32 a step"))
+    summary = {}
+    for name, case, per_step in cases:
+        check_kernel(torch, F, fa, name, case, results)
+        check_backward_kernel(torch, F, fa, name, case, results)
+        fwd, bwd = results[name][-1], results[name + " bwd"][-1]
+        summary[case["label"]] = {
+            "kernel": name, "shape": list(case["shape"]),
+            "launches_per_step": per_step,
+            "fwd": {k: fwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "max_abs_err")},
+            "bwd": {k: bwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "max_abs_err")}}
+        torch.cuda.empty_cache()
+    log("mae attention shapes", library="SDPA", timed="CUDA events, device "
+        "only", **summary)
+
+
+def mae_loss_and_gradients(torch, model, images, label, noise):
+    """Loss and fp32 gradients of one MAE micro-batch at the given noise,
+    in the dtype the model's layers compute in."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.masked_image_modeling.losses import (
+        MSELoss)
+    dtype = model.encoder.patch_embed.compute_dtype
+    model.train()
+    model.zero_grad(set_to_none=True)
+    pred, mask = model(images.to(dtype), noise=noise)
+    loss = MSELoss()(pred, label, mask)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+class computing_in:
+    """Within the block, every layer of ``model`` that casts for itself
+    computes in ``dtype``."""
+
+    def __init__(self, model, dtype):
+        self.saved = [(m, m.compute_dtype) for m in model.modules()
+                      if hasattr(m, "compute_dtype")]
+        self.dtype = dtype
+
+    def __enter__(self):
+        for m, _ in self.saved:
+            m.compute_dtype = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        for m, dtype in self.saved:
+            m.compute_dtype = dtype
+
+
+def mae_attention_switch(model, on):
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.common import (
+        MultiHeadSelfAttention)
+    for m in model.modules():
+        if isinstance(m, MultiHeadSelfAttention):
+            m.use_fused_attention = on
+
+
+class keys_dropped:
+    """Within the block, every K1 and K2 call of the model layers drops its
+    last ``n`` keys (``n_real = N - n``): the control of the gradient
+    reading."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        from simpleaicv_pytorch_training_examples_tpu_torch.models import (
+            common)
+        self.common = common
+        self.saved = common.fused_attention_dense, common.fused_attention
+        dense, short = self.saved
+        n = self.n
+        common.fused_attention_dense = (
+            lambda qkv, h, n_real=None, sm_scale=None:
+            dense(qkv, h, qkv.shape[1] - n, sm_scale))
+        common.fused_attention = (
+            lambda q, k, v, n_real=None, bias=None:
+            short(q, k, v, q.shape[2] - n))
+        return self
+
+    def __exit__(self, *exc):
+        (self.common.fused_attention_dense,
+         self.common.fused_attention) = self.saved
+
+
+def check_mae_gradients(torch, fa, ln, model, seed):
+    """Phase c's gradients: one bf16 micro-batch of MAE_GRAD_BATCH images,
+    the blocks' qkv weights redrawn LeCun-normal so that attention is sharp
+    (scores of unit std), the masking noise fixed. The kernels' gradients
+    and the plain bf16 attention's, each against the same model in fp32
+    with plain attention, by ``gradient_reading`` (the model's bf16 floor);
+    then a control, the kernels with every attention's last
+    MAE_CONTROL_KEYS keys dropped, must fail that reading."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.common import (
+        MultiHeadSelfAttention)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MultiHeadSelfAttention):
+                m.qkv.weight.normal_(0.0, m.qkv.in_features ** -0.5,
+                                     generator=gen)
+    b = MAE_GRAD_BATCH
+    images = torch.rand(b, 3, 224, 224, device="cuda", generator=gen)
+    label = torch.randn(b, 196, 768, device="cuda", generator=gen)
+    noise = torch.rand(b, 196, device="cuda", generator=gen)
+    reset_counts(fa, ln)
+    loss_k, grads_k = mae_loss_and_gradients(torch, model, images, label,
+                                             noise)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    expect_counts("MAE gradients", counts, K1=12, K1_bwd=12, K2=8, K2_bwd=8)
+    with keys_dropped(MAE_CONTROL_KEYS):
+        loss_c, grads_c = mae_loss_and_gradients(torch, model, images, label,
+                                                 noise)
+    mae_attention_switch(model, False)
+    loss_p, grads_p = mae_loss_and_gradients(torch, model, images, label,
+                                             noise)
+    with computing_in(model, torch.float32):
+        loss_f, grads_f = mae_loss_and_gradients(torch, model, images, label,
+                                                 noise)
+    mae_attention_switch(model, True)
+    noise_only, left_ratio, held_ratio = zero_gradient_leaves(grads_f)
+    ok, fields, _, _, _ = gradient_reading(
+        grads_k, [grads_p], grads_f, (loss_k, [loss_p], loss_f), noise_only)
+    control_ok, control, _, _, _ = gradient_reading(
+        grads_c, [grads_p], grads_f, (loss_c, [loss_p], loss_f), noise_only)
+    log("mae_vit_b16 sharp attention gradients vs plain attention", batch=b,
+        **fields, left_out=noise_only, left_out_max_ratio=left_ratio,
+        held_min_ratio=held_ratio, launches=counts,
+        control=f"last {MAE_CONTROL_KEYS} keys of every attention dropped",
+        control_worst_parameter=control["worst_parameter"],
+        control_worst_rel_l2=control["worst_rel_l2"],
+        control_worst_floor=control["worst_floor"],
+        control_fails=not control_ok)
+    if not ok:
+        raise AssertionError(f"MAE gradients with the kernels disagree with "
+                             f"plain attention: {fields}")
+    if control_ok:
+        raise AssertionError(f"the MAE gradient reading passes with "
+                             f"{MAE_CONTROL_KEYS} keys dropped: {control}")
+
+
+def device_batch(torch, batch, size, labels, seed, classes=1000):
+    """A batch on the card from a seed: images [batch, 3, size, size] and
+    labels: "int" class indices, "soft" one-hot rows, or a shape tuple of
+    normal values (MAE's patch targets)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(batch, 3, size, size, device="cuda", generator=gen)
+    if isinstance(labels, tuple):
+        label = torch.randn(batch, *labels, device="cuda", generator=gen)
+    else:
+        label = torch.randint(0, classes, (batch,), device="cuda",
+                              generator=gen)
+        if labels == "soft":
+            label = torch.nn.functional.one_hot(label, classes).float()
+    return {"image": images, "label": label}
+
+
+def config_on_card(torch, directory, cut=None, module="train_config"):
+    """A port config loaded with its model built on the meta device,
+    ``cut(model)`` applied (a depth cut), then materialised on the CPU,
+    initialised from the config's seed and moved to the card by
+    ``init_model``."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import init_model
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
+        load_config_from_work_dir)
+    with torch.device("meta"):
+        config = load_config_from_work_dir(str(directory), module)
+    if cut is not None:
+        cut(config.model)
+    config.model = init_model(config.model.to_empty(device="cpu"),
+                              config.seed)
+    return config
+
+
+def timed_steps(torch, train_step, batch, steps, first_iteration=0):
+    """``steps`` train steps on one batch (iterations from
+    ``first_iteration``), each read back; returns (losses, ms a step on the
+    host clock after the first, peak GB)."""
+    losses = [train_step(batch, first_iteration)["loss"].item()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(1, steps):
+        losses.append(train_step(batch, first_iteration + i)["loss"].item())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(steps - 1, 1)
+    return losses, ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def mae_step_phase(torch, fa, ln, mae_dir):
+    """Phase c: the MAE ViT-B/16 train step alone at the config's batch on
+    device-side random images; a 20-step run on one small batch with the
+    mask held fixed (one iteration index, so one noise draw), whose loss
+    must fall; the sharp-attention gradient check and its control."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_mae_self_supervised_model as mae_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils.flops import (
+        compute_flops_and_params)
+    config = config_on_card(torch, mae_dir)
+    model = config.model
+    optimizer, _ = build_optimizer(config, model, IMAGENET_STEPS)
+    train_step = make_train_step(
+        model, None, optimizer, seed=config.seed,
+        loss_fn=mae_cli.build_loss_fn(model, config))
+    batch = device_batch(torch, config.batch_size, 224, (196, 768), 12)
+    reset_counts(fa, ln)
+    train_step(batch, 0)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    expect_counts("MAE ViT-B/16 train step", counts, K1=12, K1_bwd=12, K2=8,
+                  K2_bwd=8)
+    torch.cuda.reset_peak_memory_stats()
+    step = iter(range(1, 10 ** 6))
+    ms = time_ms(torch, lambda: train_step(batch, next(step)), iters=5,
+                 warmup=2, device_only=False)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops, n_params = compute_flops_and_params(model, (1, 3, 224, 224))
+    step_flops = 3 * config.batch_size * flops
+    log(f"mae_vit_b16 train step {config.batch_size}",
+        batch=config.batch_size, dtype="bf16", launches_per_step=counts,
+        ms=ms, images_per_s=config.batch_size / ms * 1e3,
+        tflops=step_flops / ms / 1e9,
+        share_of_bf16_peak=step_flops / ms / 1e9 / 989.0,
+        gflop_per_image_forward=flops / 1e9, params=n_params,
+        counted="3x the forward's FlopCounterMode count (utils/flops.py)",
+        peak_memory_gb=peak, timed="host clock, each step read back")
+
+    one = {k: v[:MAE_ONE_BATCH] for k, v in batch.items()}
+    optimizer, _ = build_optimizer(OneBatchConfig, model, 20)
+    train_step = make_train_step(
+        model, None, optimizer, seed=config.seed,
+        loss_fn=mae_cli.build_loss_fn(model, config))
+    losses = [train_step(one, 0)["loss"].item() for _ in range(20)]
+    log("mae_vit_b16 one-batch run", batch=MAE_ONE_BATCH, steps=20,
+        mask="held fixed (iteration 0 each step)", first_loss=losses[0],
+        last_loss=losses[-1], losses=losses)
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"MAE one-batch losses did not fall: {losses}")
+    check_mae_gradients(torch, fa, ln, model, MAE_GRAD_SEED)
+    return {"ms": ms, "peak_memory_gb": peak, "gflop_per_image": flops / 1e9}
+
+
+def mae_large_phase(torch, fa, ln, experiments):
+    """Phase d: MAE ViT-L/16 and ViT-H/14 at full width, MAE_DEPTH encoder
+    blocks and the full 8-block decoder, through init_model ->
+    build_optimizer -> make_train_step at the config's batch: a few steps,
+    finite losses, the launches counted (ViT-H/14's config checkpoints each
+    block, so each forward runs twice)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_mae_self_supervised_model as mae_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    d = MAE_DEPTH
+    for name, label, patches, expected in (
+            ("mae_vit_large_patch16_224", "mae_vit_l16", (196, 768),
+             dict(K1=d, K1_bwd=d, K2=8, K2_bwd=8)),
+            ("mae_vit_huge_patch14_224", "mae_vit_h14", (256, 588),
+             dict(K2=2 * (d + 8), K2_bwd=d + 8))):
+        def cut(model):
+            model.encoder.blocks = model.encoder.blocks[:d]
+        config = config_on_card(
+            torch, experiments / "masked_image_modeling" / "imagenet" / name,
+            cut)
+        model = config.model
+        optimizer, _ = build_optimizer(config, model, IMAGENET_STEPS)
+        train_step = make_train_step(
+            model, None, optimizer, seed=config.seed,
+            loss_fn=mae_cli.build_loss_fn(model, config))
+        batch = device_batch(torch, config.batch_size, 224, patches, 13)
+        reset_counts(fa, ln)
+        train_step(batch, 0)
+        torch.cuda.synchronize()
+        counts = read_counts(fa, ln)
+        expect_counts(f"{label} train step", counts, **expected)
+        losses, ms, peak = timed_steps(torch, train_step, batch, 3, 1)
+        log(f"{label} train steps", reduced=f"encoder blocks {d}",
+            batch=config.batch_size,
+            gradient_checkpoint=model.encoder.use_gradient_checkpoint,
+            launches_per_step=counts, losses=losses, ms=ms,
+            images_per_s=config.batch_size / ms * 1e3, peak_memory_gb=peak,
+            timed="host clock, each step read back")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        del config, model, optimizer, train_step, batch
+        torch.cuda.empty_cache()
+
+
+def distill_step_phase(torch, directory):
+    """Phase f's step: the KD config's train step alone at its batch on
+    device-side random images, with peak memory."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_distill_classification_model as distill_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    config = distill_cli.freeze_teacher_lr(config_on_card(torch, directory))
+    model = config.model
+    optimizer, _ = build_optimizer(config, model, IMAGENET_STEPS // 4)
+    train_step = make_train_step(
+        model, None, optimizer, seed=config.seed,
+        loss_fn=distill_cli.build_loss_fn(model, config))
+    batch = device_batch(torch, config.batch_size, 224, "int", 14)
+    losses, ms, peak = timed_steps(torch, train_step, batch, 6)
+    log(f"resnet_152_kd_50 train step {config.batch_size}",
+        batch=config.batch_size, dtype="bf16", ms=ms,
+        images_per_s=config.batch_size / ms * 1e3, peak_memory_gb=peak,
+        losses=losses, timed="host clock, each step read back")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"KD step: non-finite losses {losses}")
+    return {"ms": ms, "peak_memory_gb": peak}
+
+
+def distill_phase(torch, fa, ln, experiments):
+    """Phase f: ResNet-152 -> ResNet-50 through the distillation train CLI
+    at full width and depth, batch 256, bf16, on the JPEG folder of the
+    ImageNet phases: the KD config (a frozen teacher) and the DML config
+    with ViT-style augmentation (RandAugment through Pillow, Mixup/CutMix),
+    two epochs of 4 steps each, then resumed for a third; the student
+    scored each epoch. The frozen teacher ends bit for bit as its seeded
+    init, parameters and BatchNorm buffers; both DML networks move."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.distillation import KDModel
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import init_model
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_distill_classification_model as distill_cli)
+    root = experiments / "distillation" / "imagenet"
+    for name, freeze in (("resnet_152_kd_50", True),
+                         ("resnet_152_dml_50_vit_aug", False)):
+        work_dir = SMOKE_DIR / f"distill_{name}"
+        runs = run_train_cli(
+            distill_cli, work_dir, root / name / "train_config.py",
+            f"{name} distill cli", ((2, 1), (3, 3)),
+            {"    epochs = 100\n": "    epochs = {epochs}\n"}, fa, ln)
+        state = torch.load(work_dir / "checkpoints" / "latest.pth",
+                           map_location="cpu",
+                           weights_only=False)["model_state_dict"]
+        seeded = init_model(KDModel("resnet152", "resnet50",
+                                    freeze_teacher=freeze,
+                                    dtype=torch.bfloat16), 0,
+                            "cpu").state_dict()
+        moved = {part: sum(not torch.equal(t, seeded[n])
+                           for n, t in state.items() if n.startswith(part))
+                 for part in ("teacher.", "student.")}
+        log(f"{name} distill cli state", freeze_teacher=freeze,
+            tensors_moved=moved,
+            tensors={p: sum(n.startswith(p) for n in state)
+                     for p in ("teacher.", "student.")},
+            student_top1=[e["top1"] for r in runs for e in r["epochs"]],
+            losses={k: [e[k] for r in runs for e in r["epochs"]]
+                    for k in runs[0]["epochs"][0] if k.endswith("Loss_avg")})
+        if moved["student."] == 0 or (moved["teacher."] == 0) != freeze:
+            raise AssertionError(f"{name}: tensors moved {moved}")
+
+
+def muon_phase(torch, experiments):
+    """Phase g: the ViT-B/16 fine-tune config's copy with Muon, a few steps
+    on one batch through make_train_step (finite, falling losses), timed
+    against the same steps with the config's AdamW (finite losses); the
+    Muon/AdamW split is the JAX report's (49 and 103 tensors, held on the
+    CPU against the JAX package)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    directory = (experiments / "imagenet" /
+                 "vit_base_patch16_for_official_mae_pretrain")
+    fields = {}
+    for name in ("Muon", "AdamW"):
+        config = config_on_card(torch, directory)
+        if name == "Muon":
+            config.optimizer = ("Muon", MUON_PARAMS)
+        # one step an epoch: the 5 warm-up epochs are the first 5 steps
+        optimizer, report = build_optimizer(config, config.model, 1)
+        train_step = make_train_step(
+            config.model, config.train_criterion, optimizer,
+            accumulation_steps=config.accumulation_steps, seed=config.seed)
+        batch = device_batch(torch, config.batch_size, 224, "soft", 15)
+        losses, ms, peak = timed_steps(torch, train_step, batch, MUON_STEPS)
+        fields[name] = {"ms": ms, "losses": losses, "peak_memory_gb": peak}
+        if name == "Muon":
+            fields["split"] = {g["optimizer"]: len(g["name"]) for g in report}
+        if not all(map(math.isfinite, losses)) or (
+                name == "Muon" and losses[-1] >= losses[0]):
+            raise AssertionError(f"{name} steps: losses {losses}")
+        del config, optimizer, train_step, batch
+        torch.cuda.empty_cache()
+    log("vit_b16 muon train steps", batch=256, micro_batches=4,
+        muon=MUON_PARAMS, timed="host clock, each step read back", **fields)
+    if fields["split"] != {"Muon": 49, "AdamW": 103}:
+        raise AssertionError(f"Muon/AdamW split {fields['split']}")
+
+
+def every_config_phase(torch, experiments):
+    """Phase h: every ResNet and ViT config of this slice built on the card
+    at full width and depth (the ViT-L/H ones at MAE_DEPTH blocks), one
+    train step at the config's batch on device-side random images with a
+    finite loss; a batch above CONFIG_MICRO_CAP images at 224^2 goes in
+    micro-batches of that size (the step's mean is the batch's)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_imagenet21k_classification_model as in21k_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    readings = {}
+    for rel in CONFIGS_OF_THIS_SLICE:
+        def cut(model):
+            if "vit_large" in rel or "vit_huge" in rel:
+                model.blocks = model.blocks[:MAE_DEPTH]
+        config = config_on_card(torch, experiments / rel, cut)
+        model = config.model
+        optimizer, _ = build_optimizer(config, model, 100)
+        size = config.input_image_size
+        micro = config.batch_size // config.accumulation_steps
+        accumulation = config.accumulation_steps * max(
+            1, micro * size * size // (CONFIG_MICRO_CAP * 224 * 224))
+        loss_fn = in21k_cli.build_loss_fn(model, config) \
+            if rel.startswith("imagenet21k/") else None
+        soft = type(config.train_criterion).__name__ == "OneHotLabelCELoss"
+        train_step = make_train_step(
+            model, config.train_criterion, optimizer,
+            accumulation_steps=accumulation,
+            clip_max_norm=getattr(config, "clip_max_norm", 0.0),
+            seed=config.seed, loss_fn=loss_fn)
+        batch = device_batch(torch, config.batch_size, size,
+                             "soft" if soft else "int", 16,
+                             config.num_classes)
+        t0 = time.perf_counter()
+        metrics = train_step(batch, 0)
+        loss = metrics["loss"].item()
+        readings[rel] = {"batch": config.batch_size,
+                         "micro_batches": accumulation, "loss": loss,
+                         "skipped": metrics["skipped"].item(),
+                         "seconds": time.perf_counter() - t0}
+        if not math.isfinite(loss) or metrics["skipped"].item():
+            raise AssertionError(f"{rel}: {readings[rel]}")
+        del config, model, optimizer, train_step, batch, metrics
+        torch.cuda.empty_cache()
+    log("configs of this slice, one train step each",
+        reduced=f"ViT-L/16 and ViT-H/14 at {MAE_DEPTH} blocks",
+        configs=len(readings), **readings)
+
+
+def mae_distill_slice(torch, F, fa, ln, results, train_cli):
+    """Phases a-h (``main``'s 26-33): MAE pretraining, the step from MAE to
+    classification, distillation, Muon and every config of this slice.
+    Returns phase c's and f's step readings."""
+    import os
+
+    from simpleaicv_pytorch_training_examples_tpu_torch import native
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_mae_self_supervised_model as mae_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils.flops import (
+        compute_flops_and_params)
+    experiments = REPO / PACKAGE / "experiments"
+    mae_dir = experiments / "masked_image_modeling" / "imagenet" / \
+        "vit_b_16_224_mae_pretrain"
+    data_root = SMOKE_DIR / "data"
+    os.environ["SIMPLEAICV_DATA_ROOT"] = str(data_root)
+    native.lib()   # the JPEG phases need libjpeg; raises where it is missing
+    jpeg_folder(data_root / "ILSVRC2012",
+                {"train": RESNET_TRAIN_IMAGES, "val": RESNET_EVAL_IMAGES})
+
+    # a. K1 and K2 at the MAE shapes against their plain versions
+    mae_attention_phase(torch, F, fa, results)
+
+    # b. MAE ViT-B/16 through the MAE train CLI: two epochs, then the same
+    #    command resumed for a third, and an uninterrupted run of three
+    #    epochs over the same batches (recorded from the first runs' loader
+    #    and replayed: the loader's resume is exact by its seeds, held on
+    #    the CPU), which must end bit for bit where the resumed one does
+    #    (cuDNN's deterministic algorithms, for the patch embedding's
+    #    convolution, within this phase; the warm-up cut to 3 epochs keeps
+    #    both runs' lr the same, where a cosine past it would follow the
+    #    epochs each run was given)
+    mae_root = SMOKE_DIR / "mae_data"
+    jpeg_folder(mae_root / "ILSVRC2012", {"train": MAE_IMAGES})
+    changes = {
+        '    os.environ.get("SIMPLEAICV_DATA_ROOT", "datasets"), '
+        '"ILSVRC2012")\n': f'    {str(mae_root)!r}, "ILSVRC2012")\n',
+        "    epochs = 400\n": "    epochs = {epochs}\n",
+        '            "warm_up_epochs": 40,\n':
+        '            "warm_up_epochs": 3,\n'}
+    steps = MAE_IMAGES // MAE_BATCH
+    expected = lambda n: dict(K1=12 * steps * n, K1_bwd=12 * steps * n,
+                              K2=8 * steps * n, K2_bwd=8 * steps * n)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with recorded_epochs({}):
+            parts = run_train_cli(mae_cli, SMOKE_DIR / "mae_parts",
+                                  mae_dir / "train_config.py",
+                                  "mae_vit_b16 train cli", ((2, 1), (3, 3)),
+                                  changes, fa, ln, expected)
+            whole = run_train_cli(mae_cli, SMOKE_DIR / "mae_whole",
+                                  mae_dir / "train_config.py",
+                                  "mae_vit_b16 train cli uninterrupted, "
+                                  "the same batches replayed", ((3, 1),),
+                                  changes, fa, ln, expected)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = (torch.load(SMOKE_DIR / d / "checkpoints" / "latest.pth",
+                       map_location="cpu", weights_only=False)
+            for d in ("mae_whole", "mae_parts"))
+    same_model = all(torch.equal(t, b["model_state_dict"][n])
+                     for n, t in a["model_state_dict"].items())
+    same_optimizer = all(
+        torch.equal(t, b["optimizer_state_dict"][slot][n])
+        for slot in ("mu", "nu")
+        for n, t in a["optimizer_state_dict"][slot].items())
+    resumed, uninterrupted = parts[1]["epochs"][0], whole[0]["epochs"][2]
+    log("mae_vit_b16 train cli", batch=MAE_BATCH, train_images=MAE_IMAGES,
+        config_changes=["data root: " + str(mae_root), "epochs: 400 -> 3",
+                        "warm_up_epochs: 40 -> 3 (every epoch of both runs in the "
+                        "linear warm-up, whose lr does not depend on the "
+                        "epochs set)"],
+        launches_per_step=dict(K1=12, K1_bwd=12, K2=8, K2_bwd=8),
+        resumed_epoch_loss=resumed["loss_avg"],
+        uninterrupted_epoch_loss=uninterrupted["loss_avg"],
+        same_model_bits=same_model, same_optimizer_bits=same_optimizer,
+        losses=[e["loss_avg"] for r in whole for e in r["epochs"]])
+    if not (same_model and same_optimizer
+            and resumed["loss_avg"] == uninterrupted["loss_avg"]):
+        raise AssertionError("the resumed MAE epoch differs from the "
+                             "uninterrupted one")
+    torch.cuda.empty_cache()
+
+    # c. the MAE step alone, a one-batch run and the gradient check
+    mae_step = mae_step_phase(torch, fa, ln, mae_dir)
+    torch.cuda.empty_cache()
+
+    # d. MAE ViT-L/16 and ViT-H/14 at reduced encoder depth
+    mae_large_phase(torch, fa, ln, experiments)
+
+    # e. from MAE to classification: the self-train ViT-B/16 config from
+    #    phase b's best.pth, one epoch of 4 steps through the classification
+    #    train CLI; its load reads as the CPU test of that mapping says (no
+    #    tensor of the encoder.-named checkpoint loads, none is skipped)
+    best = SMOKE_DIR / "mae_parts" / "checkpoints" / "best.pth"
+    vit_dir = SMOKE_DIR / "vit_b16_self_train"
+    micro = 4 * RESNET_TRAIN_IMAGES // 256
+    run_train_cli(
+        train_cli, vit_dir, experiments / "imagenet" /
+        "vit_base_patch16_for_self_train_mae_pretrain" / "train_config.py",
+        "vit_b16 self-train cli", ((1, 1),),
+        {"    epochs = 100\n": "    epochs = {epochs}\n",
+         '    trained_model_path = ""\n':
+         f"    trained_model_path = {str(best)!r}\n"}, fa, ln,
+        lambda n: dict(K1=12 * micro * n + 12, K1_bwd=12 * micro * n))
+    train_log = (vit_dir / "log" / "train.log").read_text()
+    loaded = re.search(r"pretrained load: (\d+)/(\d+) tensors", train_log)
+    skipped = len(re.findall(r"INFO: skip \S+: shape", train_log))
+    log("vit_b16 self-train load", checkpoint=str(best),
+        loaded=int(loaded.group(1)), total=int(loaded.group(2)),
+        skipped=skipped, cpu_test="0 loaded, 0 skipped "
+        "(test_an_mae_checkpoint_loads_into_the_self_train_vit_as_in_jax)")
+    if (int(loaded.group(1)), skipped) != (0, 0):
+        raise AssertionError(f"MAE -> ViT load: {loaded.group(0)}, "
+                             f"{skipped} skipped")
+
+    # f. distillation through the distill train CLI, and the KD step alone
+    distill_phase(torch, fa, ln, experiments)
+    kd_step = distill_step_phase(torch, experiments / "distillation" /
+                                 "imagenet" / "resnet_152_kd_50")
+    torch.cuda.empty_cache()
+
+    # g. Muon against AdamW on the ViT-B/16 fine-tune config
+    muon_phase(torch, experiments)
+
+    # h. every ResNet and ViT config of this slice; ResNet-50's test-CLI
+    #    line (phase 10h's best.pth eval) with the FLOP and parameter count
+    every_config_phase(torch, experiments)
+    test_log = SMOKE_DIR / "resnet50_train" / "log" / "test.log"
+    line = re.search(r"model params: [\d.]+ M, flops: [\d.]+ G",
+                     test_log.read_text())
+    config = config_on_card(torch, experiments / "imagenet" / "resnet50")
+    flops, n_params = compute_flops_and_params(config.model,
+                                               (1, 3, 224, 224))
+    want = f"model params: {n_params / 1e6:.3f} M, flops: {flops / 1e9:.3f} G"
+    log("resnet50 test cli line", line=line and line.group(0), counted=want)
+    if line is None or line.group(0) != want:
+        raise AssertionError(f"ResNet-50 test CLI line {line}: want {want}")
+    return {"mae_step": mae_step, "kd_step": kd_step}
 
 
 def main():
@@ -4876,8 +5576,14 @@ def main():
 
     # 23-25. the SAM2 training slice
     sam2_train_counts = sam2_training_slice(torch, fa, ln, results)
+    torch.cuda.empty_cache()
 
-    # 26. kernels line
+    # 26-33. MAE pretraining, distillation, Muon and this slice's configs
+    #        (phases a-h)
+    mae_distill_slice(torch, F, fa, ln, results, train_cli)
+    torch.cuda.empty_cache()
+
+    # 34. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 

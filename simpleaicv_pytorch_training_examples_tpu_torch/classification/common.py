@@ -1,9 +1,10 @@
 """Classification transforms, collater and checkpoint hook.
 
 Counterpart of the parts of the JAX package's ``classification/common.py``
-that the ViT, ResNet and CIFAR ResNet configs use: the eval transforms, the
-training transforms (random resized crop, horizontal flip, random erasing;
-CIFAR's pad and random crop), ``test_collater`` and ``load_state_dict``.
+that the ViT, ResNet, CIFAR ResNet, MAE and distillation configs use: the
+eval transforms, the training transforms (random resized crop, horizontal
+flip, random erasing; CIFAR's pad and random crop; MAE's ``Normalize``),
+``test_collater`` and ``load_state_dict``.
 Transforms are host-side numpy ops over dict samples ``{'image': HWC array,
 'label': int}`` that draw from the global ``np.random``; the collater hands
 out torch tensors: NCHW float32 images and int64 labels.
@@ -15,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["Opencv2PIL", "PIL2Opencv", "TorchPad", "TorchRandomCrop",
-           "TorchMeanStdNormalize", "TorchResize",
+           "TorchMeanStdNormalize", "Normalize", "TorchResize",
            "TorchCenterCrop", "TorchRandomResizedCrop",
            "TorchRandomHorizontalFlip", "RandomErasing",
            "ClassificationCollater", "load_state_dict"]
@@ -85,6 +86,14 @@ class TorchMeanStdNormalize:
         image = np.multiply(sample["image"], self._inv, dtype=np.float32)
         image -= self._bias
         sample["image"] = image
+        return sample
+
+
+class Normalize:
+    """x / 255 in float32 (MAE's pretraining input)."""
+
+    def __call__(self, sample):
+        sample["image"] = sample["image"].astype(np.float32) / 255.0
         return sample
 
 

@@ -27,6 +27,7 @@ from ..utils import (build_optimizer, get_logger, load_config_from_work_dir,
                      set_seed)
 from ..utils.checkpoint import CheckpointStore
 from ..utils.ema import ema_init
+from ..utils.flops import compute_flops_and_params
 from ..utils.schedules import schedule_value
 from .engine import apply_pretrained, init_model, make_train_step
 
@@ -238,21 +239,36 @@ def run_training(config, work_dir: str, *, build_loss_fn=None,
             "model": model, "epochs": epochs_run}
 
 
+def _input_shape(config):
+    """[1, 3, H, W] of one input: the config's ``input_image_size``, else
+    the size of the test set's first image."""
+    size = getattr(config, "input_image_size", None)
+    if size is None:
+        size = config.test_dataset[0]["image"].shape[:2]
+    h, w = (size, size) if isinstance(size, int) else size
+    return (1, 3, h, w)
+
+
 def run_test(work_dir: str, build_eval, device=None):
     """Evaluate ``work_dir``'s ``test_config.py`` once: the model
     initialised from the config's seed, its pretrained weights
-    (``load_state_dict``) loaded, the test loader, ``build_eval``'s
-    evaluator. Logs to ``log/test.log``; returns ``(metric, log_line,
-    values)``."""
+    (``load_state_dict``) loaded, its FLOPs and parameters counted on one
+    image of ``_input_shape`` (``utils/flops.py``), the test
+    loader, ``build_eval``'s evaluator. Logs to ``log/test.log``; returns
+    ``(metric, log_line, values)``, ``values`` with the evaluator's numbers
+    and ``flops`` and ``params``."""
     device = resolve_device(device)
     config = load_config_from_work_dir(work_dir, "test_config")
     set_seed(config.seed)
     logger = get_logger("test", os.path.join(work_dir, "log"))
     model = init_model(config.model, config.seed, device)
     model = apply_pretrained(model, logger)
-    _model_params(model, logger)
+    flops, n_params = compute_flops_and_params(model, _input_shape(config))
+    logger.info(f"model params: {n_params / 1e6:.3f} M, flops: "
+                f"{flops / 1e9:.3f} G")
     ctx = RunContext(_test_loader(config, device), logger, device)
     metric, metric_log, values = build_eval(model, config, ctx)()
+    values = {**values, "flops": flops, "params": n_params}
     rate = values.get("images_per_s")
     logger.info(metric_log + ("" if rate is None else
                               f" images/s {rate:.1f}") + f" on {device}")

@@ -101,6 +101,20 @@ def _checkpoint_contexts(block):
     return contextlib.nullcontext(), recompute()
 
 
+def run_blocks(blocks, x, use_gradient_checkpoint=False):
+    """``x`` through each block in turn; with ``use_gradient_checkpoint``
+    (and grad enabled) each under non-reentrant ``torch.utils.checkpoint``,
+    its recompute drawing the masks of the original forward."""
+    remat = use_gradient_checkpoint and torch.is_grad_enabled()
+    for block in blocks:
+        if remat:
+            x = checkpoint(block, x, use_reentrant=False,
+                           context_fn=lambda b=block: _checkpoint_contexts(b))
+        else:
+            x = block(x)
+    return x
+
+
 class ViT(nn.Module):
 
     def __init__(self, patch_size, embedding_planes, block_nums, head_nums,
@@ -139,15 +153,8 @@ class ViT(nn.Module):
         x = self.patch_embed(x).flatten(2).transpose(1, 2)  # [B, N, C]
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x)
-        remat = self.use_gradient_checkpoint and torch.is_grad_enabled()
-        for block in self.blocks:
-            if remat:
-                x = checkpoint(block, x, use_reentrant=False,
-                               context_fn=lambda b=block:
-                               _checkpoint_contexts(b))
-            else:
-                x = block(x)
+        x = run_blocks(self.blocks, self.pos_drop(x),
+                       self.use_gradient_checkpoint)
         if self.global_pool:
             x = self.norm(x[:, 1:].mean(dim=1).float())
         else:

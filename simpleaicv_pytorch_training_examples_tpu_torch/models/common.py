@@ -137,16 +137,23 @@ class Linear(nn.Linear):
 
 class PatchEmbed(nn.Module):
     """Non-overlapping patch embedding: a strided convolution, NCHW in,
-    [B, planes, H/P, W/P] out, computed in ``dtype``."""
+    [B, planes, H/P, W/P] out, computed in ``dtype``. The kernel starts
+    from a truncated normal of std 0.02, or with ``xavier_uniform`` from
+    Flax's ``xavier_uniform()`` (MAE's encoder)."""
 
-    def __init__(self, in_planes, planes, patch_size, dtype=torch.float32):
+    def __init__(self, in_planes, planes, patch_size, dtype=torch.float32,
+                 xavier_uniform=False):
         super().__init__()
         self.proj = nn.Conv2d(in_planes, planes, patch_size, stride=patch_size)
         self.patch_size = patch_size
         self.compute_dtype = dtype
+        self.xavier_uniform = xavier_uniform
 
     def init_weights_(self, generator):
-        trunc_normal_(self.proj.weight, 0.02, generator)
+        if self.xavier_uniform:
+            nn.init.xavier_uniform_(self.proj.weight, generator=generator)
+        else:
+            trunc_normal_(self.proj.weight, 0.02, generator)
         nn.init.zeros_(self.proj.bias)
 
     def forward(self, x):

@@ -12,8 +12,11 @@ import sys
 
 def load_config_from_work_dir(work_dir: str, module_name: str = "train_config"):
     work_dir = os.path.abspath(work_dir)
-    if work_dir not in sys.path:
-        sys.path.insert(0, work_dir)
+    # first on the path even when it is on it already: a work dir put in
+    # front of it since would otherwise give its own same-named module
+    if work_dir in sys.path:
+        sys.path.remove(work_dir)
+    sys.path.insert(0, work_dir)
     # Force a fresh import if a same-named module from another work dir is
     # already loaded (tests load several experiment dirs in one process).
     if module_name in sys.modules:

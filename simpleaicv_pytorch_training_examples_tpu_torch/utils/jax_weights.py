@@ -20,6 +20,12 @@ package's ``convert_resnet_state_dict``): ``stem`` -> ``conv1``,
 ``bn.bias`` -> ``layer.1.weight`` / ``layer.1.bias``, the batch statistics'
 ``bn.mean`` / ``bn.var`` -> ``layer.1.running_mean`` / ``running_var``.
 
+``vit_mae_state_dict_from_jax`` maps the MAE pretraining model (the
+encoder's and the decoder's blocks by the ViT's rules, under ``encoder.``
+and ``decoder.``). ``kd_state_dict_from_jax`` maps a distillation model's
+two ResNets, parameters and batch statistics, under ``teacher.`` and
+``student.``.
+
 ``sam_state_dict_from_jax`` does the same for SAM: it is the inverse of the
 JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
 and also undoes that converter's spatial flip of the ConvTranspose kernels
@@ -73,14 +79,16 @@ def optimizer_state_from_jax(step, model="vit", head_dim_padding=0,
                              **moments) -> dict:
     """The JAX package's optimizer state, as numpy arrays -> the state dict
     of the port's ``Optimizer``: ``step`` is the update count and each
-    keyword (``mu`` and ``nu`` for AdamW, ``momentum_buf`` for SGD) a
-    {Flax dotted name: ndarray} of one moment, mapped onto the port's names
-    and layouts as the weights of ``model`` ("vit", "resnet", "sam" or
-    "sam2") are;
+    keyword (``mu`` and ``nu`` for AdamW, ``momentum_buf`` for SGD,
+    ``muon_buf``, ``mu`` and ``nu`` for Muon) a {Flax dotted name: ndarray}
+    of one moment, mapped onto the port's names and layouts as the weights
+    of ``model`` ("vit", "vit_mae", "resnet", "kd", "sam" or "sam2") are;
     for "sam2", ``head_dim_padding`` is the port model's, and moments of
     narrower Hiera heads are zero-padded as their weights are."""
     to_torch = {"vit": vit_state_dict_from_jax,
+                "vit_mae": vit_mae_state_dict_from_jax,
                 "resnet": lambda flat: resnet_state_dict_from_jax(flat, {}),
+                "kd": lambda flat: kd_state_dict_from_jax(flat, {}),
                 "sam": lambda flat: sam_state_dict_from_jax(flat, {}),
                 "sam2": lambda flat: sam2_state_dict_from_jax(
                     flat, {}, head_dim_padding)}[model]
@@ -120,6 +128,28 @@ def resnet_state_dict_from_jax(params_flat: dict,
             sd[_resnet_name(name).replace("running_mean",
                                           "num_batches_tracked")] = \
                 torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def vit_mae_state_dict_from_jax(flat: dict) -> dict:
+    """The JAX package's MAE pretraining model ({Flax dotted name: ndarray})
+    -> the port's ``VITMAEPretrainModel`` state_dict: ``encoder.`` and
+    ``decoder.`` names map by the ViT's rules (``patch_embedding``,
+    ``block_{i}``, ``kernel``, ``scale``); ``cls_token`` and ``mask_token``
+    keep their names and shapes."""
+    return vit_state_dict_from_jax(flat)
+
+
+def kd_state_dict_from_jax(params_flat: dict, batch_stats_flat: dict) -> dict:
+    """A JAX ``KDModel``'s parameters and batch statistics -> the port's
+    ``KDModel`` state_dict: each of ``teacher.`` and ``student.`` through
+    ``resnet_state_dict_from_jax``."""
+    sd = {}
+    for prefix in ("teacher.", "student."):
+        part = lambda flat: {k[len(prefix):]: v for k, v in flat.items()
+                             if k.startswith(prefix)}
+        sd.update({prefix + k: v for k, v in resnet_state_dict_from_jax(
+            part(params_flat), part(batch_stats_flat)).items()})
     return sd
 
 

@@ -1,4 +1,4 @@
-"""Optimizer factory with per-parameter rules: AdamW and SGD.
+"""Optimizer factory with per-parameter rules: AdamW, SGD and Muon.
 
 Counterpart of the JAX package's ``utils/optimizers.py``. The config's
 ``optimizer = (name, params_dict)`` selects the update rule, with
@@ -11,7 +11,11 @@ Counterpart of the JAX package's ``utils/optimizers.py``. The config's
   ``lr_layer_decay_block`` (number of transformer blocks) and ``block_name``
   (the prefix of a block's name, ``"blocks."`` here); the stem
   (``pos_embed``, ``cls_token``, ``patch_embed``) gets the deepest decay and
-  the head 1.0.
+  the head 1.0;
+- Muon for every parameter of 2 or more dims whose name contains none of
+  ``_STEM_LAYER_NAMES`` and ``exclude_muon_layer_name_list``, AdamW for the
+  rest, with one lr and one decoupled weight decay for all (the rules above
+  do not apply to Muon, as in the JAX package).
 
 Names are the model's ``named_parameters()`` names.
 
@@ -30,9 +34,10 @@ import re
 
 import torch
 
+from .muon import from_muon_matrix, muon_matrix, newton_schulz5
 from .schedules import build_schedule
 
-SUPPORTED_OPTIMIZERS = ("SGD", "AdamW")
+SUPPORTED_OPTIMIZERS = ("SGD", "AdamW", "Muon")
 
 _STEM_LAYER_NAMES = ("pos_embed", "cls_token", "patch_embed")
 
@@ -104,13 +109,18 @@ def _group_report(names, wds, lrs, scales):
 
 
 class Optimizer:
-    """AdamW or SGD over a model's parameters, updated in place.
+    """AdamW, SGD or Muon over a model's parameters, updated in place.
 
-    State: ``step`` (0-dim int64 on the device) and one or two fp32 moment
-    tensors per parameter (``mu``/``nu``, or ``momentum_buf``).
+    State: ``step`` (0-dim int64 on the device) and fp32 moment tensors per
+    parameter: ``mu``/``nu`` (AdamW), ``momentum_buf`` (SGD), or
+    ``muon_buf``, ``mu`` and ``nu`` for every parameter (Muon, as the JAX
+    package's state holds them; each parameter moves only the slots of its
+    own rule). ``use_muon`` and ``out_first`` (Muon only) give each
+    parameter's rule and the layout of its matrix (``utils/muon.py``).
     """
 
-    def __init__(self, name, named_params, multipliers, wds, lrmuls, **hyper):
+    def __init__(self, name, named_params, multipliers, wds, lrmuls,
+                 use_muon=None, out_first=None, **hyper):
         self.name = name
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
@@ -121,9 +131,14 @@ class Optimizer:
         self.neg_lrmuls = [-m for m in lrmuls]
         self.hyper = hyper
         self.step = torch.zeros((), dtype=torch.int64, device=device)
-        slots = ("mu", "nu") if name == "AdamW" else ("momentum_buf",)
+        slots = {"AdamW": ("mu", "nu"), "SGD": ("momentum_buf",),
+                 "Muon": ("muon_buf", "mu", "nu")}[name]
         self.moments = {slot: [torch.zeros_like(p, dtype=torch.float32)
                                for p in self.params] for slot in slots}
+        if name == "Muon":
+            self.muon_index = [i for i, u in enumerate(use_muon) if u]
+            self.adamw_index = [i for i, u in enumerate(use_muon) if not u]
+            self.out_first = list(out_first)
 
     @torch.no_grad()
     def update(self, grads, finite):
@@ -135,28 +150,16 @@ class Optimizer:
         lr_gate = self.multipliers[index] * on
         params = self.params
 
-        def gated(coefficient):  # (c, 1 - c) while on, (1, 0) while off
-            c = torch.where(finite, coefficient, 1.0)
-            return c, (1.0 - coefficient) * on
-
         if self.name == "AdamW":
-            b1, b2, eps = (self.hyper[k] for k in ("b1", "b2", "eps"))
-            mu, nu = self.moments["mu"], self.moments["nu"]
-            count = (self.step + 1).to(torch.float32)
-            b1_t, one_minus_b1 = gated(on.new_tensor(b1))
-            b2_t, one_minus_b2 = gated(on.new_tensor(b2))
-            torch._foreach_mul_(mu, b1_t)
-            torch._foreach_add_(mu, torch._foreach_mul(grads, one_minus_b1))
-            squares = torch._foreach_mul(grads, grads)
-            torch._foreach_mul_(squares, one_minus_b2)
-            torch._foreach_mul_(nu, b2_t)
-            torch._foreach_add_(nu, squares)
-            denom = torch._foreach_div(nu, 1.0 - b2 ** count)
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
-            delta = torch._foreach_div(mu, 1.0 - b1 ** count)
-            torch._foreach_div_(delta, denom)
-            torch._foreach_add_(delta, torch._foreach_mul(params, self.wds))
+            delta = self._adamw_delta(range(len(params)), grads, finite, on)
+        elif self.name == "Muon":
+            delta = [None] * len(params)
+            for i, d in zip(self.adamw_index, self._adamw_delta(
+                    self.adamw_index, grads, finite, on)):
+                delta[i] = d
+            for i, d in zip(self.muon_index, self._muon_delta(grads,
+                                                              finite)):
+                delta[i] = d
         else:  # SGD, torch.optim.SGD semantics
             momentum, nesterov = self.hyper["momentum"], self.hyper["nesterov"]
             buf = self.moments["momentum_buf"]
@@ -175,6 +178,75 @@ class Optimizer:
         torch._foreach_add_(params, delta)
         self.step += finite.to(torch.int64)
 
+    def _adamw_delta(self, index, grads, finite, on):
+        """AdamW's moments moved for the parameters ``index``; returns their
+        updates before the lr (the Adam direction plus wd * p)."""
+        b1, b2, eps = (self.hyper[k] for k in ("b1", "b2", "eps"))
+        mu = [self.moments["mu"][i] for i in index]
+        nu = [self.moments["nu"][i] for i in index]
+        grads = [grads[i] for i in index]
+        params = [self.params[i] for i in index]
+        if not params:
+            return []
+        count = (self.step + 1).to(torch.float32)
+
+        def gated(coefficient):  # (c, 1 - c) while on, (1, 0) while off
+            c = torch.where(finite, coefficient, 1.0)
+            return c, (1.0 - coefficient) * on
+
+        b1_t, one_minus_b1 = gated(on.new_tensor(b1))
+        b2_t, one_minus_b2 = gated(on.new_tensor(b2))
+        torch._foreach_mul_(mu, b1_t)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, one_minus_b1))
+        squares = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(squares, one_minus_b2)
+        torch._foreach_mul_(nu, b2_t)
+        torch._foreach_add_(nu, squares)
+        denom = torch._foreach_div(nu, 1.0 - b2 ** count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        delta = torch._foreach_div(mu, 1.0 - b1 ** count)
+        torch._foreach_div_(delta, denom)
+        torch._foreach_add_(delta, torch._foreach_mul(
+            params, [self.wds[i] for i in index]))
+        return delta
+
+    def _muon_delta(self, grads, finite):
+        """Muon's momentum moved for its parameters; returns their updates
+        before the lr (the orthogonalised direction, scaled by 0.2 *
+        sqrt(max(A, B)), plus wd * p). Matrices of one shape go through
+        Newton-Schulz as one stack."""
+        momentum, nesterov = self.hyper["momentum"], self.hyper["nesterov"]
+        index = self.muon_index
+        buf = [self.moments["muon_buf"][i] for i in index]
+        grads = [grads[i] for i in index]
+        if not buf:
+            return []
+        torch._foreach_mul_(buf, torch.where(finite, momentum, 1.0))
+        torch._foreach_add_(buf, grads)
+        if nesterov:
+            eff = torch._foreach_mul(buf, momentum)
+            torch._foreach_add_(eff, grads)
+        else:
+            eff = buf
+        matrices = [muon_matrix(e, self.out_first[i])
+                    for e, i in zip(eff, index)]
+        groups = {}
+        for k, m in enumerate(matrices):
+            groups.setdefault(tuple(m.shape), []).append(k)
+        delta = [None] * len(index)
+        for shape, ks in groups.items():
+            ortho = newton_schulz5(torch.stack([matrices[k] for k in ks]),
+                                   self.hyper["ns_steps"])
+            ortho = ortho * (0.2 * max(shape) ** 0.5)
+            for k, o in zip(ks, ortho.unbind(0)):
+                i = index[k]
+                delta[k] = from_muon_matrix(o, self.params[i].shape,
+                                            self.out_first[i])
+        torch._foreach_add_(delta, torch._foreach_mul(
+            [self.params[i] for i in index], [self.wds[i] for i in index]))
+        return delta
+
     def state_dict(self):
         state = {"name": self.name, "step": self.step.clone()}
         for slot, tensors in self.moments.items():
@@ -190,6 +262,15 @@ class Optimizer:
         for slot, tensors in self.moments.items():
             for n, t in zip(self.names, tensors):
                 t.copy_(torch.as_tensor(state[slot][n]))
+
+
+def _out_first_weights(model):
+    """Names of the parameters laid out output-first: the weights of the
+    Linear and convolution layers (their Flax kernels are [in, out] and
+    HWIO)."""
+    return {f"{prefix}.weight" if prefix else "weight"
+            for prefix, m in model.named_modules()
+            if isinstance(m, (torch.nn.Linear, torch.nn.modules.conv._ConvNd))}
 
 
 def build_optimizer(config, model, steps_per_epoch: int):
@@ -214,6 +295,31 @@ def build_optimizer(config, model, steps_per_epoch: int):
     named_params = list(model.named_parameters())
     names, wds, lrs, scales = compute_wd_and_lr(named_params,
                                                 optimizer_parameters)
+    if optimizer_name == "Muon":
+        weight_decay = optimizer_parameters.get("weight_decay", 0.0)
+        exclude = list(_STEM_LAYER_NAMES) + list(
+            optimizer_parameters.get("exclude_muon_layer_name_list", [])
+            or [])
+        use_muon = [p.ndim >= 2 and not any(e in n for e in exclude)
+                    for n, p in named_params]
+        out_first = _out_first_weights(model)
+        optimizer = Optimizer(
+            "Muon", named_params, multipliers, [weight_decay] * len(names),
+            [lr] * len(names), use_muon=use_muon,
+            out_first=[n in out_first for n in names],
+            momentum=optimizer_parameters.get("momentum", 0.95),
+            nesterov=optimizer_parameters.get("nesterov", True),
+            ns_steps=optimizer_parameters.get("ns_steps", 5),
+            b1=optimizer_parameters.get("adamw_beta1", 0.9),
+            b2=optimizer_parameters.get("adamw_beta2", 0.999),
+            eps=optimizer_parameters.get("adamw_eps", 1e-8))
+        report = [{"name": [n for n, u in zip(names, use_muon) if u],
+                   "optimizer": "Muon", "lr": lr,
+                   "weight_decay": weight_decay},
+                  {"name": [n for n, u in zip(names, use_muon) if not u],
+                   "optimizer": "AdamW", "lr": lr,
+                   "weight_decay": weight_decay}]
+        return optimizer, report
     lrmuls = [l_ * s_ for l_, s_ in zip(lrs, scales)]
     if optimizer_name == "SGD":
         hyper = dict(momentum=optimizer_parameters["momentum"],
