@@ -42,7 +42,7 @@ kernels' launch counters set to 0 just before it and read just after:
 - SAM training: full-width, full-depth SAM-B (1024^2, bf16, batch 8)
   through the work-dir train CLI with the port's SAM-B config (gradient
   checkpointing, 4 extra decoder passes with error clicks) on the seeded
-  synthetic dataset (two epochs of 4 steps, then resumed for a third);
+  synthetic dataset (one epoch of 2 steps, then resumed for a second);
   SAM-B's gradients with sharp attention, kernels against plain attention;
   timed train steps with and without checkpointing; full-width SAM-H at
   reduced depth, its gradients likewise;
@@ -61,8 +61,8 @@ kernels' launch counters set to 0 just before it and read just after:
 - SAM2 training: full-width, full-depth SAM2-B+ (1024^2, bf16, batch 1)
   through the work-dir train CLI with the port's stage-2 config (gradient
   checkpointing, condition frames, 2 point-iteration frames refined by
-  error clicks, two condition slots) on seeded synthetic 8-frame clips (two
-  epochs of 3 steps, then resumed for a third); timed train steps at the
+  error clicks, two condition slots) on seeded synthetic 8-frame clips (one
+  epoch of 2 steps, then resumed for a second); timed train steps at the
   JAX package's ``bench_sam2_train.py`` recipe (4 frames, frame 0 prompted,
   frames 1-2 refined) with the kernels and with plain attention; the
   gradients of that step, refinement off, with sharpened attention,
@@ -72,21 +72,21 @@ kernels' launch counters set to 0 just before it and read just after:
   linked, the committed fixtures ``tests/torch_port_data/jpeg`` decoded,
   each per-channel mean within JPEG_MEAN_TOL of the recorded one, decode
   rates on one thread and on every core); the ResNet-50 config's train
-  transforms through the loader alone on 8,192 symlinks to the fixtures
-  (32 batches: 4 a worker at the config's workers, capped at the cores; 3
+  transforms through the loader alone on 4,096 symlinks to the fixtures
+  (16 batches: 2 a worker at the config's workers, capped at the cores; 3
   without workers), the rate read after each worker's first batch;
   full-width, full-depth ResNet-50 through the work-dir train CLI with the
-  port's ``imagenet/resnet50`` config on a folder of 1,024 train and 256
-  val symlinks in 8 classes (bf16, batch 256: two epochs of 4 steps, then
-  resumed for a third; each epoch's loader wait, split into the workers'
+  port's ``imagenet/resnet50`` config on a folder of 512 train and 256
+  val symlinks in 8 classes (bf16, batch 256: one epoch of 2 steps, then
+  resumed for a second; each epoch's loader wait, split into the workers'
   start, the first batch and the later batches, and step time), its best.pth through the eval CLI over the 256 val images;
   ViT-B/16 through the eval CLI over the JPEG val folder (K1 12 a batch);
   a timed ResNet-50 train step at batch 256 with channels_last activations
   and in NCHW, and a step with a NaN in one of two micro-batches that must
   skip and leave every parameter, the optimizer state and every BatchNorm
   buffer bit for bit; ResNet-18 (CIFAR) through the train CLI with its
-  config on a seeded CIFAR-100 pickle (two epochs of 4 steps at 128, then
-  resumed for a third); ResNet-50 through the ImageNet-21K train CLI with
+  config on a seeded CIFAR-100 pickle (one epoch of 4 steps at 128, then
+  resumed for a second); ResNet-50 through the ImageNet-21K train CLI with
   its config on a two-level tree (one epoch of 2 steps), the semantic
   softmax loss finite. The ResNet paths launch no hand-written kernel
   (their counts read 0). Where libjpeg cannot be built, the JPEG phases'
@@ -97,9 +97,9 @@ kernels' launch counters set to 0 just before it and read just after:
   ViT-H/14's 65 at 80), forward and backward against their plain
   versions, timed beside SDPA; full-width, full-depth MAE ViT-B/16 through
   the MAE train CLI with the port's ``vit_b_16_224_mae_pretrain`` config
-  (batch 1024, bf16) on 4,096 symlinks to the fixtures: two epochs of 4
-  steps, the same command resumed for a third, and an uninterrupted
-  three-epoch run over the same batches (recorded and replayed) that must
+  (batch 1024, bf16) on 1,024 symlinks to the fixtures: one epoch of 1
+  step, the same command resumed for a second, and an uninterrupted
+  two-epoch run over the same batches (recorded and replayed) that must
   end bit for bit where the resumed one does (K1 12 and K2 8 a step each
   way); the MAE step alone at batch 1024 (ms, images/s, peak memory, share
   of the bf16 peak at 3x ``utils/flops.py``'s forward count), a 20-step
@@ -111,16 +111,60 @@ kernels' launch counters set to 0 just before it and read just after:
   through the classification train CLI (one epoch), loading what the CPU
   test says JAX loads (nothing); ResNet-152 -> ResNet-50 KD and DML (with
   RandAugment and Mixup/CutMix) through the distillation train CLI at
-  batch 256 (two epochs, then resumed; the frozen teacher bit for bit as
+  batch 256 (one epoch, then resumed; the frozen teacher bit for bit as
   its seeded init, both DML networks moved) and the KD step alone; Muon
   against AdamW on the ViT-B/16 fine-tune config (the Muon losses must
   fall; its split 49 Muon / 103 AdamW tensors); every ResNet and ViT
   config of the slice built on the card, one train step at its batch (a
   batch above 256 images in micro-batches of 256; ViT-L/H at 4 blocks);
   ResNet-50's test-CLI line of parameters and FLOPs against
-  ``utils/flops.py``'s count.
+  ``utils/flops.py``'s count;
+- data parallelism, the last backbones and encoder distillation (phases
+  35-39): the training BatchNorm of one process, and the global one of a
+  larger world (``_global_batch_norm``) in an NCCL group of this process,
+  against ``F.batch_norm``; the classification train CLI on
+  ``cifar100/resnet18cifar`` with ``use_zero1`` (two epochs of 4 steps)
+  run without torchrun and under ``torchrun --nproc_per_node=1`` (NCCL at
+  world size 1: the gradient all-reduce and ZeRO-1's all-gather run),
+  every logged loss and the final parameters,
+  buffers and moments bit for bit equal; K2 at DINOv3's shapes
+  ([64, 12, 1024, 64] and [32, 16, 1024, 64], bf16, forward and backward)
+  against its plain version, timed beside SDPA, with the bound; DINOv3
+  ViT-B/16 and ViT-L/16 at 512^2 with ``use_fused_attention`` (full width
+  and depth, bf16): K2 12 and 24 launches a forward, the gradients of one
+  train micro-batch with sharpened attention against the plain ops at the
+  bf16 floor with a control; DINOv3 ViT-B/16 at 1024^2, K2 0; the 11
+  DarkNet, VAN and ConvFormer ImageNet configs at full width and depth,
+  one train step each at the config's batch (micro-batches of 256 images
+  of 224^2), DarkNet-53, VAN-B0 and ConvFormer-M36 timed (images/s, peak
+  memory) and through the eval CLI over the JPEG val folder, whose
+  parameter and FLOP line must equal ``utils/flops.py``'s; the 13.0
+  (SAM-H -> DINOv3 ViT-B/16) and 14.0 (Hiera-L -> DINOv3 ViT-B/16)
+  encoder-distillation configs through their CLIs at 1024^2, full width
+  and depth, fp32 as in JAX, on seeded synthetic SAM images at batch
+  DISTILL_BATCH (cut from 64: what fits beside the teacher), two epochs of
+  2 steps and a resumed third, the teacher of every checkpoint bit for bit
+  as first loaded, then a 10-step one-batch run whose loss must fall, its
+  step's ms and peak memory.
 
-Prints one line per phase, the ``kernels`` JSON line, the card's name and
+Cuts of the earlier phases that keep this run within its limit, each of
+depth, epochs or batch (every kernel check, control and ``kernels`` row
+kept): the kernels build and their SASS is read in the background while
+the untimed checks of phases 35, 38 and 39, which launch no hand-written
+kernel, run (their timed steps wait for the build's end); the
+loader alone over 4,096 files (was 8,192); the ViT-B/16 train CLIs on
+512 images, 2 steps an epoch (was 768, 3); the ResNet-50 train CLI, the
+KD and DML CLIs and the self-train ViT-B/16 on 512 JPEG files, 2 steps an
+epoch (was 1,024, 4), the ResNet-50, ResNet-18 CIFAR, KD and DML CLIs one
+epoch and a resumed second (was two and a third); the MAE CLI on 1,024
+files, one step an epoch, one epoch and a resumed second against an
+uninterrupted two (was 4,096, 4 steps, two and a third against three);
+the SAM-B train CLI 2 steps an epoch (was 4) and the SAM2-B+ train CLI 2
+clips an epoch (was 3), each one epoch and a resumed second (was two and
+a third).
+
+Prints one line per phase, each phase's wall seconds (``[phase N seconds]
+t``, when it ends), the ``kernels`` JSON line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failed check
 raises, so the exit code is not 0 and the last line is not printed. Without
 CUDA it exits at once with a message.
@@ -329,8 +373,15 @@ self-attention (``HELD_LAYERS``), whose q_proj bias came within its
 whole-model floor's noise when K1 moved to wgmma, is held the same way.
 The control must fail the reading of the other parameters.
 
-K1 and K2 at the MAE shapes: the kernel phase's tolerances (bf16 atol
-2e-2, two backward runs bit for bit equal). MAE ViT-B/16 gradients (one
+K1 and K2 at the MAE shapes, and K2 at DINOv3's: the kernel phase's
+tolerances (bf16 atol 2e-2, two backward runs bit for bit equal). The
+training BatchNorm on a bf16 channels_last map against ``F.batch_norm`` in
+fp32: y within BN_ATOL (a few bf16 ulps at |y| <= 4), dx, dgamma and dbeta
+within a relative L2 distance of BN_GRAD_REL, the running variance Flax's
+(biased) within 1e-4. DINOv3 ViT gradients (one bf16 micro-batch, the RoPE
+rescale held at one draw, the qkv weights redrawn LeCun-normal): as MAE's,
+by ``gradient_reading``, with a control that drops every K2 call's last
+DINOV3_CONTROL_KEYS keys. MAE ViT-B/16 gradients (one
 bf16 micro-batch of 32 images, the blocks' qkv weights redrawn
 LeCun-normal so that scores have unit std, the masking noise fixed): per
 parameter, relative L2 distance from the same model's fp32 gradients with
@@ -377,17 +428,17 @@ K8_FLOOR_RATIO, K8_FP32_RTOL, K8_GRAD_REL = 1.25, 1e-4, 1e-2
 K8_GEMM_RTOL, K8_GEMM_BF16_ULP = 1e-4, 2.0 ** -7
 K8_GEMM_KERNELS = 5   # attn_block_gemm_bf16's layout and epilogue templates
 SAM_SHARP_BATCH, SAM_SHARP_SEED, SAM_SHARP_MIN_STD = 2, 1, 1.0
-SAM_TRAIN_IMAGES = 32       # 4 steps an epoch at SAM_BATCH
+SAM_TRAIN_IMAGES = 16       # 2 steps an epoch at SAM_BATCH
 SAM_GRAD_BATCH = 2          # images of the SAM gradient checks
 SAM_GRAD_SEED = 3
 MICRO_BATCHES = 4           # the train config's accumulation_steps
-TRAIN_IMAGES, EVAL_IMAGES = 768, 256
+TRAIN_IMAGES, EVAL_IMAGES = 512, 256
 SAM2_FRAMES = 8             # 1 prompted + 7 tracked: every memory slot valid
 SAM2_SHARP_SEED = 5
 # the head_dim_padding=0 tracker's cut Hiera: blocks 0, 2, 5 windowed (K2),
 # 4 global (K6 at d = 56), 1, 3, 6 pooled
 SAM2_D56_BLOCKS, SAM2_D56_GLOBAL = (1, 2, 3, 1), (4,)
-SAM2_TRAIN_FRAMES, SAM2_TRAIN_CLIPS = 8, 3   # the CLI: 3 steps an epoch
+SAM2_TRAIN_FRAMES, SAM2_TRAIN_CLIPS = 8, 2   # the CLI: 2 steps an epoch
 SAM2_STEP_FRAMES = 4        # the timed step: bench_sam2_train.py's recipe
 SAM2_GRAD_SEED = 7
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
@@ -396,15 +447,15 @@ JPEG_FIXTURES = REPO / "tests" / "torch_port_data" / "jpeg"
 JPEG_MEAN_TOL = 1.0         # libjpeg builds may round the IDCT differently
 JPEG_DECODE_ROUNDS = 8
 JPEG_CLASSES = 8
-RESNET_TRAIN_IMAGES, RESNET_EVAL_IMAGES = 1024, 256   # 4 steps at 256
-LOADER_IMAGES = 8192           # phase b: 32 batches of 256, 4 per worker
+RESNET_TRAIN_IMAGES, RESNET_EVAL_IMAGES = 512, 256    # 2 steps at 256
+LOADER_IMAGES = 4096           # phase b: 16 batches of 256, 2 per worker
 LOADER_BATCHES_NO_WORKERS = 3
 CIFAR_TRAIN_IMAGES, CIFAR_TEST_IMAGES = 512, 256      # 4 steps at 128
 IN21K_TRAIN_IMAGES = 512                              # 2 steps at 256
 IN21K_CLASSES, IN21K_ROOTS = 10450, 100   # the config's classes, two levels
 # phases a-h of the MAE and distillation slice (26-33)
 MAE_BATCH = 1024                # the MAE configs' batch
-MAE_IMAGES = 4096               # phase b: 4 steps an epoch
+MAE_IMAGES = 1024               # phase b: 1 step an epoch
 MAE_ONE_BATCH = 64              # phase c's one-batch run
 MAE_GRAD_BATCH, MAE_GRAD_SEED = 32, 9
 MAE_CONTROL_KEYS = 8            # keys the gradient control drops
@@ -621,6 +672,19 @@ def log(phase, **fields):
 
 
 log.card = None
+
+
+def phase_start(name):
+    """Close the running phase, printing its wall seconds on a line of its
+    own, and start ``name`` (None: none)."""
+    now = time.perf_counter()
+    if phase_start.current is not None:
+        label, t0 = phase_start.current
+        print(f"[phase {label} seconds] {now - t0:.1f}", flush=True)
+    phase_start.current = None if name is None else (name, now)
+
+
+phase_start.current = None
 
 
 def nvidia_smi_line():
@@ -3372,8 +3436,8 @@ def sam2_training_slice(torch, fa, ln, results):
     # 23. the SAM2 training slice: SAM2-B+ at full width and depth through
     #     the work-dir train CLI with the port's stage-2 config
     #     (checkpointing, condition frames, 2 point-iteration frames, bf16)
-    #     on seeded synthetic clips of 8 frames, two epochs, then the same
-    #     command resumed for a third. A step encodes the 8 frames in one
+    #     on seeded synthetic clips of 8 frames, one epoch, then the same
+    #     command resumed for a second. A step encodes the 8 frames in one
     #     call: K1 on 18 windowed blocks and K6 on 3 global blocks, each
     #     twice (checkpointing recomputes them), with one backward; the 7
     #     tracked frames' memory attention (4 layers of self- and
@@ -3386,7 +3450,7 @@ def sam2_training_slice(torch, fa, ln, results):
     shutil.rmtree(sam2_dir, ignore_errors=True)
     sam2_dir.mkdir(parents=True)
     sam2_train_counts = {}
-    for epochs, first_epoch in ((2, 1), (3, 3)):
+    for epochs, first_epoch in ((1, 1), (2, 2)):
         (sam2_dir / "train_config.py").write_text(SAM2_B_TRAIN_CONFIG.format(
             frames=SAM2_TRAIN_FRAMES, n_train=SAM2_TRAIN_CLIPS, epochs=epochs))
         reset_counts(fa, ln)
@@ -3419,10 +3483,10 @@ def sam2_training_slice(torch, fa, ln, results):
         r"epoch \d+: train loss avg ([-\w.]+)", sam2_log)]
     log("sam2_b+ train cli losses", iteration_losses=sam2_losses,
         epoch_loss_avgs=epoch_avgs)
-    if (len(sam2_losses) != 3 * SAM2_TRAIN_CLIPS
+    if (len(sam2_losses) != 2 * SAM2_TRAIN_CLIPS
             or not all(map(math.isfinite, sam2_losses))
             or not epoch_avgs[-1] < epoch_avgs[0]
-            or "resumed from epoch 2" not in sam2_log):
+            or "resumed from epoch 1" not in sam2_log):
         raise AssertionError(f"SAM2-B+ train log: losses {sam2_losses}, "
                              f"epoch averages {epoch_avgs}")
     if not ((sam2_dir / "checkpoints" / "latest.pth").is_file()
@@ -3621,7 +3685,8 @@ def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
     ``replacements``), run, resumed after the first; every epoch's loss
     finite and no step skipped, the kernels' launches ``expected(n_epochs
     run)`` (no hand-written kernel launched without ``expected``). Returns
-    the runs."""
+    the runs; a run's ``model``, where the CLI returns one, is dropped when
+    the next run starts (two full-size models need not fit at once)."""
     shutil.rmtree(work_dir, ignore_errors=True)
     work_dir.mkdir(parents=True)
     runs = []
@@ -3629,6 +3694,9 @@ def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
         (work_dir / "train_config.py").write_text(config_text(
             config_path, **{k: v.format(epochs=epochs)
                             for k, v in replacements.items()}))
+        if runs:
+            runs[-1].pop("model", None)
+            torch_empty_cache()
         reset_counts(fa, ln)
         t0 = time.perf_counter()
         run = cli.main(["--work-dir", str(work_dir)])
@@ -3660,6 +3728,11 @@ def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
             raise AssertionError(f"{label} to epoch {epochs}: {run}")
         runs.append(run)
     return runs
+
+
+def torch_empty_cache():
+    import torch
+    torch.cuda.empty_cache()
 
 
 def conv_fc_flops(torch, model, image_size):
@@ -3755,9 +3828,6 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
     """Phases a-g (``main``'s 10f-10l): ImageNet classification from real
     JPEG files and the ResNets, on a data root under ``SMOKE_DIR``."""
     import os
-    import pickle
-
-    import numpy as np
 
     from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
         train_imagenet21k_classification_model as in21k_cli)
@@ -3768,6 +3838,7 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
     experiments = REPO / PACKAGE / "experiments"
     resnet50_dir = experiments / "imagenet" / "resnet50"
 
+    phase_start("10f")
     # a. the libjpeg core; without libjpeg phases a-d (and g) say why
     unavailable = native_jpeg_phase()
     if unavailable is not None:
@@ -3776,6 +3847,7 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
                       "resnet50 in21k train cli"):
             log(phase, unavailable=unavailable)
     else:
+        phase_start("10g")
         # b. the loader alone on an ILSVRC folder of the fixtures
         jpeg_folder(data_root / "ILSVRC2012",
                     {"train": RESNET_TRAIN_IMAGES, "val": RESNET_EVAL_IMAGES})
@@ -3783,12 +3855,13 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
         jpeg_folder(loader_root, {"train": LOADER_IMAGES})
         loader_phase(load_config_from_work_dir(str(resnet50_dir),
                                                "train_config"), loader_root)
-        # c. ResNet-50 through the train CLI, two epochs and a resume, then
+        phase_start("10h")
+        # c. ResNet-50 through the train CLI, one epoch and a resume, then
         #    best.pth through the eval CLI
         train_dir = SMOKE_DIR / "resnet50_train"
         runs = run_train_cli(
             train_cli, train_dir, resnet50_dir / "train_config.py",
-            "resnet50 train cli", ((2, 1), (3, 3)),
+            "resnet50 train cli", ((1, 1), (2, 2)),
             {"    epochs = 100\n": "    epochs = {epochs}\n",
              "    print_interval = 100\n": "    print_interval = 1\n"},
             fa, ln)
@@ -3806,6 +3879,7 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
         if (values["images"] != RESNET_EVAL_IMAGES
                 or "pretrained load: 320/320 tensors" not in test_log):
             raise AssertionError(f"ResNet-50 best.pth eval: {values}")
+        phase_start("10i")
         # d. ViT-B/16 through the eval CLI over the JPEG val folder
         vit_dir = SMOKE_DIR / "vit_base_patch16_jpeg"
         vit_dir.mkdir(parents=True, exist_ok=True)
@@ -3824,27 +3898,24 @@ def imagenet_slice(torch, fa, ln, eval_cli, train_cli):
         if values["images"] != RESNET_EVAL_IMAGES:
             raise AssertionError(f"ViT-B/16 JPEG eval: {values}")
 
+    phase_start("10j")
     # e. the timed ResNet-50 train step and the NaN step
     resnet50_step_phase(torch, load_config_from_work_dir(
         str(resnet50_dir), "train_config"))
     torch.cuda.empty_cache()
 
+    phase_start("10k")
     # f. ResNet-18 (CIFAR) through the train CLI on a seeded CIFAR-100
-    rs = np.random.RandomState(0)
-    cifar = data_root / "CIFAR100" / "cifar-100-python"
-    cifar.mkdir(parents=True, exist_ok=True)
-    for name, n in (("train", CIFAR_TRAIN_IMAGES), ("test", CIFAR_TEST_IMAGES)):
-        with open(cifar / name, "wb") as f:
-            pickle.dump({b"data": rs.randint(0, 256, (n, 3072)).astype(
-                np.uint8), b"fine_labels": rs.randint(0, 100, n).tolist()}, f)
+    write_cifar(data_root)
     run_train_cli(train_cli, SMOKE_DIR / "resnet18cifar_train",
                   experiments / "cifar100" / "resnet18cifar" /
                   "train_config.py", "resnet18cifar train cli",
-                  ((2, 1), (3, 3)),
+                  ((1, 1), (2, 2)),
                   {"    epochs = 200\n": "    epochs = {epochs}\n",
                    "    print_interval = 50\n": "    print_interval = 1\n"},
                   fa, ln)
 
+    phase_start("10l")
     # g. ResNet-50 on ImageNet-21K's semantic softmax, a two-level tree
     if unavailable is None:
         in21k = data_root / "ImageNet21K"
@@ -4305,7 +4376,7 @@ def distill_phase(torch, fa, ln, experiments):
     at full width and depth, batch 256, bf16, on the JPEG folder of the
     ImageNet phases: the KD config (a frozen teacher) and the DML config
     with ViT-style augmentation (RandAugment through Pillow, Mixup/CutMix),
-    two epochs of 4 steps each, then resumed for a third; the student
+    one epoch of 2 steps each, then resumed for a second; the student
     scored each epoch. The frozen teacher ends bit for bit as its seeded
     init, parameters and BatchNorm buffers; both DML networks move."""
     from simpleaicv_pytorch_training_examples_tpu_torch.distillation import KDModel
@@ -4318,7 +4389,7 @@ def distill_phase(torch, fa, ln, experiments):
         work_dir = SMOKE_DIR / f"distill_{name}"
         runs = run_train_cli(
             distill_cli, work_dir, root / name / "train_config.py",
-            f"{name} distill cli", ((2, 1), (3, 3)),
+            f"{name} distill cli", ((1, 1), (2, 2)),
             {"    epochs = 100\n": "    epochs = {epochs}\n"}, fa, ln)
         state = torch.load(work_dir / "checkpoints" / "latest.pth",
                            map_location="cpu",
@@ -4382,46 +4453,17 @@ def every_config_phase(torch, experiments):
     """Phase h: every ResNet and ViT config of this slice built on the card
     at full width and depth (the ViT-L/H ones at MAE_DEPTH blocks), one
     train step at the config's batch on device-side random images with a
-    finite loss; a batch above CONFIG_MICRO_CAP images at 224^2 goes in
-    micro-batches of that size (the step's mean is the batch's)."""
-    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
-        make_train_step)
+    finite loss (``config_train_step``)."""
     from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
         train_imagenet21k_classification_model as in21k_cli)
-    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
     readings = {}
     for rel in CONFIGS_OF_THIS_SLICE:
         def cut(model):
             if "vit_large" in rel or "vit_huge" in rel:
                 model.blocks = model.blocks[:MAE_DEPTH]
         config = config_on_card(torch, experiments / rel, cut)
-        model = config.model
-        optimizer, _ = build_optimizer(config, model, 100)
-        size = config.input_image_size
-        micro = config.batch_size // config.accumulation_steps
-        accumulation = config.accumulation_steps * max(
-            1, micro * size * size // (CONFIG_MICRO_CAP * 224 * 224))
-        loss_fn = in21k_cli.build_loss_fn(model, config) \
-            if rel.startswith("imagenet21k/") else None
-        soft = type(config.train_criterion).__name__ == "OneHotLabelCELoss"
-        train_step = make_train_step(
-            model, config.train_criterion, optimizer,
-            accumulation_steps=accumulation,
-            clip_max_norm=getattr(config, "clip_max_norm", 0.0),
-            seed=config.seed, loss_fn=loss_fn)
-        batch = device_batch(torch, config.batch_size, size,
-                             "soft" if soft else "int", 16,
-                             config.num_classes)
-        t0 = time.perf_counter()
-        metrics = train_step(batch, 0)
-        loss = metrics["loss"].item()
-        readings[rel] = {"batch": config.batch_size,
-                         "micro_batches": accumulation, "loss": loss,
-                         "skipped": metrics["skipped"].item(),
-                         "seconds": time.perf_counter() - t0}
-        if not math.isfinite(loss) or metrics["skipped"].item():
-            raise AssertionError(f"{rel}: {readings[rel]}")
-        del config, model, optimizer, train_step, batch, metrics
+        _, _, readings[rel] = config_train_step(torch, config, rel, in21k_cli)
+        del config
         torch.cuda.empty_cache()
     log("configs of this slice, one train step each",
         reduced=f"ViT-L/16 and ViT-H/14 at {MAE_DEPTH} blocks",
@@ -4448,11 +4490,13 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
     jpeg_folder(data_root / "ILSVRC2012",
                 {"train": RESNET_TRAIN_IMAGES, "val": RESNET_EVAL_IMAGES})
 
+    phase_start("26")
     # a. K1 and K2 at the MAE shapes against their plain versions
     mae_attention_phase(torch, F, fa, results)
 
-    # b. MAE ViT-B/16 through the MAE train CLI: two epochs, then the same
-    #    command resumed for a third, and an uninterrupted run of three
+    phase_start("27")
+    # b. MAE ViT-B/16 through the MAE train CLI: one epoch, then the same
+    #    command resumed for a second, and an uninterrupted run of two
     #    epochs over the same batches (recorded from the first runs' loader
     #    and replayed: the loader's resume is exact by its seeds, held on
     #    the CPU), which must end bit for bit where the resumed one does
@@ -4477,12 +4521,12 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
         with recorded_epochs({}):
             parts = run_train_cli(mae_cli, SMOKE_DIR / "mae_parts",
                                   mae_dir / "train_config.py",
-                                  "mae_vit_b16 train cli", ((2, 1), (3, 3)),
+                                  "mae_vit_b16 train cli", ((1, 1), (2, 2)),
                                   changes, fa, ln, expected)
             whole = run_train_cli(mae_cli, SMOKE_DIR / "mae_whole",
                                   mae_dir / "train_config.py",
                                   "mae_vit_b16 train cli uninterrupted, "
-                                  "the same batches replayed", ((3, 1),),
+                                  "the same batches replayed", ((2, 1),),
                                   changes, fa, ln, expected)
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -4495,9 +4539,9 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
         torch.equal(t, b["optimizer_state_dict"][slot][n])
         for slot in ("mu", "nu")
         for n, t in a["optimizer_state_dict"][slot].items())
-    resumed, uninterrupted = parts[1]["epochs"][0], whole[0]["epochs"][2]
+    resumed, uninterrupted = parts[1]["epochs"][0], whole[0]["epochs"][1]
     log("mae_vit_b16 train cli", batch=MAE_BATCH, train_images=MAE_IMAGES,
-        config_changes=["data root: " + str(mae_root), "epochs: 400 -> 3",
+        config_changes=["data root: " + str(mae_root), "epochs: 400 -> 2",
                         "warm_up_epochs: 40 -> 3 (every epoch of both runs in the "
                         "linear warm-up, whose lr does not depend on the "
                         "epochs set)"],
@@ -4512,15 +4556,18 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
                              "uninterrupted one")
     torch.cuda.empty_cache()
 
+    phase_start("28")
     # c. the MAE step alone, a one-batch run and the gradient check
     mae_step = mae_step_phase(torch, fa, ln, mae_dir)
     torch.cuda.empty_cache()
 
+    phase_start("29")
     # d. MAE ViT-L/16 and ViT-H/14 at reduced encoder depth
     mae_large_phase(torch, fa, ln, experiments)
 
+    phase_start("30")
     # e. from MAE to classification: the self-train ViT-B/16 config from
-    #    phase b's best.pth, one epoch of 4 steps through the classification
+    #    phase b's best.pth, one epoch of 2 steps through the classification
     #    train CLI; its load reads as the CPU test of that mapping says (no
     #    tensor of the encoder.-named checkpoint loads, none is skipped)
     best = SMOKE_DIR / "mae_parts" / "checkpoints" / "best.pth"
@@ -4545,15 +4592,18 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
         raise AssertionError(f"MAE -> ViT load: {loaded.group(0)}, "
                              f"{skipped} skipped")
 
+    phase_start("31")
     # f. distillation through the distill train CLI, and the KD step alone
     distill_phase(torch, fa, ln, experiments)
     kd_step = distill_step_phase(torch, experiments / "distillation" /
                                  "imagenet" / "resnet_152_kd_50")
     torch.cuda.empty_cache()
 
+    phase_start("32")
     # g. Muon against AdamW on the ViT-B/16 fine-tune config
     muon_phase(torch, experiments)
 
+    phase_start("33")
     # h. every ResNet and ViT config of this slice; ResNet-50's test-CLI
     #    line (phase 10h's best.pth eval) with the FLOP and parameter count
     every_config_phase(torch, experiments)
@@ -4570,44 +4620,713 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
     return {"mae_step": mae_step, "kd_step": kd_step}
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: CUDA is not available; this script "
-                         "needs an NVIDIA GPU")
-    import torch.nn.functional as F
 
-    from simpleaicv_pytorch_training_examples_tpu_torch.classification import losses
-    from simpleaicv_pytorch_training_examples_tpu_torch.classification.datasets.syntheticdataset import (
-        SyntheticClassificationDataset)
-    from simpleaicv_pytorch_training_examples_tpu_torch.classification.common import (
-        ClassificationCollater)
-    from simpleaicv_pytorch_training_examples_tpu_torch.data import build_loader
+# phases a-g of the data-parallel, backbone and encoder-distillation slice
+# (35-41)
+DINOV3_K2_CASES = (("vit_b16", (64, 12, 1024, 64), "ViT-B/16 at 512^2"),
+                   ("vit_l16", (32, 16, 1024, 64), "ViT-L/16 at 512^2"))
+DINOV3_GRAD_BATCH = {"vit_b16": 4, "vit_l16": 2}
+DINOV3_SEED, DINOV3_CONTROL_KEYS = 13, 8
+DINOV3_RESCALE_DRAW = 0.3          # log of the RoPE rescale, held fixed
+BACKBONE_CONFIGS = ("darknettiny", "darknet19", "darknet53", "van_b0",
+                    "van_b1", "van_b2", "van_b3", "convformer_s18",
+                    "convformer_s36", "convformer_m36", "convformer_b36")
+TIMED_BACKBONE_CONFIGS = ("darknet53", "van_b0", "convformer_m36")
+DISTILL_BATCH = 2                  # of the configs' 64: fits beside the teacher
+DISTILL_ONE_BATCH_STEPS = 10
+BN_ATOL = 2e-2                     # bf16 y of |y| <= 4, a few ulps
+BN_GRAD_REL = 1e-2
+
+# the train CLI with cuDNN's deterministic algorithms, so that two runs of
+# one config can be held bit for bit (phase a)
+DDP_LAUNCHER = """
+import sys
+
+import torch
+
+from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_classification_model import main
+
+if __name__ == "__main__":   # the loader's workers come from a forkserver
+    torch.backends.cudnn.deterministic = True
+    main(sys.argv[1:])
+"""
+
+
+def batch_norm_reading(torch, bn, forward):
+    """A training BatchNorm, ``forward(x)`` with ``bn``'s weight and bias
+    (drawn here), against ``F.batch_norm`` in fp32 on a bf16 channels_last
+    map: y within BN_ATOL, dx, dgamma and dbeta within a relative L2
+    distance of BN_GRAD_REL. Returns (ok, reading, x)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = (torch.randn(64, 96, 28, 28, device="cuda", generator=gen) * 2 + 0.5
+         ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.5, 0.5, generator=gen)
+    bn.weight.grad = bn.bias.grad = None
+    leaf = x.detach().requires_grad_()
+    y = forward(leaf)
+    y.backward(dy)
+    ref_leaf = x.detach().float().requires_grad_()
+    w = bn.weight.detach().clone().requires_grad_()
+    b = bn.bias.detach().clone().requires_grad_()
+    ref = torch.nn.functional.batch_norm(ref_leaf, None, None, w, b, True,
+                                         0.0, 1e-5)
+    ref.backward(dy.float())
+    rel = lambda g, r: ((g.float() - r).norm() / r.norm()).item()
+    reading = {"y_max_abs_err": (y.float() - ref).abs().max().item(),
+               "dx_rel_l2": rel(leaf.grad, ref_leaf.grad),
+               "dgamma_rel_l2": rel(bn.weight.grad, w.grad),
+               "dbeta_rel_l2": rel(bn.bias.grad, b.grad)}
+    ok = (reading["y_max_abs_err"] <= BN_ATOL
+          and max(reading[k] for k in reading if k.endswith("rel_l2"))
+          <= BN_GRAD_REL)
+    return ok, reading, x
+
+
+def batch_norm_phase(torch):
+    """Phase a's BatchNorm checks (``batch_norm_reading``): the port's
+    ``BatchNorm2d`` in one process (``native_batch_norm``), its running
+    variance Flax's (biased) within 1e-4; then ``_global_batch_norm``, the
+    path of a world of more than one process, in an NCCL group of this one
+    process, so that its forward's and backward's ``all_reduce`` run on the
+    card. The merge over several ranks is held only by the CPU tests' two
+    ``gloo`` processes, on the same code: this machine has one GPU."""
+    import socket
+
+    import torch.distributed as dist
+
+    from simpleaicv_pytorch_training_examples_tpu_torch.models import common
+    bn = common.BatchNorm2d(96, dtype=torch.bfloat16).cuda().train()
+    ok, reading, x = batch_norm_reading(torch, bn, bn)
+    var = x.float().var(dim=(0, 2, 3), unbiased=False)
+    reading["running_var_err"] = (bn.running_var - (0.9 + 0.1 * var)
+                                  ).abs().max().item()
+    log("BatchNorm2d one process vs F.batch_norm", shape=list(x.shape),
+        dtype="bf16 channels_last", **reading, y_tol=BN_ATOL,
+        grad_tol=BN_GRAD_REL)
+    if not (ok and reading["running_var_err"] <= 1e-4):
+        raise AssertionError(f"BatchNorm2d: {reading}")
+    with socket.socket() as free:
+        free.bind(("localhost", 0))
+        port = free.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        ok, reading, _ = batch_norm_reading(
+            torch, bn,
+            lambda t: common._global_batch_norm(t, bn.weight, bn.bias,
+                                                bn.eps)[0])
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    log("_global_batch_norm in an NCCL group vs F.batch_norm",
+        world_size=1, shape=list(x.shape), dtype="bf16 channels_last",
+        **reading, y_tol=BN_ATOL, grad_tol=BN_GRAD_REL)
+    if not ok:
+        raise AssertionError(f"_global_batch_norm: {reading}")
+
+
+def ddp_phase(torch, experiments):
+    """Phase a: the classification train CLI on ``cifar100/resnet18cifar``
+    (two epochs of 4 steps, ``use_zero1``) without torchrun and under
+    ``torchrun --nproc_per_node=1`` (NCCL, world size 1: the gradient
+    all-reduce and ZeRO-1's all-gather run; BatchNorm, in a world of one,
+    runs ``native_batch_norm`` as the run without torchrun does), each
+    through a launcher that sets cuDNN's deterministic algorithms, the two
+    at once on the card; every logged loss and the final parameters,
+    BatchNorm buffers and optimizer moments must be equal bit for bit.
+    First the training BatchNorm's checks (``batch_norm_phase``)."""
+    import os
+
+    batch_norm_phase(torch)
+    launcher = SMOKE_DIR / "ddp_launch.py"
+    launcher.write_text(DDP_LAUNCHER)
+    text = config_text(
+        experiments / "cifar100" / "resnet18cifar" / "train_config.py",
+        **{"    epochs = 200\n": "    epochs = 2\n    use_zero1 = True\n",
+           "    print_interval = 50\n": "    print_interval = 1\n",
+           "    num_workers = 16\n": "    num_workers = 2\n"})
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs, runs = {}, {}
+    t0 = time.perf_counter()
+    for label, prefix in (   # both at once, on the one card
+            ("plain", [sys.executable]),
+            ("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc_per_node=1"])):
+        work_dir = SMOKE_DIR / f"ddp_{label}"
+        shutil.rmtree(work_dir, ignore_errors=True)
+        work_dir.mkdir(parents=True)
+        (work_dir / "train_config.py").write_text(text)
+        procs[label] = (work_dir, subprocess.Popen(
+            prefix + [str(launcher), "--work-dir", str(work_dir)], env=env,
+            cwd=str(work_dir), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for label, (work_dir, proc) in procs.items():
+        output = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"{label} run: {output[-6000:]}")
+        train_log = (work_dir / "log" / "train.log").read_text()
+        state = torch.load(work_dir / "checkpoints" / "latest.pth",
+                           map_location="cpu", weights_only=False)
+        runs[label] = {"losses": re.findall(r"epoch \d+ iter \d+/\d+ .*",
+                                            train_log),
+                       "log": train_log, "state": state,
+                       "seconds": time.perf_counter() - t0}
+    a, b = runs["plain"], runs["torchrun"]
+    same_losses = a["losses"] == b["losses"] and len(a["losses"]) == 8
+    same_model = all(torch.equal(t, b["state"]["model_state_dict"][n])
+                     for n, t in a["state"]["model_state_dict"].items())
+    same_moments = all(
+        torch.equal(t, b["state"]["optimizer_state_dict"][slot][n])
+        for slot in ("momentum_buf",)
+        for n, t in a["state"]["optimizer_state_dict"][slot].items())
+    lines = {k: [ln_ for ln_ in r["log"].splitlines()
+                 if "mesh:" in ln_ or "device:" in ln_ or "zero1" in ln_]
+             for k, r in runs.items()}
+    log("resnet18cifar torchrun world 1 vs one process",
+        steps=len(a["losses"]), same_losses=same_losses,
+        same_model_bits=same_model, same_moment_bits=same_moments,
+        seconds={k: r["seconds"] for k, r in runs.items()},
+        last_loss_line=b["losses"][-1] if b["losses"] else None,
+        setup_lines=lines, launcher="cudnn.deterministic in both runs")
+    if not ("device: cuda:0" in " ".join(lines["torchrun"])
+            and "mesh: 1 devices" in " ".join(lines["torchrun"])
+            and "zero1" in " ".join(lines["torchrun"])):
+        raise AssertionError(f"torchrun run's setup: {lines['torchrun']}")
+    if not (same_losses and same_model and same_moments):
+        raise AssertionError("the torchrun run differs from the one-process "
+                             f"run: losses {a['losses']} / {b['losses']}")
+
+
+def dinov3_attention_phase(torch, F, fa, results):
+    """Phase b: K2 at DINOv3's shapes (q and k rotated, contiguous [B, H,
+    1024, 64]: ViT-B/16 and ViT-L/16 at 512^2), bf16, forward and backward
+    against the plain version (``check_kernel``, ``check_backward_kernel``),
+    timed beside SDPA, with the bound; one summary line."""
+    summary = {}
+    for i, (label, shape, model) in enumerate(DINOV3_K2_CASES):
+        case = dict(label=f"dinov3_{label}_512", shape=shape,
+                    dtype=torch.bfloat16, seed=110 + i)
+        check_kernel(torch, F, fa, "K2", case, results)
+        check_backward_kernel(torch, F, fa, "K2", case, results)
+        fwd, bwd = results["K2"][-1], results["K2 bwd"][-1]
+        summary[case["label"]] = {
+            "model": model, "shape": list(shape),
+            "fwd": {k: fwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "max_abs_err")},
+            "bwd": {k: bwd[k] for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "max_abs_err")}}
+        torch.cuda.empty_cache()
+    log("dinov3 attention shapes", library="SDPA",
+        timed="CUDA events, device only", **summary)
+
+
+def dinov3_loss_and_gradients(torch, model, images, target):
+    """Loss (mean of the grid features times ``target``) and fp32 gradients
+    of one train micro-batch at the fixed RoPE draw."""
+    draws = {"rescale": torch.tensor([DINOV3_RESCALE_DRAW], device="cuda")}
+    dtype = model.patch_embed.compute_dtype
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(images.to(dtype), rope_draws=draws)
+    loss = (out.float() * target).mean()
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+class dinov3_keys_dropped:
+    """Within the block, every K2 call of the DINOv3 blocks drops its last
+    ``n`` keys: the gradient reading's control."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def __enter__(self):
+        from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones import (
+            dinov3_vit)
+        self.module, self.saved = dinov3_vit, dinov3_vit.fused_attention
+        short, n = self.saved, self.n
+        dinov3_vit.fused_attention = lambda q, k, v: short(q, k, v,
+                                                           q.shape[2] - n)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.fused_attention = self.saved
+
+
+def dinov3_switch(model, on):
+    for block in model.blocks:
+        block.attn.use_fused_attention = on
+
+
+def dinov3_phase(torch, fa, ln):
+    """Phases c and d: DINOv3 ViT-B/16 and ViT-L/16 (full width and depth,
+    bf16, ``use_fused_attention``) at 512^2, N = 1024: an eval forward with
+    K2 counted at 12 and 24; the gradients of one train micro-batch (the
+    RoPE rescale held at one draw) with the qkv weights redrawn LeCun-normal
+    (scores of unit std), the kernels' and the plain bf16 path's against
+    the fp32 plain path by ``gradient_reading``, and a control that drops
+    every K2 call's last DINOV3_CONTROL_KEYS keys and must fail it. Then
+    ViT-B/16 at 1024^2 (N = 4096): the plain path, K2 counted at 0."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import init_model
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones import (
+        dinov3_vit)
+    gen = torch.Generator(device="cuda").manual_seed(DINOV3_SEED)
+    for label, factory, depth in (
+            ("vit_b16", dinov3_vit.dinov3_vit_base_patch16_backbone, 12),
+            ("vit_l16", dinov3_vit.dinov3_vit_large_patch16_backbone, 24)):
+        model = init_model(factory(dtype=torch.bfloat16,
+                                   use_fused_attention=True), DINOV3_SEED)
+        b = DINOV3_GRAD_BATCH[label]
+        images = torch.randn(b, 3, 512, 512, device="cuda", generator=gen)
+        reset_counts(fa, ln)
+        with torch.no_grad():
+            out = model(images.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        counts = read_counts(fa, ln)
+        log(f"dinov3_{label} eval 512", batch=b, shape=list(out.shape),
+            finite=bool(torch.isfinite(out).all()), launches=counts)
+        expect_counts(f"DINOv3 {label} at 512^2", counts, K2=depth)
+        if tuple(out.shape) != (b, model.embedding_planes, 32, 32) \
+                or not torch.isfinite(out).all():
+            raise AssertionError(f"DINOv3 {label} output {out.shape}")
+        with torch.no_grad():
+            for block in model.blocks:
+                qkv = block.attn.qkv
+                qkv.weight.normal_(0.0, qkv.in_features ** -0.5,
+                                   generator=gen)
+        target = torch.randn(out.shape, device="cuda", generator=gen)
+        reset_counts(fa, ln)
+        loss_k, grads_k = dinov3_loss_and_gradients(torch, model, images,
+                                                    target)
+        torch.cuda.synchronize()
+        grad_counts = read_counts(fa, ln)
+        expect_counts(f"DINOv3 {label} gradients", grad_counts, K2=depth,
+                      K2_bwd=depth)
+        with dinov3_keys_dropped(DINOV3_CONTROL_KEYS):
+            loss_c, grads_c = dinov3_loss_and_gradients(torch, model, images,
+                                                        target)
+        dinov3_switch(model, False)
+        loss_p, grads_p = dinov3_loss_and_gradients(torch, model, images,
+                                                    target)
+        with computing_in(model, torch.float32):
+            loss_f, grads_f = dinov3_loss_and_gradients(torch, model, images,
+                                                        target)
+        dinov3_switch(model, True)
+        noise_only, left_ratio, held_ratio = zero_gradient_leaves(grads_f)
+        ok, fields, _, _, _ = gradient_reading(
+            grads_k, [grads_p], grads_f, (loss_k, [loss_p], loss_f),
+            noise_only)
+        control_ok, control, _, _, _ = gradient_reading(
+            grads_c, [grads_p], grads_f, (loss_c, [loss_p], loss_f),
+            noise_only)
+        log(f"dinov3_{label} sharp attention gradients vs plain attention",
+            batch=b, **fields, left_out=noise_only,
+            left_out_max_ratio=left_ratio, held_min_ratio=held_ratio,
+            launches=grad_counts,
+            control=f"last {DINOV3_CONTROL_KEYS} keys of every K2 dropped",
+            control_worst_parameter=control["worst_parameter"],
+            control_worst_rel_l2=control["worst_rel_l2"],
+            control_worst_floor=control["worst_floor"],
+            control_fails=not control_ok)
+        if not ok:
+            raise AssertionError(f"DINOv3 {label} gradients with K2 disagree "
+                                 f"with plain attention: {fields}")
+        if control_ok:
+            raise AssertionError(f"the DINOv3 {label} gradient reading passes "
+                                 f"with keys dropped: {control}")
+        if label == "vit_b16":
+            images = torch.randn(2, 3, 1024, 1024, device="cuda",
+                                 generator=gen)
+            reset_counts(fa, ln)
+            model.eval()
+            with torch.no_grad():
+                out = model(images.to(torch.bfloat16))
+            torch.cuda.synchronize()
+            counts = read_counts(fa, ln)
+            log("dinov3_vit_b16 eval 1024", batch=2, tokens=4096,
+                shape=list(out.shape), finite=bool(torch.isfinite(out).all()),
+                launches=counts, route="plain (N > 1024)")
+            expect_counts("DINOv3 ViT-B/16 at 1024^2", counts)
+            if not torch.isfinite(out).all():
+                raise AssertionError("DINOv3 ViT-B/16 at 1024^2: non-finite")
+        del model, grads_k, grads_c, grads_p, grads_f
+        torch.cuda.empty_cache()
+
+
+def config_train_step(torch, config, rel, in21k_cli=None):
+    """One train step of a config's model at the config's batch on
+    device-side random images (a batch above CONFIG_MICRO_CAP images of
+    224^2 in micro-batches of that many pixels); returns (train_step, batch,
+    metrics, seconds)."""
     from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
-        init_model, make_classification_eval_step, make_train_step)
-    from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones.vit import ViT
-    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
-        build, fused_attention as fa, layer_norm as ln)
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import build_optimizer
+    model = config.model
+    optimizer, _ = build_optimizer(config, model, 100)
+    size = config.input_image_size
+    micro = config.batch_size // config.accumulation_steps
+    accumulation = config.accumulation_steps * max(
+        1, micro * size * size // (CONFIG_MICRO_CAP * 224 * 224))
+    loss_fn = in21k_cli.build_loss_fn(model, config) \
+        if rel.startswith("imagenet21k/") else None
+    soft = type(config.train_criterion).__name__ == "OneHotLabelCELoss"
+    train_step = make_train_step(
+        model, config.train_criterion, optimizer,
+        accumulation_steps=accumulation,
+        clip_max_norm=getattr(config, "clip_max_norm", 0.0),
+        clip_grad_value=getattr(config, "clip_grad_value", 0.0),
+        seed=config.seed, loss_fn=loss_fn)
+    batch = device_batch(torch, config.batch_size, size,
+                         "soft" if soft else "int", 16, config.num_classes)
+    t0 = time.perf_counter()
+    metrics = train_step(batch, 0)
+    loss = metrics["loss"].item()
+    seconds = time.perf_counter() - t0
+    if not math.isfinite(loss) or metrics["skipped"].item():
+        raise AssertionError(f"{rel}: loss {loss}, skipped "
+                             f"{metrics['skipped'].item()}")
+    return train_step, batch, {"batch": config.batch_size,
+                               "micro_batches": accumulation, "loss": loss,
+                               "seconds": seconds}
+
+
+def backbone_configs_phase(torch, fa, ln, experiments, eval_cli):
+    """Phase e: the 11 DarkNet, VAN and ConvFormer ImageNet configs built on
+    the card at full width and depth, one train step each at the config's
+    batch (``config_train_step``), no hand-written kernel launched;
+    DarkNet-53, VAN-B0 and ConvFormer-M36 through the eval CLI over the
+    JPEG val folder, whose parameter and FLOP line must equal
+    ``utils/flops.py``'s count. Returns, for those three, what
+    ``backbone_steps_phase`` times once the kernels' build has ended."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils.flops import (
+        compute_flops_and_params)
+    readings, held = {}, {}
+    reset_counts(fa, ln)
+    for name in BACKBONE_CONFIGS:
+        rel = f"imagenet/{name}"
+        config = config_on_card(torch, experiments / rel)
+        train_step, batch, readings[name] = config_train_step(torch, config,
+                                                              rel)
+        if name in TIMED_BACKBONE_CONFIGS:
+            held[name] = (train_step, batch, config.batch_size)
+            work_dir = SMOKE_DIR / f"{name}_eval"
+            work_dir.mkdir(parents=True, exist_ok=True)
+            for f in ("train_config.py", "test_config.py"):
+                (work_dir / f).write_text((experiments / rel / f).read_text())
+            # the test config imports train_config by name: this dir's
+            sys.modules.pop("train_config", None)
+            values = eval_cli.main(["--work-dir", str(work_dir)])
+            line = re.search(r"model params: [\d.]+ M, flops: [\d.]+ G",
+                             (work_dir / "log" / "test.log").read_text())
+            size = config.input_image_size
+            flops, n_params = compute_flops_and_params(
+                config.model, (1, 3, size, size))
+            want = (f"model params: {n_params / 1e6:.3f} M, flops: "
+                    f"{flops / 1e9:.3f} G")
+            readings[name].update(test_cli_line=line and line.group(0),
+                                  counted=want, eval_images=values["images"],
+                                  eval_images_per_s=values["images_per_s"],
+                                  eval_timed="during the kernels' build")
+            if line is None or line.group(0) != want \
+                    or values["images"] != RESNET_EVAL_IMAGES:
+                raise AssertionError(f"{name} test CLI: {readings[name]}")
+        del config, train_step, batch
+        torch.cuda.empty_cache()
+    counts = read_counts(fa, ln)
+    log("backbone configs, one train step each", configs=len(readings),
+        launches=counts, **readings)
+    expect_counts("DarkNet, VAN and ConvFormer configs", counts)
+    return held
+
+
+def resident_gb(torch):
+    """GB the card still holds for other phases' objects: subtracted from a
+    timed step's peak, read once that step's model, optimizer and batch are
+    freed, so that the peak is the step's own."""
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def backbone_steps_phase(torch, fa, ln, held):
+    """Phase e's timed part, once the kernels' build has ended: the train
+    step of each config ``backbone_configs_phase`` kept, at its batch
+    (images/s, peak memory), no hand-written kernel launched."""
+    readings = {}
+    reset_counts(fa, ln)
+    while held:
+        name, (train_step, batch, batch_size) = held.popitem()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, peak = timed_steps(torch, train_step, batch, 3, 1)
+        del train_step, batch
+        torch.cuda.empty_cache()
+        readings[name] = dict(
+            batch=batch_size, step_ms=ms, images_per_s=batch_size / ms * 1e3,
+            peak_memory_gb=peak - resident_gb(torch), losses=losses,
+            timed="host clock, each step read back, after the build")
+    counts = read_counts(fa, ln)
+    log("backbone configs, timed train steps", launches=counts,
+        peak_memory="the step's, less what stays resident once its model, "
+        "optimizer and batch are freed", **readings)
+    expect_counts("DarkNet, VAN and ConvFormer timed steps", counts)
+
+
+class teacher_watch:
+    """Within the block, the runner's first model load (init and pretrained
+    weights) records the distill model's teacher, and every checkpoint that
+    the runner saves is compared with it bit for bit (``equal``: one bool a
+    save)."""
+
+    def __enter__(self):
+        from simpleaicv_pytorch_training_examples_tpu_torch.engine import runner
+        from simpleaicv_pytorch_training_examples_tpu_torch.utils.checkpoint import (
+            CheckpointStore)
+        self.runner, self.store = runner, CheckpointStore
+        self.saved = runner.apply_pretrained, CheckpointStore.save_latest
+        self.first, self.equal = None, []
+        apply, save = self.saved
+
+        def applied(model, logger=None):
+            model = apply(model, logger)
+            if self.first is None:
+                self.first = {n: t.clone() for n, t in
+                              model.state_dict().items()
+                              if n.startswith("teacher.")}
+            return model
+
+        def saving(store, payload):
+            state = payload["model_state_dict"]
+            self.equal.append(all(torch_equal(t, state[n])
+                                  for n, t in self.first.items()))
+            return save(store, payload)
+
+        runner.apply_pretrained = applied
+        CheckpointStore.save_latest = saving
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.apply_pretrained, self.store.save_latest = self.saved
+
+
+def torch_equal(a, b):
+    return bool((a == b.to(a.device)).all()) and a.shape == b.shape
+
+
+SYNTHETIC_SAM_IMPORT = (
+    "from simpleaicv_pytorch_training_examples_tpu_torch.interactive_"
+    "segmentation.datasets.syntheticdataset import SyntheticSAMDataset\n")
+
+
+def encoder_distill_phase(torch, fa, ln, experiments):
+    """Phase f: the 13.0 (SAM-H -> DINOv3 ViT-B/16) and 14.0 (Hiera-L ->
+    DINOv3 ViT-B/16) configs through their train CLIs at 1024^2, full width
+    and depth, fp32 as in JAX, on seeded synthetic SAM images (cut: batch
+    64 -> DISTILL_BATCH, what fits beside the teacher; 2 steps an epoch):
+    two epochs, then resumed for a third, no hand-written kernel launched
+    (the teachers' attention is plain, the student's N = 4096 too); the
+    teacher of every checkpoint saved bit for bit the teacher the first run
+    loaded (``teacher_watch``). Returns, for each config, what
+    ``encoder_distill_step_phase`` needs: the trained model stays on the
+    card."""
     from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
-        predict_interactive_segmentation as predict_cli,
-        test_classification_model as eval_cli,
-        train_classification_model as train_cli)
+        train_interactive_segmentation_distill_encoder_model as sam_cli,
+        train_video_interactive_segmentation_distill_encoder_model as sam2_cli)
+    dataset_block = (
+        "    train_dataset = SamSegmentationDataset(\n"
+        "        interactive_segmentation_dataset_path,\n"
+        "        set_name_list=[\"sa_000020\", \"sa_000021\", \"sa_000022\"],\n"
+        "        set_type=\"train\")\n")
+    changes = {
+        "import os\n": "import os\n\n" + SYNTHETIC_SAM_IMPORT,
+        dataset_block: (f"    train_dataset = SyntheticSAMDataset(n="
+                        f"{2 * DISTILL_BATCH}, image_size=(768, 1024), "
+                        "seed=4)\n"),
+        "    batch_size = 64\n": f"    batch_size = {DISTILL_BATCH}\n",
+        "    num_workers = 32\n": "    num_workers = 0\n",
+        "    epochs = 4\n": "    epochs = {epochs}\n",
+        "    print_interval = 50\n": "    print_interval = 1\n"}
+    trained = []
+    for label, cli, rel in (
+            ("sam_h_distill_dinov3_vit_b16", sam_cli,
+             "interactive_segmentation/sam_h_encoder_distill_dinov3_vit_"
+             "base_patch16_encoder"),
+            ("hiera_l_distill_dinov3_vit_b16", sam2_cli,
+             "video_interactive_segmentation/hiera_l_encoder_distill_"
+             "dinov3_vit_base_patch16_encoder")):
+        work_dir = SMOKE_DIR / label
+        path = experiments / rel / "train_config.py"
+        with teacher_watch() as watch:
+            runs = run_train_cli(cli, work_dir, path, f"{label} cli",
+                                 ((2, 1), (3, 3)), changes, fa, ln)
+        trained.append(dict(
+            label=label, model=runs[-1].pop("model"),
+            as_loaded=watch.equal,
+            epoch_losses=[e["loss_avg"] for r in runs for e in r["epochs"]]))
+        del runs
+    return trained
+
+
+def encoder_distill_step_phase(torch, fa, ln, trained):
+    """Phase f's timed part, once the kernels' build has ended: for each
+    model that ``encoder_distill_phase`` trained, DISTILL_ONE_BATCH_STEPS
+    steps of constant-lr AdamW (the teacher's lr 0) on one batch, whose
+    loss must fall, the teacher unchanged and no hand-written kernel
+    launched, with the step's ms and peak memory; the teacher of every
+    checkpoint the CLIs saved must have been the one first loaded."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.datasets.sam_segmentation_dataset import (
+        SAMCollater)
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.datasets.syntheticdataset import (
+        SyntheticSAMDataset)
+    from simpleaicv_pytorch_training_examples_tpu_torch.interactive_segmentation.distill_losses import (
+        MSELoss)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_interactive_segmentation_distill_encoder_model as sam_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_distill_classification_model import (
+        freeze_teacher_lr)
     from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
-        build_optimizer, load_config_from_work_dir)
+        build_optimizer)
+    while trained:
+        run = trained.pop(0)
+        label, model, as_loaded = run["label"], run["model"], run["as_loaded"]
+        config = freeze_teacher_lr(OneBatchConfig())
+        config.train_criterion, config.use_amp = MSELoss(), True
+        optimizer, _ = build_optimizer(config, model, 1)
+        train_step = make_train_step(
+            model, None, optimizer, seed=0,
+            loss_fn=sam_cli.build_loss_fn(model, config))
+        samples = [SyntheticSAMDataset(n=DISTILL_BATCH, image_size=(768, 1024),
+                                       seed=9)[i]
+                   for i in range(DISTILL_BATCH)]
+        batch = {"image": SAMCollater(resize=1024, n_points=1,
+                                      prompt_probs=(1.0, 0.0, 0.0))(
+                                          samples)["image"].cuda()}
+        before = {n: t.clone() for n, t in model.state_dict().items()
+                  if n.startswith("teacher.")}
+        reset_counts(fa, ln)
+        losses, ms, peak = timed_steps(torch, train_step, batch,
+                                       DISTILL_ONE_BATCH_STEPS)
+        expect_counts(f"{label} one batch", read_counts(fa, ln))
+        after = model.state_dict()
+        teacher_kept = all(torch.equal(t, after[n]) for n, t in
+                           before.items())
+        epoch_losses = run["epoch_losses"]
+        del run, model, train_step, optimizer, batch, after
+        torch.cuda.empty_cache()
+        peak -= resident_gb(torch)
+        log(f"{label} one batch", batch=DISTILL_BATCH,
+            reduced=f"batch 64 -> {DISTILL_BATCH}", dtype="fp32 (as JAX)",
+            steps=DISTILL_ONE_BATCH_STEPS, losses=losses, step_ms=ms,
+            images_per_s=DISTILL_BATCH / ms * 1e3, peak_memory_gb=peak,
+            teacher_tensors=len(before),
+            teacher_as_loaded_in_every_checkpoint=as_loaded,
+            teacher_unchanged=teacher_kept, epoch_losses=epoch_losses,
+            timed="host clock, each step read back, after the build",
+            peak_memory="the step's, less what stays resident once its "
+            "model, optimizer and batch are freed")
+        if not (as_loaded and all(as_loaded) and teacher_kept
+                and losses[-1] < losses[0]
+                and all(map(math.isfinite, losses))):
+            raise AssertionError(f"{label}: teacher as loaded {as_loaded}, "
+                                 f"unchanged {teacher_kept}, losses {losses}")
 
-    # plain fp32 references in full fp32 (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
-    # 1. device
-    smi = nvidia_smi_line()
-    kind = torch.cuda.get_device_name(0)
-    log("device", name=kind, count=torch.cuda.device_count(),
-        torch=torch.__version__, cuda=torch.version.cuda)
-    log.card = kind
-    print(smi, flush=True)
+class in_background:
+    """``fn(*args)`` in a thread, started at once; ``join()`` waits for it,
+    prints its wall seconds as a phase's and raises what it raised."""
 
-    # 2. build every kernel from the sources in this checkout
+    def __init__(self, label, fn, *args):
+        import threading
+        self.error = None
+
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn(*args)
+            except BaseException as error:   # re-raised by join()
+                self.error = error
+            print(f"[phase {label} seconds] {time.perf_counter() - t0:.1f}",
+                  flush=True)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+
+
+def write_cifar(data_root):
+    """A seeded CIFAR-100 in the pickle layout under ``data_root``."""
+    import pickle
+
+    import numpy as np
+    rs = np.random.RandomState(0)
+    cifar = data_root / "CIFAR100" / "cifar-100-python"
+    cifar.mkdir(parents=True, exist_ok=True)
+    for name, n in (("train", CIFAR_TRAIN_IMAGES), ("test", CIFAR_TEST_IMAGES)):
+        with open(cifar / name, "wb") as f:
+            pickle.dump({b"data": rs.randint(0, 256, (n, 3072)).astype(
+                np.uint8), b"fine_labels": rs.randint(0, 100, n).tolist()}, f)
+
+
+def no_kernel_slice(torch, fa, ln, eval_cli):
+    """The untimed checks of phases 35, 38 and 39, which launch no
+    hand-written kernel (their counts say so), run while the kernels build:
+    data parallelism at world size 1, the DarkNet / VAN / ConvFormer
+    configs that are not timed and the SAM / SAM2 encoder-distillation
+    CLIs onto DINOv3 ViT-B/16, on the JPEG folder and the CIFAR-100 pickles
+    of the ImageNet phases, written first. Returns the train steps and
+    the trained distill models that ``no_kernel_timed_slice`` times."""
+    import os
+
+    from simpleaicv_pytorch_training_examples_tpu_torch import native
+    experiments = REPO / PACKAGE / "experiments"
+    data_root = SMOKE_DIR / "data"
+    os.environ["SIMPLEAICV_DATA_ROOT"] = str(data_root)
+    native.lib()
+    jpeg_folder(data_root / "ILSVRC2012",
+                {"train": RESNET_TRAIN_IMAGES, "val": RESNET_EVAL_IMAGES})
+    write_cifar(data_root)
+    phase_start("35")
+    ddp_phase(torch, experiments)
+    phase_start("38")
+    held = backbone_configs_phase(torch, fa, ln, experiments, eval_cli)
+    phase_start("39")
+    return held, encoder_distill_phase(torch, fa, ln, experiments)
+
+
+def no_kernel_timed_slice(torch, fa, ln, held, trained):
+    """The timed steps of phases 38 and 39, once the kernels' build has
+    ended, so that no compiler shares the host with them: the three timed
+    configs' train steps, and the one-batch distill steps."""
+    phase_start("38 timed")
+    backbone_steps_phase(torch, fa, ln, held)
+    phase_start("39 timed")
+    encoder_distill_step_phase(torch, fa, ln, trained)
+
+
+def dinov3_kernel_slice(torch, F, fa, ln, results):
+    """Phases 36 and 37: K2 at DINOv3's shapes, DINOv3 ViT-B/16 and L/16."""
+    phase_start("36")
+    dinov3_attention_phase(torch, F, fa, results)
+    phase_start("37")
+    dinov3_phase(torch, fa, ln)
+
+
+def build_and_read_kernels(build):
+    """Phase 2: build every kernel from the sources in this checkout and
+    read what was compiled: HGMMA (``wgmma``) in the SASS of every kernel
+    that must have it, no ``mma.sync`` left, and, where this run compiled
+    them, no spill and no serialized ``wgmma`` in ptxas's output. Raises
+    on a failed check."""
     t0 = time.perf_counter()
     build_logs = build.build()
     built = {n: build.library_path(n).name for n in build.SOURCES}
@@ -4738,6 +5457,57 @@ def main():
                                  f"{gemm['spills']}, serialized wgmma "
                                  f"{gemm['serialized']}")
 
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: CUDA is not available; this script "
+                         "needs an NVIDIA GPU")
+    import torch.nn.functional as F
+
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification import losses
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification.datasets.syntheticdataset import (
+        SyntheticClassificationDataset)
+    from simpleaicv_pytorch_training_examples_tpu_torch.classification.common import (
+        ClassificationCollater)
+    from simpleaicv_pytorch_training_examples_tpu_torch.data import build_loader
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        init_model, make_classification_eval_step, make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.models.backbones.vit import ViT
+    from simpleaicv_pytorch_training_examples_tpu_torch.ops.kernels import (
+        build, fused_attention as fa, layer_norm as ln)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        predict_interactive_segmentation as predict_cli,
+        test_classification_model as eval_cli,
+        train_classification_model as train_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
+        build_optimizer, load_config_from_work_dir)
+
+    # plain fp32 references in full fp32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_start("1")
+    # 1. device
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log("device", name=kind, count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda)
+    log.card = kind
+    print(smi, flush=True)
+
+    phase_start("2")
+    # 2. build every kernel from the sources in this checkout and read their
+    #    SASS, in the background, while the untimed checks of phases 35, 38
+    #    and 39, which launch no hand-written kernel, run on the card
+    kernels_built = in_background("2 build and sass", build_and_read_kernels,
+                                  build)
+    held, trained = no_kernel_slice(torch, fa, ln, eval_cli)
+    phase_start("2 wait")
+    kernels_built.join()
+    no_kernel_timed_slice(torch, fa, ln, held, trained)
+
+    phase_start("3")
     # 3. each kernel against its plain version at the main paths' shapes
     bf16, fp32 = torch.bfloat16, torch.float32
     results = {}
@@ -4764,6 +5534,7 @@ def main():
             check_kernel(torch, F, fa, name, case, results)
         for case in cases:
             check_backward_kernel(torch, F, fa, name, case, results)
+    phase_start("3a-3b")
     # 3a-3b. K9 and K2b against their plain versions, then their entry
     #        points driven and counted
     entry_counts = qkv_and_bias_slice(torch, F, fa, ln, results)
@@ -4876,6 +5647,7 @@ def main():
                  seed=64, layout="memory")):
         check_key_bias_backward_kernel(torch, F, case, results)
 
+    phase_start("4")
     # 4. eval slice: ViT-B/16 through the work-dir eval CLI
     work_dir = SMOKE_DIR / "vit_base_patch16"
     work_dir.mkdir(parents=True, exist_ok=True)
@@ -4907,6 +5679,7 @@ def main():
         images_per_s=BATCH / step_ms * 1e3, plain_attention_ms=plain_step_ms,
         k1_share=12 * results["K1"][0]["ms"] / step_ms)
 
+    phase_start("5")
     # 5. use_fused_norm: the same model's blocks through K7
     set_fused(model, norm=True)
     reset_counts(fa, ln)
@@ -4933,6 +5706,7 @@ def main():
                              f"LayerNorm (max diff {diff}, top-1 {agree})")
     del model, config, eval_step
 
+    phase_start("6")
     # 6. ViT-H/14 eval at full width, reduced depth, through the engine
     vit_h = ViT(14, 1280, VIT_H_DEPTH, 16, 4, image_size=224,
                 global_pool=True, num_classes=1000, dtype=bf16,
@@ -4954,6 +5728,7 @@ def main():
     fit_head(torch, vit_h, loader_h)
     compare_paths(torch, vit_h, loader_h, "vit_h14 logits")
 
+    phase_start("7")
     # 7. ViT-H/14 training, same width and depth, through the engine
     vit_h = init_model(ViT(14, 1280, VIT_H_DEPTH, 16, 4, image_size=224,
                            drop_path_prob=0.1, global_pool=True,
@@ -4979,6 +5754,7 @@ def main():
                              f"{skipped_h}")
     del vit_h, optimizer, train_step, eval_step
 
+    phase_start("8")
     # 8. the training slice: ViT-B/16 through the work-dir train CLI, two
     #    epochs, then the same command resumed for a third
     train_dir = SMOKE_DIR / "vit_base_patch16_train"
@@ -5014,6 +5790,7 @@ def main():
     if "pretrained load: 152/152 tensors" not in eval_log:
         raise AssertionError("best.pth did not load through the eval CLI")
 
+    phase_start("9")
     # 9. gradients and a 20-step one-batch run, kernels against plain ops
     config = load_config_from_work_dir(str(train_dir), "train_config")
     model = init_model(config.model, config.seed)
@@ -5041,6 +5818,7 @@ def main():
         raise AssertionError(f"one-batch loss did not fall: {overfit}")
     del model, optimizer, train_step
 
+    phase_start("10")
     # 10. timed train steps: as the config runs them (4 x 64) and unsplit,
     #     with plain LayerNorm and with K7
     timed = {}
@@ -5082,6 +5860,7 @@ def main():
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
             del model, optimizer, train_step
 
+    phase_start("10a")
     # 10a. K8, the fused attention block, against its plain version,
     #      forward and backward, bf16 and fp32: ViT-B/16's train micro-batch
     #      (the first case: the kernels line's) and eval batch, heads of 128,
@@ -5099,6 +5878,7 @@ def main():
                 seed=70 + i), results)
     torch.cuda.empty_cache()
 
+    phase_start("10b")
     # 10b. use_fused_block: ViT-B/16 through the work-dir eval CLI, every
     #      block through K8; logits against the plain ops; timed eval steps
     #      with and without the flag
@@ -5136,6 +5916,7 @@ def main():
         k8_share=12 * results["K8"][1]["ms"] / block_ms)
     del model, config, eval_step
 
+    phase_start("10c")
     # 10c. the training slice with use_fused_block: ViT-B/16 through the
     #      work-dir train CLI with the port's train config and the flag, two
     #      epochs, then resumed for a third. At drop-path 0.1 only block 0
@@ -5156,6 +5937,7 @@ def main():
         raise AssertionError(f"use_fused_block train CLI: the loss did not "
                              f"fall over the epochs: {epoch_losses}")
 
+    phase_start("10d")
     # 10d. gradients at drop-path 0 (all 12 blocks through K8, norm2
     #      through K7) against the plain ops; then with
     #      use_gradient_checkpoint (K8 twice a block) against the unchecked
@@ -5180,6 +5962,7 @@ def main():
         dict(K8=24, K8_bwd=12, K7=24, K7_bwd=12), reference=unchecked)
     del model, config, unchecked
 
+    phase_start("10e")
     # 10e. timed train steps at drop-path 0, 4 x 64 and 1 x 256, with and
     #      without use_fused_block: ms, images/s, share of the peak, peak
     #      memory
@@ -5232,6 +6015,7 @@ def main():
     imagenet_slice(torch, fa, ln, eval_cli, train_cli)
     torch.cuda.empty_cache()
 
+    phase_start("11")
     # 11. SAM-B through the prediction tool: full width and depth, 1024^2,
     #     bf16, encode once, decode a point, a box and both
     reset_counts(fa, ln)
@@ -5255,10 +6039,12 @@ def main():
                     for m, i in run["outputs"].values())):
         raise AssertionError("SAM-B: non-finite or misshapen outputs")
 
+    phase_start("12")
     # 12. the same model and inputs with plain attention
     sam, images, sets = run["model"], run["images"], run["prompts"]
     sam_compare(torch, sam, images, sets, "sam_b")
 
+    phase_start("13")
     # 13. timed: the encoder and each prompt set's decoder, bf16, batch 8
     from simpleaicv_pytorch_training_examples_tpu_torch.tools.predict_interactive_segmentation import (
         compute_context)
@@ -5288,6 +6074,7 @@ def main():
         k5_share=4 * results["K5"][0]["ms"] / encoder_ms)
     log("sam_b decoder", batch=SAM_BATCH, ms_per_prompt_set=decoder_ms)
 
+    phase_start("14")
     # 14. the same model with sharp attention (scores and rel terms of unit
     #     std), two images: kernels against plain attention, the masks and
     #     IoU predictions held against the fp32 floor as well; a control
@@ -5315,6 +6102,7 @@ def main():
                              f"{bound})")
     del run, sam, images, sets, emb
 
+    phase_start("15")
     # 15. SAM-H at full width (C = 1280, 16 heads of 80), reduced depth:
     #     windowed blocks through K4, the global block through K5
     reset_counts(fa, ln)
@@ -5337,10 +6125,11 @@ def main():
                 first_of(run_h["prompts"], 2), "sam_h")
     del run_h
 
+    phase_start("16")
     # 16. the SAM training slice: SAM-B at full width and depth through the
     #     work-dir train CLI with the port's config (checkpointing, 4 extra
-    #     decoder passes, bf16), two epochs, then the same command resumed
-    #     for a third
+    #     decoder passes, bf16), one epoch, then the same command resumed
+    #     for a second
     from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
         profile_interactive_segmentation_train as sam_train_profile,
         train_interactive_segmentation_model as sam_train_cli)
@@ -5349,7 +6138,7 @@ def main():
     sam_dir.mkdir(parents=True)
     sam_iters = SAM_TRAIN_IMAGES // SAM_BATCH
     sam_train_counts = {}
-    for epochs, first_epoch in ((2, 1), (3, 3)):
+    for epochs, first_epoch in ((1, 1), (2, 2)):
         (sam_dir / "train_config.py").write_text(SAM_B_TRAIN_CONFIG.format(
             n_train=SAM_TRAIN_IMAGES, batch=SAM_BATCH, epochs=epochs))
         reset_counts(fa, ln)
@@ -5381,16 +6170,17 @@ def main():
         r"epoch \d+: train loss avg ([-\w.]+)", sam_log)]
     log("sam_b train cli losses", iteration_losses=sam_losses,
         epoch_loss_avgs=epoch_avgs)
-    if (len(sam_losses) != 3 * sam_iters
+    if (len(sam_losses) != 2 * sam_iters
             or not all(map(math.isfinite, sam_losses))
             or not epoch_avgs[-1] < epoch_avgs[0]
-            or "resumed from epoch 2" not in sam_log):
+            or "resumed from epoch 1" not in sam_log):
         raise AssertionError(f"SAM-B train log: losses {sam_losses}, epoch "
                              f"averages {epoch_avgs}")
     if not ((sam_dir / "checkpoints" / "latest.pth").is_file()
             and (sam_dir / "checkpoints" / "best.pth").is_file()):
         raise AssertionError("the SAM train CLI left no latest.pth / best.pth")
 
+    phase_start("17")
     # 17. SAM-B gradients with sharp attention: kernels against plain
     #     attention, both held against the fp32 model (rel-pos tables
     #     included: their gradient comes only through drel)
@@ -5416,6 +6206,7 @@ def main():
     enc_flops = sam_encoder_flops(model)
     del model
 
+    phase_start("18")
     # 18. timed SAM-B train steps at batch 8, with the config's
     #     checkpointing and without; plain attention if it fits
     passes = 1 + sam_config.decoder_iters
@@ -5459,6 +6250,7 @@ def main():
         del model, train_step, first
         torch.cuda.empty_cache()
 
+    phase_start("19")
     # 19. SAM-H training at full width, reduced depth: the windowed blocks'
     #     K4 and the global block's K5 at head dim 80, forward and backward,
     #     gradients against plain attention
@@ -5476,6 +6268,7 @@ def main():
                   K4_bwd=n_window, K5=2 * n_global, K5_bwd=n_global)
     del model, batch8, grad_batch
 
+    phase_start("20")
     # 20. SAM2 video tracking: SAM2-B+ at full width and depth (1024^2,
     #     batch 1, bf16, the 14.1 configs' settings, seeded random weights)
     #     through the predict tool on the synthetic clip: frame 0 prompted,
@@ -5535,6 +6328,7 @@ def main():
         object_scores=[round(l["object_score"], 4) for l in video["lines"]],
         mask_areas=[l["mask_area"] for l in video["lines"]])
 
+    phase_start("21")
     # 21. the same weights and clip with sharp attention: the kernels
     #     against plain attention, held to the model's bf16 floor on every
     #     frame; a control shows that the check would fail without the key
@@ -5552,6 +6346,7 @@ def main():
     del video, sam2, carry
     torch.cuda.empty_cache()
 
+    phase_start("22")
     # 22. head_dim_padding=0 (reference-width heads) at full width, reduced
     #     depth: Hiera's windows through K2 at d = 56, its global block
     #     through K6 at d = 56, the memory through K6
@@ -5574,6 +6369,7 @@ def main():
     del sam2, frames, prompts
     torch.cuda.empty_cache()
 
+    phase_start("23-25")
     # 23-25. the SAM2 training slice
     sam2_train_counts = sam2_training_slice(torch, fa, ln, results)
     torch.cuda.empty_cache()
@@ -5583,7 +6379,13 @@ def main():
     mae_distill_slice(torch, F, fa, ln, results, train_cli)
     torch.cuda.empty_cache()
 
-    # 34. kernels line
+    # 36-37. K2 at DINOv3's shapes and the DINOv3 ViTs (35, 38 and 39 ran
+    #        while the kernels built)
+    dinov3_kernel_slice(torch, F, fa, ln, results)
+    torch.cuda.empty_cache()
+    phase_start(None)
+
+    # 40. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 

@@ -21,6 +21,15 @@ once, that holds no CUDA state and has imported torch and this module
 ``spawn``-ed ones, each importing torch anew every epoch, took over a
 minute (PERF.md). Batches are pinned when they go to a CUDA
 device, so the copy to the card can be asynchronous.
+
+Data parallelism (``parallel/mesh.py``): ``batch_size`` is the global
+batch, and with ``process_count`` > 1 each process loads only its
+contiguous slice of each global batch, rows ``[process_index * local,
+(process_index + 1) * local)`` (the JAX loader's ``_epoch_indices``;
+``parallel/mesh.shard_batch``). Each
+rank's workers are seeded apart (rank 0 keeps the one-process seeds). The
+eval loader slices the short last batch the same way and skips a rank's
+empty slice.
 """
 
 import multiprocessing
@@ -29,6 +38,8 @@ import os
 import numpy as np
 import torch
 from torch.utils.data import DataLoader, Sampler
+
+from ..parallel.mesh import shard_batch
 
 PREFETCH = 4
 PRELOAD = ("torch", "numpy", __name__)
@@ -74,10 +85,13 @@ def epoch_batches(n, batch_size, seed, epoch):
 
 
 class _EpochBatchSampler(Sampler):
-    """``epoch_batches`` of the loader's current epoch, as index lists."""
+    """``epoch_batches`` of the loader's current epoch, this process's slice
+    of each, as index lists."""
 
-    def __init__(self, n, batch_size, seed):
+    def __init__(self, n, batch_size, seed, process_index=0,
+                 process_count=1):
         self.n, self.batch_size, self.seed = n, batch_size, seed
+        self.process_index, self.process_count = process_index, process_count
         self.epoch = 0
 
     def __len__(self):
@@ -86,7 +100,25 @@ class _EpochBatchSampler(Sampler):
     def __iter__(self):
         for batch in epoch_batches(self.n, self.batch_size, self.seed,
                                    self.epoch):
-            yield batch.tolist()
+            yield shard_batch(batch, self.batch_size, self.process_index,
+                              self.process_count).tolist()
+
+
+class _EvalBatchSampler(Sampler):
+    """In order, the short last batch kept: this process's slice of each
+    global batch, empty slices skipped."""
+
+    def __init__(self, n, batch_size, process_index, process_count):
+        self.n, self.batch_size = n, batch_size
+        self.process_index, self.process_count = process_index, process_count
+
+    def __iter__(self):
+        for start in range(0, self.n, self.batch_size):
+            rows = shard_batch(
+                np.arange(start, min(start + self.batch_size, self.n)),
+                self.batch_size, self.process_index, self.process_count)
+            if len(rows):
+                yield rows.tolist()
 
 
 class TrainLoader:
@@ -100,11 +132,13 @@ class TrainLoader:
     """
 
     def __init__(self, dataset, batch_size, collater, device, seed=0,
-                 num_workers=0):
+                 num_workers=0, process_index=0, process_count=1):
         self.seed = seed
+        self.process_index = process_index
         self.num_workers = _workers(num_workers)
         self.generator = torch.Generator()
-        self.sampler = _EpochBatchSampler(len(dataset), batch_size, seed)
+        self.sampler = _EpochBatchSampler(len(dataset), batch_size, seed,
+                                          process_index, process_count)
         self.loader = DataLoader(
             dataset, batch_sampler=self.sampler, collate_fn=collater,
             num_workers=self.num_workers,
@@ -123,20 +157,28 @@ class TrainLoader:
         return len(self.sampler)
 
     def __iter__(self):
-        epoch_seed = (self.seed + self.epoch) % 2 ** 31
+        epoch_seed = (self.seed + self.epoch
+                      + 1000003 * self.process_index) % 2 ** 31
         self.generator.manual_seed(epoch_seed)
         if self.num_workers == 0:
             np.random.seed(epoch_seed)
         return iter(self.loader)
 
 
-def build_loader(dataset, batch_size, collater, device, num_workers=0):
+def build_loader(dataset, batch_size, collater, device, num_workers=0,
+                 process_index=0, process_count=1):
     """Eval DataLoader over a map-style dataset of dict samples: in order,
-    the last batch kept even when short. ``num_workers`` is capped at the
-    host's core count; 0 loads in the calling process."""
+    the last batch kept even when short; with ``process_count`` > 1 this
+    process's slice of each global batch of ``batch_size``. ``num_workers``
+    is capped at the host's core count; 0 loads in the calling process."""
     num_workers = _workers(num_workers)
+    if process_count > 1:
+        batching = {"batch_sampler": _EvalBatchSampler(
+            len(dataset), batch_size, process_index, process_count)}
+    else:
+        batching = {"batch_size": batch_size, "shuffle": False,
+                    "drop_last": False}
     return DataLoader(
-        dataset, batch_size=batch_size, shuffle=False, collate_fn=collater,
-        num_workers=num_workers, drop_last=False,
+        dataset, collate_fn=collater, num_workers=num_workers,
         pin_memory=torch.device(device).type == "cuda",
-        **_worker_options(num_workers))
+        **batching, **_worker_options(num_workers))

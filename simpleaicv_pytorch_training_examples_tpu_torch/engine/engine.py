@@ -20,6 +20,7 @@ import torch
 from ..device import resolve_device
 from ..models.common import (attach_mask_generator, batch_stat_buffers,
                              init_parameters_)
+from ..parallel.mesh import all_reduce_mean_
 from ..utils.ema import ema_update
 from ..utils.checkpoint import load_state_dict_filtered, load_torch_state_dict
 
@@ -105,6 +106,12 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
     copy taken at its start (``torch.where`` on the flag, no host sync).
     The EMA covers the parameters only, and still averages in the
     (unchanged) parameters on a skipped step.
+
+    In a process group (``parallel/mesh.py``) each rank's batch is its slice
+    of the global batch: after the micro-batches the gradients, the loss and
+    the metrics are averaged over the world in one bucketed ``all_reduce``,
+    before the finite check, clipping and the update, so every rank takes
+    the same step or skips it.
     """
     params = list(model.parameters())
     device = params[0].device
@@ -147,6 +154,10 @@ def make_train_step(model, criterion, optimizer, accumulation_steps: int = 1,
             if accumulation_steps > 1:
                 torch._foreach_mul_(grads, inv)
             loss = loss_sum * inv
+            names = sorted(metric_sums)
+            summed = [loss] + [metric_sums[n] for n in names]
+            all_reduce_mean_(grads + summed)
+            metric_sums = dict(zip(names, summed[1:]))
             norms = torch.stack(torch._foreach_norm(grads))
             finite = torch.isfinite(loss) & torch.isfinite(norms).all()
             if clip_max_norm > 0:

@@ -12,7 +12,9 @@ text of the epoch's log line, and a dict of named numbers. Its
 import time
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import pad_batch_to_multiple, process_group
 from ..utils.meters import AccMeter
 from .engine import make_classification_eval_step
 
@@ -30,7 +32,12 @@ def classification_evaluator(model, config, ctx, output_index=None, topk=5):
     training the EMA parameters (``ctx.ema_params``) run with the model's
     live BatchNorm statistics (an eval run has no EMA: the weights it
     loaded are evaluated). Values: ``top1``, ``top{topk}``, ``images`` and
-    ``images_per_s`` (the eval steps alone, between synchronisations)."""
+    ``images_per_s`` (the eval steps alone, between synchronisations).
+
+    Each batch is padded to a multiple of the first (full) batch's rows
+    (``pad_batch_to_multiple``), so every step has one shape, and only its
+    real rows count; in a process group each rank evaluates its slice of
+    each batch and the counts are summed over the world."""
     compute_dtype = torch.bfloat16 if getattr(config, "use_amp", True) \
         else torch.float32
     use_ema = getattr(config, "use_ema_model", False) \
@@ -41,8 +48,10 @@ def classification_evaluator(model, config, ctx, output_index=None, topk=5):
         params = dict(zip(names, ctx.ema_params)) if use_ema else None
         eval_step = make_classification_eval_step(
             model, topk, compute_dtype, output_index, params)
-        meter, seconds = AccMeter(), 0.0
+        meter, seconds, rows = AccMeter(), 0.0, None
         for batch in ctx.test_loader:
+            rows = rows or len(batch["label"])   # the first, full batch's
+            batch, n_real = pad_batch_to_multiple(batch, rows)
             batch = {k: v.to(ctx.device, non_blocking=True)
                      for k, v in batch.items()}
             _synchronize(ctx.device)
@@ -50,8 +59,15 @@ def classification_evaluator(model, config, ctx, output_index=None, topk=5):
             top1, topk_hit, _ = eval_step(batch)
             _synchronize(ctx.device)
             seconds += time.perf_counter() - t0
-            meter.update(top1.sum().item(), topk_hit.sum().item(),
-                         top1.shape[0])
+            meter.update(top1[:n_real].sum().item(),
+                         topk_hit[:n_real].sum().item(), n_real)
+        if process_group():
+            counts = torch.tensor([meter.correct_num, meter.topk_correct_num,
+                                   meter.sample_num], dtype=torch.float64,
+                                  device=ctx.device)
+            dist.all_reduce(counts)
+            meter.correct_num, meter.topk_correct_num, meter.sample_num = (
+                int(c) for c in counts.tolist())
         values = {"top1": meter.acc1, f"top{topk}": meter.acc_topk,
                   "images": meter.sample_num,
                   "images_per_s": meter.sample_num / max(seconds, 1e-9)}

@@ -1,5 +1,5 @@
-"""The generic work-dir training loop and the eval run: one process, one
-GPU.
+"""The generic work-dir training loop and the eval run: one process a GPU,
+one process or several (``torchrun``, ``parallel/mesh.py``).
 
 Counterpart of the JAX package's ``engine/runner.py::run_training`` and of
 the root ``tools/_test_common.py::run_test``. A task hands ``run_training``
@@ -12,8 +12,16 @@ the train step, the EMA, ``CheckpointStore`` (``latest.pth`` to resume,
 evaluator's best metric (``higher_is_better``), or, without an evaluator,
 the one of the lowest mean train loss. The running sums of loss and metrics
 stay on the device and are read once per print interval.
+
+Under torchrun each process joins the group (``distributed_init``: NCCL on
+``cuda:LOCAL_RANK``, ``gloo`` on the CPU), loads its slice of each global
+batch of ``config.batch_size``, which the world size must divide, and
+trains the same replica (the train step averages the gradients, BatchNorm
+its statistics). The log says ``mesh: N devices``; rank 0 alone logs and
+writes checkpoints, and every rank resumes from them.
 """
 
+import logging
 import os
 import time
 from dataclasses import dataclass
@@ -23,6 +31,8 @@ import torch
 
 from ..data import TrainLoader, build_loader
 from ..device import resolve_device
+from ..parallel.mesh import (distributed_init, is_main_process, rank,
+                             world_size)
 from ..utils import (build_optimizer, get_logger, load_config_from_work_dir,
                      set_seed)
 from ..utils.checkpoint import CheckpointStore
@@ -55,7 +65,8 @@ def _model_params(model, logger):
 
 def _test_loader(config, device):
     """The eval loader of ``config.test_dataset`` (None without one), with
-    its ``test_collater``; a collater that augments never evaluates."""
+    its ``test_collater``, this rank's slice of each batch; a collater that
+    augments never evaluates."""
     if getattr(config, "test_dataset", None) is None:
         return None
     collater = getattr(config, "test_collater", None) or config.train_collater
@@ -63,7 +74,17 @@ def _test_loader(config, device):
         raise ValueError("the collater augments at random: set "
                          "config.test_collater for the eval loader")
     return build_loader(config.test_dataset, config.batch_size, collater,
-                        device, num_workers=getattr(config, "num_workers", 8))
+                        device, num_workers=getattr(config, "num_workers", 8),
+                        process_index=rank(), process_count=world_size())
+
+
+def _run_logger(name, work_dir):
+    """The run's logger on rank 0; the other ranks' logs go nowhere."""
+    if is_main_process():
+        return get_logger(name, os.path.join(work_dir, "log"))
+    quiet = logging.getLogger(f"{name}.rank{rank()}")
+    quiet.disabled = True
+    return quiet
 
 
 def _ema_state_dict(model, ema_params):
@@ -91,18 +112,23 @@ def run_training(config, work_dir: str, *, build_loss_fn=None,
     each next batch; ``step_seconds`` is the rest of the epoch's training
     time. ``host_keys`` name the batch entries that stay on the host
     (``make_train_step``)."""
-    device = resolve_device(device)
+    device = distributed_init(resolve_device(device))
     set_seed(config.seed)
     work_dir = os.path.abspath(work_dir)
-    logger = get_logger("train", os.path.join(work_dir, "log"))
+    logger = _run_logger("train", work_dir)
     log = logger.info
     _log_config(config, log)
     log(f"device: {device}")
-
+    n_devices = world_size()
+    log(f"mesh: {n_devices} devices")
     batch_size = config.batch_size
+    assert batch_size % n_devices == 0, (
+        f"global batch {batch_size} % devices {n_devices} != 0")
+
     train_loader = TrainLoader(
         config.train_dataset, batch_size, config.train_collater, device,
-        seed=config.seed, num_workers=getattr(config, "num_workers", 8))
+        seed=config.seed, num_workers=getattr(config, "num_workers", 8),
+        process_index=rank(), process_count=n_devices)
     steps_per_epoch = len(train_loader)
 
     model = init_model(config.model, config.seed, device)
@@ -112,6 +138,8 @@ def run_training(config, work_dir: str, *, build_loss_fn=None,
     for group in group_report:
         log(f"param group: lr={group.get('lr')} "
             f"wd={group.get('weight_decay')} n={len(group['name'])}")
+    if getattr(config, "use_zero1", False):
+        log("zero1: optimizer state sharded over the data axis")
 
     use_ema = getattr(config, "use_ema_model", False)
     ema_params = ema_init(model.parameters()) if use_ema else None
@@ -222,17 +250,20 @@ def run_training(config, work_dir: str, *, build_loss_fn=None,
 
         if improved:
             best_metric = metric
-            store.save_best(_ema_state_dict(model, ema_params) if use_ema
-                            else model.state_dict())
+            if is_main_process():
+                store.save_best(_ema_state_dict(model, ema_params) if use_ema
+                                else model.state_dict())
         if save_interval is None or epoch % save_interval == 0 \
                 or epoch == config.epochs:
-            store.save_latest({
-                "model_state_dict": model.state_dict(),
-                "optimizer_state_dict": optimizer.state_dict(),
-                "ema_state_dict": (_ema_state_dict(model, ema_params)
-                                   if use_ema else None),
-                "epoch": epoch, "best_metric": best_metric,
-                "train_hours": train_hours})
+            optimizer_state = optimizer.state_dict()   # every rank gathers
+            if is_main_process():
+                store.save_latest({
+                    "model_state_dict": model.state_dict(),
+                    "optimizer_state_dict": optimizer_state,
+                    "ema_state_dict": (_ema_state_dict(model, ema_params)
+                                       if use_ema else None),
+                    "epoch": epoch, "best_metric": best_metric,
+                    "train_hours": train_hours})
 
     log(f"done: best metric {best_metric}")
     return {"best_metric": best_metric, "resumed_from": resumed_from,
@@ -257,10 +288,10 @@ def run_test(work_dir: str, build_eval, device=None):
     loader, ``build_eval``'s evaluator. Logs to ``log/test.log``; returns
     ``(metric, log_line, values)``, ``values`` with the evaluator's numbers
     and ``flops`` and ``params``."""
-    device = resolve_device(device)
+    device = distributed_init(resolve_device(device))
     config = load_config_from_work_dir(work_dir, "test_config")
     set_seed(config.seed)
-    logger = get_logger("test", os.path.join(work_dir, "log"))
+    logger = _run_logger("test", os.path.abspath(work_dir))
     model = init_model(config.model, config.seed, device)
     model = apply_pretrained(model, logger)
     flops, n_params = compute_flops_and_params(model, _input_shape(config))

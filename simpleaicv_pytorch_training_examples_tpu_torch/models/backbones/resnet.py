@@ -28,15 +28,11 @@ package's ``nn.remat`` of the block; the recompute leaves the running
 statistics as the first forward left them.
 """
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from ..common import (ConvBnAct, Linear, avg_pool_global, frozen_batch_stats,
-                      max_pool)
+from ..common import ConvBnAct, Linear, avg_pool_global, max_pool, remat_call
 
 __all__ = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152"]
 
@@ -101,13 +97,7 @@ def make_stages(block, layer_nums, inplanes, stage_strides, dtype):
 def run_blocks(stage, x, remat):
     """A stage's blocks in turn; under ``remat`` each block checkpointed."""
     for block in stage:
-        if remat:
-            x = checkpoint(block, x, use_reentrant=False,
-                           context_fn=lambda b=block: (
-                               contextlib.nullcontext(),
-                               frozen_batch_stats(b)))
-        else:
-            x = block(x)
+        x = remat_call(block, x) if remat else block(x)
     return x
 
 

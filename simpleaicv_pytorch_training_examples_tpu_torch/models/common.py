@@ -22,16 +22,19 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.fused_attention import (DENSE_HEAD_DIMS, MAX_HEAD_DIM,
                                            MAX_TOKENS, fused_attention,
                                            fused_attention_dense)
 from ..ops.kernels.layer_norm import layer_norm
+from ..parallel.mesh import world_size
 
 __all__ = ["trunc_normal_", "init_parameters_", "attach_mask_generator",
-           "Dropout", "DropPath",
+           "Dropout", "DropPath", "drop_path_rates", "remat_call",
            "PatchEmbed", "FusedLayerNorm", "Linear", "Mlp",
            "MultiHeadSelfAttention", "Conv2d", "BatchNorm2d", "ConvBnAct",
            "max_pool", "avg_pool_global", "batch_stat_buffers",
@@ -66,7 +69,8 @@ def init_parameters_(model, generator):
 
 
 class _MaskedDrop(nn.Module):
-    """Base of the layers that draw a keep mask in training."""
+    """Base of the layers that draw from the train step's generator in
+    training (a keep mask; DINOv3's RoPE coordinate rescale)."""
 
     mask_generator = None  # torch's default generator until one is attached
 
@@ -116,23 +120,32 @@ class DropPath(_MaskedDrop):
         return x * mask
 
 
+def drop_path_rates(drop_path_prob, total_blocks):
+    """Linear drop-path schedule over all blocks, ``p * i / (n - 1)``."""
+    if total_blocks <= 1:
+        return [0.0] * total_blocks
+    return [drop_path_prob * i / (total_blocks - 1)
+            for i in range(total_blocks)]
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` over fp32 parameters that computes in ``dtype``."""
 
     def __init__(self, in_features, out_features, dtype=torch.float32,
-                 init_std=0.02):
-        super().__init__(in_features, out_features)
+                 init_std=0.02, bias=True):
+        super().__init__(in_features, out_features, bias)
         self.compute_dtype = dtype
         self.init_std = init_std
 
     def init_weights_(self, generator):
         trunc_normal_(self.weight, self.init_std, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         dtype = self.compute_dtype
-        return F.linear(x.to(dtype), self.weight.to(dtype),
-                        self.bias.to(dtype))
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
 
 
 class PatchEmbed(nn.Module):
@@ -270,18 +283,22 @@ class MultiHeadSelfAttention(nn.Module):
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` over fp32 parameters that computes in ``dtype``;
     weights start from Flax's ``variance_scaling(2.0, "fan_out",
-    "truncated_normal")`` (the JAX package's ``kaiming_normal_conv``)."""
+    "truncated_normal")`` (the JAX package's ``kaiming_normal_conv``), or
+    from a truncated normal of std ``init_std`` where that is given."""
 
     def __init__(self, inplanes, planes, kernel_size, stride=1, padding=0,
-                 dilation=1, groups=1, bias=True, dtype=torch.float32):
+                 dilation=1, groups=1, bias=True, dtype=torch.float32,
+                 init_std=None):
         super().__init__(inplanes, planes, kernel_size, stride, padding,
                          dilation, groups, bias)
         self.compute_dtype = dtype
+        self.init_std = init_std
 
     def init_weights_(self, generator):
         kh, kw = self.kernel_size
-        trunc_normal_(self.weight, math.sqrt(2.0 / (kh * kw * self.out_channels)),
-                      generator)
+        std = self.init_std if self.init_std is not None else \
+            math.sqrt(2.0 / (kh * kw * self.out_channels))
+        trunc_normal_(self.weight, std, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
@@ -305,7 +322,15 @@ class BatchNorm2d(nn.Module):
     ``update_stats`` is False (a checkpointed block's recompute,
     ``frozen_batch_stats``), training leaves the running statistics alone.
     The buffers keep torch's names, ``num_batches_tracked`` included, so a
-    torch ResNet checkpoint loads as it is."""
+    torch ResNet checkpoint loads as it is.
+
+    The statistics are the global batch's, as under the JAX package's
+    ``jit`` over a sharded batch: in a world of more than one process
+    (``parallel/mesh.py``) training runs ``_global_batch_norm``, which
+    reduces them over the world and whose backward reduces their gradients,
+    on any device (NCCL and ``gloo`` run the same code); one process,
+    torchrun at world size 1 included, runs ``native_batch_norm``, so that
+    run computes what a run without torchrun does, bit for bit."""
 
     def __init__(self, planes, momentum=0.9, eps=1e-5, dtype=torch.float32):
         super().__init__()
@@ -333,8 +358,12 @@ class BatchNorm2d(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if world_size() > 1:
+            y, mean, invstd = _global_batch_norm(x, self.weight, self.bias,
+                                                 self.eps)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         if self.update_stats:
             with torch.no_grad():
                 var = invstd.float().pow(-2) - self.eps
@@ -344,6 +373,43 @@ class BatchNorm2d(nn.Module):
                 self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
                 self.num_batches_tracked.add_(1)
         return y
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the world; its gradient is the world's sum of the
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x):
+        x = x.clone()
+        dist.all_reduce(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def _global_batch_norm(x, weight, bias, eps):
+    """Training BatchNorm over the global batch, in autograd ops on any
+    device: the fp32 sums of x and of its squared deviations are reduced
+    over the world by a differentiable ``all_reduce``. Returns (y, mean,
+    invstd)."""
+    all_reduce = _AllReduceSum.apply
+    xf = x.float()
+    c = x.shape[1]
+    axes = (0, 2, 3)
+    packed = torch.cat([xf.sum(axes), xf.new_full((1,), xf.numel() // c)])
+    packed = all_reduce(packed)
+    mean, count = packed[:c] / packed[c], packed[c]
+    centred = xf - mean[None, :, None, None]
+    var = all_reduce(centred.square().sum(axes)) / count
+    invstd = torch.rsqrt(var + eps)
+    scale = (invstd * weight)[None, :, None, None]
+    y = centred * scale + bias[None, :, None, None]
+    return y.to(x.dtype), mean.detach(), invstd.detach()
 
 
 def batch_stat_buffers(model):
@@ -367,6 +433,33 @@ def frozen_batch_stats(module):
     finally:
         for m, flag in zip(layers, before):
             m.update_stats = flag
+
+
+def remat_call(block, *args):
+    """``block(*args)`` under non-reentrant ``torch.utils.checkpoint`` (the
+    JAX package's ``nn.remat``): the recompute draws the Dropout / DropPath
+    masks of the original forward (their generators' states put back for it)
+    and leaves the BatchNorm running statistics alone."""
+    generators = list({id(g): g for m in block.modules()
+                       if (g := getattr(m, "mask_generator", None))
+                       is not None}.values())
+    states = [g.get_state() for g in generators]
+
+    @contextlib.contextmanager
+    def recompute():
+        now = [g.get_state() for g in generators]
+        for g, state in zip(generators, states):
+            g.set_state(state)
+        try:
+            with frozen_batch_stats(block):
+                yield
+        finally:
+            for g, state in zip(generators, now):
+                g.set_state(state)
+
+    return checkpoint(block, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recompute()))
 
 
 class ConvBnAct(nn.Module):

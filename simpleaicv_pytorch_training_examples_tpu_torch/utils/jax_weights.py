@@ -283,3 +283,143 @@ def sam2_state_dict_from_jax(params_flat: dict, constants_flat: dict,
             renamed[name] = array
     sd.update(sam_state_dict_from_jax(renamed, constants_flat))
     return pad_hiera_heads(sd, head_dim_padding)
+
+
+# --- DarkNet, VAN, ConvFormer, DINOv3 ConvNeXt and ViT ---------------------
+#
+# Each map renames the JAX package's module paths (regex rules, applied in
+# turn) and its leaves (``kernel`` / ``scale`` -> ``weight``, BatchNorm's
+# ``mean`` / ``var`` -> ``running_mean`` / ``running_var``, with a
+# ``num_batches_tracked`` of 0 beside each), and lays the kernels out as
+# torch does (Dense [in, out] -> [out, in], Conv HWIO -> OIHW, depth-wise
+# [k, k, 1, C] -> [C, 1, k, k]). The VAN, ConvFormer and DINOv3 maps are the
+# inverses of the JAX package's ``convert_{van,convformer,dinov3_convnext,
+# dinov3_vit}_state_dict``; DarkNet has no such converter, so its torch
+# names are the JAX module paths in ``ConvBnAct``'s layout.
+
+_LEAF_RENAMES = {"kernel": "weight", "scale": "weight",
+                 "mean": "running_mean", "var": "running_var"}
+
+
+def _mapped_state_dict(flat: dict, rules, conv_transpose=()) -> dict:
+    """{Flax dotted name: ndarray} -> {torch name: tensor} by ``rules``
+    ((compiled pattern, replacement), ...); names in ``conv_transpose`` are
+    Flax ConvTranspose kernels, flipped spatially for torch."""
+    sd = {}
+    for name, value in flat.items():
+        if name in conv_transpose:   # [kh, kw, in, out], flipped
+            tensor = torch.from_numpy(np.ascontiguousarray(
+                np.array(value)[::-1, ::-1].transpose(2, 3, 0, 1)))
+        else:
+            tensor = _torch_value(name, value)
+        torch_name = name
+        for pattern, repl in rules:
+            torch_name = pattern.sub(repl, torch_name)
+        parts = torch_name.split(".")
+        parts[-1] = _LEAF_RENAMES.get(parts[-1], parts[-1])
+        torch_name = ".".join(parts)
+        sd[torch_name] = tensor
+        if parts[-1] == "running_mean":
+            sd[torch_name.replace("running_mean", "num_batches_tracked")] = \
+                torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def _rules(*pairs):
+    return tuple((re.compile(p), r) for p, r in pairs)
+
+
+# ConvBnAct's conv and bn -> layer.0 / layer.1
+_CONV_BN_RULES = (
+    (r"\.conv\.(kernel|bias)$", r".layer.0.\1"),
+    (r"\.bn\.(scale|bias|mean|var)$", r".layer.1.\1"),
+)
+_DARKNET_RULES = _rules(*_CONV_BN_RULES)
+
+
+def darknet_state_dict_from_jax(params_flat: dict,
+                                batch_stats_flat: dict) -> dict:
+    """A JAX DarkNet's parameters and batch statistics -> the port's
+    ``darknettiny`` / ``darknet19`` / ``darknet53`` state_dict."""
+    return _mapped_state_dict({**params_flat, **batch_stats_flat},
+                              _DARKNET_RULES)
+
+
+_VAN_RULES = _rules(
+    (r"^patch_embed(\d+)\.", r"patch_embed\1.proj."),
+    (r"^patch_norm(\d+)\.", r"patch_embed\1.norm."),
+    (r"^block(\d+)_(\d+)\.", r"block\1.\2."),
+    (r"\.mlp\.dwconv\.", ".mlp.dwconv.dwconv."),
+)
+
+
+def van_state_dict_from_jax(params_flat: dict, batch_stats_flat: dict) -> dict:
+    """A JAX VAN's parameters and batch statistics -> the port's VAN
+    state_dict (the inverse of ``convert_van_state_dict``)."""
+    return _mapped_state_dict({**params_flat, **batch_stats_flat},
+                              _VAN_RULES)
+
+
+def _convformer_stage(match):
+    return f"stages.{int(match.group(1)) - 1}.{match.group(2)}."
+
+
+_CONVFORMER_RULES = _rules(
+    (r"^downsample_postnorm0\.", "downsample_layers.0.post_norm."),
+    (r"^downsample_prenorm(\d+)\.", r"downsample_layers.\1.pre_norm."),
+    (r"^downsample(\d+)\.", r"downsample_layers.\1.conv."),
+) + ((re.compile(r"^block(\d+)_(\d+)\."), _convformer_stage),)
+
+
+def convformer_state_dict_from_jax(params_flat: dict,
+                                   batch_stats_flat: dict) -> dict:
+    """A JAX ConvFormer's parameters and batch statistics -> the port's
+    ConvFormer state_dict (the inverse of
+    ``convert_convformer_state_dict``)."""
+    return _mapped_state_dict({**params_flat, **batch_stats_flat},
+                              _CONVFORMER_RULES)
+
+
+_CONVNEXT_RULES = _rules(
+    (r"^stem_conv\.", "downsample_layers.0.0."),
+    (r"^stem_norm\.", "downsample_layers.0.1."),
+    (r"^downsample(\d+)_norm\.", r"downsample_layers.\1.0."),
+    (r"^downsample(\d+)_conv\.", r"downsample_layers.\1.1."),
+    (r"^stage(\d+)_block(\d+)\.", r"stages.\1.\2."),
+)
+
+
+def dinov3_convnext_state_dict_from_jax(params_flat: dict) -> dict:
+    """A JAX DINOv3 ConvNeXt's parameters -> the port's state_dict (the
+    inverse of ``convert_dinov3_convnext_state_dict``; LayerNorms only, no
+    batch statistics)."""
+    return _mapped_state_dict(params_flat, _CONVNEXT_RULES)
+
+
+_DINOV3_VIT_RULES = _rules(
+    (r"(^|\.)patch_embedding\.", r"\1patch_embed.proj."),
+    (r"(^|\.)block_(\d+)\.", r"\1blocks.\2."),
+    (r"\.mlp_fc([12])\.", r".mlp.fc\1."),
+    (r"\.swiglu\.(w[123])\.", r".mlp.\1."),
+)
+_DINOV3_NECK_TRANSPOSED = ("neck.p2_up1.kernel", "neck.p2_up2.kernel",
+                           "neck.p3_up.kernel")
+
+
+def dinov3_vit_state_dict_from_jax(params_flat: dict) -> dict:
+    """A JAX DINOv3 ViT's parameters (``DinoVisionTransformer``, or a
+    ``DINOv3MultiScaleBackbone``'s ``vit.`` and ``neck.``) -> the port's
+    state_dict (for the ViT, the inverse of
+    ``convert_dinov3_vit_state_dict``): SwiGLU's fused ``w12`` splits into
+    ``w1`` and ``w2``, the neck's ConvTranspose kernels are flipped."""
+    flat = {}
+    for name, value in params_flat.items():
+        match = re.match(r"^(.*)\.swiglu\.w12\.(kernel|bias)$", name)
+        if match is None:
+            flat[name] = value
+            continue
+        for w, part in zip(("w1", "w2"),
+                           np.split(np.array(value), 2, axis=-1)):
+            flat[f"{match.group(1)}.swiglu.{w}.{match.group(2)}"] = part
+    return _mapped_state_dict(flat, _DINOV3_VIT_RULES,
+                              conv_transpose=_DINOV3_NECK_TRANSPOSED)

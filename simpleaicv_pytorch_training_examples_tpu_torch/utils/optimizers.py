@@ -33,7 +33,10 @@ zeros), which is how a non-finite step is skipped.
 import re
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import (process_group, rank, world_size,
+                             zero1_shard_dims)
 from .muon import from_muon_matrix, muon_matrix, newton_schulz5
 from .schedules import build_schedule
 
@@ -117,10 +120,21 @@ class Optimizer:
     package's state holds them; each parameter moves only the slots of its
     own rule). ``use_muon`` and ``out_first`` (Muon only) give each
     parameter's rule and the layout of its matrix (``utils/muon.py``).
+
+    ``zero1`` (the config's ``use_zero1``) shards the moments over the
+    world (``parallel/mesh.py``), as the JAX package's ZeRO-1: each moment
+    on the first dimension that ``zero1_shard_dims`` picks, small or
+    indivisible ones replicated. Each rank moves its slice of the moments
+    and of the parameters (every rule is elementwise there, so the slice's
+    numbers are the unsharded run's bit for bit) and the new parameters are
+    all-gathered in one bucket. Muon's matrices stay replicated, because
+    Newton-Schulz needs the whole matrix. ``state_dict`` gathers the whole
+    moments (a collective: every rank calls it) and ``load_state_dict``
+    takes whole ones.
     """
 
     def __init__(self, name, named_params, multipliers, wds, lrmuls,
-                 use_muon=None, out_first=None, **hyper):
+                 use_muon=None, out_first=None, zero1=False, **hyper):
         self.name = name
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
@@ -133,8 +147,18 @@ class Optimizer:
         self.step = torch.zeros((), dtype=torch.int64, device=device)
         slots = {"AdamW": ("mu", "nu"), "SGD": ("momentum_buf",),
                  "Muon": ("muon_buf", "mu", "nu")}[name]
-        self.moments = {slot: [torch.zeros_like(p, dtype=torch.float32)
-                               for p in self.params] for slot in slots}
+        self.n_dp, self.rank = world_size(), rank()
+        self.shard_dims = [None] * len(self.params)
+        if zero1:
+            self.shard_dims = zero1_shard_dims(
+                [p.shape for p in self.params], self.n_dp)
+            if name == "Muon":
+                self.shard_dims = [None if u else d for d, u in
+                                   zip(self.shard_dims, use_muon)]
+        self.moments = {slot: [torch.zeros_like(self._local(p, i),
+                                                dtype=torch.float32)
+                               for i, p in enumerate(self.params)]
+                        for slot in slots}
         if name == "Muon":
             self.muon_index = [i for i, u in enumerate(use_muon) if u]
             self.adamw_index = [i for i, u in enumerate(use_muon) if not u]
@@ -145,17 +169,19 @@ class Optimizer:
         """One step over ``grads`` (one per parameter); a no-op where the
         0-dim bool tensor ``finite`` is False."""
         on = finite.to(torch.float32)
-        grads = [torch.where(finite, g, 0.0) for g in grads]
+        grads = [torch.where(finite, self._local(g, i), 0.0)
+                 for i, g in enumerate(grads)]
         index = self.step.clamp(max=self.multipliers.numel() - 1)
         lr_gate = self.multipliers[index] * on
-        params = self.params
+        params = [self._local(p, i) for i, p in enumerate(self.params)]
 
         if self.name == "AdamW":
-            delta = self._adamw_delta(range(len(params)), grads, finite, on)
+            delta = self._adamw_delta(range(len(params)), grads, params,
+                                      finite, on)
         elif self.name == "Muon":
             delta = [None] * len(params)
             for i, d in zip(self.adamw_index, self._adamw_delta(
-                    self.adamw_index, grads, finite, on)):
+                    self.adamw_index, grads, params, finite, on)):
                 delta[i] = d
             for i, d in zip(self.muon_index, self._muon_delta(grads,
                                                               finite)):
@@ -177,15 +203,49 @@ class Optimizer:
         torch._foreach_mul_(delta, lr_gate)
         torch._foreach_add_(params, delta)
         self.step += finite.to(torch.int64)
+        sharded = [i for i, d in enumerate(self.shard_dims) if d is not None]
+        if sharded and process_group():
+            for i, whole in zip(sharded, self._gather(
+                    [params[i] for i in sharded], sharded)):
+                self.params[i].copy_(whole)
 
-    def _adamw_delta(self, index, grads, finite, on):
+    def _local(self, tensor, i):
+        """This rank's slice of a parameter-shaped tensor (ZeRO-1), or the
+        tensor where it is replicated."""
+        dim = self.shard_dims[i]
+        if dim is None:
+            return tensor
+        size = tensor.shape[dim] // self.n_dp
+        return tensor.narrow(dim, self.rank * size, size)
+
+    def _gather(self, slices, index):
+        """The whole tensors of ranks' slices (``_local``) of the leaves
+        ``index``, in one bucketed all-gather (the slices themselves without
+        a process group)."""
+        if not process_group():
+            return slices
+        flat = torch.cat([t.reshape(-1) for t in slices])
+        out = flat.new_empty(self.n_dp * flat.numel())
+        dist.all_gather_into_tensor(out, flat)
+        out = out.view(self.n_dp, -1)
+        wholes, offset = [], 0
+        for t, i in zip(slices, index):
+            pieces = out[:, offset:offset + t.numel()].reshape(
+                (self.n_dp,) + tuple(t.shape))
+            dim = self.shard_dims[i]
+            wholes.append(pieces.movedim(0, dim).reshape(
+                self.params[i].shape))
+            offset += t.numel()
+        return wholes
+
+    def _adamw_delta(self, index, grads, params, finite, on):
         """AdamW's moments moved for the parameters ``index``; returns their
         updates before the lr (the Adam direction plus wd * p)."""
         b1, b2, eps = (self.hyper[k] for k in ("b1", "b2", "eps"))
         mu = [self.moments["mu"][i] for i in index]
         nu = [self.moments["nu"][i] for i in index]
         grads = [grads[i] for i in index]
-        params = [self.params[i] for i in index]
+        params = [params[i] for i in index]
         if not params:
             return []
         count = (self.step + 1).to(torch.float32)
@@ -249,7 +309,13 @@ class Optimizer:
 
     def state_dict(self):
         state = {"name": self.name, "step": self.step.clone()}
+        sharded = [i for i, d in enumerate(self.shard_dims) if d is not None]
         for slot, tensors in self.moments.items():
+            tensors = list(tensors)
+            if sharded:
+                for i, whole in zip(sharded, self._gather(
+                        [tensors[i] for i in sharded], sharded)):
+                    tensors[i] = whole
             state[slot] = {n: t.clone() for n, t in zip(self.names, tensors)}
         return state
 
@@ -260,8 +326,9 @@ class Optimizer:
                              f"this optimizer is {self.name}")
         self.step.fill_(int(state["step"]))
         for slot, tensors in self.moments.items():
-            for n, t in zip(self.names, tensors):
-                t.copy_(torch.as_tensor(state[slot][n]))
+            for i, (n, t) in enumerate(zip(self.names, tensors)):
+                t.copy_(self._local(torch.as_tensor(state[slot][n]).to(
+                    t.device), i))
 
 
 def _out_first_weights(model):
@@ -292,6 +359,7 @@ def build_optimizer(config, model, steps_per_epoch: int):
     multipliers = [schedule(step)
                    for step in range(config.epochs * steps_per_epoch + 1)]
 
+    zero1 = getattr(config, "use_zero1", False)
     named_params = list(model.named_parameters())
     names, wds, lrs, scales = compute_wd_and_lr(named_params,
                                                 optimizer_parameters)
@@ -306,7 +374,7 @@ def build_optimizer(config, model, steps_per_epoch: int):
         optimizer = Optimizer(
             "Muon", named_params, multipliers, [weight_decay] * len(names),
             [lr] * len(names), use_muon=use_muon,
-            out_first=[n in out_first for n in names],
+            out_first=[n in out_first for n in names], zero1=zero1,
             momentum=optimizer_parameters.get("momentum", 0.95),
             nesterov=optimizer_parameters.get("nesterov", True),
             ns_steps=optimizer_parameters.get("ns_steps", 5),
@@ -329,5 +397,5 @@ def build_optimizer(config, model, steps_per_epoch: int):
                      b2=optimizer_parameters.get("beta2", 0.999),
                      eps=optimizer_parameters.get("eps", 1e-8))
     optimizer = Optimizer(optimizer_name, named_params, multipliers, wds,
-                          lrmuls, **hyper)
+                          lrmuls, zero1=zero1, **hyper)
     return optimizer, _group_report(names, wds, lrs, scales)
