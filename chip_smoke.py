@@ -17,8 +17,8 @@ kernels' launch counters set to 0 just before it and read just after:
   synthetic images, and full-width ViT-H/14 at reduced depth through
   init_model -> make_classification_eval_step -> the DataLoader;
 - training: full-width, full-depth ViT-B/16 through the work-dir train CLI
-  with the port's train config on the seeded synthetic dataset (two epochs,
-  then the same command resumed for a third), its best.pth through the eval
+  with the port's train config on the seeded synthetic dataset (one epoch,
+  then the same command resumed for a second), its best.pth through the eval
   CLI; gradients and a 20-step one-batch run with the kernels against plain
   attention and plain LayerNorm; full-width ViT-H/14 at reduced depth
   through init_model -> build_optimizer -> make_train_step; ViT-B/16 with
@@ -26,8 +26,8 @@ kernels' launch counters set to 0 just before it and read just after:
 - the fused attention block (use_fused_block, kernel K8): ViT-B/16 through
   the work-dir eval CLI with every block through K8, its logits against the
   plain ops, eval steps timed with and without the flag; the train CLI with
-  the port's train config and the flag (two epochs, then resumed for a
-  third; at drop-path 0.1 only block 0 takes K8 in training); the gradients
+  the port's train config and the flag (one epoch, then resumed for a
+  second; at drop-path 0.1 only block 0 takes K8 in training); the gradients
   of one micro-batch at drop-path 0 (all 12 blocks through K8) against the
   plain ops, and with use_gradient_checkpoint against the unchecked ones;
   timed train steps at drop-path 0, 4 x 64 and 1 x 256, with and without
@@ -97,8 +97,8 @@ kernels' launch counters set to 0 just before it and read just after:
   ViT-H/14's 65 at 80), forward and backward against their plain
   versions, timed beside SDPA; full-width, full-depth MAE ViT-B/16 through
   the MAE train CLI with the port's ``vit_b_16_224_mae_pretrain`` config
-  (batch 1024, bf16) on 1,024 symlinks to the fixtures: one epoch of 1
-  step, the same command resumed for a second, and an uninterrupted
+  (batch MAE_CLI_BATCH, bf16) on as many symlinks to the fixtures: one
+  epoch of 1 step, the same command resumed for a second, and an uninterrupted
   two-epoch run over the same batches (recorded and replayed) that must
   end bit for bit where the resumed one does (K1 12 and K2 8 a step each
   way); the MAE step alone at batch 1024 (ms, images/s, peak memory, share
@@ -142,10 +142,34 @@ kernels' launch counters set to 0 just before it and read just after:
   (SAM-H -> DINOv3 ViT-B/16) and 14.0 (Hiera-L -> DINOv3 ViT-B/16)
   encoder-distillation configs through their CLIs at 1024^2, full width
   and depth, fp32 as in JAX, on seeded synthetic SAM images at batch
-  DISTILL_BATCH (cut from 64: what fits beside the teacher), two epochs of
-  2 steps and a resumed third, the teacher of every checkpoint bit for bit
+  DISTILL_BATCH (cut from 64: what fits beside the teacher), one epoch of
+  2 steps and a resumed second, the teacher of every checkpoint bit for bit
   as first loaded, then a 10-step one-batch run whose loss must fall, its
-  step's ms and peak memory.
+  step's ms and peak memory;
+- interactive matting (phases 40-44): seeded JPEG frames and PNG mattes
+  of 768 x 1024 written in the 13.2 and 14.2 datasets' layouts and read
+  without cv2 (``data/image_files.py``); full-width, full-depth SAM2-B+
+  video matting (1024^2, bf16, clips of 4 frames, batch MATTING_BATCH)
+  through the work-dir train CLI with the port's
+  ``hiera_b_plus_video_matting_stage2`` config (Hiera heads padded to 64,
+  two condition slots, the condition-frame collater; matte videos,
+  foregrounds composited over background clips, image mattes as static
+  clips), one epoch of 2 steps, then resumed for a second, its launches a
+  step derived from the model (``matting_step_launches``: K1 36 / 18, K6
+  30 / 27), and its step timed on the trained model (ms, frames/s, peak
+  memory); the matting gradients of one sharpened micro-batch at reduced
+  depth (``SAM2_D56_BLOCKS``), kernels against plain attention, held and
+  controlled as SAM2's; the reference-width ``hiera_b_plus_video_matting``
+  config (d = 56: K2 in the windows, K6 in the global block) at reduced
+  depth, one step, its counts held; full-width, full-depth SAM-B matting
+  (``sam_b_matting``, batch SAM_MATTING_BATCH, cut from 32) through its
+  train CLI, one epoch of 2 steps, then resumed for a second, every
+  kernel counter 0 (its encoder's attention is plain, as in JAX; it runs
+  while the kernels build); SAM2Image (``sam2_hiera_base_plus_image``) on
+  one image with a point, every counter 0 as built, and with
+  ``use_flash_attention`` (K2 18, K6 3) its masks, IoU predictions and
+  object logits held against plain attention by ``sam2_compare``'s rule,
+  the weights sharpened.
 
 Cuts of the earlier phases that keep this run within its limit, each of
 depth, epochs or batch (every kernel check, control and ``kernels`` row
@@ -156,12 +180,17 @@ loader alone over 4,096 files (was 8,192); the ViT-B/16 train CLIs on
 512 images, 2 steps an epoch (was 768, 3); the ResNet-50 train CLI, the
 KD and DML CLIs and the self-train ViT-B/16 on 512 JPEG files, 2 steps an
 epoch (was 1,024, 4), the ResNet-50, ResNet-18 CIFAR, KD and DML CLIs one
-epoch and a resumed second (was two and a third); the MAE CLI on 1,024
-files, one step an epoch, one epoch and a resumed second against an
-uninterrupted two (was 4,096, 4 steps, two and a third against three);
+epoch and a resumed second (was two and a third); the MAE CLI on 512
+files at batch 512, one step an epoch, one epoch and a resumed second
+against an uninterrupted two (was 4,096 at the config's 1024, 4 steps,
+two and a third against three; its step is timed at 1024 in phase 28);
+the ViT-B/16 train CLIs (phases 8 and 10c) one epoch and a resumed second
+(was two and a third);
 the SAM-B train CLI 2 steps an epoch (was 4) and the SAM2-B+ train CLI 2
 clips an epoch (was 3), each one epoch and a resumed second (was two and
-a third).
+a third); the SAM-H and Hiera-L encoder-distillation CLIs one epoch and a
+resumed second (was two and a third). SAM-B matting (phase 43), which
+launches no kernel, runs beside the build too.
 
 Prints one line per phase, each phase's wall seconds (``[phase N seconds]
 t``, when it ends), the ``kernels`` JSON line, the card's name and
@@ -442,6 +471,20 @@ SAM2_TRAIN_FRAMES, SAM2_TRAIN_CLIPS = 8, 2   # the CLI: 2 steps an epoch
 SAM2_STEP_FRAMES = 4        # the timed step: bench_sam2_train.py's recipe
 SAM2_GRAD_SEED = 7
 PACKAGE = "simpleaicv_pytorch_training_examples_tpu_torch"
+# phases 40-44, the interactive matting slice: seeded files of 768 x 1024
+# (the long side at the models' 1024), clips of the 14.2 configs' 4 frames
+MATTING_SIZE = 1024               # the models' input
+MATTING_FILE_SIZE = (768, 1024)
+MATTING_FRAMES = 4
+MATTING_BATCH = 8               # the 14.2 stage-2 config's batch
+MATTING_VIDEOS = 6              # of each video set (matte, foreground)
+MATTING_IMAGE_MATTES = 4        # DIS5K and AM2K images, static clips
+MATTING_BACKGROUNDS = 2
+MATTING_TRAIN_ENTRIES = 2 * MATTING_VIDEOS + MATTING_IMAGE_MATTES
+MATTING_TIMED_STEPS = 3
+MATTING_WORKERS = 0             # 2 steps an epoch: batches in this process
+SAM_MATTING_BATCH = 8           # cut from the 13.2 config's 32
+SAM_MATTING_IMAGES = 2 * SAM_MATTING_BATCH   # 2 steps an epoch
 # phases a-g (10f-10l): the JPEG fixtures and the ImageNet slice's sizes
 JPEG_FIXTURES = REPO / "tests" / "torch_port_data" / "jpeg"
 JPEG_MEAN_TOL = 1.0         # libjpeg builds may round the IDCT differently
@@ -455,7 +498,8 @@ IN21K_TRAIN_IMAGES = 512                              # 2 steps at 256
 IN21K_CLASSES, IN21K_ROOTS = 10450, 100   # the config's classes, two levels
 # phases a-h of the MAE and distillation slice (26-33)
 MAE_BATCH = 1024                # the MAE configs' batch
-MAE_IMAGES = 1024               # phase b: 1 step an epoch
+MAE_CLI_BATCH = 512             # phase b's CLI: cut from the config's 1024
+MAE_IMAGES = 512                # phase b: 1 step an epoch
 MAE_ONE_BATCH = 64              # phase c's one-batch run
 MAE_GRAD_BATCH, MAE_GRAD_SEED = 32, 9
 MAE_CONTROL_KEYS = 8            # keys the gradient control drops
@@ -2484,10 +2528,14 @@ def check_sam_gradients(torch, fa, ln, model, batch, criterion, label):
 def sam2_loss_and_gradients(torch, model, batch, config, use_amp):
     """Loss and fp32 parameter gradients of one SAM2 train micro-batch
     through the video train tool's loss, refinement off (a click drawn
-    from one run's own predictions would differ between runs)."""
+    from one run's own predictions would differ between runs); a matting
+    model's through the video matting train tool's."""
     from types import SimpleNamespace
-    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_video_interactive_segmentation_model import (
-        build_loss_fn)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_video_interactive_matting_model as matting_tool,
+        train_video_interactive_segmentation_model as segmentation_tool)
+    build_loss_fn = (matting_tool if hasattr(model, "matting_head")
+                     else segmentation_tool).build_loss_fn
     loss_fn = build_loss_fn(model, SimpleNamespace(
         train_criterion=config.train_criterion, decoder_point_iters=0,
         use_amp=use_amp))
@@ -3005,9 +3053,10 @@ def sharpen_sam2_attention_(torch, model, seed):
                                    generator=generator)
 
 
-def sam2_memory_logit_stats(torch, model, frames, prompts):
+def sam2_memory_logit_stats(torch, model, frames, prompts, run=None):
     """How sharp the memory cross-attention is on the last of ``frames``,
-    tracked in fp32 with plain attention (the kernels are on again after):
+    tracked in fp32 with plain attention (the kernels are on again after;
+    ``run()``, where given, is the fp32 pass instead of the stream):
     in the first layer, the std over a query row's valid keys of the
     scaled scores, averaged over the rows, and the mean largest softmax
     weight times the number of valid keys (1 for attention that
@@ -3019,7 +3068,10 @@ def sam2_memory_logit_stats(torch, model, frames, prompts):
         with_kwargs=True)
     model.set_flash_attention(False)
     try:
-        run_track(torch, model, frames, prompts, autocast=False)
+        if run is None:
+            run_track(torch, model, frames, prompts, autocast=False)
+        else:
+            run()
     finally:
         hook.remove()
         model.set_flash_attention(True)
@@ -3035,18 +3087,19 @@ def sam2_memory_logit_stats(torch, model, frames, prompts):
                 "valid_keys": int(valid.sum()), "top_weight_x_keys": top}
 
 
-def sharpen_memory_keys_(torch, model, frames, prompts):
+def sharpen_memory_keys_(torch, model, frames, prompts, run=None):
     """After ``sharpen_sam2_attention_``: scale every memory
     cross-attention's key projection so that the first layer's scores have
     unit std over a row's valid keys on ``frames`` (the memory features, the
     keys' input, are not normalised, so LeCun's draw alone leaves them
-    flatter). Returns the stats after."""
-    gain = 1.0 / sam2_memory_logit_stats(torch, model, frames,
-                                         prompts)["score_std"]
+    flatter; ``run`` as in ``sam2_memory_logit_stats``). Returns the stats
+    after."""
+    gain = 1.0 / sam2_memory_logit_stats(torch, model, frames, prompts,
+                                         run)["score_std"]
     with torch.no_grad():
         for layer in model.memory_attention.layers:
             layer.cross_attn_image.k_proj.weight.mul_(gain)
-    return sam2_memory_logit_stats(torch, model, frames, prompts)
+    return sam2_memory_logit_stats(torch, model, frames, prompts, run)
 
 
 def run_track(torch, model, frames, prompts, autocast=True):
@@ -3147,26 +3200,17 @@ def without_key_bias(model):
     return ctx()
 
 
-def sam2_compare(torch, model, frames, prompts, label, control=False):
-    """Track ``frames`` with the kernels and with plain attention in bf16,
-    and with plain attention in fp32 (the floor), on the same weights;
-    every frame's mask logits, IoU predictions and object logits of the
-    kernels are held against the floor (see the module docstring). With
-    ``control`` the kernels run once more with the key bias zeroed, and the
-    run fails unless that would fail the mask check. Returns the logged
-    fields."""
-    model.set_flash_attention(True)
-    got = run_track(torch, model, frames, prompts)
-    model.set_flash_attention(False)
-    plain = run_track(torch, model, frames, prompts)
-    fp32 = run_track(torch, model, frames, prompts, autocast=False)
-    model.set_flash_attention(True)
+def masks_reading(torch, got, plain, fp32, label):
+    """SAM2's mask logits, IoU predictions and object logits of the kernels
+    (``got``, bf16) held against plain attention's (``plain``, bf16) and
+    its fp32 computation (``fp32``, the floor), as the module docstring
+    states for the tracker; logged, raises where they disagree. Returns the
+    fields and the mask RMS bound."""
     diff = lambda a, b: (a - b).abs().max().item()
     rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()
     apart = lambda a, b: ((a > 0) != (b > 0)).float().mean().item()
     (mk, ik, ok), (mp, ip, op), (mf, i_f, of) = got, plain, fp32
     fields = {
-        "frames": frames.shape[0],
         "mask_max_abs_diff": diff(mk, mp), "mask_std": mp.std().item(),
         "fp32_mask_max_abs_diff_plain": diff(mp, mf),
         "fp32_mask_rms_diff_kernels": rms(mk, mf),
@@ -3194,6 +3238,27 @@ def sam2_compare(torch, model, frames, prompts, label, control=False):
     if not ok_all:
         raise AssertionError(f"{label}: kernels disagree with plain "
                              f"attention: {fields}")
+    return fields, rms_bound
+
+
+def sam2_compare(torch, model, frames, prompts, label, control=False):
+    """Track ``frames`` with the kernels and with plain attention in bf16,
+    and with plain attention in fp32 (the floor), on the same weights;
+    every frame's mask logits, IoU predictions and object logits of the
+    kernels are held against the floor (see the module docstring). With
+    ``control`` the kernels run once more with the key bias zeroed, and the
+    run fails unless that would fail the mask check. Returns the logged
+    fields."""
+    model.set_flash_attention(True)
+    got = run_track(torch, model, frames, prompts)
+    model.set_flash_attention(False)
+    plain = run_track(torch, model, frames, prompts)
+    fp32 = run_track(torch, model, frames, prompts, autocast=False)
+    model.set_flash_attention(True)
+    fields, rms_bound = masks_reading(torch, got, plain, fp32, label)
+    fields["frames"] = frames.shape[0]
+    mf = fp32[0]
+    rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()
     if control:
         with without_key_bias(model):
             mc, _, _ = run_track(torch, model, frames, prompts)
@@ -3275,13 +3340,13 @@ def expect_counts(label, counts, **expected):
 def run_vit_train_cli(fa, ln, train_cli, train_dir, model_kwargs, label,
                       expected):
     """ViT-B/16 through the work-dir train CLI with the port's train config
-    (``model_kwargs`` added to the model's), two epochs, then the same
-    command resumed for a third; ``expected(n_epochs)`` gives each run's
+    (``model_kwargs`` added to the model's), one epoch, then the same
+    command resumed for a second; ``expected(n_epochs)`` gives each run's
     launch counts. Returns the first run's counts and both runs' epochs."""
     shutil.rmtree(train_dir, ignore_errors=True)
     train_dir.mkdir(parents=True)
     first_counts, epochs_run = None, []
-    for epochs, first_epoch in ((2, 1), (3, 3)):
+    for epochs, first_epoch in ((1, 1), (2, 2)):
         (train_dir / "train_config.py").write_text(VIT_B_TRAIN_CONFIG.format(
             n_train=TRAIN_IMAGES, n_eval=EVAL_IMAGES, epochs=epochs,
             trained_model_path="").replace(
@@ -3552,6 +3617,422 @@ def sam2_training_slice(torch, fa, ln, results):
     return sam2_train_counts
 
 
+def hiera_routes(model, image_size):
+    """The attention route of each Hiera block of ``model``'s encoder at
+    ``image_size``, by ``MultiScaleAttention.forward``'s rules: windows and
+    other blocks of at most 1,024 tokens take K1 (heads padded to 64 or
+    128) or K2, blocks of at least ``_FLASH_MIN_KV`` keys K6, pooled
+    blocks and every block without ``use_flash`` the plain ops. Returns
+    {route: blocks}."""
+    from collections import Counter
+
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models.segment_anything2 import (
+        image_encoder as enc)
+    side, routes = image_size // 4, Counter()
+    for block in model.image_encoder.trunk.blocks:
+        attn = block.attn
+        keys = block.window_size ** 2 if block.window_size else side * side
+        if not attn.use_flash:
+            route = "plain"
+        elif not attn.pool_stride and keys <= 1024 \
+                and attn.padded_head_dim in (64, 128):
+            route = "K1"
+        elif keys >= enc._FLASH_MIN_KV:
+            route = "K6"
+        elif not attn.pool_stride and keys <= 1024 \
+                and attn.padded_head_dim <= 128:
+            route = "K2"
+        else:
+            route = "plain"
+        routes[route] += 1
+        if block.pool_stride:
+            side //= block.pool_stride
+    return routes
+
+
+def matting_step_launches(model, image_size, frames, train=True):
+    """Launches of one SAM2 matting step over ``frames`` frames (any batch:
+    the B x T frames go through the encoder in one call, each tracked frame
+    through the memory attention once), derived from ``model``: each Hiera
+    block's kernel (``hiera_routes``), twice with gradient checkpointing
+    (the recompute), with one backward; 2 K6 a memory-attention layer
+    (self- and cross-attention) on each tracked frame, with one backward.
+    ``train`` False: the forward alone."""
+    routes = hiera_routes(model, image_size)
+    memory = getattr(model, "memory_attention", None)
+    use_k6 = 2 * len(memory.layers) * (frames - 1) if memory is not None and \
+        memory.layers[0].self_attn.use_flash else 0
+    remat = 2 if train and model.image_encoder.trunk.use_gradient_checkpoint \
+        else 1
+    counts = {"K1": remat * routes["K1"], "K2": remat * routes["K2"],
+              "K6": remat * routes["K6"] + use_k6}
+    if train:
+        counts.update({"K1_bwd": routes["K1"], "K2_bwd": routes["K2"],
+                       "K6_bwd": routes["K6"] + use_k6})
+    return {k: v for k, v in counts.items() if v}
+
+
+def seeded_picture(rs, h, w):
+    """A smooth seeded RGB uint8 picture with some grain, [h, w, 3]."""
+    import numpy as np
+    from PIL import Image
+    small = Image.fromarray(rs.randint(0, 256, (6, 8, 3)).astype(np.uint8))
+    picture = np.asarray(small.resize((w, h), Image.BICUBIC),
+                         np.float32) + 8.0 * rs.standard_normal((h, w, 3))
+    return np.clip(picture, 0, 255).astype(np.uint8)
+
+
+def soft_disc(rs, h, w, shift=0.0):
+    """A seeded soft disc alpha matte, uint8 [h, w]: 255 inside, a ramp of
+    about 12 pixels, 0 outside; ``shift`` moves it right by that share of
+    the width."""
+    import numpy as np
+    cy, cx = rs.uniform(0.4, 0.6) * h, (rs.uniform(0.35, 0.5) + shift) * w
+    radius = rs.uniform(0.2, 0.3) * min(h, w)
+    yy, xx = np.mgrid[0:h, 0:w]
+    alpha = np.clip((radius - np.hypot(yy - cy, xx - cx)) / 12.0 + 0.5, 0, 1)
+    return np.round(alpha * 255).astype(np.uint8)
+
+
+def write_matting_files(root, size=MATTING_FILE_SIZE):
+    """Seeded matting files under ``root`` in the layouts of the 13.2 and
+    14.2 datasets, JPEG frames and PNG mattes written by Pillow:
+    ``human_matting/Deep_Automatic_Portrait_Matting/train/<i>.jpg`` +
+    ``<i>.png`` (SAM-B matting), ``human_matting/{DIS5K,AM2K}/train/<i>.jpg``
+    + ``<i>_alpha.png`` (image mattes as static clips),
+    ``video_interactive_segmentation/video_matting/train/v<i>/0000k.jpg`` +
+    ``0000k_alpha.png`` (matte videos), ``.../VideoMatte240K/train/...``
+    (foregrounds, composited over) ``.../background_videos/train/b<i>/``
+    (background clips). Returns the number of files."""
+    import numpy as np
+    from PIL import Image
+    rs = np.random.RandomState(19)
+    h, w = size
+    files = 0
+
+    def pair(directory, stem, alpha_suffix, shift=0.0):
+        nonlocal files
+        directory.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(seeded_picture(rs, h, w)).save(
+            directory / f"{stem}.jpg", quality=90)
+        Image.fromarray(soft_disc(rs, h, w, shift)).save(
+            directory / f"{stem}{alpha_suffix}.png")
+        files += 2
+
+    hm = root / "human_matting"
+    for i in range(SAM_MATTING_IMAGES):
+        pair(hm / "Deep_Automatic_Portrait_Matting" / "train", str(i), "")
+    for i in range(MATTING_IMAGE_MATTES):
+        pair(hm / ("DIS5K", "AM2K")[i % 2] / "train", str(i), "_alpha")
+    vis = root / "video_interactive_segmentation"
+    for name in ("video_matting", "VideoMatte240K"):
+        for v in range(MATTING_VIDEOS):
+            for k in range(MATTING_FRAMES):
+                pair(vis / name / "train" / f"v{v}", f"{k:05d}", "_alpha",
+                     0.03 * k)
+    for v in range(MATTING_BACKGROUNDS):
+        clip = vis / "background_videos" / "train" / f"b{v}"
+        clip.mkdir(parents=True, exist_ok=True)
+        for k in range(MATTING_FRAMES):
+            Image.fromarray(seeded_picture(rs, h, w)).save(
+                clip / f"{k:05d}.jpg", quality=90)
+            files += 1
+    return files
+
+
+def matting_recipe_batch(torch, frames, size, seed):
+    """A video matting batch of one clip on the card, in the layout of
+    ``SAM2VideoMattingBatchCollater``: a soft disc's alpha and its trimap
+    (``make_trimap``), a point on frame 0 and on frame 2, which are the
+    condition frames."""
+    import numpy as np
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.datasets.sam2_video_matting_dataset import (
+        make_trimap)
+    rs = np.random.RandomState(seed)
+    alpha = np.stack([soft_disc(np.random.RandomState(seed), size, size,
+                                0.02 * t) for t in range(frames)]) / 255.0
+    trimap = np.stack([make_trimap(a) for a in alpha])
+    points = np.full((1, frames, 2, 3), -1.0, np.float32)
+    cond = np.zeros((1, frames), np.float32)
+    for t in (0, 2):
+        ys, xs = np.nonzero(alpha[t] > 0.5)
+        points[0, t, 0] = (xs.mean(), ys.mean(), 1.0)
+        cond[0, t] = 1.0
+    rq = size // 4
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).float().cuda()
+    return {
+        "image": torch.from_numpy(rs.rand(1, frames, 3, size, size).astype(
+            np.float32)).cuda(),
+        "alpha": as_t(alpha[None]), "trimap": as_t(trimap[None]),
+        "prompt_point": as_t(points),
+        "prompt_box": torch.zeros(1, frames, 4, device="cuda"),
+        "prompt_box_valid": torch.zeros(1, frames, device="cuda"),
+        "prompt_mask": torch.zeros(1, frames, 1, rq, rq, device="cuda"),
+        "prompt_mask_valid": torch.zeros(1, frames, device="cuda"),
+        "is_cond_frame": torch.from_numpy(cond)}
+
+
+def matting_forward_fp32(torch, model, batch):
+    """The matting model's forward on ``batch`` in fp32 (the memory-key
+    sharpening's pass)."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools.train_video_interactive_matting_model import (
+        PROMPT_KEYS)
+
+    def run():
+        with torch.inference_mode():
+            model(batch["image"], {k: batch[k] for k in PROMPT_KEYS},
+                  is_cond_frame=batch["is_cond_frame"].amax(dim=0))
+    return run
+
+
+def video_matting_cli_phase(torch, fa, ln, experiments):
+    """Phase 40: SAM2-B+ video matting through the work-dir train CLI with
+    the port's ``hiera_b_plus_video_matting_stage2`` config on the seeded
+    files (one epoch of 2 steps, then resumed for a second), its launch
+    counts derived from the model; then the step timed at the config's
+    batch on the trained model. Returns the CLI's launch counts of its
+    first run."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_video_interactive_matting_model as matting_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
+        build_optimizer, load_config_from_work_dir)
+    config_dir = experiments / "video_interactive_segmentation" / \
+        "hiera_b_plus_video_matting_stage2"
+    with torch.device("meta"):
+        meta = load_config_from_work_dir(str(config_dir), "train_config")
+    step_launches = matting_step_launches(meta.model, MATTING_SIZE, MATTING_FRAMES)
+    log("sam2_b+ video matting launches a step, derived",
+        routes=dict(hiera_routes(meta.model, MATTING_SIZE)), **step_launches)
+    steps = MATTING_TRAIN_ENTRIES // MATTING_BATCH
+    runs = run_train_cli(
+        matting_cli, SMOKE_DIR / "sam2_b+_video_matting_train",
+        config_dir / "train_config.py", "sam2_b+ video matting train cli",
+        ((1, 1), (2, 2)),
+        {"batch_size = 8": f"batch_size = {MATTING_BATCH}",
+         "num_workers = 32": f"num_workers = {MATTING_WORKERS}",
+         "epochs = 20": "epochs = {epochs}",
+         "print_interval = 50": "print_interval = 1"}, fa, ln,
+        expected=lambda epochs: {k: v * steps * epochs
+                                 for k, v in step_launches.items()})
+    work_dir = SMOKE_DIR / "sam2_b+_video_matting_train"
+    train_log = (work_dir / "log" / "train.log").read_text()
+    losses = [float(x) for x in re.findall(r" loss ([-\w.]+) avg ",
+                                           train_log)]
+    if (len(losses) != 2 * steps or not all(map(math.isfinite, losses))
+            or "resumed from epoch 1" not in train_log):
+        raise AssertionError(f"video matting train log: losses {losses}")
+    config = load_config_from_work_dir(str(work_dir), "train_config")
+    if len(config.train_dataset) != MATTING_TRAIN_ENTRIES:
+        raise AssertionError(f"video matting dataset: "
+                             f"{len(config.train_dataset)} clips")
+    model = runs[-1].pop("model")
+    optimizer, _ = build_optimizer(config, model, 100)
+    train_step = make_train_step(
+        model, None, optimizer, seed=config.seed,
+        loss_fn=matting_cli.build_loss_fn(model, config),
+        host_keys=matting_cli.HOST_KEYS)
+    import numpy as np
+    np.random.seed(0)
+    batch = config.train_collater([config.train_dataset[i]
+                                   for i in range(MATTING_BATCH)])
+    batch = {k: v if k in matting_cli.HOST_KEYS else v.cuda()
+             for k, v in batch.items()}
+    reset_counts(fa, ln)
+    step_losses, ms, peak = timed_steps(torch, train_step, batch,
+                                        MATTING_TIMED_STEPS)
+    counts = read_counts(fa, ln)
+    expect_counts("SAM2-B+ video matting timed steps", counts, **{
+        k: v * MATTING_TIMED_STEPS for k, v in step_launches.items()})
+    frames = MATTING_BATCH * MATTING_FRAMES
+    log("sam2_b+ video matting train step", batch=MATTING_BATCH,
+        frames_a_clip=MATTING_FRAMES, ms=ms, frames_per_s=frames / ms * 1e3,
+        peak_memory_gb=peak, losses=step_losses,
+        condition_frames=batch["is_cond_frame"][0].tolist(),
+        timed="host clock, after the first of "
+              f"{MATTING_TIMED_STEPS} steps on one batch")
+    if not all(map(math.isfinite, step_losses)):
+        raise AssertionError(f"video matting steps: {step_losses}")
+    first_counts = runs[0]["launches"]
+    del model, train_step, optimizer, batch, runs
+    torch.cuda.empty_cache()
+    return first_counts
+
+
+def video_matting_gradient_phase(torch, fa, ln):
+    """Phase 41: SAM2-B+ video matting at the stage-2 config's settings and
+    reduced depth (``SAM2_D56_BLOCKS``: K1 in the windows, K6 in the global
+    block and the memory attention) with sharp attention, one micro-batch's
+    gradients (a 4-frame clip, frames 0 and 2 condition frames), kernels
+    against plain attention, held as SAM2's (``check_sam2_gradients``,
+    with its control)."""
+    from types import SimpleNamespace
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import init_model
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.losses_matting import (
+        SAM2MattingLoss)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models import (
+        sam2_hiera_base_plus_video_matting)
+    model = init_model(sam2_hiera_base_plus_video_matting(
+        image_size=MATTING_SIZE, block_nums=SAM2_D56_BLOCKS,
+        global_attention_blocks=SAM2_D56_GLOBAL, use_gradient_checkpoint=True,
+        use_flash_attention=True, head_dim_padding=64, memory_cond_slots=2),
+        0)
+    batch = matting_recipe_batch(torch, MATTING_FRAMES, MATTING_SIZE,
+                                 SAM2_GRAD_SEED)
+    sharpen_sam2_attention_(torch, model, SAM2_GRAD_SEED)
+    sharp = sharpen_memory_keys_(torch, model, None, None,
+                                 run=matting_forward_fp32(torch, model, batch))
+    log("sam2_b+ video matting memory attention, sharpened", **sharp)
+    config = SimpleNamespace(train_criterion=SAM2MattingLoss())
+    counts = check_sam2_gradients(torch, fa, ln, model, batch, config,
+                                  "sam2_b+ video matting sharp attention")
+    expect_counts("SAM2-B+ video matting gradients", counts,
+                  **matting_step_launches(model, MATTING_SIZE, MATTING_FRAMES))
+    del model
+    torch.cuda.empty_cache()
+
+
+def video_matting_reference_width_phase(torch, fa, ln, experiments):
+    """Phase 42: the ``hiera_b_plus_video_matting`` config (heads of the
+    reference width, d = 56: K2 in the windows, K6 at d = 56 in the global
+    block; frame-0 points) at reduced depth (``SAM2_D56_BLOCKS``), one
+    train step on a clip of the matte-video files, its launches derived
+    from the model."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import (
+        init_model, make_train_step)
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_video_interactive_matting_model as matting_cli)
+    from simpleaicv_pytorch_training_examples_tpu_torch.utils import (
+        build_optimizer, load_config_from_work_dir)
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models import (
+        sam2_hiera_base_plus_video_matting)
+    config_dir = experiments / "video_interactive_segmentation" / \
+        "hiera_b_plus_video_matting"
+    with torch.device("meta"):
+        config = load_config_from_work_dir(str(config_dir), "train_config")
+    full = config.model
+    config.model = init_model(sam2_hiera_base_plus_video_matting(
+        image_size=full.image_size, block_nums=SAM2_D56_BLOCKS,
+        global_attention_blocks=SAM2_D56_GLOBAL,
+        use_gradient_checkpoint=full.image_encoder.trunk
+        .use_gradient_checkpoint, use_flash_attention=True,
+        head_dim_padding=full.head_dim_padding,
+        memory_cond_slots=full.memory_cond_slots), config.seed)
+    model = config.model
+    optimizer, _ = build_optimizer(config, model, 10)
+    train_step = make_train_step(
+        model, None, optimizer, seed=config.seed,
+        loss_fn=matting_cli.build_loss_fn(model, config),
+        host_keys=matting_cli.HOST_KEYS)
+    import numpy as np
+    np.random.seed(1)
+    batch = {k: v.cuda() for k, v in config.train_collater(
+        [config.train_dataset[0]]).items()}
+    reset_counts(fa, ln)
+    out = train_step(batch, 0)
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    expected = matting_step_launches(model, full.image_size,
+                                     config.frame_nums)
+    log("sam2_b+ video matting reference width step",
+        head_dim_padding=full.head_dim_padding, blocks=SAM2_D56_BLOCKS,
+        loss=out["loss"].item(), skipped=out["skipped"].item(),
+        launches=counts, derived=expected)
+    expect_counts("SAM2-B+ video matting at d = 56", counts, **expected)
+    if out["skipped"].item() or not math.isfinite(out["loss"].item()) \
+            or not counts["K2"]:
+        raise AssertionError(f"reference-width matting step: {out}")
+    del model, train_step, optimizer, config
+    torch.cuda.empty_cache()
+
+
+def sam_matting_cli_phase(torch, fa, ln, experiments):
+    """Phase 43: SAM-B matting through the work-dir train CLI with the
+    port's ``sam_b_matting`` config on the seeded portrait files at batch
+    SAM_MATTING_BATCH (cut from 32), one epoch of 2 steps, then resumed
+    for a second: its encoder's attention is the plain one, as in JAX, so
+    every kernel counter reads 0."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.tools import (
+        train_interactive_matting_model as sam_matting_cli)
+    config_dir = experiments / "interactive_segmentation" / "sam_b_matting"
+    runs = run_train_cli(
+        sam_matting_cli, SMOKE_DIR / "sam_b_matting_train",
+        config_dir / "train_config.py", "sam_b matting train cli",
+        ((1, 1), (2, 2)),
+        {"batch_size = 32": f"batch_size = {SAM_MATTING_BATCH}",
+         "num_workers = 32": f"num_workers = {MATTING_WORKERS}",
+         "epochs = 30": "epochs = {epochs}",
+         "print_interval = 50": "print_interval = 1"}, fa, ln)
+    terms = {k: v for k, v in runs[-1]["epochs"][-1].items()
+             if k.endswith("Loss_avg")}
+    log("sam_b matting train cli losses", **terms)
+    if len(terms) != 7 or not all(map(math.isfinite, terms.values())):
+        raise AssertionError(f"SAM-B matting losses: {terms}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def sam2_image_phase(torch, fa, ln):
+    """Phase 44: SAM2Image (``sam2_hiera_base_plus_image``) on one 1024^2
+    image prompted with a point: built as the predict examples build it
+    (plain attention), every counter 0; with ``use_flash_attention`` on
+    the same weights, sharpened, K2 in the windows and K6 in the global
+    blocks (derived), its masks, IoU predictions and object logits held
+    against plain attention by ``masks_reading``."""
+    from simpleaicv_pytorch_training_examples_tpu_torch.engine import init_model
+    from simpleaicv_pytorch_training_examples_tpu_torch.video_interactive_segmentation.models import (
+        sam2_hiera_base_plus_image)
+    model = init_model(sam2_hiera_base_plus_image(image_size=MATTING_SIZE), 0)
+    gen = torch.Generator(device="cuda").manual_seed(SAM2_SHARP_SEED)
+    image = torch.rand(1, 3, MATTING_SIZE, MATTING_SIZE, device="cuda", generator=gen)
+    prompts = {"prompt_point": torch.tensor([[[400.0, 600.0, 1.0]]],
+                                            device="cuda"),
+               "prompt_box": None, "prompt_mask": None}
+
+    def run(autocast=True):
+        with torch.inference_mode(), torch.autocast(
+                "cuda", torch.bfloat16, enabled=autocast):
+            return tuple(t.float() for t in model(image, prompts))
+    reset_counts(fa, ln)
+    first = run()
+    torch.cuda.synchronize()
+    expect_counts("SAM2Image as built", read_counts(fa, ln))
+    sharpen_sam2_attention_(torch, model, SAM2_SHARP_SEED)
+    model.set_flash_attention(True)
+    reset_counts(fa, ln)
+    got = run()
+    torch.cuda.synchronize()
+    counts = read_counts(fa, ln)
+    expected = matting_step_launches(model, MATTING_SIZE, 1, train=False)
+    expect_counts("SAM2Image with use_flash_attention", counts, **expected)
+    model.set_flash_attention(False)
+    plain, fp32 = run(), run(autocast=False)
+    masks_reading(torch, got, plain, fp32, "sam2_b+ image use_flash_attention")
+    log("sam2_b+ image launches", as_built=0, use_flash_attention=counts,
+        derived=expected, mask_shape=list(first[0].shape),
+        finite=bool(torch.isfinite(first[0]).all()))
+    del model
+    torch.cuda.empty_cache()
+
+
+def matting_slice(torch, fa, ln):
+    """Phases 40-44, the interactive matting slice (``main``); SAM-B
+    matting (43), which launches no kernel, runs in ``no_kernel_slice``.
+    Returns the video matting train CLI's launch counts of its first
+    run."""
+    experiments = REPO / PACKAGE / "experiments"
+    phase_start("40")
+    counts = video_matting_cli_phase(torch, fa, ln, experiments)
+    phase_start("41")
+    video_matting_gradient_phase(torch, fa, ln)
+    phase_start("42")
+    video_matting_reference_width_phase(torch, fa, ln, experiments)
+    phase_start("44")
+    sam2_image_phase(torch, fa, ln)
+    return counts
+
+
 def config_text(path, **replacements):
     """A port config's text with each ``old -> new`` line replaced; raises
     if a line is not there (the config drifted from what a phase expects)."""
@@ -3718,6 +4199,7 @@ def run_train_cli(cli, work_dir, config_path, label, passes, replacements,
                 "(print_interval 1)")
         log(f"{label} run to epoch {epochs}", seconds=seconds,
             launches=counts)
+        run["launches"] = counts
         expect_counts(f"{label} to epoch {epochs}", counts, **(
             expected(epochs - first_epoch + 1) if expected else {}))
         ran = [e["epoch"] for e in run["epochs"]]
@@ -4510,9 +4992,10 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
         '    os.environ.get("SIMPLEAICV_DATA_ROOT", "datasets"), '
         '"ILSVRC2012")\n': f'    {str(mae_root)!r}, "ILSVRC2012")\n',
         "    epochs = 400\n": "    epochs = {epochs}\n",
+        "    batch_size = 1024\n": f"    batch_size = {MAE_CLI_BATCH}\n",
         '            "warm_up_epochs": 40,\n':
         '            "warm_up_epochs": 3,\n'}
-    steps = MAE_IMAGES // MAE_BATCH
+    steps = MAE_IMAGES // MAE_CLI_BATCH
     expected = lambda n: dict(K1=12 * steps * n, K1_bwd=12 * steps * n,
                               K2=8 * steps * n, K2_bwd=8 * steps * n)
     deterministic = torch.backends.cudnn.deterministic
@@ -4540,8 +5023,10 @@ def mae_distill_slice(torch, F, fa, ln, results, train_cli):
         for slot in ("mu", "nu")
         for n, t in a["optimizer_state_dict"][slot].items())
     resumed, uninterrupted = parts[1]["epochs"][0], whole[0]["epochs"][1]
-    log("mae_vit_b16 train cli", batch=MAE_BATCH, train_images=MAE_IMAGES,
+    log("mae_vit_b16 train cli", batch=MAE_CLI_BATCH,
+        train_images=MAE_IMAGES,
         config_changes=["data root: " + str(mae_root), "epochs: 400 -> 2",
+                        f"batch_size: 1024 -> {MAE_CLI_BATCH}",
                         "warm_up_epochs: 40 -> 3 (every epoch of both runs in the "
                         "linear warm-up, whose lr does not depend on the "
                         "epochs set)"],
@@ -5127,7 +5612,8 @@ def encoder_distill_phase(torch, fa, ln, experiments):
     DINOv3 ViT-B/16) configs through their train CLIs at 1024^2, full width
     and depth, fp32 as in JAX, on seeded synthetic SAM images (cut: batch
     64 -> DISTILL_BATCH, what fits beside the teacher; 2 steps an epoch):
-    two epochs, then resumed for a third, no hand-written kernel launched
+    one epoch, then resumed for a second (cut from two and a third), no
+    hand-written kernel launched
     (the teachers' attention is plain, the student's N = 4096 too); the
     teacher of every checkpoint saved bit for bit the teacher the first run
     loaded (``teacher_watch``). Returns, for each config, what
@@ -5162,7 +5648,7 @@ def encoder_distill_phase(torch, fa, ln, experiments):
         path = experiments / rel / "train_config.py"
         with teacher_watch() as watch:
             runs = run_train_cli(cli, work_dir, path, f"{label} cli",
-                                 ((2, 1), (3, 3)), changes, fa, ln)
+                                 ((1, 1), (2, 2)), changes, fa, ln)
         trained.append(dict(
             label=label, model=runs[-1].pop("model"),
             as_loaded=watch.equal,
@@ -5278,12 +5764,13 @@ def write_cifar(data_root):
 
 
 def no_kernel_slice(torch, fa, ln, eval_cli):
-    """The untimed checks of phases 35, 38 and 39, which launch no
+    """The untimed checks of phases 35, 38, 39 and 43, which launch no
     hand-written kernel (their counts say so), run while the kernels build:
     data parallelism at world size 1, the DarkNet / VAN / ConvFormer
-    configs that are not timed and the SAM / SAM2 encoder-distillation
+    configs that are not timed, the SAM / SAM2 encoder-distillation
     CLIs onto DINOv3 ViT-B/16, on the JPEG folder and the CIFAR-100 pickles
-    of the ImageNet phases, written first. Returns the train steps and
+    of the ImageNet phases, written first, and SAM-B matting on the
+    matting files (``write_matting_files``), which phases 40-42 read too. Returns the train steps and
     the trained distill models that ``no_kernel_timed_slice`` times."""
     import os
 
@@ -5300,7 +5787,12 @@ def no_kernel_slice(torch, fa, ln, eval_cli):
     phase_start("38")
     held = backbone_configs_phase(torch, fa, ln, experiments, eval_cli)
     phase_start("39")
-    return held, encoder_distill_phase(torch, fa, ln, experiments)
+    trained = encoder_distill_phase(torch, fa, ln, experiments)
+    phase_start("43")
+    files = write_matting_files(data_root)
+    log("matting files", files=files, size=MATTING_FILE_SIZE)
+    sam_matting_cli_phase(torch, fa, ln, experiments)
+    return held, trained
 
 
 def no_kernel_timed_slice(torch, fa, ln, held, trained):
@@ -5755,8 +6247,8 @@ def main():
     del vit_h, optimizer, train_step, eval_step
 
     phase_start("8")
-    # 8. the training slice: ViT-B/16 through the work-dir train CLI, two
-    #    epochs, then the same command resumed for a third
+    # 8. the training slice: ViT-B/16 through the work-dir train CLI, one
+    #    epoch, then the same command resumed for a second
     train_dir = SMOKE_DIR / "vit_base_patch16_train"
     iters = TRAIN_IMAGES // BATCH
     eval_batches = -(-EVAL_IMAGES // BATCH)
@@ -5768,9 +6260,9 @@ def main():
     train_log = (train_dir / "log" / "train.log").read_text()
     iter_losses = [float(x) for x in re.findall(r" loss ([-\w.]+) avg ",
                                                 train_log)]
-    if (len(iter_losses) != 3 * iters
+    if (len(iter_losses) != 2 * iters
             or not all(map(math.isfinite, iter_losses))
-            or "resumed from epoch 2" not in train_log):
+            or "resumed from epoch 1" not in train_log):
         raise AssertionError(f"train log: losses {iter_losses}")
     checkpoints = train_dir / "checkpoints"
     if not ((checkpoints / "latest.pth").is_file()
@@ -5918,8 +6410,8 @@ def main():
 
     phase_start("10c")
     # 10c. the training slice with use_fused_block: ViT-B/16 through the
-    #      work-dir train CLI with the port's train config and the flag, two
-    #      epochs, then resumed for a third. At drop-path 0.1 only block 0
+    #      work-dir train CLI with the port's train config and the flag, one
+    #      epoch, then resumed for a second. At drop-path 0.1 only block 0
     #      (whose own probability is 0) takes K8 in training, the others K1;
     #      every block takes K8 in the epochs' eval
     block_train_dir = SMOKE_DIR / "vit_base_patch16_fused_block_train"
@@ -6383,9 +6875,14 @@ def main():
     #        while the kernels built)
     dinov3_kernel_slice(torch, F, fa, ln, results)
     torch.cuda.empty_cache()
+
+    # 40-44. interactive matting: SAM2-B+ video matting, SAM2Image (43,
+    #        SAM-B matting, ran while the kernels built)
+    matting_counts = matting_slice(torch, fa, ln)
+    torch.cuda.empty_cache()
     phase_start(None)
 
-    # 40. kernels line
+    # 45. kernels line
     source = PACKAGE + "/csrc/"
     pallas = "simpleaicv_pytorch_training_examples_tpu/ops/pallas/"
 
@@ -6402,12 +6899,14 @@ def main():
                           "entry-point phase"}
     kernels = [
         entry("K1", "K1 fused_attention_dense fwd", "short_attention_fwd.cu",
-              "fused_attention.py:536", train_counts["K1"]),
+              "fused_attention.py:536", train_counts["K1"],
+              video_matting_launches=matting_counts["K1"]),
         entry("K2", "K2 fused_attention fwd", "short_attention_fwd.cu",
               "fused_attention.py:121", train_counts_h["K2"]),
         entry("K1 bwd", "K1 fused_attention_dense bwd",
               "short_attention_bwd.cu", "fused_attention.py:550",
-              train_counts["K1 bwd"]),
+              train_counts["K1 bwd"],
+              video_matting_launches=matting_counts["K1 bwd"]),
         entry("K2 bwd", "K2 fused_attention bwd", "short_attention_bwd.cu",
               "fused_attention.py:136", train_counts_h["K2 bwd"]),
         entry("K7", "K7 layer_norm fwd", "layer_norm.cu",
@@ -6432,9 +6931,11 @@ def main():
               "flash_relpos_bwd.cu", "flash_attention.py:541",
               sam_train_counts["K5 bwd"]),
         entry("K6", "K6 flash_attention fwd", "flash_attention_fwd.cu",
-              "flash_attention.py:113", sam2_counts["K6"]),
+              "flash_attention.py:113", sam2_counts["K6"],
+              video_matting_launches=matting_counts["K6"]),
         entry("K6 bwd", "K6 flash_attention bwd", "flash_keybias_bwd.cu",
-              "flash_attention.py:206", sam2_train_counts["K6 bwd"]),
+              "flash_attention.py:206", sam2_train_counts["K6 bwd"],
+              video_matting_launches=matting_counts["K6 bwd"]),
         entry("K8", "K8 attn_block fwd", "attn_block.cu",
               "attn_block.py:272", block_train_counts["K8"]),
         entry("K8 bwd", "K8 attn_block bwd", "attn_block.cu",

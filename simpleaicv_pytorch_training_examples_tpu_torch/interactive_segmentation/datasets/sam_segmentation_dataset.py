@@ -17,8 +17,9 @@ INTER_LINEAR for the 4x mask downsample and its image upsampling to float
 rounding, ``mode="nearest"`` equals INTER_NEAREST, and scipy's
 ``minimum_filter`` / ``maximum_filter`` over a k x k box with
 ``mode="nearest"`` equal ``cv2.erode`` / ``cv2.dilate`` with a k x k kernel
-for odd and even k. Only the dataset's disk reader imports cv2, when an
-item is read.
+for odd and even k. The dataset reads its files without cv2
+(``data/image_files.py``: JPEG images through the native libjpeg core, PNG
+masks through Pillow).
 
 Disk layouts: ``root/<set>/<type>/`` with ``image.jpg`` and
 ``image_mask<k>.png`` files, or with ``image.jpg`` and an SA-1B
@@ -34,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from scipy import ndimage
+
+from ...data.image_files import read_gray, read_rgb
 
 __all__ = [
     "SamSegmentationDataset", "SAMCollater", "load_points", "mask_to_box",
@@ -200,9 +203,7 @@ class SamSegmentationDataset:
     @staticmethod
     def _load_mask(kind, payload):
         if kind == "png":
-            import cv2
-            return (cv2.imread(payload, cv2.IMREAD_GRAYSCALE) >
-                    127).astype(np.float32)
+            return (read_gray(payload) > 127).astype(np.float32)
         json_path, k = payload
         with open(json_path) as f:
             seg = json.load(f)["annotations"][k]["segmentation"]
@@ -213,10 +214,8 @@ class SamSegmentationDataset:
         return rle_decode(seg).astype(np.float32)
 
     def __getitem__(self, idx):
-        import cv2
         image_path, kind, payload = self.entries[idx]
-        image = cv2.cvtColor(cv2.imread(image_path),
-                             cv2.COLOR_BGR2RGB).astype(np.float32)
+        image = read_rgb(image_path)
         sample = {"image": image, "mask": self._load_mask(kind, payload),
                   "size": np.array(image.shape[:2], np.float32)}
         if self.transform is not None:

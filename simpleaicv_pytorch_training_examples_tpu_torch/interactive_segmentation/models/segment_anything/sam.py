@@ -14,7 +14,10 @@ border both take the edge value.
 
 Parameters are fp32; run under ``torch.autocast`` for bf16 compute.
 ``use_gradient_checkpoint`` recomputes each encoder block in the backward
-(see ``image_encoder.py``).
+(see ``image_encoder.py``). ``image_encoder_type`` "sam_vit" is SAM's ViT;
+a DINOv3 backbone's name (``dinov3_vit_base_patch16_backbone`` ...) puts
+``dinov3_segment_anything.DINOv3SAMImageEncoder`` in its place, whose
+attention stays plain (N = 4096 tokens at 1024^2).
 ``init_weights_`` draws seeded random weights with the initialisers the
 reference torch SAM gets from PyTorch, except that the position embedding
 and the rel-pos tables, zero there, get small random values, so that a
@@ -32,7 +35,8 @@ from .image_encoder import LayerNorm2d, SAMAttention, ViTImageEncoder
 from .mask_decoder import MaskDecoder
 from .prompt_encoder import PromptEncoder
 
-__all__ = ["SAM", "sam_b", "sam_l", "sam_h"]
+__all__ = ["SAM", "sam_b", "sam_l", "sam_h", "build_image_encoder",
+           "init_sam_weights_"]
 
 
 class SAM(nn.Module):
@@ -43,22 +47,18 @@ class SAM(nn.Module):
                  prompt_encoder_embedding_planes=256, sigmoid_out=False,
                  binary_mask_out=False, mask_threshold=0.0,
                  use_gradient_checkpoint=False, remat_policy=None,
-                 use_flash_attention=False):
+                 use_flash_attention=False, image_encoder_type="sam_vit"):
         super().__init__()
         self.image_size = image_size
         self.sigmoid_out = sigmoid_out
         self.binary_mask_out = binary_mask_out
         self.mask_threshold = mask_threshold
-        self.image_encoder = ViTImageEncoder(
-            image_size=image_size, patch_size=patch_size,
-            embedding_planes=image_encoder_embedding_planes,
-            block_nums=image_encoder_block_nums,
-            head_nums=image_encoder_head_nums,
-            out_planes=prompt_encoder_embedding_planes, window_size=14,
-            global_attn_indexes=tuple(image_encoder_global_attn_indexes),
-            use_gradient_checkpoint=use_gradient_checkpoint,
-            remat_policy=remat_policy,
-            use_flash_attention=use_flash_attention)
+        self.image_encoder = build_image_encoder(
+            image_encoder_type, image_size, patch_size,
+            image_encoder_embedding_planes, image_encoder_block_nums,
+            image_encoder_head_nums, image_encoder_global_attn_indexes,
+            prompt_encoder_embedding_planes, use_gradient_checkpoint,
+            remat_policy, use_flash_attention)
         self.prompt_encoder = PromptEncoder(
             image_size=image_size, patch_size=patch_size,
             embedding_planes=prompt_encoder_embedding_planes)
@@ -79,23 +79,7 @@ class SAM(nn.Module):
         (uniform in +-1/sqrt(fan_in)), unit norms, N(0, 1) embeddings and
         tokens, and N(0, 0.02^2) (truncated) position embedding and rel-pos
         tables."""
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(
-                    module.weight)
-                bound = 1.0 / math.sqrt(fan_in)
-                module.weight.uniform_(-bound, bound, generator=generator)
-                if module.bias is not None:
-                    module.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(module, (nn.LayerNorm, LayerNorm2d)):
-                nn.init.ones_(module.weight)
-                nn.init.zeros_(module.bias)
-            elif isinstance(module, nn.Embedding):
-                module.weight.normal_(0.0, 1.0, generator=generator)
-            elif isinstance(module, SAMAttention):
-                trunc_normal_(module.rel_pos_h, 0.02, generator)
-                trunc_normal_(module.rel_pos_w, 0.02, generator)
-        trunc_normal_(self.image_encoder.pos_embed, 0.02, generator)
+        init_sam_weights_(self, generator)
 
     def forward_image_encoder(self, batch_images):
         return self.image_encoder(batch_images)
@@ -127,6 +111,53 @@ class SAM(nn.Module):
         embeddings = self.forward_image_encoder(batch_images)
         return self.forward_prompt_encoder_mask_decoder(
             embeddings, batch_prompts, mask_out_idxs)
+
+
+def build_image_encoder(image_encoder_type, image_size, patch_size, planes,
+                        block_nums, head_nums, global_attn_indexes,
+                        out_planes, use_gradient_checkpoint=False,
+                        remat_policy=None, use_flash_attention=False):
+    """SAM's ViT encoder ("sam_vit"), or the DINOv3 encoder of that
+    backbone name."""
+    if image_encoder_type != "sam_vit":
+        from ..dinov3_segment_anything import DINOv3SAMImageEncoder
+        return DINOv3SAMImageEncoder(
+            image_encoder_type, out_planes,
+            use_gradient_checkpoint=use_gradient_checkpoint)
+    return ViTImageEncoder(
+        image_size=image_size, patch_size=patch_size,
+        embedding_planes=planes, block_nums=block_nums, head_nums=head_nums,
+        out_planes=out_planes, window_size=14,
+        global_attn_indexes=tuple(global_attn_indexes),
+        use_gradient_checkpoint=use_gradient_checkpoint,
+        remat_policy=remat_policy, use_flash_attention=use_flash_attention)
+
+
+@torch.no_grad()
+def init_sam_weights_(model, generator):
+    """``SAM.init_weights_`` for any model of SAM's parts (SAM matting
+    too): PyTorch's default initialisers for Linear and convolution layers,
+    unit norms, N(0, 1) embeddings, N(0, 0.02^2) (truncated) position
+    embedding and rel-pos tables. Modules with an ``init_weights_`` of
+    their own (a DINOv3 encoder's, BatchNorm's) set theirs after this."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
+            bound = 1.0 / math.sqrt(fan_in)
+            module.weight.uniform_(-bound, bound, generator=generator)
+            if module.bias is not None:
+                module.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(module, (nn.LayerNorm, LayerNorm2d)):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(module, SAMAttention):
+            trunc_normal_(module.rel_pos_h, 0.02, generator)
+            trunc_normal_(module.rel_pos_w, 0.02, generator)
+    pos_embed = getattr(model.image_encoder, "pos_embed", None)
+    if pos_embed is not None:
+        trunc_normal_(pos_embed, 0.02, generator)
 
 
 def _sam(planes, block_nums, head_nums, global_attn_indexes, **kwargs):

@@ -43,8 +43,8 @@ from torch import nn
 
 from ...ops.kernels.fused_attention import (MAX_HEAD_DIM, MAX_TOKENS,
                                             fused_attention)
-from ..common import (FusedLayerNorm, Linear, PatchEmbed, _MaskedDrop,
-                      max_pool, remat_call)
+from ..common import (ConvTranspose2d, FusedLayerNorm, Linear, PatchEmbed,
+                      _MaskedDrop, max_pool, remat_call)
 
 __all__ = [
     "DinoVisionTransformer",
@@ -321,25 +321,6 @@ def dinov3_vit_huge_plus_patch16_backbone(**kwargs):
                                  **kwargs)
 
 
-class _ConvTranspose2x2(nn.ConvTranspose2d):
-    """2x2 / 2 transposed convolution computing in ``dtype``; its kernel
-    starts from Flax's ``lecun_normal`` (std 1/sqrt(fan_in))."""
-
-    def __init__(self, inplanes, planes, dtype):
-        super().__init__(inplanes, planes, 2, 2)
-        self.compute_dtype = dtype
-
-    def init_weights_(self, generator):
-        from ..common import trunc_normal_
-        trunc_normal_(self.weight, (4 * self.in_channels) ** -0.5, generator)
-        nn.init.zeros_(self.bias)
-
-    def forward(self, x):
-        dtype = self.compute_dtype
-        return F.conv_transpose2d(x.to(dtype), self.weight.to(dtype),
-                                  self.bias.to(dtype), stride=2)
-
-
 class VitPyramidNeck(nn.Module):
     """Single-scale /16 grid -> 4-level pyramid (/4, /8, /16, /32) of
     ``planes`` channels; tanh GELU (Flax's default) after each layer."""
@@ -347,9 +328,9 @@ class VitPyramidNeck(nn.Module):
     def __init__(self, inplanes, planes=256, dtype=torch.float32):
         from ..common import Conv2d
         super().__init__()
-        self.p2_up1 = _ConvTranspose2x2(inplanes, planes, dtype)
-        self.p2_up2 = _ConvTranspose2x2(planes, planes, dtype)
-        self.p3_up = _ConvTranspose2x2(inplanes, planes, dtype)
+        self.p2_up1 = ConvTranspose2d(inplanes, planes, dtype=dtype)
+        self.p2_up2 = ConvTranspose2d(planes, planes, dtype=dtype)
+        self.p3_up = ConvTranspose2d(inplanes, planes, dtype=dtype)
         self.p4_conv = Conv2d(inplanes, planes, 1, dtype=dtype,
                               init_std=inplanes ** -0.5)
 

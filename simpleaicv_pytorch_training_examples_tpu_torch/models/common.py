@@ -36,7 +36,8 @@ from ..parallel.mesh import world_size
 __all__ = ["trunc_normal_", "init_parameters_", "attach_mask_generator",
            "Dropout", "DropPath", "drop_path_rates", "remat_call",
            "PatchEmbed", "FusedLayerNorm", "Linear", "Mlp",
-           "MultiHeadSelfAttention", "Conv2d", "BatchNorm2d", "ConvBnAct",
+           "MultiHeadSelfAttention", "Conv2d", "ConvTranspose2d",
+           "BatchNorm2d", "ConvBnAct",
            "max_pool", "avg_pool_global", "batch_stat_buffers",
            "frozen_batch_stats"]
 
@@ -307,6 +308,30 @@ class Conv2d(nn.Conv2d):
         bias = None if self.bias is None else self.bias.to(dtype)
         return F.conv2d(x.to(dtype), self.weight.to(dtype), bias,
                         self.stride, self.padding, self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """Flax's ``nn.ConvTranspose(planes, (k, k), strides=(s, s))`` (SAME
+    padding; k = s gives an s-times larger map) over fp32 parameters,
+    computing in ``dtype``; the kernel starts from Flax's ``lecun_normal``,
+    the bias from zeros."""
+
+    def __init__(self, inplanes, planes, kernel_size=2, stride=2, bias=True,
+                 dtype=torch.float32):
+        super().__init__(inplanes, planes, kernel_size, stride, bias=bias)
+        self.compute_dtype = dtype
+
+    def init_weights_(self, generator):
+        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
+        trunc_normal_(self.weight, fan_in ** -0.5, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dtype = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.conv_transpose2d(x.to(dtype), self.weight.to(dtype), bias,
+                                  self.stride)
 
 
 class BatchNorm2d(nn.Module):

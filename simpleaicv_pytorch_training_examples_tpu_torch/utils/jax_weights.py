@@ -31,7 +31,16 @@ JAX package's ``convert_sam_state_dict`` (reference torch layout -> Flax),
 and also undoes that converter's spatial flip of the ConvTranspose kernels
 (Flax's ``ConvTranspose`` does not flip its kernel; torch's does).
 ``sam2_state_dict_from_jax`` is the inverse of ``convert_sam2_state_dict``
-for SAM2's video model, with the same flip.
+for SAM2's video model, with the same flip. Both also map a DINOv3
+encoder (``image_encoder.backbone.`` by ``dinov3_vit_state_dict_from_jax``,
+the SAM2 encoder's transposed convolutions flipped).
+
+``conv_bn_state_dict_from_jax`` maps ``ConvBnAct`` (``conv``, ``bn`` ->
+``layer.0``, ``layer.1``), ``ConvTransposeBnAct`` (its kernel flipped) and
+plain convolutions with their batch statistics: a PFAN decoder
+(``pfan_state_dict_from_jax``, on a ResNet) and the
+matting head of ``sam_matting_state_dict_from_jax`` and
+``sam2_matting_state_dict_from_jax``.
 """
 
 import re
@@ -189,21 +198,37 @@ _SAM_CONV_TRANSPOSE = ("mask_decoder.upscale_conv1.kernel",
                        "mask_decoder.upscale_conv2.kernel")
 
 
+# the DINOv3 SAM2 encoder's transposed convolutions
+_DINOV3_SAM2_CONV_TRANSPOSE = ("image_encoder.p2_up1.kernel",
+                               "image_encoder.p2_up2.kernel",
+                               "image_encoder.p3_up.kernel")
+_DINOV3_BACKBONE = "image_encoder.backbone."
+
+
 def sam_state_dict_from_jax(params_flat: dict, constants_flat: dict) -> dict:
     """The JAX package's SAM parameters and constants ({Flax dotted name:
     ndarray}, as ``flatten_params`` names them) -> the port's SAM
     ``state_dict`` (the reference torch layout). ``point_embeddings [4, C]``
     becomes four ``nn.Embedding(1, C)`` weights; the Gaussian matrix of the
-    position encoding comes from ``constants_flat``."""
+    position encoding comes from ``constants_flat``. A DINOv3 encoder's
+    backbone (``image_encoder.backbone.``) maps by
+    ``dinov3_vit_state_dict_from_jax``."""
     sd = {}
+    backbone = {k[len(_DINOV3_BACKBONE):]: v for k, v in params_flat.items()
+                if k.startswith(_DINOV3_BACKBONE)}
+    sd.update({_DINOV3_BACKBONE + k: v for k, v in
+               dinov3_vit_state_dict_from_jax(backbone).items()})
     for name, value in params_flat.items():
+        if name.startswith(_DINOV3_BACKBONE):
+            continue
         array = np.array(value)
         if name == "prompt_encoder.point_embeddings":
             for i, row in enumerate(array):
                 sd[f"prompt_encoder.point_embeddings.{i}.weight"] = \
                     torch.from_numpy(np.ascontiguousarray(row[None]))
             continue
-        if name in _SAM_CONV_TRANSPOSE:  # [kh, kw, in, out], flipped
+        if name in _SAM_CONV_TRANSPOSE + _DINOV3_SAM2_CONV_TRANSPOSE:
+            # [kh, kw, in, out], flipped
             array = array[::-1, ::-1].transpose(2, 3, 0, 1)
         elif name.endswith(".kernel") and array.ndim == 2:
             array = array.T
@@ -423,3 +448,88 @@ def dinov3_vit_state_dict_from_jax(params_flat: dict) -> dict:
             flat[f"{match.group(1)}.swiglu.{w}.{match.group(2)}"] = part
     return _mapped_state_dict(flat, _DINOV3_VIT_RULES,
                               conv_transpose=_DINOV3_NECK_TRANSPOSED)
+
+
+# --- PFAN and the matting heads ---------------------------------------------
+#
+# ``ConvBnAct`` modules (children ``conv`` and ``bn``) -> ``layer.0`` /
+# ``layer.1``; ``ConvTransposeBnAct`` modules keep ``deconv`` (its kernel
+# flipped for torch) and ``bn``; plain convolutions keep their names.
+
+
+def conv_bn_state_dict_from_jax(params_flat: dict,
+                                batch_stats_flat: dict) -> dict:
+    """Parameters and batch statistics of the JAX package's ``ConvBnAct``,
+    ``ConvTransposeBnAct`` and plain convolutions (a PFAN decoder, a
+    matting head) -> the port's names and layouts; each BatchNorm also gets
+    ``num_batches_tracked`` (0)."""
+    flat = {**params_flat, **batch_stats_flat}
+    transposed = {n[:-len(".deconv.kernel")] for n in flat
+                  if n.endswith(".deconv.kernel")}
+    sd = {}
+    for name, value in flat.items():
+        parts = name.split(".")
+        parent = ".".join(parts[:-2])
+        if name.endswith(".deconv.kernel"):   # [kh, kw, in, out], flipped
+            tensor = torch.from_numpy(np.ascontiguousarray(
+                np.array(value)[::-1, ::-1].transpose(2, 3, 0, 1)))
+        else:
+            tensor = _torch_value(name, value)
+        if parent not in transposed and len(parts) >= 2 and \
+                parts[-2] in ("conv", "bn"):
+            parts[-2] = "layer.0" if parts[-2] == "conv" else "layer.1"
+        parts[-1] = _LEAF_RENAMES.get(parts[-1], parts[-1])
+        torch_name = ".".join(parts)
+        sd[torch_name] = tensor
+        if parts[-1] == "running_mean":
+            sd[torch_name.replace("running_mean", "num_batches_tracked")] = \
+                torch.zeros((), dtype=torch.long)
+    return sd
+
+
+def _split(flat: dict, prefix: str):
+    """(the entries under ``prefix``, with it stripped; the others)."""
+    inside = {k[len(prefix):]: v for k, v in flat.items()
+              if k.startswith(prefix)}
+    return inside, {k: v for k, v in flat.items() if not k.startswith(prefix)}
+
+
+def pfan_state_dict_from_jax(params_flat: dict,
+                             batch_stats_flat: dict) -> dict:
+    """A JAX PFAN model on a ResNet's parameters and batch statistics ->
+    the port's ``models/pfan.py`` state_dict: ``backbone.`` by
+    ``resnet_state_dict_from_jax``, the decoders and heads by
+    ``conv_bn_state_dict_from_jax``."""
+    params, rest = _split(params_flat, "backbone.")
+    stats, rest_stats = _split(batch_stats_flat, "backbone.")
+    sd = {"backbone." + k: v for k, v in
+          resnet_state_dict_from_jax(params, stats).items()}
+    sd.update(conv_bn_state_dict_from_jax(rest, rest_stats))
+    return sd
+
+
+def sam_matting_state_dict_from_jax(params_flat: dict, constants_flat: dict,
+                                    batch_stats_flat: dict) -> dict:
+    """The JAX package's ``SAMMatting`` -> the port's: SAM's parts by
+    ``sam_state_dict_from_jax``, ``matting_head.`` (parameters and batch
+    statistics) by ``conv_bn_state_dict_from_jax``."""
+    head, rest = _split(params_flat, "matting_head.")
+    stats, _ = _split(batch_stats_flat, "matting_head.")
+    sd = sam_state_dict_from_jax(rest, constants_flat)
+    sd.update({"matting_head." + k: v for k, v in
+               conv_bn_state_dict_from_jax(head, stats).items()})
+    return sd
+
+
+def sam2_matting_state_dict_from_jax(params_flat: dict, constants_flat: dict,
+                                     batch_stats_flat: dict,
+                                     head_dim_padding: int = 0) -> dict:
+    """The JAX package's ``SAM2ImageMatting`` or ``SAM2VideoMatting`` -> the
+    port's: SAM2's parts by ``sam2_state_dict_from_jax``, ``matting_head.``
+    by ``conv_bn_state_dict_from_jax``."""
+    head, rest = _split(params_flat, "matting_head.")
+    stats, _ = _split(batch_stats_flat, "matting_head.")
+    sd = sam2_state_dict_from_jax(rest, constants_flat, head_dim_padding)
+    sd.update({"matting_head." + k: v for k, v in
+               conv_bn_state_dict_from_jax(head, stats).items()})
+    return sd

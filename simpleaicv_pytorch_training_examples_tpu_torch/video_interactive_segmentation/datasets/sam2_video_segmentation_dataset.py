@@ -27,7 +27,8 @@ them on the host). They resize with torch as ``SAMCollater`` does
 (bilinear for images and the 4x mask-prompt downsample, nearest for
 targets: cv2's INTER_LINEAR and INTER_NEAREST) and draw from the global
 ``np.random`` in the JAX collaters' order, so both give the same batch from
-one seed. Only the dataset's disk reader imports cv2, when an item is read.
+one seed. The dataset reads its files without cv2 (``data/image_files.py``:
+JPEG frames through the native libjpeg core, PNG masks through Pillow).
 
 Disk layouts under ``root/<set>/<type>/``: video sets hold
 ``<video_id>/00000.jpg`` with ``00000_mask.png`` (object 0) or
@@ -40,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from ...data.image_files import read_gray, read_rgb
 from ...interactive_segmentation.datasets.sam_segmentation_dataset import (
     _resize, load_points, mask_to_box, noise_box, noise_mask)
 
@@ -125,8 +127,7 @@ class SAM2VideoSegmentationDataset:
 
     @staticmethod
     def _read_mask(path, obj):
-        import cv2
-        raw = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+        raw = read_gray(path)
         if raw is None:
             return None
         if len(np.unique(raw)) > 2 and obj is not None:
@@ -135,14 +136,11 @@ class SAM2VideoSegmentationDataset:
         return (raw > 127).astype(np.float32)
 
     def __getitem__(self, idx):
-        import cv2
-        read = lambda path: cv2.cvtColor(cv2.imread(path),
-                                         cv2.COLOR_BGR2RGB).astype(np.float32)
         entry = self.entries[idx]
         t = self.frame_nums
         if entry[0] == "image":
             _, image_path, mask_path = entry
-            images = [read(image_path)] * t
+            images = [read_rgb(image_path)] * t
             masks = [self._read_mask(mask_path, None)] * t
         else:
             _, vdir, frames, obj = entry
@@ -153,7 +151,7 @@ class SAM2VideoSegmentationDataset:
                 chosen = list(frames) + [frames[-1]] * (t - len(frames))
             images, masks = [], []
             for name in chosen:
-                img = read(os.path.join(vdir, name))
+                img = read_rgb(os.path.join(vdir, name))
                 stem = name.rsplit(".", 1)[0]
                 m = None
                 for cand in (f"{stem}_mask{obj}.png", f"{stem}_mask.png"):

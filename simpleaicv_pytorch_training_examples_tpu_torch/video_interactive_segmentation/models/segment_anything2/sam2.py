@@ -66,6 +66,7 @@ from .image_encoder import ImageEncoder, MultiScaleAttention
 from .memory import CXBlock, MemoryAttention, MemoryEncoder, RoPEAttention
 
 __all__ = ["get_1d_sine_pe", "SAM2MaskDecoder", "SAM2Video",
+           "build_image_encoder", "init_sam2_weights_",
            "sam2_hiera_tiny_video", "sam2_hiera_small_video",
            "sam2_hiera_base_plus_video", "sam2_hiera_large_video"]
 
@@ -153,8 +154,10 @@ class SAM2Video(nn.Module):
     """Memory-conditioned video tracking: the training forward and the
     streaming primitives (see the module docstring). Parameters are fp32;
     run under ``torch.autocast`` for bf16 compute (``dtype`` is accepted for
-    the JAX signature: the compute type follows autocast). Only the Hiera
-    encoder is ported (``image_encoder_type="hiera"``)."""
+    the JAX signature: the compute type follows autocast).
+    ``image_encoder_type`` "hiera" is the Hiera trunk and FPN; a DINOv3
+    backbone's name puts ``dinov3_segment_anything2.DINOv3SAM2ImageEncoder``
+    in its place (``build_image_encoder``)."""
 
     def __init__(self, image_size=1024, embedding_planes=112, head_nums=2,
                  block_nums=(2, 3, 16, 3), window_specification=(8, 4, 14, 7),
@@ -165,11 +168,6 @@ class SAM2Video(nn.Module):
                  use_gradient_checkpoint=False, use_scan=False,
                  image_encoder_type="hiera", dtype=None):
         super().__init__()
-        if image_encoder_type != "hiera":
-            raise NotImplementedError(
-                f"image_encoder_type={image_encoder_type!r}: the DINOv3 "
-                "SAM2 encoders are not ported yet (ROADMAP.md, queue 1: "
-                "the rest of SAM2)")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise ValueError(f"dtype {dtype}: the compute type follows "
                              "autocast (bfloat16) or is float32")
@@ -182,10 +180,11 @@ class SAM2Video(nn.Module):
         self.use_high_res_features = use_high_res_features
         self.head_dim_padding = head_dim_padding
         s16 = image_size // 16
-        self.image_encoder = ImageEncoder(
-            image_size, embedding_planes, head_nums, block_nums, (14, 14),
-            window_specification, global_attention_blocks, fpn_planes,
-            use_flash_attention, head_dim_padding, use_gradient_checkpoint)
+        self.image_encoder = build_image_encoder(
+            image_encoder_type, image_size, embedding_planes, head_nums,
+            block_nums, window_specification, global_attention_blocks,
+            fpn_planes, use_flash_attention, head_dim_padding,
+            use_gradient_checkpoint)
         self.prompt_encoder = PromptEncoder(image_size, 16, fpn_planes)
         self.mask_decoder = SAM2MaskDecoder(
             fpn_planes, use_high_res_features=use_high_res_features)
@@ -223,34 +222,8 @@ class SAM2Video(nn.Module):
 
     @torch.no_grad()
     def init_weights_(self, generator):
-        """Seeded random weights, drawn from ``generator``: PyTorch's default
-        initialisers for Linear and convolution weights and biases
-        (uniform in +-1/sqrt(fan_in)), unit norms, N(0, 1) embeddings and
-        tokens, N(0, 0.02^2) (truncated) position embeddings and memory
-        embeddings, as the JAX model draws them, and CXBlock layer scales of
-        0.1 (1e-6 in a fresh reference model) so that a smoke run exercises
-        the memory encoder's fuser."""
-        for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-                fan_in, _ = nn.init._calculate_fan_in_and_fan_out(
-                    module.weight)
-                bound = 1.0 / math.sqrt(fan_in)
-                module.weight.uniform_(-bound, bound, generator=generator)
-                if module.bias is not None:
-                    module.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(module, (nn.LayerNorm, LayerNorm2d)):
-                nn.init.ones_(module.weight)
-                nn.init.zeros_(module.bias)
-            elif isinstance(module, nn.Embedding):
-                module.weight.normal_(0.0, 1.0, generator=generator)
-            elif isinstance(module, CXBlock):
-                module.gamma.fill_(0.1)
-        trunk = self.image_encoder.trunk
-        for p in (trunk.pos_embed, trunk.pos_embed_window,
-                  self.mask_memory_time_position_encoder,
-                  self.no_memory_embedding, self.no_object_pointer,
-                  self.no_object_embedding_spatial):
-            trunc_normal_(p, 0.02, generator)
+        """Seeded random weights (``init_sam2_weights_``)."""
+        init_sam2_weights_(self, generator)
 
     # ---- streaming step primitives
 
@@ -314,15 +287,23 @@ class SAM2Video(nn.Module):
 
     def _write_memory(self, carry, feat, best_mask, pointer, is_cond,
                       obj_logits=None):
-        """Encode (feat, mask) into memory and return the new carry.
-        Condition frames (``is_cond`` True, or a device flag > 0) fill slots
-        [0, memory_cond_slots), tracked frames rotate through the rest."""
-        b = feat.shape[0]
-        s_mem = self.memory_mask_nums
-        frame_idx = carry["frame_idx"]
+        """Encode (feat, the best mask's logits [B, H/4, W/4] upsampled to
+        the input size) into memory and return the new carry
+        (``_store_memory``)."""
         mask = F.interpolate(best_mask[:, None].float(),
                              (self.image_size,) * 2, mode="bilinear",
                              align_corners=False)
+        return self._store_memory(carry, feat, mask, pointer, is_cond,
+                                  obj_logits)
+
+    def _store_memory(self, carry, feat, mask, pointer, is_cond,
+                      obj_logits=None):
+        """Encode (feat, mask [B, 1, H, W], which the memory encoder puts
+        through a sigmoid) into memory and return the new carry. Condition
+        frames (``is_cond`` True, or a device flag > 0) fill slots [0,
+        memory_cond_slots), tracked frames rotate through the rest."""
+        s_mem = self.memory_mask_nums
+        frame_idx = carry["frame_idx"]
         mem, mem_pos = self.memory_encoder(feat, mask)
         if obj_logits is not None:  # the "object gone" signal
             is_obj = (obj_logits[:, 0] > 0).to(mem.dtype)
@@ -584,6 +565,60 @@ class SAM2Video(nn.Module):
                 click_noise=click_noise)
             outs.append(out)
         return tuple(torch.stack(parts, dim=1) for parts in zip(*outs))
+
+
+def build_image_encoder(image_encoder_type, image_size, embedding_planes,
+                        head_nums, block_nums, window_specification,
+                        global_attention_blocks, fpn_planes,
+                        use_flash_attention=False, head_dim_padding=0,
+                        use_gradient_checkpoint=False):
+    """Hiera and its FPN ("hiera"), or the DINOv3 encoder of that backbone
+    name; either returns ([stride-4, -8, -16 features], their sine
+    positions)."""
+    if image_encoder_type != "hiera":
+        from ..dinov3_segment_anything2 import DINOv3SAM2ImageEncoder
+        return DINOv3SAM2ImageEncoder(image_encoder_type, fpn_planes,
+                                      use_gradient_checkpoint)
+    return ImageEncoder(
+        image_size, embedding_planes, head_nums, block_nums, (14, 14),
+        window_specification, global_attention_blocks, fpn_planes,
+        use_flash_attention, head_dim_padding, use_gradient_checkpoint)
+
+
+@torch.no_grad()
+def init_sam2_weights_(model, generator):
+    """Seeded random weights of a model of SAM2's parts (``SAM2Video``,
+    ``SAM2Image``, the matting models), drawn from ``generator``: PyTorch's
+    default initialisers for Linear and convolution weights and biases
+    (uniform in +-1/sqrt(fan_in)), unit norms, N(0, 1) embeddings and
+    tokens, N(0, 0.02^2) (truncated) position embeddings and memory
+    embeddings, as the JAX model draws them, and CXBlock layer scales of
+    0.1 (1e-6 in a fresh reference model) so that a smoke run exercises the
+    memory encoder's fuser. Modules with an ``init_weights_`` of their own
+    (a DINOv3 encoder's, BatchNorm's) set theirs after this."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in, _ = nn.init._calculate_fan_in_and_fan_out(module.weight)
+            bound = 1.0 / math.sqrt(fan_in)
+            module.weight.uniform_(-bound, bound, generator=generator)
+            if module.bias is not None:
+                module.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(module, (nn.LayerNorm, LayerNorm2d)):
+            nn.init.ones_(module.weight)
+            nn.init.zeros_(module.bias)
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(module, CXBlock):
+            module.gamma.fill_(0.1)
+    trunk = getattr(model.image_encoder, "trunk", None)
+    for owner, name in ((trunk, "pos_embed"), (trunk, "pos_embed_window"),
+                        (model, "mask_memory_time_position_encoder"),
+                        (model, "no_memory_embedding"),
+                        (model, "no_object_pointer"),
+                        (model, "no_object_embedding_spatial")):
+        p = getattr(owner, name, None)
+        if p is not None:
+            trunc_normal_(p, 0.02, generator)
 
 
 def _host_flags(flags, n):

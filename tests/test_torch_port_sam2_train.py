@@ -279,9 +279,34 @@ def test_frame_roles_must_be_host_values(tiny_sam2):
 
 
 def test_only_the_hiera_encoder_is_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_sam2.SAM2Video(image_encoder_type="dinov3_vit_small_patch16",
-                            **TINY)
+    """Not only: a SAM2Video on a DINOv3 ViT-S/16 encoder (64^2, 16 tokens)
+    equals the JAX one on two frames, frame 0 prompted with a point (masks,
+    IoU predictions, object scores); and the compute dtype follows
+    autocast, so ``dtype`` takes bf16 or fp32 alone."""
+    kw = dict(image_size=64, fpn_planes=32, memory_planes=16,
+              memory_mask_nums=3, max_object_pointers=4,
+              image_encoder_type="dinov3_vit_small_patch16_backbone")
+    jnet = jax_sam2.SAM2Video(**kw)
+    port = port_sam2.SAM2Video(**kw)
+    prompts = {"prompt_point": np.array([[[20.0, 30.0, 1.0]]] * 2,
+                                        np.float32),
+               "prompt_box": None, "prompt_mask": None}
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0),
+                            jnp.zeros((2, 2, 64, 64, 3)), prompts)
+    flat = random_flat(shapes["params"], seed=31)
+    constants = random_flat(shapes["constants"], seed=32)
+    port.load_state_dict(sam2_state_dict_from_jax(flat, constants))
+    x = np.random.RandomState(33).rand(2, 2, 64, 64, 3).astype(np.float32)
+    want = jax.jit(jnet.apply)({"params": unflatten(flat),
+                                "constants": unflatten(constants)}, x,
+                               prompts)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x.transpose(0, 1, 4, 2, 3).copy()),
+                   {k: None if v is None else torch.from_numpy(v)
+                    for k, v in prompts.items()})
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(as_np(g), as_np(w), **FP32)
+    assert as_np(got[0]).std() > 1e-2
     with pytest.raises(ValueError):
         port_sam2.SAM2Video(dtype=torch.float16, **TINY)
     port_sam2.SAM2Video(dtype=torch.bfloat16, use_scan=True, **TINY)
